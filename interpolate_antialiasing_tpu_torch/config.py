@@ -1,0 +1,57 @@
+"""Library configuration and debug flags.
+
+The same environment dials as ``interpolate_antialiasing_tpu.config``, under
+the same names, so one environment drives both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+__all__ = ["ResizeOptions", "debug_enabled", "default_backend",
+           "default_pil_digits"]
+
+
+def debug_enabled() -> bool:
+    """IA_TPU_DEBUG=1 prints which kernel route fired."""
+    return os.environ.get("IA_TPU_DEBUG", "0") not in ("0", "", "false")
+
+
+def default_backend() -> str:
+    """Override backend selection globally (IA_TPU_BACKEND, default auto)."""
+    return os.environ.get("IA_TPU_BACKEND", "auto")
+
+
+def default_pil_digits() -> int:
+    """uint8 Pillow-exact accuracy dial (IA_TPU_PIL_DIGITS env):
+
+      * ``3`` (default) — Pillow's pb=22 coefficient grid, byte-identical
+        output.
+      * ``2`` — the pb=14 grid: MaxAbsE <= 1 vs Pillow (admission-gated on
+        tap count; wider windows run the exact grid).
+
+    The name is the JAX package's, where the dial sets how many int8 digits
+    its matrix-unit kernel splits each coefficient into.  The port's kernel
+    multiplies the int32 coefficients directly, so here the dial only picks
+    the coefficient grid; the bytes match the JAX package at either setting.
+    Read per call; ``resize_pil_exact(digits=...)`` overrides it.
+    """
+    v = os.environ.get("IA_TPU_PIL_DIGITS", "3")
+    if v not in ("2", "3"):
+        raise ValueError(f"IA_TPU_PIL_DIGITS={v!r}; expected 2 or 3")
+    return int(v)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResizeOptions:
+    """The keyword arguments of one ``resize`` call, bundled:
+    ``resize(x, size, options=ResizeOptions(...))``."""
+
+    method: str = "bilinear"
+    antialias: bool = True
+    align_corners: bool = False
+    # None defers to the IA_TPU_BACKEND env override / "auto"
+    backend: str | None = None
+    data_format: str | None = None  # NCHW | NHWC | ... (None = infer)
+    output_dtype: object = None

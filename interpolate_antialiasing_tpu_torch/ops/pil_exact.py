@@ -1,0 +1,391 @@
+"""Bit-exact Pillow uint8 resize (MaxAbsE = 0 against PIL.Image.resize).
+
+The port of ``interpolate_antialiasing_tpu.ops.pil_exact``: it emulates
+Pillow's integer pipeline exactly (Pillow ``src/libImaging/Resample.c``,
+8bpc path):
+
+  * coefficients: double weights scaled by ``1 << PRECISION_BITS`` and
+    rounded half-away-from-zero (``normalize_coeffs_8bpc``),
+  * per-pass accumulate in int32 starting from ``1 << (PRECISION_BITS-1)``,
+    then arithmetic-shift and clip to uint8 (``clip8``),
+  * horizontal pass first, producing a *uint8 intermediate image*, then the
+    vertical pass on that.
+
+Both passes run in one hand-written CUDA kernel (``csrc/pil_resample.cu``,
+the counterpart of the JAX package's ``_kernel_2pass_pil``) through the
+wrapper :func:`_resample_2pass`.  Its plain PyTorch version,
+:func:`_resample_2pass_plain`, computes the same bytes with tensor ops; the
+wrapper takes it for tensors on the CPU.
+
+The host tables (``_int_tables``, ``_int_matrix``, ``_nearest_indices``,
+``_needs_clip``) are copied expression for expression from the JAX package,
+so both packages quantise the same float64 weights to the same integers.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import cache, lru_cache
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..config import debug_enabled
+from .weights import make_axis_spec, pil_box_f32
+
+__all__ = ["resize_pil_exact", "PRECISION_BITS"]
+
+PRECISION_BITS = 32 - 8 - 2  # Pillow Resample.c
+
+# Launches of the pil_resample_2pass CUDA kernel: :func:`_resample_2pass`
+# adds one per kernel launch and nowhere else, so a run can show that its
+# main path went through the kernel.
+launches = 0
+
+_PIL_AUTO_METHODS = ("bilinear", "bicubic", "box", "nearest", "lanczos3",
+                     "hamming")
+
+# Largest dynamic shared memory one block may use on Hopper (227 KB).
+_SMEM_LIMIT = 232448
+# Output-row tiles tried, largest first, until the row window fits.
+_TILE_H_CANDIDATES = (32, 16, 8, 4, 2, 1)
+_GRID_LIMIT = 65535  # gridDim.y / gridDim.z
+
+
+@cache
+def _int_matrix(
+    in_size: int, out_size: int, mode: str,
+    span: tuple[float, float] | None = None,
+    pb: int = PRECISION_BITS,
+) -> np.ndarray:
+    """Dense [out, in] int32 coefficient matrix, Pillow-normalised
+    (normalize_coeffs_8bpc: trunc(w * 2^pb ± 0.5), i.e. round half away
+    from zero).  Scatter of the banded :func:`_int_tables` — the
+    quantisation itself lives there, once."""
+    xmin, Wb = _int_tables(in_size, out_size, mode, span, pb)
+    ntaps = Wb.shape[1]
+    K = np.zeros((out_size, in_size), np.int32)
+    rows = np.repeat(np.arange(out_size), ntaps)
+    cols = (xmin[:, None].astype(np.int64) + np.arange(ntaps)[None, :]).reshape(-1)
+    keep = (cols >= 0) & (cols < in_size)
+    K[rows[keep], cols[keep]] = Wb.reshape(-1)[keep]
+    return K
+
+
+@cache
+def _nearest_indices(
+    in_size: int, out_size: int,
+    span: tuple[float, float] | None = None,
+) -> np.ndarray:
+    """Pillow NEAREST source indices: Image.resize(NEAREST) goes through the
+    incremental affine scaler (ImagingScaleAffine), which starts at
+    ``xin = 0.5 * a`` and truncates after repeated ``xin += a`` float64
+    additions — the accumulation drift is observable and must be reproduced
+    addition-by-addition for bit parity.  With a resize ``box``, the affine
+    coefficients become ``a = (hi - lo) / out`` and the start
+    ``lo + 0.5 * a``, with the box coords rounded through C float and the
+    span length subtracted in float32 before the double divide (see
+    :func:`..weights.pil_box_f32`)."""
+    if span is not None:
+        lo, _, span_len = pil_box_f32(*span)
+    else:
+        lo, span_len = 0.0, float(in_size)
+    a = span_len / out_size
+    xin = lo + a * 0.5
+    idx = np.empty(out_size, np.int32)
+    for o in range(out_size):
+        idx[o] = min(max(int(xin), 0), in_size - 1)
+        xin += a
+    return idx
+
+
+@cache
+def _needs_clip(in_size: int, out_size: int, mode: str) -> bool:
+    """Whether the clip in Pillow's clip8 can actually fire for this axis.
+
+    For a NON-NEGATIVE coefficient row the accumulator is provably in range
+    (``acc >> 22 in [0, 255]``); negative lobes (bicubic/lanczos) genuinely
+    overshoot.  The port's kernel clips unconditionally (the clip is cheap
+    there); the predicate is kept as the JAX package's documented
+    table property.
+    """
+    K = _int_matrix(in_size, out_size, mode)
+    if K.min() < 0:
+        return True
+    assert K.astype(np.int64).sum(axis=1).max() <= (1 << PRECISION_BITS) + (
+        1 << 12
+    ), "colsum slack assumption violated"
+    return False
+
+
+@cache
+def _int_tables(
+    in_size: int, out_size: int, mode: str,
+    span: tuple[float, float] | None = None,
+    pb: int = PRECISION_BITS,
+):
+    """Banded Pillow coefficients: ``(xmin[out] int32, Wb[out, ntaps]
+    int32)``, the normalize_coeffs_8bpc quantisation of the float64
+    :func:`..weights.compute_tables` weights.  Returned arrays are
+    read-only (they are cached)."""
+    from .weights import compute_tables
+
+    spec = make_axis_spec(in_size, out_size, mode, antialias=True, span=span)
+    xmin, _, w = compute_tables(spec, dtype=np.float64)
+    scaled = w * (1 << pb)
+    Wb = np.where(scaled < 0, scaled - 0.5, scaled + 0.5).astype(np.int32)
+    xmin = xmin.astype(np.int32)
+    for a in (xmin, Wb):
+        a.setflags(write=False)
+    return xmin, Wb
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version of the kernel
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=256)
+def _table_tensor(data: bytes, shape: tuple[int, ...],
+                  device: torch.device) -> torch.Tensor:
+    return torch.frombuffer(bytearray(data), dtype=torch.int32).reshape(
+        shape).to(device)
+
+
+def _on(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """An int32 host table as a tensor on ``device``, uploaded once per
+    distinct content and device."""
+    a = np.ascontiguousarray(a, dtype=np.int32)
+    return _table_tensor(a.tobytes(), a.shape, device)
+
+
+def _pass_last_int_banded(
+    x_u8: torch.Tensor, xmin: torch.Tensor, Wb: torch.Tensor,
+    pb: int = PRECISION_BITS,
+) -> torch.Tensor:
+    """uint8 [..., in] -> uint8 [..., out]: one Pillow fixed-point pass along
+    the last axis, ``clip8(2^(pb-1) + sum_k Wb[:, k] * x[..., xmin + k])``
+    with tap indices clamped to the axis (zero-padded taps carry weight 0,
+    so the clamp never contributes)."""
+    in_size = x_u8.shape[-1]
+    acc = torch.full((*x_u8.shape[:-1], Wb.shape[0]), 1 << (pb - 1),
+                     dtype=torch.int32, device=x_u8.device)
+    for k in range(Wb.shape[1]):
+        idx = (xmin.long() + k).clamp(0, in_size - 1)
+        acc += x_u8.index_select(-1, idx).to(torch.int32) * Wb[:, k]
+    return (acc >> pb).clamp_(0, 255).to(torch.uint8)
+
+
+def _resample_2pass_plain(x3: torch.Tensor, tw, th,
+                          pb: int = PRECISION_BITS) -> torch.Tensor:
+    """The kernel's plain PyTorch version, on any device: uint8 [B, H, W] ->
+    uint8 [B, oh, ow], W pass then H pass on the uint8 intermediate."""
+    dev = x3.device
+    y = _pass_last_int_banded(x3, _on(tw[0], dev), _on(tw[1], dev), pb)
+    y = _pass_last_int_banded(y.transpose(-1, -2), _on(th[0], dev),
+                              _on(th[1], dev), pb)
+    return y.transpose(-1, -2).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# The kernel's wrapper
+# ---------------------------------------------------------------------------
+
+
+def _check_tables(name: str, tables, in_size: int, pb: int) -> None:
+    xmin, Wb = tables
+    if xmin.ndim != 1 or Wb.ndim != 2 or Wb.shape[0] != xmin.shape[0]:
+        raise ValueError(
+            f"{name} tables must be xmin[out] and Wb[out, ntaps], got "
+            f"{xmin.shape} and {Wb.shape}")
+    if Wb.shape[0] < 1 or Wb.shape[1] < 1 or in_size < 1:
+        raise ValueError(f"{name} axis is empty: in={in_size}, Wb={Wb.shape}")
+    # Pillow's accumulator is int32 and so is the kernel's: the largest
+    # |acc| any uint8 row can reach must stay below 2^31.
+    worst = 255 * int(np.abs(Wb.astype(np.int64)).sum(axis=1).max())
+    if worst + (1 << (pb - 1)) >= 1 << 31:
+        raise ValueError(
+            f"{name} coefficients can overflow the int32 accumulator "
+            f"(255 * max row sum|Wb| + 2^{pb - 1} = "
+            f"{worst + (1 << (pb - 1))} >= 2^31)")
+
+
+def _row_plan(ymin: np.ndarray, ntaps: int, H: int, OH: int,
+              tile_w: int) -> tuple[int, int]:
+    """``(tile_h, rows_cap)``: the largest output-row tile whose input row
+    window (the kernel's shared-memory W-pass buffer, ``rows_cap x tile_w``
+    bytes) fits in a block's shared memory, and that window's height.  The
+    window of a tile is computed exactly as the kernel computes it."""
+    lo = np.clip(ymin.astype(np.int64), 0, H - 1)
+    hi = np.clip(ymin.astype(np.int64) + ntaps - 1, 0, H - 1) + 1
+    for tile_h in _TILE_H_CANDIDATES:
+        n = -(-OH // tile_h)
+        pad = n * tile_h - OH  # edge padding repeats a member of the tile
+        lo_t = np.pad(lo, (0, pad), mode="edge").reshape(n, tile_h).min(1)
+        hi_t = np.pad(hi, (0, pad), mode="edge").reshape(n, tile_h).max(1)
+        rows = int((hi_t - lo_t).max())
+        if rows * tile_w <= _SMEM_LIMIT and n <= _GRID_LIMIT:
+            return tile_h, rows
+    raise ValueError(
+        f"pil_resample_2pass: the H pass reads {ntaps} input rows per output "
+        f"row, more than one block's shared memory holds at {tile_w} columns")
+
+
+def _resample_2pass_cuda(x3: torch.Tensor, tw, th, pb: int) -> torch.Tensor:
+    global launches
+    from .. import native
+
+    lib = native.build()
+    B, H, W = x3.shape
+    OW, ntaps_w = tw[1].shape
+    OH, ntaps_h = th[1].shape
+    out = torch.empty((B, OH, OW), dtype=torch.uint8, device=x3.device)
+    if B == 0:
+        return out
+    if B > _GRID_LIMIT:
+        raise ValueError(f"pil_resample_2pass takes at most {_GRID_LIMIT} "
+                         f"planes per launch, got {B}")
+    tile_h, rows_cap = _row_plan(th[0], ntaps_h, H, OH,
+                                 lib.ia_pil_resample_tile_w())
+    dev = x3.device
+    xmin_w, wb_w = _on(tw[0], dev), _on(tw[1], dev)
+    ymin_h, wb_h = _on(th[0], dev), _on(th[1], dev)
+    with torch.cuda.device(dev):
+        err = lib.ia_pil_resample_2pass(
+            x3.data_ptr(), out.data_ptr(), B, H, W, OH, OW,
+            xmin_w.data_ptr(), wb_w.data_ptr(), ntaps_w,
+            ymin_h.data_ptr(), wb_h.data_ptr(), ntaps_h,
+            pb, tile_h, rows_cap, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pil_resample_2pass launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+def _resample_2pass(x3: torch.Tensor, tw, th,
+                    pb: int = PRECISION_BITS) -> torch.Tensor:
+    """uint8 ``x3[B, H, W]`` -> uint8 ``[B, oh, ow]``: both Pillow passes.
+
+    ``tw``/``th`` are the ``(xmin, Wb)`` int32 host tables of the W and H
+    axes (:func:`_int_tables`).  A CUDA tensor goes through the
+    ``pil_resample_2pass`` kernel; a CPU tensor through the plain version;
+    any other device raises.
+    """
+    if not isinstance(x3, torch.Tensor) or x3.dtype != torch.uint8 or x3.ndim != 3:
+        raise ValueError("pil_resample_2pass takes a uint8 [B, H, W] tensor")
+    if not x3.is_contiguous():
+        raise ValueError("pil_resample_2pass takes a contiguous tensor")
+    if not 1 <= pb <= 30:
+        raise ValueError(f"precision bits must lie in [1, 30], got {pb}")
+    _check_tables("W", tw, x3.shape[2], pb)
+    _check_tables("H", th, x3.shape[1], pb)
+    if x3.device.type == "cuda":
+        return _resample_2pass_cuda(x3, tw, th, pb)
+    if x3.device.type == "cpu":
+        return _resample_2pass_plain(x3, tw, th, pb)
+    raise ValueError(
+        f"pil_resample_2pass runs on CUDA (kernel) or CPU (plain version), "
+        f"not on {x3.device}")
+
+
+# ---------------------------------------------------------------------------
+# Public entry point
+# ---------------------------------------------------------------------------
+
+
+def resize_pil_exact(
+    x: torch.Tensor,
+    size: Sequence[int],
+    method: str = "bilinear",
+    data_format: str | None = None,
+    box: tuple[float, float, float, float] | None = None,
+    reducing_gap: float | None = None,
+    digits: int | None = None,
+) -> torch.Tensor:
+    """Bit-identical Pillow antialiased uint8 resize.
+
+    ``x``: uint8 ``[H, W]``, ``[C, H, W]``, ``[N, C, H, W]`` (or NHWC via
+    ``data_format``).  ``size``: ``(height, width)``.  Matches
+    ``PIL.Image.resize((w, h), resample)`` byte for byte, and the JAX
+    package's ``resize_pil_exact`` on every route.
+
+    ``method``: bilinear | bicubic | box | nearest (PIL box) | lanczos3 |
+    hamming | pil_nearest (PIL's NEAREST point sample).
+
+    ``box``: optional fractional source window ``(x0, y0, x1, y1)`` in PIL
+    order — byte-identical to ``PIL.Image.resize(size, resample, box=box)``.
+    It runs the same kernel with the box's tables; tap indices still clamp
+    at the full image edges exactly like Pillow.
+
+    ``digits``: the accuracy dial.  ``3`` (default, or ``IA_TPU_PIL_DIGITS``)
+    is Pillow's own pb=22 grid — byte-identical output.  ``2`` quantises the
+    same double weights at pb=14, guaranteed ``MaxAbsE <= 1`` vs Pillow
+    whenever the per-axis tap count is <= 57; wider windows run the exact
+    grid.
+
+    ``reducing_gap`` (Pillow's reduce-then-resample shortcut) is not ported
+    yet and raises NotImplementedError.
+    """
+    from ..config import default_pil_digits
+    from .resize import _axes_for
+
+    if x.dtype != torch.uint8:
+        raise ValueError("resize_pil_exact is the uint8 (8bpc) pipeline")
+    if digits is None:
+        digits = default_pil_digits()
+    if digits not in (2, 3):
+        raise ValueError(f"digits must be 2 or 3, got {digits!r}")
+    oh, ow = int(size[0]), int(size[1])
+    h_axis, w_axis = _axes_for(x, data_format)
+    h_axis, w_axis = h_axis % x.ndim, w_axis % x.ndim
+    ih, iw = x.shape[h_axis], x.shape[w_axis]
+    pb = PRECISION_BITS
+    if digits == 2 and method != "pil_nearest":
+        ntaps = max(
+            make_axis_spec(ih, oh, method, antialias=True).ntaps,
+            make_axis_spec(iw, ow, method, antialias=True).ntaps,
+        )
+        if ntaps <= 57:  # the +-1 bound's admission (see docstring)
+            pb = 14
+        elif debug_enabled():
+            print(f"[ia-tpu] digits=2 declined (ntaps={ntaps} > 57): "
+                  "running the exact pb=22 grid")
+    if reducing_gap is not None:
+        raise NotImplementedError(
+            "reducing_gap (Pillow's reduce-then-resample two-step, "
+            "reduce_pil_exact) is not ported yet: ROADMAP queue 1 item 2")
+    span_h = span_w = None
+    if box is not None:
+        bx0, by0, bx1, by1 = (float(v) for v in box)
+        if not (0.0 <= bx0 < bx1 <= iw and 0.0 <= by0 < by1 <= ih):
+            raise ValueError(
+                f"box {box} must lie within (0, 0, {iw}, {ih}) with "
+                "x0 < x1 and y0 < y1 (PIL order: x = width axis)"
+            )
+        if (bx0, by0, bx1, by1) != (0.0, 0.0, float(iw), float(ih)):
+            span_w, span_h = (bx0, bx1), (by0, by1)
+    if method == "pil_nearest":
+        # PIL.Image.NEAREST is a point sample through the affine scaler, not
+        # the resample machinery — a pure index gather, trivially bit-exact.
+        # ('nearest' here is PIL's BOX antialias filter, as in the reference.)
+        y = x.index_select(h_axis, torch.from_numpy(
+            _nearest_indices(ih, oh, span_h).astype(np.int64)).to(x.device))
+        return y.index_select(w_axis, torch.from_numpy(
+            _nearest_indices(iw, ow, span_w).astype(np.int64)).to(x.device))
+    # Every layout _axes_for yields keeps H, W trailing or channels-last; the
+    # kernel takes planes, so channels-last round-trips through NCHW.
+    channels_last = h_axis == x.ndim - 3
+    xk = x.movedim(-1, -3) if channels_last else x
+    lead = xk.shape[:-2]
+    x3 = xk.reshape(math.prod(lead), ih, iw).contiguous()
+    if debug_enabled():
+        print(f"[ia-tpu] pil_exact pil_resample_2pass ({x3.device.type})")
+    y = _resample_2pass(
+        x3,
+        _int_tables(iw, ow, method, span_w, pb),
+        _int_tables(ih, oh, method, span_h, pb),
+        pb,
+    ).reshape(*lead, oh, ow)
+    return y.movedim(-3, -1) if channels_last else y

@@ -1,0 +1,304 @@
+"""Per-axis resampling weight tables (the PIL ``ImagingResample`` algorithm).
+
+The host (numpy) half of ``interpolate_antialiasing_tpu.ops.weights``, copied
+expression for expression so both packages build identical float64 tables:
+
+  1. ``compute_tables`` — compact ``(xmin, size, weights[out, ntaps])`` tables.
+  2. ``dense_matrix`` — the banded weight matrix ``W[out, in]`` (the oracle).
+
+The JAX package's tile-compacted bands (``banded_tiles``,
+``banded_tiles_from_matrix``, ``pick_tile_h``) are MXU tile geometry and are
+not part of this module: the port's kernels read the compact tables directly.
+
+Algorithm (identical to the reference / Pillow):
+
+  For output index ``i``:
+    center  = scale * (i + 0.5)                       (align_corners=False)
+    support = filter.support * max(scale, 1)          (if antialias)
+    xmin    = max(int(center - support + 0.5), 0)
+    size    = min(int(center + support + 0.5), in_size) - xmin
+    w_j     = filter((j + xmin - center + 0.5) * invscale),  j in [0, size)
+    w      /= sum(w);  w_j = 0 for j >= size
+
+Border windows are clipped and renormalised — this is the part that makes the
+band non-Toeplitz and is required for Pillow bit-parity.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+
+from .filters import CUBIC_NAMES, Filter, get_filter
+
+__all__ = [
+    "AxisSpec",
+    "make_axis_spec",
+    "compute_tables",
+    "dense_matrix",
+    "pil_box_f32",
+    "area_pixel_compute_scale",
+]
+
+
+def area_pixel_compute_scale(
+    in_size: int, out_size: int, align_corners: bool, scale_factor: float | None = None
+) -> float:
+    """Source-pixels-per-output-pixel, matching ATen's
+    ``area_pixel_compute_scale`` semantics."""
+    if align_corners:
+        if out_size > 1:
+            return (in_size - 1) / (out_size - 1)
+        return 0.0
+    if scale_factor is not None and scale_factor > 0:
+        return 1.0 / scale_factor
+    return in_size / out_size if out_size > 0 else 0.0
+
+
+def pil_box_f32(lo: float, hi: float) -> tuple[float, float, float]:
+    """Pillow's C float boundary for the resize ``box``, reproduced exactly.
+
+    ``Image.resize(box=...)`` hands the box to C as ``float[4]``, so each
+    coordinate is rounded to float32 before any resampling math; the span
+    length ``in1 - in0`` is a float32 subtraction before the double divide by
+    ``out_size``.  Keeping full float64 here produces off-by-one bytes for
+    boxes whose coordinates are not exactly representable in float32.
+
+    Returns ``(lo32, hi32, span_len32)`` as Python floats (each exactly
+    float32-representable).  Idempotent, so safe to apply at every entry.
+    """
+    lo32 = np.float32(lo)
+    hi32 = np.float32(hi)
+    return float(lo32), float(hi32), float(hi32 - lo32)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisSpec:
+    """Static (hashable) description of one 1-D resampling pass."""
+
+    in_size: int
+    out_size: int
+    mode: str
+    antialias: bool = True
+    align_corners: bool = False
+    scale: float = 0.0  # source pixels per output pixel
+    support: float = 0.0  # half-width of the (possibly widened) window
+    invscale: float = 1.0  # argument scaling fed into the filter
+    ntaps: int = 0  # static max window length = ceil(support)*2 + 1
+    # Border handling: "renorm" (PIL/antialias — clip the window and
+    # renormalise) or "replicate" (classic torch non-AA — clamp tap indices
+    # to the edge, folding out-of-range weights onto the border pixel).  The
+    # JAX package's "zero" border (its scale_and_translate) is not ported.
+    border: str = "renorm"
+    # Optional fractional source window (lo, hi) in input-pixel units —
+    # PIL.Image.resize's per-axis ``box``: centers become
+    # ``lo + (i + 0.5) * scale`` with ``scale = (hi - lo) / out_size``, while
+    # tap indices still clamp at the FULL image edges [0, in_size).
+    span: tuple[float, float] | None = None
+
+    @property
+    def filter(self) -> Filter:
+        return get_filter(self.mode)
+
+
+def make_axis_spec(
+    in_size: int,
+    out_size: int,
+    mode: str = "bilinear",
+    antialias: bool = True,
+    align_corners: bool = False,
+    scale_factor: float | None = None,
+    span: tuple[float, float] | None = None,
+) -> AxisSpec:
+    if in_size <= 0 or out_size <= 0:
+        raise ValueError(
+            f"axis sizes must be positive, got in={in_size} out={out_size}"
+        )
+    if span is not None:
+        # Round through float32 FIRST (Pillow's C float[4] box boundary),
+        # then validate/canonicalise on the rounded values.
+        lo, hi, _ = pil_box_f32(span[0], span[1])
+        if not (0.0 <= lo < hi <= float(in_size)):
+            raise ValueError(
+                f"span must satisfy 0 <= lo < hi <= in_size, got ({lo}, {hi})"
+                f" for in_size={in_size}"
+            )
+        if align_corners or scale_factor is not None or mode == "area":
+            raise ValueError(
+                "span (resize box) follows PIL.Image.resize semantics: "
+                "antialias-style centers only — no align_corners, "
+                "scale_factors, or area mode"
+            )
+        if (lo, hi) == (0.0, float(in_size)):
+            span = None  # full axis: identical spec
+        else:
+            span = (lo, hi)
+    if mode == "area":
+        # torch `area` (adaptive_avg_pool2d): every pixel the interval
+        # [i*in/out, (i+1)*in/out) touches, at full uniform weight.
+        if align_corners:
+            raise ValueError("area mode does not take align_corners")
+        i = np.arange(max(out_size, 1), dtype=np.int64)
+        sizes = -(-((i + 1) * in_size) // out_size) - (i * in_size) // out_size
+        ntaps = int(sizes.max())
+        scale = in_size / out_size if out_size > 0 else 0.0
+        return AxisSpec(
+            in_size=in_size,
+            out_size=out_size,
+            mode="area",
+            antialias=antialias,
+            align_corners=False,
+            scale=scale,
+            support=ntaps / 2.0,
+            invscale=1.0,
+            ntaps=ntaps,
+            border="renorm",
+        )
+    # The classic (non-AA) bicubic convention is Keys a=-0.75 with
+    # replicate borders (torch/OpenCV); the AA path is PIL's a=-0.5 with
+    # renormalised borders.
+    if not antialias and get_filter(mode).name in CUBIC_NAMES:
+        mode = "bicubic075"
+    filt = get_filter(mode)
+    border = "renorm" if antialias else "replicate"
+    if span is not None:
+        # PIL precompute_coeffs(in0, in1): scale over the box span, with the
+        # span length computed as a float32 subtraction before the double
+        # divide — see pil_box_f32.
+        scale = pil_box_f32(span[0], span[1])[2] / out_size
+    else:
+        scale = area_pixel_compute_scale(
+            in_size, out_size, align_corners, scale_factor
+        )
+    # Antialias widens the window only when downsampling (scale >= 1).
+    if antialias and scale >= 1.0:
+        support = filt.support * scale
+        invscale = 1.0 / scale
+    else:
+        support = filt.support
+        invscale = 1.0
+    ntaps = int(math.ceil(support)) * 2 + 1
+    return AxisSpec(
+        in_size=in_size,
+        out_size=out_size,
+        mode=filt.name,
+        antialias=antialias,
+        align_corners=align_corners,
+        scale=scale,
+        support=support,
+        invscale=invscale,
+        ntaps=ntaps,
+        border=border,
+        span=span,
+    )
+
+
+def _centers(spec: AxisSpec, dtype) -> np.ndarray:
+    i = np.arange(spec.out_size, dtype=dtype)
+    if spec.align_corners:
+        # (center - 0.5) is the continuous source coordinate; with
+        # align_corners the source coord of output i is scale * i.
+        return dtype(spec.scale) * i + dtype(0.5)
+    c = dtype(spec.scale) * (i + dtype(0.5))
+    if spec.span is not None:
+        # PIL: center = in0 + (i + 0.5) * scale — the addition commutes, so
+        # this is bit-identical to Pillow's double evaluation order.
+        c = c + dtype(spec.span[0])
+    return c
+
+
+def compute_tables(
+    spec: AxisSpec, dtype=np.float64
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side (numpy) table builder.
+
+    Returns ``(xmin[out] int32, size[out] int32, weights[out, ntaps] dtype)``.
+    Weights are computed in ``dtype`` (default float64, like Pillow which
+    evaluates filters in double) and rows sum to 1 with a zero tail.
+    """
+    dtype = np.dtype(dtype).type
+    if spec.mode == "area":
+        return _compute_tables_area(spec, dtype)
+    ntaps = spec.ntaps
+    center = _centers(spec, dtype)  # [out]
+    support = dtype(spec.support)
+    half = dtype(0.5)
+
+    if spec.border == "replicate":
+        return _compute_tables_replicate(spec, center, support, half, dtype)
+
+    # int() in the reference truncates toward zero, but the lower bound is
+    # clamped to 0 (where trunc == floor for the surviving values) and the
+    # upper bound argument is positive, so floor is exact here.
+    xmin = np.maximum(np.floor(center - support + half), 0.0).astype(np.int64)
+    xmax = np.minimum(np.floor(center + support + half), float(spec.in_size)).astype(
+        np.int64
+    )
+    size = xmax - xmin  # actual taps per output pixel (<= ntaps)
+
+    j = np.arange(ntaps, dtype=dtype)  # [ntaps]
+    arg = (j[None, :] + xmin[:, None].astype(dtype) - center[:, None] + half) * dtype(
+        spec.invscale
+    )
+    w = spec.filter(arg, np)  # [out, ntaps]
+    valid = j[None, :] < size[:, None].astype(dtype)
+    w = np.where(valid, w, 0.0)
+    total = w.sum(axis=1, keepdims=True)
+    # Guard total == 0 exactly like the reference — leave the raw (all-zero)
+    # weights in place.
+    w = np.where(total != 0.0, w / np.where(total == 0.0, 1.0, total), w)
+    return xmin.astype(np.int32), size.astype(np.int32), w.astype(dtype)
+
+
+def _compute_tables_area(spec, dtype):
+    """Exact torch ``area`` windows (ATen adaptive_avg_pool2d index rule:
+    ``start = i*in/out`` floored, ``end = (i+1)*in/out`` ceiled, every
+    included pixel at full uniform weight)."""
+    i = np.arange(spec.out_size, dtype=np.int64)
+    xmin = (i * spec.in_size) // spec.out_size
+    xmax = -(-((i + 1) * spec.in_size) // spec.out_size)
+    size = xmax - xmin
+    j = np.arange(spec.ntaps, dtype=np.int64)
+    w = np.where(j[None, :] < size[:, None], 1.0 / size[:, None], 0.0)
+    return xmin.astype(np.int32), size.astype(np.int32), w.astype(dtype)
+
+
+def _compute_tables_replicate(spec, center, support, half, dtype):
+    """Classic-path tables: unclamped window, out-of-range taps folded onto
+    the nearest edge pixel (ATen index-clamp semantics)."""
+    out, ntaps, insz = spec.out_size, spec.ntaps, spec.in_size
+    xmin0 = np.floor(center - support + half).astype(np.int64)  # may be < 0
+    j = np.arange(ntaps, dtype=dtype)
+    arg = (j[None, :] + xmin0[:, None].astype(dtype) - center[:, None] + half) * dtype(
+        spec.invscale
+    )
+    w = spec.filter(arg, np)  # [out, ntaps]
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(total != 0.0, w / np.where(total == 0.0, 1.0, total), w)
+
+    idx = np.clip(xmin0[:, None] + np.arange(ntaps)[None, :], 0, insz - 1)
+    new_xmin = idx[:, 0]
+    size = idx[:, -1] - new_xmin + 1
+    folded = np.zeros((out, ntaps), dtype=dtype)
+    rows = np.repeat(np.arange(out), ntaps)
+    cols = (idx - new_xmin[:, None]).reshape(-1)
+    np.add.at(folded, (rows, cols), w.reshape(-1))
+    return new_xmin.astype(np.int32), size.astype(np.int32), folded
+
+
+def dense_matrix(spec: AxisSpec, dtype=np.float32, table_dtype=np.float64) -> np.ndarray:
+    """Full banded matrix ``W[out, in]`` with ``W[i, xmin[i]+j] = w[i, j]``.
+
+    ``y = W @ x`` along the resampled axis reproduces the reference pass
+    exactly; this is the parity oracle.
+    """
+    xmin, size, w = compute_tables(spec, dtype=table_dtype)
+    W = np.zeros((spec.out_size, spec.in_size), dtype=table_dtype)
+    rows = np.repeat(np.arange(spec.out_size), spec.ntaps)
+    cols = (xmin[:, None] + np.arange(spec.ntaps)[None, :]).reshape(-1)
+    vals = w.reshape(-1)
+    keep = (cols >= 0) & (cols < spec.in_size)
+    W[rows[keep], np.clip(cols, 0, spec.in_size - 1)[keep]] = vals[keep]
+    return W.astype(dtype)
