@@ -3,31 +3,57 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper card and the
-CUDA toolkit.  It builds the port's CUDA kernel from the sources in the
-checkout, holds the kernel against its plain PyTorch version (run on a CPU
-copy of the same input) on every shape below, drives the port's main path
-(the uint8 ImageNet-eval pipeline) through the kernel and checks it against
-the same pipeline on the CPU, and times the kernel beside its plain version
-on the card.  Every phase prints one line; any failure raises and exits
-nonzero.  The last two lines are a JSON object describing the kernel and a
+CUDA toolkit.  It builds the port's three CUDA kernels from the sources in
+the checkout and then:
+
+1. holds each kernel against its plain PyTorch version, bit for bit: the
+   Pillow kernel against a CPU copy (including a 70,000-plane batch, past
+   the 65,535 planes one launch takes), the two float kernels on the card
+   at every dtype pair, filter and layout, an extreme downscale and the JAX
+   package's kernel-test shapes (they round each product and each sum in
+   the plain version's tap order, so any difference is a fault);
+2. drives the port's main paths through their public entry points, each
+   with every launch count set to 0 just before it and read just after:
+   the uint8 ImageNet-eval pipeline (Pillow kernel); BASELINE config 5
+   through ``VideoDownscaler`` (bf16 [64, 3, 2160, 3840] -> 1080x1920);
+   configs 1-2 through ``resize`` (f32 [1, 3, 438, 906] -> 196x320,
+   bilinear and bicubic, NCHW and NHWC); the float32-domain eval pipeline
+   on ``entry()``'s batch.  Each is checked bit for bit against the plain
+   version on the card, with TF32 off;
+3. times each kernel beside its plain version on the card, in turns.
+
+Every phase prints one JSON line (each kernel-vs-plain case goes to
+``smoke_out/chip_smoke_cases.jsonl``); any failure raises and exits
+nonzero.  The last two lines are a JSON object describing the kernels and a
 JSON object ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX: byte parity to Pillow and to the JAX package is
-established by the CPU tests (tests/test_torch_port_*.py), and here the
-kernel is held to the plain version.
+It imports nothing of JAX: parity to the JAX package and to Pillow is
+established by the CPU tests (tests/test_torch_port_*.py); here each kernel
+is held to its plain version.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from interpolate_antialiasing_tpu_torch import ImageNetEvalPipeline, native, resize
+from interpolate_antialiasing_tpu_torch import (
+    ImageNetEvalPipeline,
+    VideoDownscaler,
+    native,
+    resize,
+)
+from interpolate_antialiasing_tpu_torch.config import full_f32
+from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
+from interpolate_antialiasing_tpu_torch.ops.resize_xla import resize_axis_dense
+from interpolate_antialiasing_tpu_torch.ops.weights import make_axis_spec
 from interpolate_antialiasing_tpu_torch.utils.timing import time_cuda
 
 MODES = ("bilinear", "bicubic", "lanczos3", "box", "hamming")
@@ -38,13 +64,87 @@ SMALL = ((64, 96, 32, 40), (57, 83, 24, 31), (40, 120, 96, 48),
 BENCH = ((64, 3, 438, 906), (196, 320))  # bench.py's workload
 ENTRY = ((8, 3, 438, 906), (224, 224))  # __graft_entry__.entry()'s workload
 UHD = ((3, 2160, 3840), (1080, 1920))  # 4K -> HD frame
+CONFIG5 = ((64, 3, 2160, 3840), (1080, 1920))  # BASELINE config 5, bf16
+HEADLINE = ((1, 3, 438, 906), (196, 320))  # BASELINE configs 1-2, f32
+
+U8, F32, BF16 = torch.uint8, torch.float32, torch.bfloat16
+DTYPES = (U8, F32, BF16)
+# the JAX package's float kernel tests (tests/test_resize2d_fused.py
+# ONEK_CASES, STREAM_CASES): (shape, (oh, ow), mode, in, out)
+JAX_CASES = (
+    ((2, 3, 438, 906), (196, 320), "bilinear", U8, U8),
+    ((2, 3, 438, 906), (196, 320), "bicubic", U8, F32),
+    ((1, 3, 100, 150), (250, 75), "bilinear", F32, F32),
+    ((2, 130, 140), (64, 72), "lanczos3", F32, F32),
+    ((5, 97, 131), (40, 1200), "bilinear", F32, F32),
+    ((2, 3, 96, 128), (96, 128), "box", U8, U8),
+    ((1, 64, 64), (130, 260), "bicubic", U8, U8),
+    ((2, 216, 384), (108, 192), "bilinear", F32, F32),
+    ((1, 216, 384), (108, 192), "bilinear", BF16, BF16),
+    ((1, 440, 1024), (196, 320), "bilinear", U8, U8),
+    ((3, 256, 512), (700, 300), "bicubic", F32, F32),
+    ((1, 64, 256), (320, 96), "lanczos3", F32, F32),
+    ((1, 219, 391), (108, 192), "bilinear", F32, F32),
+    ((1, 438, 906), (196, 320), "bilinear", U8, U8),
+    ((2, 301, 400), (150, 333), "bicubic", F32, F32),
+    ((1, 64, 256), (130, 512), "bicubic", U8, U8),
+    ((1, 215, 250), (430, 125), "bilinear", BF16, BF16),
+)
+
+
+# Per-case lines of the kernel-vs-plain phase go to this file (stdout keeps
+# one summary line per kernel, so the whole output stays short).
+CASES_LOG = Path("smoke_out") / "chip_smoke_cases.jsonl"
+_cases: list[str] = []
 
 
 def _line(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def _cases():
+def _case(**fields) -> None:
+    _cases.append(json.dumps({"phase": "kernel_vs_plain", **fields}))
+
+
+def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def _compare(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Kernel output against its plain version: finite and equal bit for
+    bit (a wrong rounding of a store, or a sum in another order, shows)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise RuntimeError(f"{name}: {tuple(got.shape)} {got.dtype} != "
+                           f"{tuple(want.shape)} {want.dtype}")
+    if not bool(torch.isfinite(got.float()).all()):
+        raise RuntimeError(f"{name}: non-finite output")
+    err = _max_abs(got, want)
+    differing = int((got != want).sum())
+    if differing:
+        raise RuntimeError(f"{name}: kernel != plain version in {differing} "
+                           f"of {got.numel()} elements (max abs err {err})")
+    return {"max_abs_err": err}
+
+
+def _rand(shape, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(shape, device=dev, generator=g).mul_(255.0)
+    return x.to(dtype)
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+# ---------------------------------------------------------------------------
+# 1. the Pillow kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _pil_cases():
     for mode in MODES:
         for H, W, oh, ow in SMALL:
             for digits in (3, 2):
@@ -56,65 +156,210 @@ def _cases():
            dict(size=(20, 31), method="lanczos3", box=(3.3, 4.25, 61.7, 45.5)))
     yield ("bench bilinear", BENCH[0], dict(size=BENCH[1], method="bilinear"))
     yield ("4k->hd bilinear", UHD[0], dict(size=UHD[1], method="bilinear"))
+    # past the 65,535 planes one launch takes: two launches
+    yield ("70000 planes", (70000, 8, 8), dict(size=(4, 5), method="bilinear"))
 
 
-def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.double() - b.double()).abs().max())
-
-
-def main() -> None:
-    # 1. the card
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
-                         "this smoke test needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    print(card, flush=True)
-    dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
-    _line("device", kind=kind, count=torch.cuda.device_count(),
-          torch=torch.__version__, cuda=torch.version.cuda)
-
-    # 2. build
-    t0 = time.perf_counter()
-    native.build()
-    _line("build", seconds=round(time.perf_counter() - t0, 3))
-
-    # 3. kernel vs plain version, on every shape
-    rng = np.random.default_rng(0)
-    worst = 0.0
-    for name, shape, kw in _cases():
+def check_pil_kernel(dev, rng) -> float:
+    worst, n = 0.0, 0
+    for name, shape, kw in _pil_cases():
+        n += 1
         x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
         before = pe.launches
         got = pe.resize_pil_exact(x.to(dev), **kw)
         torch.cuda.synchronize()
-        if pe.launches != before + 1:
-            raise RuntimeError(f"{name}: the kernel was not launched")
+        planes = math.prod(shape[:-2]) if kw.get("data_format") != "NHWC" else \
+            shape[0] * shape[-1]
+        if pe.launches != before + -(-planes // pe._GRID_LIMIT):
+            raise RuntimeError(f"{name}: {pe.launches - before} launches")
         want = pe.resize_pil_exact(x, **kw)  # CPU tensor: plain version
         err = _max_abs(got.cpu(), want)
         worst = max(worst, err)
         if got.shape != want.shape or not torch.equal(got.cpu(), want):
             raise RuntimeError(f"{name}: kernel != plain version "
                                f"(max abs err {err})")
-        _line("kernel_vs_plain", case=name, shape=list(shape),
-              out=list(got.shape), max_abs_err=err)
+        _case(kernel="pil_resample_2pass", case=name,
+              shape=list(shape), out=list(got.shape),
+              launches=pe.launches - before, max_abs_err=err)
+    _line("kernel_vs_plain_summary", kernel="pil_resample_2pass", cases=n,
+          max_abs_err=worst)
+    return worst
 
-    # 4. the main path: entry()'s seeded batch through the eval pipeline
+
+# ---------------------------------------------------------------------------
+# 2. the float kernels against their plain versions, on the card
+# ---------------------------------------------------------------------------
+
+
+def _float2d_cases():
+    """(name, x shape, (oh, ow), mode, spec kwargs, in dtype, out dtype)"""
+    for idt in DTYPES:
+        for odt in DTYPES:
+            yield ("down", (3, 57, 83), (24, 31), "bicubic", {}, idt, odt)
+            yield ("up", (3, 41, 60), (90, 130), "lanczos3", {}, idt, odt)
+    for mode in ("bilinear", "bicubic", "lanczos3", "box", "hamming", "area"):
+        yield (mode, (2, 97, 131), (40, 60), mode, {}, F32, F32)
+    yield ("no_antialias", (2, 97, 131), (40, 160), "bicubic",
+           dict(antialias=False), F32, F32)
+    yield ("align_corners", (2, 97, 131), (40, 160), "bilinear",
+           dict(align_corners=True), F32, F32)
+    # 2160 -> 8 lanczos3 reads ~1,600 rows per output row: tile_c < 64
+    yield ("extreme_downscale", (1, 2160, 96), (8, 48), "lanczos3", {}, F32, F32)
+    for shape, ohw, mode, idt, odt in JAX_CASES:
+        yield ("jax_case", shape, ohw, mode, {}, idt, odt)
+
+
+def _axis_cases():
+    """(name, x shape, axis, n_out, mode, in dtype, out dtype)"""
+    for idt in DTYPES:
+        for odt in DTYPES:
+            yield ("last", (2, 57, 83), -1, 31, "bicubic", idt, odt)
+            yield ("mid", (2, 57, 83, 3), 1, 130, "lanczos3", idt, odt)
+    for mode in ("bilinear", "box", "hamming", "area"):
+        yield (mode, (2, 3, 97, 131), -2, 40, mode, F32, F32)
+
+
+def _view3(x: torch.Tensor, axis: int) -> torch.Tensor:
+    axis %= x.ndim
+    return x.reshape(math.prod(x.shape[:axis]), x.shape[axis],
+                     math.prod(x.shape[axis + 1:]))
+
+
+class _Tally:
+    """Cases and worst error of one kernel's kernel-vs-plain phase; logs one
+    line per case."""
+
+    def __init__(self, kernel: str):
+        self.kernel, self.cases, self.worst = kernel, 0, 0.0
+
+    def add(self, case: str, res: dict, **fields) -> None:
+        self.cases += 1
+        self.worst = max(self.worst, res["max_abs_err"])
+        _case(kernel=self.kernel, case=case, **fields, **res)
+
+    def summary(self) -> float:
+        _line("kernel_vs_plain_summary", kernel=self.kernel, cases=self.cases,
+              max_abs_err=self.worst)
+        return self.worst
+
+
+def check_float_kernels(dev) -> tuple[float, float]:
+    t2d, tax = _Tally("resample2d"), _Tally("resample_axis")
+    seed = 0
+    for name, shape, ohw, mode, kw, idt, odt in _float2d_cases():
+        seed += 1
+        x = _rand(shape, idt, dev, seed)
+        sh = make_axis_spec(shape[-2], ohw[0], mode, **kw)
+        sw = make_axis_spec(shape[-1], ohw[1], mode, **kw)
+        before = cr.launches_2d
+        got = cr.resize2d(x, sh, sw, odt)
+        torch.cuda.synchronize()
+        if cr.launches_2d != before + 1:
+            raise RuntimeError(f"resample2d {name}: not launched")
+        want = cr._resample2d_plain(_view3(x, -2), sh, sw, odt).reshape(got.shape)
+        t2d.add(name, _compare(f"resample2d {name}", got, want), shape=list(shape),
+                out=list(got.shape), mode=mode, **kw, dtypes=[str(idt), str(odt)],
+                plan=list(cr._plan2d(sh)))
+    if cr._plan2d(make_axis_spec(2160, 8, "lanczos3"))[1] >= 64:
+        raise RuntimeError("the extreme downscale kept 64-column tiles")
+    # NHWC uint8 through the public entry: moves through NCHW around one
+    # resample2d launch
+    x = _rand((2, 40, 60, 3), U8, dev, 201)
+    sh, sw = make_axis_spec(40, 20, "area"), make_axis_spec(60, 30, "area")
+    before = cr.launches_2d
+    got = resize(x, (20, 30), method="area", data_format="NHWC")
+    torch.cuda.synchronize()
+    if cr.launches_2d != before + 1:
+        raise RuntimeError("u8 NHWC: expected one resample2d launch")
+    want = cr._resample2d_plain(_view3(x.movedim(-1, -3), -2), sh, sw, U8)
+    want = want.reshape(2, 3, 20, 30).movedim(-3, -1)
+    t2d.add("nhwc u8 area resize", _compare("nhwc u8", got, want),
+            shape=list(x.shape), out=list(got.shape))
+
+    # no output tile's row window fits shared memory: two resample_axis passes
+    x = _rand((2, 58200, 4), F32, dev, 100)
+    sh, sw = make_axis_spec(58200, 1, "box"), make_axis_spec(4, 4, "box")
+    if cr._plan2d(sh) is not None:
+        raise RuntimeError("the fallback case fits a tile")
+    before = cr.launches_axis
+    got = cr.resize2d(x, sh, sw, F32)
+    torch.cuda.synchronize()
+    if cr.launches_axis != before + 2:
+        raise RuntimeError("the fallback did not run two resample_axis passes")
+    y = cr._resample_axis_plain(_view3(x, 2), sw, F32).reshape(x.shape)
+    want = cr._resample_axis_plain(_view3(y, 1), sh, F32).reshape(got.shape)
+    res = _compare("fallback", got, want)
+    # and against the dense product (TF32 off), an independent formulation:
+    # a 58,201-term float32 sum in another order, so the worst-case bound of
+    # float32 summation, n * 2^-24 relative
+    dense = resize_axis_dense(resize_axis_dense(x, sw, -1), sh, -2)
+    res["dense_max_abs_err"] = _max_abs(got, dense)
+    if res["dense_max_abs_err"] > sh.ntaps * 2**-24 * float(dense.abs().max()):
+        raise RuntimeError(f"fallback: {res['dense_max_abs_err']} from the "
+                           "dense product")
+    tax.add("no_tile_fits_fallback", res, shape=list(x.shape),
+            out=list(got.shape))
+    for name, shape, axis, n_out, mode, idt, odt in _axis_cases():
+        seed += 1
+        x = _rand(shape, idt, dev, seed)
+        spec = make_axis_spec(shape[axis], n_out, mode)
+        before = cr.launches_axis
+        got = cr.resize_axis(x, spec, axis, odt)
+        torch.cuda.synchronize()
+        if cr.launches_axis != before + 1:
+            raise RuntimeError(f"resample_axis {name}: not launched")
+        want = cr._resample_axis_plain(_view3(x, axis), spec, odt).reshape(got.shape)
+        tax.add(name, _compare(f"resample_axis {name}", got, want),
+                shape=list(shape), axis=axis, out=list(got.shape),
+                dtypes=[str(idt), str(odt)])
+    # NHWC float32 through the public entry: two resample_axis passes
+    x = _rand((2, 40, 60, 3), F32, dev, 200)
+    sh, sw = make_axis_spec(40, 20, "bicubic"), make_axis_spec(60, 30, "bicubic")
+    before = (cr.launches_2d, cr.launches_axis)
+    got = resize(x, (20, 30), method="bicubic", data_format="NHWC")
+    torch.cuda.synchronize()
+    if (cr.launches_2d, cr.launches_axis) != (before[0], before[1] + 2):
+        raise RuntimeError("f32 NHWC: expected two resample_axis launches")
+    y = cr._resample_axis_plain(_view3(x, 2), sw, F32).reshape(2, 40, 30, 3)
+    want = cr._resample_axis_plain(_view3(y, 1), sh, F32).reshape(got.shape)
+    tax.add("nhwc f32 resize", _compare("nhwc f32", got, want),
+            shape=list(x.shape), out=list(got.shape))
+    return t2d.summary(), tax.summary()
+
+
+# ---------------------------------------------------------------------------
+# 3. the main paths
+# ---------------------------------------------------------------------------
+
+
+def _counts() -> dict:
+    return {"pil_resample_2pass": pe.launches, "resample2d": cr.launches_2d,
+            "resample_axis": cr.launches_axis}
+
+
+def _reset() -> None:
+    pe.launches = cr.launches_2d = cr.launches_axis = 0
+
+
+def _expect(phase: str, want: dict) -> dict:
+    got = _counts()
+    if got != want:
+        raise RuntimeError(f"{phase}: kernel launches {got}, expected {want}")
+    return got
+
+
+def main_path_u8_pipeline(dev) -> int:
     erng = np.random.default_rng(0)
     batch = (erng.random(ENTRY[0]) * 255).astype(np.uint8)
     pipe = ImageNetEvalPipeline(size=ENTRY[1]).to(dev)
     x = torch.from_numpy(batch).to(dev)
     calls = 3
-    pe.launches = 0
+    _reset()
     for _ in range(calls):
         y = pipe(x)
     torch.cuda.synchronize()
-    main_launches = pe.launches
-    if main_launches != calls:
-        raise RuntimeError(f"main path: {main_launches} kernel launches in "
-                           f"{calls} pipeline calls, expected one per call")
+    counts = _expect("u8 eval pipeline", {"pil_resample_2pass": calls,
+                                          "resample2d": 0, "resample_axis": 0})
     y_cpu = ImageNetEvalPipeline(size=ENTRY[1])(torch.from_numpy(batch))
     u8_gpu = resize(x, ENTRY[1]).cpu()
     u8_cpu = resize(torch.from_numpy(batch), ENTRY[1])
@@ -128,25 +373,109 @@ def main() -> None:
     if out_err > 1e-6:  # float32 /255, -mean, /std on two devices
         raise RuntimeError(f"main path: output differs from the CPU run by "
                            f"{out_err} > 1e-6")
-    _line("main_path", batch=list(ENTRY[0]), size=list(ENTRY[1]),
-          launches=main_launches, calls=calls, u8_equal=True,
+    _line("main_path", path="u8 eval pipeline", batch=list(ENTRY[0]),
+          size=list(ENTRY[1]), launches=counts, calls=calls, u8_equal=True,
           max_abs_err_vs_cpu=out_err)
+    return counts["pil_resample_2pass"]
 
-    # 5. times (informational): kernel and plain version on the card, in
-    #    turns plain, kernel, kernel, plain
+
+def main_path_config5(dev) -> int:
+    (shape, ohw), calls = CONFIG5, 2
+    x = _rand(shape, BF16, dev, 5)
+    vd = VideoDownscaler(out_hw=ohw)
+    _reset()
+    for _ in range(calls):
+        y = vd(x)
+    torch.cuda.synchronize()
+    counts = _expect("config 5", {"pil_resample_2pass": 0, "resample2d": calls,
+                                  "resample_axis": 0})
+    sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
+    with full_f32():
+        want = cr._resample2d_plain(_view3(x, -2), sh, sw, BF16).reshape(y.shape)
+    res = _compare("config 5", y, want)
+    _line("main_path", path="config 5 VideoDownscaler", shape=list(shape),
+          out=list(y.shape), dtype=str(y.dtype), launches=counts, calls=calls,
+          **res)
+    return counts["resample2d"]
+
+
+def main_path_headline(dev) -> tuple[int, int]:
+    shape, ohw = HEADLINE
+    n2d = naxis = 0
+    for layout in ("NCHW", "NHWC"):
+        for mode in ("bilinear", "bicubic"):
+            x = _rand(shape, F32, dev, 7)
+            sh, sw = make_axis_spec(shape[-2], ohw[0], mode), \
+                make_axis_spec(shape[-1], ohw[1], mode)
+            if layout == "NHWC":
+                x = x.permute(0, 2, 3, 1).contiguous()
+            _reset()
+            y = resize(x, ohw, method=mode, data_format=layout)
+            torch.cuda.synchronize()
+            if layout == "NCHW":
+                counts = _expect(f"headline {layout} {mode}", {
+                    "pil_resample_2pass": 0, "resample2d": 1, "resample_axis": 0})
+                want = cr._resample2d_plain(_view3(x, -2), sh, sw, F32)
+            else:
+                counts = _expect(f"headline {layout} {mode}", {
+                    "pil_resample_2pass": 0, "resample2d": 0, "resample_axis": 2})
+                t = cr._resample_axis_plain(_view3(x, 2), sw, F32)
+                t = t.reshape(1, shape[-2], ohw[1], 3)
+                want = cr._resample_axis_plain(_view3(t, 1), sh, F32)
+            n2d += counts["resample2d"]
+            naxis += counts["resample_axis"]
+            res = _compare(f"headline {layout} {mode}", y, want.reshape(y.shape))
+            _line("main_path", path=f"configs 1-2 resize {layout} {mode}",
+                  shape=list(x.shape), out=list(y.shape), launches=counts, **res)
+    return n2d, naxis
+
+
+def main_path_f32_pipeline(dev) -> int:
+    erng = np.random.default_rng(0)
+    batch = (erng.random(ENTRY[0]) * 255).astype(np.uint8)
+    pipe = ImageNetEvalPipeline(size=ENTRY[1], resize_domain="float32").to(dev)
+    x = torch.from_numpy(batch).to(dev)
+    calls = 3
+    _reset()
+    for _ in range(calls):
+        y = pipe(x)
+    torch.cuda.synchronize()
+    counts = _expect("f32 eval pipeline", {"pil_resample_2pass": 0,
+                                           "resample2d": calls, "resample_axis": 0})
+    sh = make_axis_spec(ENTRY[0][-2], ENTRY[1][0])
+    sw = make_axis_spec(ENTRY[0][-1], ENTRY[1][1])
+    # the kernel reads the uint8 batch and writes float32; then the
+    # pipeline's own normalisation, op for op
+    r = cr._resample2d_plain(_view3(x, -2), sh, sw, F32)
+    r = r.reshape(ENTRY[0][0], 3, *ENTRY[1]) * torch.tensor(1.0 / 255.0)
+    want = (r - pipe.mean) / pipe.std
+    res = _compare("f32 eval pipeline", y, want)
+    _line("main_path", path="f32 eval pipeline", batch=list(ENTRY[0]),
+          size=list(ENTRY[1]), launches=counts, calls=calls, **res)
+    return counts["resample2d"]
+
+
+# ---------------------------------------------------------------------------
+# 4. times, kernel beside plain version, in turns plain, kernel, kernel, plain
+# ---------------------------------------------------------------------------
+
+
+def _turns(kernel, plain, iters: int, warmup: int) -> dict:
+    ms = {"plain": [], "kernel": []}
+    fns = {"plain": plain, "kernel": kernel}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        ms[which].append(time_cuda(fns[which], iters=iters, warmup=warmup))
+    return ms
+
+
+def time_pil_kernel(dev, rng, card) -> tuple[float, float]:
     def timed(shape, size, iters):
         x3 = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
         x3 = x3.reshape(-1, shape[-2], shape[-1]).to(dev)
         tw = pe._int_tables(shape[-1], size[1], "bilinear")
         th = pe._int_tables(shape[-2], size[0], "bilinear")
-        fns = {
-            "plain": lambda: pe._resample_2pass_plain(x3, tw, th),
-            "kernel": lambda: pe._resample_2pass(x3, tw, th),
-        }
-        ms = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            ms[which].append(time_cuda(fns[which], iters=iters, warmup=3))
-        return ms
+        return _turns(lambda: pe._resample_2pass(x3, tw, th),
+                      lambda: pe._resample_2pass_plain(x3, tw, th), iters, 3)
 
     bench = timed(*BENCH, iters=20)
     k_ms = sum(bench["kernel"]) / 2
@@ -160,21 +489,108 @@ def main() -> None:
     uhd = timed(*UHD, iters=10)
     _line("time_4k_hd", card=card, shape=list(UHD[0]), size=list(UHD[1]),
           kernel_ms=uhd["kernel"], plain_ms=uhd["plain"])
-    pipe_ms = time_cuda(pipe, x, iters=20, warmup=3)
+    erng = np.random.default_rng(0)
+    x = torch.from_numpy((erng.random(ENTRY[0]) * 255).astype(np.uint8)).to(dev)
+    pipe = ImageNetEvalPipeline(size=ENTRY[1]).to(dev)
     _line("time_entry_pipeline", card=card, batch=list(ENTRY[0]),
-          size=list(ENTRY[1]), ms=pipe_ms)
+          size=list(ENTRY[1]), ms=time_cuda(pipe, x, iters=20, warmup=3))
+    return k_ms, p_ms
 
-    print(json.dumps({"kernels": [{
-        "name": "pil_resample_2pass",
-        "route": "cuda",
-        "source": "interpolate_antialiasing_tpu_torch/csrc/pil_resample.cu",
-        "replaces": "interpolate_antialiasing_tpu/ops/pil_exact.py:504",
-        "also_serves": "interpolate_antialiasing_tpu/ops/pil_exact.py:824",
-        "launches": main_launches,
-        "max_abs_err": worst,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}), flush=True)
+
+def time_float_kernels(dev, card) -> tuple[float, float, float, float]:
+    with full_f32():
+        # resample2d on config 5 (bf16 4K -> HD, 192 planes)
+        (shape, ohw) = CONFIG5
+        x3 = _view3(_rand(shape, BF16, dev, 11), -2)
+        sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
+        c5 = _turns(lambda: cr.resize2d(x3, sh, sw, BF16),
+                    lambda: cr._resample2d_plain(x3, sh, sw, BF16), 5, 1)
+        k5 = sum(c5["kernel"]) / 2
+        moved = x3.numel() * 2 + x3.shape[0] * ohw[0] * ohw[1] * 2  # bytes
+        _line("time_config5", card=card, kernel="resample2d", shape=list(shape),
+              size=list(ohw), kernel_ms=c5["kernel"], plain_ms=c5["plain"],
+              kernel_gb_s=moved / (k5 * 1e-3) / 1e9,
+              frames_per_s=shape[0] / (k5 * 1e-3))
+        del x3
+        torch.cuda.empty_cache()
+        # resample2d on the f32 headline, NCHW
+        (shape, ohw) = HEADLINE
+        x3 = _view3(_rand(shape, F32, dev, 12), -2)
+        sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
+        hd = _turns(lambda: cr.resize2d(x3, sh, sw, F32),
+                    lambda: cr._resample2d_plain(x3, sh, sw, F32), 50, 3)
+        _line("time_headline_nchw", card=card, kernel="resample2d",
+              shape=list(shape), size=list(ohw), kernel_ms=hd["kernel"],
+              plain_ms=hd["plain"])
+        # resample_axis on the f32 headline, NHWC: the W pass, then the H pass
+        xn = _rand(shape, F32, dev, 13).permute(0, 2, 3, 1).contiguous()
+        t = cr.resize_axis(xn, sw, 2)
+        wp = _turns(lambda: cr.resize_axis(xn, sw, 2),
+                    lambda: cr._resample_axis_plain(_view3(xn, 2), sw, F32), 50, 3)
+        hp = _turns(lambda: cr.resize_axis(t, sh, 1),
+                    lambda: cr._resample_axis_plain(_view3(t, 1), sh, F32), 50, 3)
+        _line("time_headline_nhwc", card=card, kernel="resample_axis",
+              shape=list(xn.shape), size=list(ohw),
+              w_pass_kernel_ms=wp["kernel"], w_pass_plain_ms=wp["plain"],
+              h_pass_kernel_ms=hp["kernel"], h_pass_plain_ms=hp["plain"])
+    return (k5, sum(c5["plain"]) / 2,
+            sum(wp["kernel"]) / 2 + sum(hp["kernel"]) / 2,
+            sum(wp["plain"]) / 2 + sum(hp["plain"]) / 2)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this smoke test needs a CUDA card")
+    card = _card()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    _line("device", kind=kind, count=torch.cuda.device_count(),
+          torch=torch.__version__, cuda=torch.version.cuda)
+    t0 = time.perf_counter()
+    native.build()
+    _line("build", seconds=round(time.perf_counter() - t0, 3))
+
+    rng = np.random.default_rng(0)
+    with full_f32():
+        try:
+            pil_err = check_pil_kernel(dev, rng)
+            err_2d, err_axis = check_float_kernels(dev)
+        finally:
+            CASES_LOG.parent.mkdir(exist_ok=True)
+            CASES_LOG.write_text("".join(c + "\n" for c in _cases))
+        _line("kernel_vs_plain_cases", written=str(CASES_LOG), cases=len(_cases))
+        pil_launches = main_path_u8_pipeline(dev)
+        c5_launches = main_path_config5(dev)
+        torch.cuda.empty_cache()
+        hl_2d, hl_axis = main_path_headline(dev)
+        f32_launches = main_path_f32_pipeline(dev)
+    pil_ms, pil_plain_ms = time_pil_kernel(dev, rng, card)
+    ms_2d, plain_2d, ms_axis, plain_axis = time_float_kernels(dev, card)
+
+    print(card, flush=True)  # again, near the end of a long output
+    print(json.dumps({"kernels": [
+        {"name": "pil_resample_2pass", "route": "cuda",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/pil_resample.cu",
+         "replaces": "interpolate_antialiasing_tpu/ops/pil_exact.py:504",
+         "also_serves": "interpolate_antialiasing_tpu/ops/pil_exact.py:824",
+         "launches": pil_launches, "max_abs_err": pil_err,
+         "ms": pil_ms, "plain_ms": pil_plain_ms},
+        {"name": "resample2d", "route": "cuda",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cu",
+         "replaces": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1003",
+         "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1475",
+         "launches": c5_launches + hl_2d + f32_launches, "max_abs_err": err_2d,
+         "ms": ms_2d, "plain_ms": plain_2d},
+        {"name": "resample_axis", "route": "cuda",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cu",
+         "replaces": "interpolate_antialiasing_tpu/ops/pallas_resize.py:172",
+         "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:184, "
+                        ":258, :275",
+         "launches": hl_axis, "max_abs_err": err_axis,
+         "ms": ms_axis, "plain_ms": plain_axis},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

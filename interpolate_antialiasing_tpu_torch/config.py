@@ -6,11 +6,14 @@ the same names, so one environment drives both packages.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
+import torch
+
 __all__ = ["ResizeOptions", "debug_enabled", "default_backend",
-           "default_pil_digits"]
+           "default_pil_digits", "default_precision", "full_f32"]
 
 
 def debug_enabled() -> bool:
@@ -21,6 +24,44 @@ def debug_enabled() -> bool:
 def default_backend() -> str:
     """Override backend selection globally (IA_TPU_BACKEND, default auto)."""
     return os.environ.get("IA_TPU_BACKEND", "auto")
+
+
+_PRECISIONS = ("split", "bf16", "f32")
+
+
+def default_precision() -> str:
+    """The kernels' precision dial (IA_TPU_PRECISION env), validated as the
+    JAX package validates it: ``split`` (default), ``bf16`` or ``f32``.
+
+    On the TPU the dial picks how many bf16 matrix-unit passes a float
+    kernel spends per product.  The port's kernels multiply float32 weights
+    into float32 sums at every setting, which is at least as precise as the
+    TPU's ``split``: in the port the dial does nothing.  No kernel reads it;
+    it is validated once, when this module is imported, so an unknown value
+    raises there.
+    """
+    v = os.environ.get("IA_TPU_PRECISION", "split")
+    if v not in _PRECISIONS:
+        raise ValueError(f"IA_TPU_PRECISION={v!r}; expected one of {_PRECISIONS}")
+    return v
+
+
+default_precision()
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Full float32 matrix products on the card for the duration: TF32 off
+    for cuBLAS and cuDNN, the previous settings restored after.  The JAX
+    package runs its oracle routes at ``Precision.HIGHEST``; TF32 would keep
+    about three decimal digits."""
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 def default_pil_digits() -> int:

@@ -1,0 +1,77 @@
+// Element loads and stores shared by the float resample kernels
+// (resample2d.cu, resample_axis.cu).
+//
+// Pixels cross device memory in their storage type (uint8, float32 or
+// bfloat16) and are widened to float32 in registers; every sum is float32.
+// The stores follow the JAX package's kernels (pallas_resize.py::_store and
+// ::_quant_u8grid): uint8 is floor(v + 0.5) clamped to [0, 255], never
+// round-half-to-even; bfloat16 is round-to-nearest-even.
+//
+// Each tap is mac(): the product and the sum each rounded to float32, taps
+// in order from k = 0, from a sum of 0.  That is exactly what the plain
+// PyTorch versions (cuda_resize.py) compute, so a kernel and its plain
+// version agree bit for bit and any difference on the card is a fault.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ia {
+
+// dtype codes of the C entry points (cuda_resize.py::_DTYPES)
+enum DType : int { kU8 = 0, kF32 = 1, kBF16 = 2 };
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return min(max(v, lo), hi);
+}
+
+__device__ __forceinline__ float load_f32(const uint8_t* p) { return (float)*p; }
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// acc + w * x without a fused multiply-add (the intrinsics are never
+// contracted): the rounding of the plain version's `acc += x * w`.
+__device__ __forceinline__ float mac(float acc, float w, float x) {
+  return __fadd_rn(acc, __fmul_rn(w, x));
+}
+
+// The uint8 lattice, kept in float: floor(v + 0.5) clamped to [0, 255].
+__device__ __forceinline__ float quant_u8(float v) {
+  return fminf(fmaxf(floorf(v + 0.5f), 0.0f), 255.0f);
+}
+
+__device__ __forceinline__ void store_f32(uint8_t* p, float v) {
+  *p = (uint8_t)quant_u8(v);
+}
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <template <typename, typename> class Op, typename Tin, typename Args>
+int dispatch_out(int out_dt, const Args& a) {
+  switch (out_dt) {
+    case kU8: return Op<Tin, uint8_t>::run(a);
+    case kF32: return Op<Tin, float>::run(a);
+    case kBF16: return Op<Tin, __nv_bfloat16>::run(a);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Op<Tin, Tout>::run(a) with the element types named by two dtype codes;
+// cudaErrorInvalidValue for a code it does not know.
+template <template <typename, typename> class Op, typename Args>
+int dispatch_dtypes(int in_dt, int out_dt, const Args& a) {
+  switch (in_dt) {
+    case kU8: return dispatch_out<Op, uint8_t>(out_dt, a);
+    case kF32: return dispatch_out<Op, float>(out_dt, a);
+    case kBF16: return dispatch_out<Op, __nv_bfloat16>(out_dt, a);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace ia

@@ -1,3 +1,3 @@
-from .preprocess import ImageNetEvalPipeline, imagenet_eval_preprocess
+from .preprocess import ImageNetEvalPipeline, VideoDownscaler, imagenet_eval_preprocess
 
-__all__ = ["ImageNetEvalPipeline", "imagenet_eval_preprocess"]
+__all__ = ["ImageNetEvalPipeline", "VideoDownscaler", "imagenet_eval_preprocess"]

@@ -1,8 +1,9 @@
 """Image preprocessing pipelines built on the AA resize op (the port of
-``interpolate_antialiasing_tpu.models.preprocess``).
+``interpolate_antialiasing_tpu.models.preprocess``):
 
-Ported so far: the uint8 ImageNet-eval pipeline (batch-N arbitrary ->
-224x224 bilinear AA, then cast and normalisation).
+  * the ImageNet-eval pipeline (batch-N arbitrary -> 224x224 bilinear AA,
+    then cast and normalisation), in the uint8 or the float32 domain;
+  * the bf16 video downscaler (3840x2160 -> 1920x1080, BASELINE config 5).
 """
 
 from __future__ import annotations
@@ -12,9 +13,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.resize import resize
+from ..ops.resize import resize, resize_plane
 
-__all__ = ["ImageNetEvalPipeline", "imagenet_eval_preprocess"]
+__all__ = ["ImageNetEvalPipeline", "VideoDownscaler", "imagenet_eval_preprocess"]
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -24,12 +25,14 @@ class ImageNetEvalPipeline(nn.Module):
     """uint8 NCHW batch -> normalised float NCHW at ``size``.
 
     Mirrors torchvision eval preprocessing (Resize with antialias=True).
-    ``resize_domain="uint8"`` (the default and, so far, the only ported
-    domain) resizes the uint8 image first through the byte-exact Pillow
-    kernel and normalises the quantised result — exactly what torchvision's
-    PIL-backend transform stack computes (PIL resize -> ToTensor ->
-    Normalize).  ``short_side=256`` gives torchvision's canonical
-    Resize(256) + CenterCrop(size); None resizes directly to ``size``.
+    ``resize_domain="uint8"`` (the default) resizes the uint8 image first
+    through the byte-exact Pillow kernel and normalises the quantised
+    result — exactly what torchvision's PIL-backend transform stack computes
+    (PIL resize -> ToTensor -> Normalize).  ``"float32"`` resizes in float
+    (the two-pass resample2d kernel): fractionally more precise than the
+    standard pipeline, but not equal to it.  ``short_side=256`` gives
+    torchvision's canonical Resize(256) + CenterCrop(size); None resizes
+    directly to ``size``.
 
     ``mean`` and ``std`` are float32 buffers of shape ``[1, C, 1, 1]``; the
     pipeline runs on the device of its input.
@@ -59,12 +62,16 @@ class ImageNetEvalPipeline(nn.Module):
             "std", torch.tensor(std, dtype=torch.float32).reshape(1, -1, 1, 1))
 
     def _resize(self, x: torch.Tensor, hw) -> torch.Tensor:
-        if self.resize_domain == "uint8" and x.dtype == torch.uint8:
-            return resize(x, hw, method=self.method, antialias=self.antialias)
-        raise NotImplementedError(
-            f"resize_domain={self.resize_domain!r} on {x.dtype} input needs "
-            "the float resize route, which is not ported yet: ROADMAP queue 1 "
-            "item 3")
+        if x.dtype == torch.uint8:
+            # float32 domain: the kernel widens uint8 itself (exactly), with
+            # no float32 copy of the batch
+            out = None if self.resize_domain == "uint8" else torch.float32
+            return resize(x, hw, method=self.method, antialias=self.antialias,
+                          output_dtype=out)
+        return resize_plane(
+            x.to(torch.float32), hw, h_axis=-2, w_axis=-1,
+            mode=self.method, antialias=self.antialias,
+        )
 
     def forward(self, batch_u8: torch.Tensor) -> torch.Tensor:
         if self.short_side is not None:
@@ -100,3 +107,31 @@ class ImageNetEvalPipeline(nn.Module):
 
 def imagenet_eval_preprocess(batch_u8: torch.Tensor, size=(224, 224)) -> torch.Tensor:
     return ImageNetEvalPipeline(size=size)(batch_u8)
+
+
+class VideoDownscaler(nn.Module):
+    """bf16 frame downscaler: ``[N, C, H, W]`` -> ``[N, C, oh, ow]``.
+
+    float32 weight tables with bf16 frames, float32 sums, bf16 out.  The
+    default ``backend="pallas"`` runs the two-pass resample2d kernel on a
+    CUDA tensor (its plain version on a CPU tensor); None defers to the
+    IA_TPU_BACKEND dial / ``auto``, which routes the same way.
+    """
+
+    def __init__(self, out_hw: tuple[int, int] = (1080, 1920),
+                 method: str = "bilinear", backend: str | None = "pallas"):
+        super().__init__()
+        self.out_hw = tuple(out_hw)
+        self.method = method
+        self.backend = backend
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        y = resize_plane(
+            frames.to(torch.bfloat16),
+            self.out_hw,
+            h_axis=-2,
+            w_axis=-1,
+            mode=self.method,
+            backend=self.backend,
+        )
+        return y.to(torch.bfloat16)

@@ -3,9 +3,10 @@
 ``csrc/*.cu`` hold the kernels behind a plain C interface (no PyTorch
 headers, so ``nvcc`` compiles them in seconds).  :func:`build` compiles them
 at first use into ``_build/<hash of the sources and flags>/`` beside this
-file and loads the result with ``ctypes``; a later call, or a later process
-on the same checkout, reuses the library.  Nothing is fetched: the sources
-are the package's own and the compiler is the local CUDA toolkit's.
+file — one ``nvcc`` per source, all started together, then one link — and
+loads the result with ``ctypes``; a later call, or a later process on the
+same checkout, reuses the library.  Nothing is fetched: the sources are the
+package's own and the compiler is the local CUDA toolkit's.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["build", "NVCC_FLAGS"]
+__all__ = ["build", "plane_chunks", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -27,10 +28,11 @@ _BUILD_DIR = _PKG / "_build"
 _LIB_NAME = "libia_torch_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # name -> (restype, argtypes) of every C entry point the wrappers call
 _SIGNATURES = {
     "ia_pil_resample_tile_w": (_I, []),
@@ -39,7 +41,24 @@ _SIGNATURES = {
     "ia_pil_resample_2pass": (
         _I, [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
              _P]),
+    # x, out, in_dt, out_dt, B, H, W, OH, OW, xmin_w, w_w, ntaps_w, ymin_h,
+    # w_h, ntaps_h, quant, tile_r, tile_c, rows_cap, stream
+    "ia_resample2d": (
+        _I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I,
+             _I, _I, _I, _P]),
+    # x, out, in_dt, out_dt, outer, n_in, inner, n_out, xmin, w, ntaps, stream
+    "ia_resample_axis": (
+        _I, [_P, _P, _I, _I, _L, _I, _L, _I, _P, _P, _I, _P]),
 }
+
+
+def plane_chunks(n: int, max_per_launch: int) -> list[tuple[int, int]]:
+    """``(start, count)`` launches that cover ``n`` planes with at most
+    ``max_per_launch`` planes each: the wrappers split a batch whose grid
+    would pass a grid-dimension limit into several launches."""
+    if max_per_launch < 1:
+        raise ValueError(f"max_per_launch must be >= 1, got {max_per_launch}")
+    return [(s, min(max_per_launch, n - s)) for s in range(0, n, max_per_launch)]
 
 
 def _nvcc() -> str | None:
@@ -60,10 +79,21 @@ def _sources() -> list[Path]:
 
 def _lib_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(_CSRC.glob("*.cu*")):  # kernels and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD_DIR / h.hexdigest()[:16] / _LIB_NAME
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
 
 
 def _compile(lib: Path) -> None:
@@ -75,19 +105,15 @@ def _compile(lib: Path) -> None:
             "csrc at first use and need the CUDA toolkit"
         )
     lib.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent first uses of one
-    # checkout never load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
+    # compile into a private directory, then rename the library into place:
+    # concurrent first uses of one checkout never load a half-written library
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                  for src, obj in zip(_sources(), objs)])
+        out = str(Path(tmp) / _LIB_NAME)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs]])
+        os.replace(out, lib)
 
 
 @functools.cache

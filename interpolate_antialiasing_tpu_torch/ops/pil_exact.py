@@ -243,24 +243,27 @@ def _resample_2pass_cuda(x3: torch.Tensor, tw, th, pb: int) -> torch.Tensor:
     out = torch.empty((B, OH, OW), dtype=torch.uint8, device=x3.device)
     if B == 0:
         return out
-    if B > _GRID_LIMIT:
-        raise ValueError(f"pil_resample_2pass takes at most {_GRID_LIMIT} "
-                         f"planes per launch, got {B}")
     tile_h, rows_cap = _row_plan(th[0], ntaps_h, H, OH,
                                  lib.ia_pil_resample_tile_w())
     dev = x3.device
     xmin_w, wb_w = _on(tw[0], dev), _on(tw[1], dev)
     ymin_h, wb_h = _on(th[0], dev), _on(th[1], dev)
+    # the kernel's planes ride gridDim.z: a larger batch takes several
+    # launches of at most _GRID_LIMIT planes each
     with torch.cuda.device(dev):
-        err = lib.ia_pil_resample_2pass(
-            x3.data_ptr(), out.data_ptr(), B, H, W, OH, OW,
-            xmin_w.data_ptr(), wb_w.data_ptr(), ntaps_w,
-            ymin_h.data_ptr(), wb_h.data_ptr(), ntaps_h,
-            pb, tile_h, rows_cap, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"pil_resample_2pass launch failed: cudaError {err}")
-    launches += 1
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for b0, n in native.plane_chunks(B, _GRID_LIMIT):
+            err = lib.ia_pil_resample_2pass(
+                x3.data_ptr() + b0 * H * W, out.data_ptr() + b0 * OH * OW,
+                n, H, W, OH, OW,
+                xmin_w.data_ptr(), wb_w.data_ptr(), ntaps_w,
+                ymin_h.data_ptr(), wb_h.data_ptr(), ntaps_h,
+                pb, tile_h, rows_cap, stream,
+            )
+            if err != 0:
+                raise RuntimeError(
+                    f"pil_resample_2pass launch failed: cudaError {err}")
+            launches += 1
     return out
 
 

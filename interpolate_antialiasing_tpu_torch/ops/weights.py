@@ -5,10 +5,14 @@ expression for expression so both packages build identical float64 tables:
 
   1. ``compute_tables`` — compact ``(xmin, size, weights[out, ntaps])`` tables.
   2. ``dense_matrix`` — the banded weight matrix ``W[out, in]`` (the oracle).
+  3. ``banded_tiles`` — the tile-compacted band ``[n_tiles, k_in, tile]``
+     with per-tile window starts, which the plain ``resize_axis_banded``
+     route contracts tile by tile.
 
-The JAX package's tile-compacted bands (``banded_tiles``,
-``banded_tiles_from_matrix``, ``pick_tile_h``) are MXU tile geometry and are
-not part of this module: the port's kernels read the compact tables directly.
+The port's CUDA kernels read the compact tables directly; ``pick_tile_h``
+(the JAX package's matrix-unit tile picker) is not ported, nor is
+``banded_tiles_from_matrix``, which the JAX package uses for its backward
+pass and its matrix-unit kernels' bands (autograd comes to the port later).
 
 Algorithm (identical to the reference / Pillow):
 
@@ -38,6 +42,7 @@ __all__ = [
     "make_axis_spec",
     "compute_tables",
     "dense_matrix",
+    "banded_tiles",
     "pil_box_f32",
     "area_pixel_compute_scale",
 ]
@@ -302,3 +307,92 @@ def dense_matrix(spec: AxisSpec, dtype=np.float32, table_dtype=np.float64) -> np
     keep = (cols >= 0) & (cols < spec.in_size)
     W[rows[keep], np.clip(cols, 0, spec.in_size - 1)[keep]] = vals[keep]
     return W.astype(dtype)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class BandedTiles:
+    """Tile-compacted band, as the JAX package builds it for its kernels.
+
+    For each tile of ``tile`` consecutive output pixels, ``starts[t]`` is the
+    first input pixel the tile touches and ``band[t, k, u]`` is the weight of
+    input pixel ``starts[t] + k`` for output pixel ``t*tile + u``.  ``k_in``
+    (the window) is static across tiles: max window extent rounded up to a
+    multiple of ``align``, so every tile is one ``[k_in, tile]`` matrix
+    product against a ``[rows, k_in]`` input slab.
+    """
+
+    starts: np.ndarray  # [n_tiles] int32
+    band: np.ndarray  # [n_tiles, k_in, tile] float
+    tile: int
+    k_in: int
+    n_tiles: int
+    out_padded: int
+
+
+def banded_tiles(
+    spec: AxisSpec,
+    tile: int = 128,
+    dtype=np.float32,
+    align: int = 8,
+    table_dtype=np.float64,
+    in_cap: int | None = None,
+) -> BandedTiles:
+    """Build the per-tile compact band.
+
+    The per-tile input window is ``[xmin[t0], xmin[t1-1] + ntaps)``.  Both
+    the window start and the static window size ``k_in`` are multiples of
+    ``align``, and the caller pads the input length to
+    ``round_up(in_size, align)`` so every window stays in bounds.  Weights
+    are placed relative to the aligned start, so alignment is exact, not
+    approximate.
+
+    ``in_cap`` overrides the input length windows must stay inside.  With
+    ``align=1, in_cap=in_size`` every window lies within the *unpadded*
+    input (starts are clamped; weights are shifted to compensate).
+    Out-of-range taps always carry zero weight, so clamping never drops
+    signal.
+    """
+    xmin, size, w = compute_tables(spec, dtype=table_dtype)
+    out = spec.out_size
+    n_tiles = -(-out // tile)
+    out_padded = n_tiles * tile
+    if in_cap is None:
+        in_cap = _round_up(spec.in_size, align)
+
+    # Aligned per-tile window starts, then the widest span any tile needs.
+    raw_starts = []
+    spans = []
+    for t in range(n_tiles):
+        lo = (max(int(xmin[t * tile]), 0) // align) * align
+        hi_idx = min((t + 1) * tile, out) - 1
+        hi = int(xmin[hi_idx]) + spec.ntaps
+        raw_starts.append(lo)
+        spans.append(hi - lo)
+    k_in = _round_up(max(max(spans), 1), align)
+    k_in = min(k_in, in_cap)
+
+    starts = np.zeros((n_tiles,), dtype=np.int32)
+    band = np.zeros((n_tiles, k_in, tile), dtype=table_dtype)
+    taps = np.arange(spec.ntaps)
+    for t in range(n_tiles):
+        o0 = t * tile
+        o1 = min(o0 + tile, out)
+        # Keep the aligned window inside the (padded) input.
+        start = max(0, min(raw_starts[t], in_cap - k_in))
+        starts[t] = start
+        for u in range(o0, o1):
+            k = int(xmin[u]) - start + taps  # positions inside the window
+            ok = (k >= 0) & (k < k_in)
+            band[t, k[ok], u - o0] = w[u, taps[ok]]
+    return BandedTiles(
+        starts=starts,
+        band=band.astype(dtype),
+        tile=tile,
+        k_in=k_in,
+        n_tiles=n_tiles,
+        out_padded=out_padded,
+    )

@@ -1,0 +1,97 @@
+"""The port's CUDA kernels on the card, against their plain versions on the
+same card.  Every test here is marked ``cuda`` and skips where there is no
+card; on a machine with one (and the CUDA toolkit):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+
+(``--noconftest``: tests/conftest.py sets up JAX, which these tests do not
+use.)  Every kernel is held to its plain version bit for bit: the float
+kernels round each product and each sum in the plain version's tap order
+(csrc/ia_dtypes.cuh::mac), so any difference, a wrong rounding of a store
+included, is a fault; the Pillow kernel is byte-exact as well.
+"""
+
+import math
+
+import pytest
+import torch
+
+from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
+from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
+from interpolate_antialiasing_tpu_torch.ops.resize_xla import resize_axis_dense
+from interpolate_antialiasing_tpu_torch.ops.weights import make_axis_spec
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = (torch.uint8, torch.float32, torch.bfloat16)
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _input(shape, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.rand(shape, device=dev, generator=g) * 255).to(dtype)
+
+
+def _assert_equal(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    differing = int((got != want).sum())
+    err = float((got.double() - want.double()).abs().max())
+    assert differing == 0, (differing, err)
+
+
+@pytest.mark.parametrize("odt", DTYPES)
+@pytest.mark.parametrize("idt", DTYPES)
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic", "lanczos3", "area"])
+def test_resample2d_kernel_matches_plain(dev, mode, idt, odt):
+    x = _input((3, 97, 131), idt, dev)
+    sh, sw = make_axis_spec(97, 40, mode), make_axis_spec(131, 260, mode)
+    before = cr.launches_2d
+    got = cr.resize2d(x, sh, sw, odt)
+    torch.cuda.synchronize()
+    assert cr.launches_2d == before + 1
+    _assert_equal(got, cr._resample2d_plain(x, sh, sw, odt))
+
+
+@pytest.mark.parametrize("odt", DTYPES)
+@pytest.mark.parametrize("idt", DTYPES)
+@pytest.mark.parametrize("axis", [-1, -2, 1])
+def test_resample_axis_kernel_matches_plain(dev, axis, idt, odt):
+    x = _input((2, 57, 83, 3), idt, dev, seed=1)
+    spec = make_axis_spec(x.shape[axis], 31, "bicubic")
+    before = cr.launches_axis
+    got = cr.resize_axis(x, spec, axis, odt)
+    torch.cuda.synchronize()
+    assert cr.launches_axis == before + 1
+    ax = axis % x.ndim
+    x3 = x.reshape(math.prod(x.shape[:ax]), x.shape[ax], math.prod(x.shape[ax + 1:]))
+    want = cr._resample_axis_plain(x3, spec, odt).reshape(got.shape)
+    _assert_equal(got, want)
+
+
+def test_pil_kernel_takes_more_than_65535_planes(dev):
+    x = _input((70000, 8, 8), torch.uint8, dev, seed=2)
+    got = pe.resize_pil_exact(x, (4, 5))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), pe.resize_pil_exact(x.cpu(), (4, 5)))
+
+
+def test_dense_route_keeps_tf32_off(dev):
+    """With TF32 allowed globally, the dense route still multiplies in full
+    float32 (TF32 would leave ~1e-3 relative error on a 4096-long sum)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        x = torch.rand((64, 4096), device=dev) + 1.0
+        spec = make_axis_spec(4096, 16, "box")
+        got = resize_axis_dense(x, spec, -1)
+        want = resize_axis_dense(x.cpu().double(), spec, -1)
+        assert float((got.cpu().double() - want).abs().max()) <= 1e-5
+        assert torch.backends.cuda.matmul.allow_tf32  # the caller's setting
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
