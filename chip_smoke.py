@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper card and the
-CUDA toolkit.  It builds the port's three CUDA kernels from the sources in
+CUDA toolkit.  It builds the port's four CUDA kernels from the sources in
 the checkout and then:
 
 1. holds each kernel against its plain PyTorch version, bit for bit: the
@@ -11,15 +11,24 @@ the checkout and then:
    the 65,535 planes one launch takes), the two float kernels on the card
    at every dtype pair, filter and layout, an extreme downscale and the JAX
    package's kernel-test shapes (they round each product and each sum in
-   the plain version's tap order, so any difference is a fault);
+   the plain version's tap order, so any difference is a fault), the same
+   two kernels over transposed tables (the resize's adjoint, f32 and bf16),
+   and the crop kernel's integer and float variants on the JAX package's
+   crop-test windows and at full size;
 2. drives the port's main paths through their public entry points, each
    with every launch count set to 0 just before it and read just after:
    the uint8 ImageNet-eval pipeline (Pillow kernel); BASELINE config 5
    through ``VideoDownscaler`` (bf16 [64, 3, 2160, 3840] -> 1080x1920);
    configs 1-2 through ``resize`` (f32 [1, 3, 438, 906] -> 196x320,
    bilinear and bicubic, NCHW and NHWC); the float32-domain eval pipeline
-   on ``entry()``'s batch.  Each is checked bit for bit against the plain
-   version on the card, with TF32 off;
+   on ``entry()``'s batch; BASELINE config 4 (``torch.autograd.grad``
+   through ``resize_plane``, f32 [8, 3, 438, 906] -> 196x320: forward and
+   adjoint kernels); the train path (``ImageNetTrainPipeline`` on a uint8
+   [64, 3, 438, 906] batch, ``Trainer`` steps on its output,
+   ``crop_and_resize`` on the batch and ``random_resized_crop`` on 4K
+   frames through the crop kernel).  Each is checked bit for bit against
+   the same call with every kernel replaced by its plain version on the
+   card, with TF32 off and cuDNN deterministic;
 3. times each kernel beside its plain version on the card, in turns.
 
 Every phase prints one JSON line (each kernel-vs-plain case goes to
@@ -34,6 +43,7 @@ is held to its plain version.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -45,15 +55,22 @@ import torch
 
 from interpolate_antialiasing_tpu_torch import (
     ImageNetEvalPipeline,
+    ImageNetTrainPipeline,
+    Trainer,
     VideoDownscaler,
+    crop_and_resize,
     native,
+    random_resized_crop,
     resize,
+    resize_plane,
 )
 from interpolate_antialiasing_tpu_torch.config import full_f32
+from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
+from interpolate_antialiasing_tpu_torch.ops.crop import box_fracs, sample_boxes
 from interpolate_antialiasing_tpu_torch.ops.resize_xla import resize_axis_dense
-from interpolate_antialiasing_tpu_torch.ops.weights import make_axis_spec
+from interpolate_antialiasing_tpu_torch.ops.weights import adjoint_tables, make_axis_spec
 from interpolate_antialiasing_tpu_torch.utils.timing import time_cuda
 
 MODES = ("bilinear", "bicubic", "lanczos3", "box", "hamming")
@@ -66,6 +83,10 @@ ENTRY = ((8, 3, 438, 906), (224, 224))  # __graft_entry__.entry()'s workload
 UHD = ((3, 2160, 3840), (1080, 1920))  # 4K -> HD frame
 CONFIG5 = ((64, 3, 2160, 3840), (1080, 1920))  # BASELINE config 5, bf16
 HEADLINE = ((1, 3, 438, 906), (196, 320))  # BASELINE configs 1-2, f32
+CONFIG4 = ((8, 3, 438, 906), (196, 320))  # BASELINE config 4: the VJP, f32
+TRAIN_B64 = ((64, 3, 438, 906), (224, 224))  # run_all's crop / train-aug batch
+CROP_4K = ((8, 3, 2160, 3840), (224, 224))  # RandomResizedCrop of 4K frames
+TRAIN_STEPS = 3
 
 U8, F32, BF16 = torch.uint8, torch.float32, torch.bfloat16
 DTYPES = (U8, F32, BF16)
@@ -327,6 +348,126 @@ def check_float_kernels(dev) -> tuple[float, float]:
     return t2d.summary(), tax.summary()
 
 
+def _adjoint2d_cases():
+    """(name, cotangent shape, (H, W) of the adjoint's output, mode)"""
+    # tests/test_resize2d_fused.py::test_onekernel_adjoint_matches_dense
+    yield ("fused_adjoint", (2, 196, 320), (438, 906), "bilinear")
+    yield ("fused_adjoint", (2, 200, 50), (97, 131), "bicubic")
+    for shape, ohw, mode, _, _ in JAX_CASES:  # the forward cases, reversed
+        yield ("jax_case", (*shape[:-2], *ohw), shape[-2:], mode)
+    for mode in ("bilinear", "bicubic", "lanczos3", "box"):
+        yield (mode, (3, 40, 260), (97, 131), mode)  # H down, W up
+
+
+def _adjoint_axis_cases():
+    """(name, cotangent shape, axis, size of the adjoint's output, mode)"""
+    # tests/test_resize2d_fused.py::test_transpose_pass_matches_dense
+    yield ("transpose_pass", (2, 3, 10, 320), 3, 906, "bicubic")
+    yield ("transpose_pass", (2, 3, 196, 33), 2, 64, "bicubic")
+    yield ("transpose_pass", (1, 2, 4, 300), 3, 50, "bicubic")
+    for mode in ("bilinear", "bicubic", "lanczos3", "box"):
+        yield (f"mid {mode}", (2, 40, 57, 3), 1, 131, mode)
+        yield (f"last up {mode}", (2, 57, 130), -1, 41, mode)
+
+
+def check_adjoint_kernels(dev) -> tuple[float, float]:
+    """resample2d and resample_axis over transposed tables (the resize's
+    adjoint), f32 and bf16, against their plain versions on the card."""
+    t2d, tax = _Tally("resample2d adjoint"), _Tally("resample_axis adjoint")
+    seed = 300
+    for name, gshape, (H, W), mode in _adjoint2d_cases():
+        th = adjoint_tables(make_axis_spec(H, gshape[-2], mode))
+        tw = adjoint_tables(make_axis_spec(W, gshape[-1], mode))
+        for dt in (F32, BF16):
+            seed += 1
+            g = _rand(gshape, dt, dev, seed)
+            before = cr.launches_2d
+            got = cr.resize2d(g, th, tw, dt)
+            torch.cuda.synchronize()
+            if cr.launches_2d != before + 1:
+                raise RuntimeError(f"resample2d adjoint {name}: not launched")
+            want = cr._resample2d_plain(_view3(g, -2), th, tw, dt).reshape(got.shape)
+            t2d.add(name, _compare(f"resample2d adjoint {name}", got, want),
+                    shape=list(gshape), out=list(got.shape), mode=mode,
+                    dtype=str(dt), taps=[th.ntaps, tw.ntaps], plan=list(cr._plan2d(th)))
+    for name, gshape, axis, n_out, mode in _adjoint_axis_cases():
+        t = adjoint_tables(make_axis_spec(n_out, gshape[axis], mode))
+        for dt in (F32, BF16):
+            seed += 1
+            g = _rand(gshape, dt, dev, seed)
+            before = cr.launches_axis
+            got = cr.resize_axis(g, t, axis, dt)
+            torch.cuda.synchronize()
+            if cr.launches_axis != before + 1:
+                raise RuntimeError(f"resample_axis adjoint {name}: not launched")
+            want = cr._resample_axis_plain(_view3(g, axis), t, dt).reshape(got.shape)
+            tax.add(name, _compare(f"resample_axis adjoint {name}", got, want),
+                    shape=list(gshape), axis=axis, out=list(got.shape),
+                    mode=mode, dtype=str(dt), taps=t.ntaps)
+    return t2d.summary(), tax.summary()
+
+
+def _run_all_boxes(n: int) -> np.ndarray:
+    """benchmarks/run_all.py's crop boxes: corners uniform in [0, 0.35) and
+    [0.65, 1)."""
+    rng = np.random.default_rng(0)
+    b01 = rng.uniform(0.0, 0.35, size=(n, 2)).astype(np.float32)
+    b23 = rng.uniform(0.65, 1.0, size=(n, 2)).astype(np.float32)
+    return np.concatenate([b01, b23], axis=1)
+
+
+def _crop_cases():
+    """(name, x shape, boxes, (oh, ow), method, max_box_frac)"""
+    rng = np.random.default_rng(7)
+    # tests/test_crop.py's windowed-route cases
+    full_and_border = [[0.0, 0.0, 1.0, 1.0], [0.1, 0.2, 0.8, 0.9],
+                       [0.0, 0.5, 0.3, 1.0], [0.47, 0.55, 0.4701, 0.5502]]
+    for m in ("bilinear", "box", "hamming"):
+        yield (f"oracle {m}", (4, 3, 96, 160), full_and_border, (48, 64), m, 1.0)
+    u = rng.uniform(0, 1, (3, 4))
+    yield ("dense_route", (3, 2, 80, 144),
+           np.stack([u[:, 0] * 0.4, u[:, 1] * 0.4, u[:, 0] * 0.4 + 0.3 + u[:, 2] * 0.3,
+                     u[:, 1] * 0.4 + 0.3 + u[:, 3] * 0.3], -1), (32, 48), "bilinear", 1.0)
+    for frac in (1.0, 0.45):
+        yield (f"max_box_frac {frac}", (2, 1, 128, 256),
+               [[0.2, 0.3, 0.55, 0.65], [0.0, 0.0, 0.4, 0.4]], (32, 32), "bilinear", frac)
+    gen = torch.Generator().manual_seed(3)
+    yield ("rrc", (4, 3, 120, 200), sample_boxes(gen, 4, 120, 200, (0.2, 0.9), (0.8, 1.25)),
+           (32, 32), "bilinear", box_fracs(120, 200, (0.2, 0.9), (0.8, 1.25)))
+    (shape, ohw) = TRAIN_B64
+    yield ("b64 438x906 run_all boxes", shape, _run_all_boxes(shape[0]), ohw, "bilinear", 1.0)
+    (shape, ohw) = CROP_4K
+    yield ("4k rrc boxes", shape, sample_boxes(gen, shape[0], *shape[2:]), ohw, "bilinear",
+           box_fracs(*shape[2:]))
+
+
+def check_crop_kernel(dev) -> float:
+    """Both variants of crop_resample against their plain version on the
+    card, over the same device-built tables."""
+    tally = _Tally("crop_resample")
+    seed = 500
+    for name, shape, boxes, ohw, method, frac in _crop_cases():
+        seed += 1
+        x = _rand(shape, U8, dev, seed)
+        b = torch.as_tensor(np.asarray(boxes, np.float32)).to(dev)
+        for precision in ("pil_int8", "split"):
+            tables = cc._windowed_tables(x, b, ohw, method, True, frac, precision)
+            before = cc.launches_crop
+            got = cc._crop_resample(x, *tables)
+            torch.cuda.synchronize()
+            if cc.launches_crop != before + 2:
+                raise RuntimeError(f"crop_resample {name}: not launched twice")
+            want = cc._crop_resample_plain(x, *tables)
+            tally.add(f"{name} {precision}",
+                      _compare(f"crop_resample {name} {precision}", got, want),
+                      shape=list(shape), out=list(got.shape), method=method,
+                      max_box_frac=frac, pb=[tables[2], tables[3]],
+                      window=[tables[0][2].shape[-1], tables[1][2].shape[-1]],
+                      taps=[int(tables[0][1].max()), int(tables[1][1].max())])
+            del tables, got, want
+    return tally.summary()
+
+
 # ---------------------------------------------------------------------------
 # 3. the main paths
 # ---------------------------------------------------------------------------
@@ -334,18 +475,38 @@ def check_float_kernels(dev) -> tuple[float, float]:
 
 def _counts() -> dict:
     return {"pil_resample_2pass": pe.launches, "resample2d": cr.launches_2d,
-            "resample_axis": cr.launches_axis}
+            "resample_axis": cr.launches_axis, "crop_resample": cc.launches_crop}
 
 
 def _reset() -> None:
-    pe.launches = cr.launches_2d = cr.launches_axis = 0
+    pe.launches = cr.launches_2d = cr.launches_axis = cc.launches_crop = 0
 
 
 def _expect(phase: str, want: dict) -> dict:
+    """The launch counts since :func:`_reset` against ``want`` (kernels it
+    does not name: 0)."""
     got = _counts()
+    want = {k: want.get(k, 0) for k in got}
     if got != want:
         raise RuntimeError(f"{phase}: kernel launches {got}, expected {want}")
     return got
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Every kernel's wrapper runs its plain version on the card instead of
+    launching (no count moves): the reference run of a main path."""
+    saved = (cr._resample2d_cuda, cr._resample_axis_cuda,
+             pe._resample_2pass_cuda, cc._crop_resample_cuda)
+    cr._resample2d_cuda = lambda x3, sh, sw, odt, plan: cr._resample2d_plain(x3, sh, sw, odt)
+    cr._resample_axis_cuda = cr._resample_axis_plain
+    pe._resample_2pass_cuda = pe._resample_2pass_plain
+    cc._crop_resample_cuda = cc._crop_resample_plain
+    try:
+        yield
+    finally:
+        (cr._resample2d_cuda, cr._resample_axis_cuda,
+         pe._resample_2pass_cuda, cc._crop_resample_cuda) = saved
 
 
 def main_path_u8_pipeline(dev) -> int:
@@ -455,6 +616,134 @@ def main_path_f32_pipeline(dev) -> int:
     return counts["resample2d"]
 
 
+def main_path_config4(dev) -> tuple[int, int]:
+    """BASELINE config 4 as benchmarks/run_all.py runs it: the VJP of
+    ``resize_plane`` (cotangent = the output), bilinear and bicubic, and the
+    train-step resize backward (grad of a mean squared error); then the
+    NHWC bicubic VJP (the per-axis kernel and its adjoint)."""
+    (shape, ohw) = CONFIG4
+    x = _rand(shape, F32, dev, 41).div_(255.0)
+    tgt = _rand((shape[0], shape[1], *ohw), F32, dev, 42).div_(255.0)
+
+    def vjp(mode, layout="NCHW"):
+        xr = (x if layout == "NCHW" else x.permute(0, 2, 3, 1).contiguous())
+        xr = xr.detach().requires_grad_()
+        h, w = (2, 3) if layout == "NCHW" else (1, 2)
+        y = resize_plane(xr, ohw, h, w, mode=mode)
+        return torch.autograd.grad(y, xr, grad_outputs=y)[0]
+
+    def train_bwd():
+        xr = x.detach().requires_grad_()
+        loss = ((resize_plane(xr, ohw, 2, 3, mode="bilinear") - tgt) ** 2).mean()
+        return torch.autograd.grad(loss, xr)[0]
+
+    n2d = naxis = 0
+    for name, fn, want in [
+        ("bilinear-vjp-b8", lambda: vjp("bilinear"), {"resample2d": 2}),
+        ("bicubic-vjp-b8", lambda: vjp("bicubic"), {"resample2d": 2}),
+        ("train-step-resize-bwd-b8", train_bwd, {"resample2d": 2}),
+        ("bicubic-vjp-b8 NHWC", lambda: vjp("bicubic", "NHWC"), {"resample_axis": 4}),
+    ]:
+        _reset()
+        got = fn()
+        torch.cuda.synchronize()
+        counts = _expect(f"config 4 {name}", want)
+        n2d += counts["resample2d"]
+        naxis += counts["resample_axis"]
+        with _plain_kernels():
+            ref = fn()
+        res = _compare(f"config 4 {name}", got, ref)
+        _line("main_path", path=f"config 4 {name}", shape=list(shape), out=list(ohw),
+              grad_shape=list(got.shape), launches=counts, **res)
+    return n2d, naxis
+
+
+def main_path_train(dev) -> tuple[int, int]:
+    """The train path on one uint8 batch: ``ImageNetTrainPipeline`` (flip
+    folded in: the dense route, no kernel), ``Trainer`` steps on its output
+    (one resample2d launch per step, no adjoint: the images do not require
+    grad), ``crop_and_resize`` with run_all's boxes and
+    ``random_resized_crop`` of 4K frames (no flip: the crop kernel)."""
+    (shape, size) = TRAIN_B64
+    erng = np.random.default_rng(0)
+    batch = torch.from_numpy((erng.random(shape) * 255).astype(np.uint8))
+    x = batch.to(dev)
+    pipe = ImageNetTrainPipeline(size=size).to(dev)
+    _reset()
+    imgs = pipe(torch.Generator().manual_seed(0), x)
+    torch.cuda.synchronize()
+    counts = _expect("train pipeline", {})
+    want = ImageNetTrainPipeline(size=size)(torch.Generator().manual_seed(0), batch)
+    err = _max_abs(imgs.cpu(), want)
+    # the same boxes and flips on the CPU: float32 products in another order
+    # may move a uint8 crop value by one grey level, 1 / (255 * std)
+    if imgs.shape != (shape[0], 3, *size) or not bool(torch.isfinite(imgs).all()) \
+            or err > 1.0 / (255.0 * 0.224) + 1e-5:
+        raise RuntimeError(f"train pipeline: {tuple(imgs.shape)}, max abs err "
+                           f"vs the CPU run {err}")
+    _line("main_path", path="train pipeline (dense crop + flip)", batch=list(shape),
+          size=list(size), launches=counts, max_abs_err_vs_cpu=err)
+
+    labels = torch.from_numpy(erng.integers(0, 10, shape[0])).to(dev)
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        tr = Trainer(seed=0, device=dev)
+        _reset()
+        losses = [float(tr.step(imgs, labels)) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        counts = _expect("trainer", {"resample2d": TRAIN_STEPS})
+        ref = Trainer(seed=0, device=dev)
+        with _plain_kernels():
+            ref_losses = [float(ref.step(imgs, labels)) for _ in range(TRAIN_STEPS)]
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    if not all(math.isfinite(v) for v in losses) or losses != ref_losses:
+        raise RuntimeError(f"trainer: losses {losses} vs plain run {ref_losses}")
+    for k, p in tr.params.items():
+        _compare(f"trainer param {k}", p.detach(), ref.params[k].detach())
+    _line("main_path", path="Trainer steps", images=list(imgs.shape),
+          resize_to=list(tr.resize_to), steps=TRAIN_STEPS, launches=counts,
+          losses=losses, params_equal_to_plain_run=True)
+    del imgs, tr, ref
+
+    n_crop = 0
+    boxes = torch.from_numpy(_run_all_boxes(shape[0])).to(dev)
+    x4k = _rand(CROP_4K[0], U8, dev, 61)
+    for name, fn, xin in [
+        ("crop_and_resize b64", lambda: crop_and_resize(x, boxes, size), x),
+        ("random_resized_crop 4k", lambda: random_resized_crop(
+            torch.Generator().manual_seed(1), x4k, CROP_4K[1]), x4k),
+    ]:
+        _reset()
+        y = fn()
+        torch.cuda.synchronize()
+        counts = _expect(name, {"crop_resample": 2})
+        n_crop += counts["crop_resample"]
+        with _plain_kernels():
+            ref = fn()
+        res = _compare(name, y, ref)
+        _line("main_path", path=name, shape=list(xin.shape), out=list(y.shape),
+              launches=counts, **res)
+    return n_crop, TRAIN_STEPS
+
+
+def check_crop_against_dense(dev) -> None:
+    """The windowed route against the dense route on the main path's calls:
+    within one grey level (the windowed route rounds its intermediate to
+    the uint8 lattice, as the JAX package's does)."""
+    (shape, size) = TRAIN_B64
+    x = _rand(shape, U8, dev, 71)
+    boxes = torch.from_numpy(_run_all_boxes(shape[0])).to(dev)
+    yw = crop_and_resize(x, boxes, size)
+    yd = crop_and_resize(x, boxes, size, use_windowed=False)
+    err = _max_abs(yw, yd)
+    if err > 1.0:
+        raise RuntimeError(f"windowed crop vs dense route: {err} > 1")
+    _line("crop_vs_dense", shape=list(shape), out=list(size), max_abs_err=err,
+          differing=int((yw != yd).sum()), elements=yw.numel())
+
+
 # ---------------------------------------------------------------------------
 # 4. times, kernel beside plain version, in turns plain, kernel, kernel, plain
 # ---------------------------------------------------------------------------
@@ -538,6 +827,56 @@ def time_float_kernels(dev, card) -> tuple[float, float, float, float]:
             sum(wp["plain"]) / 2 + sum(hp["plain"]) / 2)
 
 
+def time_train_kernels(dev, card) -> tuple[float, float]:
+    """The adjoint of config 4 and the crop kernel, beside their plain
+    versions; and the whole calls the main path makes."""
+    with full_f32():
+        (shape, ohw) = CONFIG4
+        sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
+        th, tw = adjoint_tables(sh), adjoint_tables(sw)
+        g3 = _view3(_rand((*shape[:2], *ohw), F32, dev, 81), -2)
+        adj = _turns(lambda: cr.resize2d(g3, th, tw, F32),
+                     lambda: cr._resample2d_plain(g3, th, tw, F32), 20, 3)
+        x = _rand(shape, F32, dev, 82).requires_grad_()
+
+        def vjp():
+            y = resize_plane(x, ohw, 2, 3)
+            return torch.autograd.grad(y, x, grad_outputs=y)[0]
+
+        _line("time_config4", card=card, kernel="resample2d adjoint",
+              shape=list(shape), size=list(ohw), adjoint_kernel_ms=adj["kernel"],
+              adjoint_plain_ms=adj["plain"], vjp_call_ms=time_cuda(vjp, iters=10))
+        del x
+        out = {}
+        for name, (shape, size), boxes in [
+            ("b64", TRAIN_B64, _run_all_boxes(TRAIN_B64[0][0])),
+            ("4k", CROP_4K, sample_boxes(torch.Generator().manual_seed(1),
+                                         CROP_4K[0][0], *CROP_4K[0][2:])),
+        ]:
+            x = _rand(shape, U8, dev, 83)
+            b = torch.as_tensor(np.asarray(boxes, np.float32)).to(dev)
+            frac = 1.0 if name == "b64" else box_fracs(*shape[2:])
+            for precision in ("pil_int8", "split"):
+                t = cc._windowed_tables(x, b, size, "bilinear", True, frac, precision)
+                ms = _turns(lambda: cc._crop_resample_cuda(x, *t),
+                            lambda: cc._crop_resample_plain(x, *t), 10, 2)
+                out[(name, precision)] = ms
+                _line("time_crop", card=card, kernel="crop_resample", case=name,
+                      precision=precision, shape=list(shape), size=list(size),
+                      kernel_ms=ms["kernel"], plain_ms=ms["plain"])
+            calls = {
+                "windowed": lambda: crop_and_resize(x, b, size, max_box_frac=frac),
+                "dense": lambda: crop_and_resize(x, b, size, use_windowed=False),
+            }
+            _line("time_crop_call", card=card, case=name, shape=list(shape),
+                  size=list(size), **{f"{k}_ms": time_cuda(f, iters=5, warmup=1)
+                                      for k, f in calls.items()})
+            del x
+            torch.cuda.empty_cache()
+    b64 = out[("b64", "pil_int8")]
+    return sum(b64["kernel"]) / 2, sum(b64["plain"]) / 2
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -557,17 +896,28 @@ def main() -> None:
         try:
             pil_err = check_pil_kernel(dev, rng)
             err_2d, err_axis = check_float_kernels(dev)
+            adj_2d, adj_axis = check_adjoint_kernels(dev)
+            crop_err = check_crop_kernel(dev)
         finally:
             CASES_LOG.parent.mkdir(exist_ok=True)
             CASES_LOG.write_text("".join(c + "\n" for c in _cases))
         _line("kernel_vs_plain_cases", written=str(CASES_LOG), cases=len(_cases))
+        torch.cuda.empty_cache()
         pil_launches = main_path_u8_pipeline(dev)
         c5_launches = main_path_config5(dev)
         torch.cuda.empty_cache()
         hl_2d, hl_axis = main_path_headline(dev)
         f32_launches = main_path_f32_pipeline(dev)
+        c4_2d, c4_axis = main_path_config4(dev)
+        torch.cuda.empty_cache()
+        crop_launches, train_2d = main_path_train(dev)
+        torch.cuda.empty_cache()
+        check_crop_against_dense(dev)
+        torch.cuda.empty_cache()
     pil_ms, pil_plain_ms = time_pil_kernel(dev, rng, card)
     ms_2d, plain_2d, ms_axis, plain_axis = time_float_kernels(dev, card)
+    torch.cuda.empty_cache()
+    crop_ms, crop_plain_ms = time_train_kernels(dev, card)
 
     print(card, flush=True)  # again, near the end of a long output
     print(json.dumps({"kernels": [
@@ -580,16 +930,23 @@ def main() -> None:
         {"name": "resample2d", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cu",
          "replaces": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1003",
-         "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1475",
-         "launches": c5_launches + hl_2d + f32_launches, "max_abs_err": err_2d,
-         "ms": ms_2d, "plain_ms": plain_2d},
+         "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1475, "
+                        ":1176 (adjoint)",
+         "launches": c5_launches + hl_2d + f32_launches + c4_2d + train_2d,
+         "max_abs_err": max(err_2d, adj_2d), "ms": ms_2d, "plain_ms": plain_2d},
         {"name": "resample_axis", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cu",
          "replaces": "interpolate_antialiasing_tpu/ops/pallas_resize.py:172",
          "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:184, "
-                        ":258, :275",
-         "launches": hl_axis, "max_abs_err": err_axis,
+                        ":258, :275, :1727 (adjoint)",
+         "launches": hl_axis + c4_axis, "max_abs_err": max(err_axis, adj_axis),
          "ms": ms_axis, "plain_ms": plain_axis},
+        {"name": "crop_resample", "route": "cuda",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/crop_resample.cu",
+         "replaces": "interpolate_antialiasing_tpu/ops/crop_pallas.py:250, :280",
+         "also_serves": "interpolate_antialiasing_tpu/ops/crop_pallas.py:303, :318",
+         "launches": crop_launches, "max_abs_err": crop_err,
+         "ms": crop_ms, "plain_ms": crop_plain_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -2,34 +2,61 @@
 ``interpolate_antialiasing_tpu`` for NVIDIA Hopper (H100).
 
 The JAX package is the reference; this package imports torch and numpy and
-never jax.  Ported so far, the uint8 eval path and the float forward route:
+never jax.  Ported so far, the serving paths and the training path:
 
   resize                 — the JAX package's resize: uint8 -> uint8
                            antialiased calls promoted to the Pillow-exact
                            route, every other route through the float kernels
-  resize_plane           — separable resize of any two axes
-  resize_nd              — one pass per axis over any axes
+  resize_plane           — separable resize of any two axes (differentiable)
+  resize_nd              — one pass per axis over any axes (differentiable)
   interpolate            — torch.nn.functional.interpolate-shaped shim
   image_resize           — jax.image.resize-shaped shim
   resize_pil_exact       — Pillow's 8bpc two-pass resample, byte for byte
+  crop_and_resize        — per-image boxes, windowed kernel or dense route
+  random_resized_crop    — antialiased RandomResizedCrop (torch.Generator)
+  linear/nearest/cubic_forward, *_backward — the reference's op surface
   ImageNetEvalPipeline   — uint8 batch -> resize -> normalised float (nn.Module)
+  ImageNetTrainPipeline  — uint8 batch -> RandomResizedCrop + flip -> normalised
   VideoDownscaler        — bf16 frames -> bf16 frames (nn.Module)
+  AAResize               — the resize as a parameter-free nn.Module
+  Trainer, params_from_jax — the small resize + conv model's SGD loop
 
-Three hand-written CUDA kernels (``csrc/``) run on CUDA tensors, their plain
-PyTorch versions on CPU tensors: pil_resample_2pass (Pillow's integer
-passes), resample2d (both float passes of a plane) and resample_axis (one
-pass over any axis).
+Autograd through every float resize is the exact adjoint (forward mode and
+``torch.func.vmap`` too).  Four hand-written CUDA kernels (``csrc/``) run on
+CUDA tensors, their plain PyTorch versions on CPU tensors:
+pil_resample_2pass (Pillow's integer passes), resample2d (both float passes
+of a plane, and of its adjoint), resample_axis (one pass over any axis, or
+its adjoint) and crop_resample (the windowed crop's two passes).
 
 Environment dials, shared with the JAX package: IA_TPU_DEBUG, IA_TPU_BACKEND,
 IA_TPU_PIL_DIGITS, IA_TPU_PRECISION.
 """
 
-from .models import ImageNetEvalPipeline, VideoDownscaler
+from .models import (
+    AAResize,
+    ImageNetEvalPipeline,
+    ImageNetTrainPipeline,
+    Trainer,
+    VideoDownscaler,
+    params_from_jax,
+)
+from .ops.api import (
+    cubic_backward,
+    cubic_forward,
+    linear_backward,
+    linear_forward,
+    nearest_backward,
+    nearest_forward,
+)
+from .ops.crop import crop_and_resize, random_resized_crop
 from .ops.pil_exact import resize_pil_exact
 from .ops.resize import image_resize, interpolate, resize, resize_nd, resize_plane
 
 __version__ = "0.1.0"
 
 __all__ = ["resize", "resize_plane", "resize_nd", "interpolate", "image_resize",
-           "resize_pil_exact", "ImageNetEvalPipeline", "VideoDownscaler",
-           "__version__"]
+           "resize_pil_exact", "crop_and_resize", "random_resized_crop",
+           "linear_forward", "nearest_forward", "cubic_forward",
+           "linear_backward", "nearest_backward", "cubic_backward",
+           "ImageNetEvalPipeline", "ImageNetTrainPipeline", "VideoDownscaler",
+           "AAResize", "Trainer", "params_from_jax", "__version__"]

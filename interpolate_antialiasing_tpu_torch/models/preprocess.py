@@ -3,6 +3,8 @@
 
   * the ImageNet-eval pipeline (batch-N arbitrary -> 224x224 bilinear AA,
     then cast and normalisation), in the uint8 or the float32 domain;
+  * the ImageNet-train pipeline (antialiased RandomResizedCrop with the
+    random horizontal flip folded in, then normalisation);
   * the bf16 video downscaler (3840x2160 -> 1920x1080, BASELINE config 5).
 """
 
@@ -13,9 +15,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops.crop import box_fracs, crop_and_resize, sample_boxes
 from ..ops.resize import resize, resize_plane
 
-__all__ = ["ImageNetEvalPipeline", "VideoDownscaler", "imagenet_eval_preprocess"]
+__all__ = ["ImageNetEvalPipeline", "ImageNetTrainPipeline", "VideoDownscaler",
+           "imagenet_eval_preprocess"]
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -107,6 +111,70 @@ class ImageNetEvalPipeline(nn.Module):
 
 def imagenet_eval_preprocess(batch_u8: torch.Tensor, size=(224, 224)) -> torch.Tensor:
     return ImageNetEvalPipeline(size=size)(batch_u8)
+
+
+class ImageNetTrainPipeline(nn.Module):
+    """uint8 NCHW batch -> augmented normalised float NCHW at ``size``.
+
+    The train-time counterpart of :class:`ImageNetEvalPipeline`:
+    antialiased RandomResizedCrop (``scale``, ``ratio``) with a random
+    horizontal flip (probability ``flip_prob``) folded into the crop's W
+    weights, the crop kept in uint8 (the Pillow-backend torchvision
+    transform's convention), then ``/255``, ``-mean``, ``/std``.  Because
+    it passes ``flip``, the crop takes the dense route, as in the JAX
+    package.  ``forward(generator, batch_u8)`` draws the boxes and flips
+    from ``generator`` (:meth:`sample`) and applies them (:meth:`apply`).
+    """
+
+    def __init__(
+        self,
+        size: tuple[int, int] = (224, 224),
+        method: str = "bilinear",
+        scale: tuple[float, float] = (0.08, 1.0),
+        ratio: tuple[float, float] = (0.75, 4.0 / 3.0),
+        flip_prob: float = 0.5,
+        dtype: torch.dtype = torch.float32,
+        mean: Sequence[float] = _IMAGENET_MEAN,
+        std: Sequence[float] = _IMAGENET_STD,
+    ):
+        super().__init__()
+        self.size = tuple(size)
+        self.method = method
+        self.scale = tuple(scale)
+        self.ratio = tuple(ratio)
+        self.flip_prob = flip_prob
+        self.dtype = dtype
+        self.register_buffer(
+            "mean", torch.tensor(mean, dtype=torch.float32).reshape(1, -1, 1, 1))
+        self.register_buffer(
+            "std", torch.tensor(std, dtype=torch.float32).reshape(1, -1, 1, 1))
+
+    def sample(self, generator: torch.Generator | None, batch_u8: torch.Tensor):
+        """``(boxes [N, 4], flip [N] bool)`` for a batch, from
+        ``generator`` (on its own device), moved to the batch's device."""
+        N, _, H, W = batch_u8.shape
+        boxes = sample_boxes(generator, N, H, W, self.scale, self.ratio,
+                             device=batch_u8.device)
+        gdev = generator.device if generator is not None else torch.device("cpu")
+        flip = torch.rand(N, generator=generator, device=gdev) < self.flip_prob
+        return boxes, flip.to(batch_u8.device)
+
+    def apply(self, batch_u8: torch.Tensor, boxes: torch.Tensor,
+              flip: torch.Tensor) -> torch.Tensor:
+        """Crop, resize and flip with the given boxes and flips, then
+        normalise."""
+        H, W = batch_u8.shape[-2:]
+        y = crop_and_resize(
+            batch_u8, boxes, self.size, method=self.method, flip=flip,
+            max_box_frac=box_fracs(H, W, self.scale, self.ratio),
+        )
+        # multiply by the float32 reciprocal, as the JAX pipeline does
+        y = y.to(torch.float32) * torch.tensor(1.0 / 255.0, dtype=torch.float32)
+        return ((y - self.mean.to(y.device)) / self.std.to(y.device)).to(self.dtype)
+
+    def forward(self, generator: torch.Generator | None,
+                batch_u8: torch.Tensor) -> torch.Tensor:
+        return self.apply(batch_u8, *self.sample(generator, batch_u8))
 
 
 class VideoDownscaler(nn.Module):

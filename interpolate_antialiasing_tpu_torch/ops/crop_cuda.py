@@ -1,0 +1,387 @@
+"""Windowed crop-and-resize of uint8 batches with per-image boxes: the host
+side, plain version and wrapper of ``csrc/crop_resample.cu`` (the port of
+``interpolate_antialiasing_tpu.ops.crop_pallas``).
+
+The crop box's *position* is data (a tensor), but its *size* is bounded by
+``max_box_frac``, so the 128 consecutive output rows of one tile only ever
+read a static ``K`` input rows (:func:`_window_k`).  Per image and tile the
+band of weights over that window is built on the device from the boxes
+(:func:`_windowed_band`: the PIL algorithm on the box interval, renormalised
+over the window, with the one-hot nearest fallback of a sub-pixel box and
+zero rows past the output), exactly as the JAX package builds it.  Then two
+passes, **H first, then W** (the reverse of ``resize``):
+
+  pass 1 (H):  ``inter[n, c, o, w] = q(sum_k band_h[n, o, k] * x[n, c, s + k, w])``
+  pass 2 (W):  ``y[n, c, o, u]     = q(sum_k band_w[n, u, k] * inter[n, c, o, s + k])``
+
+with the intermediate on the uint8 lattice.  Two precisions, as the JAX
+package's ``crop_and_resize_windowed``:
+
+  * ``"pil_int8"`` (default): integer weights ``K = round_half_away(band *
+    2^pb)`` with ``(pb, ndig)`` from :func:`_digit_plan` on the padded sizes,
+    and ``q(S) = (S + 2^(pb-1)) >> pb``.  The TPU kernels split ``K`` into
+    int8 digits and re-centre pixels by -128 for its int8 matrix unit; the
+    bias and the digit split cancel exactly, so the card's direct int32
+    multiply-add gives the same bytes (row 10 of the kernel table);
+  * ``"split"``: float32 weights, float32 sums in tap order and ``q(v) =
+    floor(v + 0.5)`` clamped (row 11); the TPU's split-bf16 matrix products
+    are a matrix-unit precision trick and are not reproduced.
+
+The kernel reads, per output row, its first input index, its tap count and
+its weights from that index on (:func:`_compact`: each band column's
+nonzero range, which is contiguous), so it does ``ntaps``, not ``K``,
+multiply-adds per output.  A CUDA tensor launches the kernel (both passes;
+``launches_crop`` counts each pass's launch); a CPU tensor runs the plain
+version (:func:`_crop_pass_plain`), which sums the same taps in the same
+order, so the two agree bit for bit.  Any other device raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import debug_enabled
+from .filters import CUBIC_NAMES, filter_is_nonnegative, get_filter
+
+__all__ = ["crop_windowed_supported", "crop_and_resize_windowed"]
+
+# Launches of the crop kernel (one per pass): the wrapper adds one per
+# launch and nowhere else.
+launches_crop = 0
+
+_LANE = 128  # output rows per window tile, and the W pass's start alignment
+_ALIGN_H = 32  # the H pass's start alignment (the TPU's uint8 sublane tile)
+_PRECISIONS = ("pil_int8", "split")
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+# ---------------------------------------------------------------------------
+# Static window geometry (host)
+# ---------------------------------------------------------------------------
+
+
+def _window_k(in_size: int, out_size: int, support: float, antialias: bool,
+              max_box_frac: float, start_align: int, k_mult: int) -> int:
+    """Static K for one axis: K input pixels cover any 128 consecutive
+    output rows of any box spanning <= ``max_box_frac * in_size``, with
+    ``(in_size - K) % start_align == 0`` and ``K % k_mult == 0`` so the
+    clipped, alignment-floored window starts stay inside the input."""
+    scale_max = max_box_frac * in_size / out_size
+    widen = max(scale_max, 1.0) if antialias else 1.0
+    # centers of one tile span (LANE-1)*scale; taps extend +-(support*widen
+    # + 0.5); +2 guards float rounding of the centers at the boundary.
+    ext = (_LANE - 1) * scale_max + 2.0 * (support * widen + 0.5) + 2.0
+    k = int(np.ceil(ext)) + start_align  # slack lost to start flooring
+    k = _round_up(k, k_mult)
+    if k >= in_size:
+        return in_size  # window covers the whole input; start == 0
+    while (in_size - k) % start_align and k < in_size:
+        k += k_mult
+    return min(k, in_size)
+
+
+def _fracs(max_box_frac) -> tuple[float, float]:
+    """The (scalar or per-axis ``(frac_h, frac_w)``) box-span bound."""
+    if isinstance(max_box_frac, (tuple, list)):
+        return float(max_box_frac[0]), float(max_box_frac[1])
+    return float(max_box_frac), float(max_box_frac)
+
+
+def _geom(H, W, oh, ow, support, antialias, max_box_frac):
+    """``(align_h, Hp, k_h, W2, k_w)``: the H pass's start alignment, the
+    row extent rounded up to 8, its window, the column extent rounded up to
+    128 and its window — the JAX package's geometry, so that starts and
+    windows agree with it."""
+    fh, fw = _fracs(max_box_frac)
+    Hp = _round_up(H, 8)
+    k_h = _window_k(Hp, oh, support, antialias, fh, _ALIGN_H, k_mult=8)
+    W2 = _round_up(W, _LANE)
+    k_w = _window_k(W2, ow, support, antialias, fw, _LANE, k_mult=_LANE)
+    return _ALIGN_H, Hp, k_h, W2, k_w
+
+
+def _digit_plan(in_size, out_size, support, antialias, frac) -> tuple[int, int]:
+    """``(pb, ndig)`` for one axis: pb=14 (two int8 digits on the TPU) when
+    the worst-case tap count keeps the weight quantisation inside the +-1
+    gate, else Pillow's pb=22 (three digits).  The port multiplies the int32
+    weights directly, so only ``pb`` changes its arithmetic."""
+    scale_max = frac * in_size / out_size
+    widen = max(scale_max, 1.0) if antialias else 1.0
+    ntaps = 2.0 * support * widen + 2.0
+    return (14, 2) if ntaps <= 57 else (22, 3)
+
+
+# ---------------------------------------------------------------------------
+# Per-image bands (device)
+# ---------------------------------------------------------------------------
+
+
+def _windowed_band(lo, hi, in_size: int, out_size: int, k: int, in_limit: int,
+                   start_align: int, mode: str, antialias: bool):
+    """Per-image windowed weights: ``(starts [N, nt] int32, band [N, nt, k,
+    128] float32)`` for boxes ``[lo, hi)`` in pixel units (``[N]`` float32
+    tensors).  ``band[n, t, j, u]`` weighs input ``starts[n, t] + j`` for
+    output ``t * 128 + u``.  The math of :func:`.crop._axis_matrix` (the PIL
+    algorithm on the box interval) on the window only, float32 op for op as
+    the JAX package's ``_windowed_band``."""
+    filt = get_filter(mode)
+    dev = lo.device
+    nt = -(-out_size // _LANE)
+    lo = lo.float()
+    hi = hi.float()
+    scale = (hi - lo) / out_size
+    widen = torch.clamp(scale, min=1.0) if antialias else torch.ones_like(scale)
+    support = filt.support * widen  # [N]
+
+    o = torch.arange(nt * _LANE, dtype=torch.float32, device=dev).reshape(nt, _LANE)
+    center = lo[:, None, None] + scale[:, None, None] * (o + 0.5)  # [N, nt, L]
+    # window start per (image, tile): lowest tap of the tile's first row,
+    # floored to the alignment, clipped into the (padded) input
+    raw = torch.floor(center[:, :, 0] - support[:, None] - 0.5) - 1.0
+    hi_start = float((in_limit - k) // start_align * start_align)
+    starts = torch.clamp(torch.floor(raw / start_align) * start_align,
+                         0.0, hi_start).to(torch.int32)  # [N, nt]
+
+    pos = (starts.float()[:, :, None, None]
+           + torch.arange(k, dtype=torch.float32, device=dev)[None, None, :, None])
+    c4 = center[:, :, None, :]  # [N, nt, 1, L]
+    arg = (pos - c4 + 0.5) / widen[:, None, None, None]
+    w = filt(arg, torch)  # [N, nt, k, L]
+    live = o[None, :, None, :] <= float(out_size) - 1.0  # dead pad rows
+    valid = (
+        (torch.abs(pos - c4 + 0.5) <= support[:, None, None, None])
+        & (pos + 0.5 >= lo[:, None, None, None])
+        & (pos + 0.5 <= hi[:, None, None, None])
+        & (pos <= float(in_size) - 1.0)
+        & live
+    )
+    w = torch.where(valid, w, 0.0)
+    total = w.sum(dim=2, keepdim=True)
+    # degenerate sub-pixel boxes: nearest-pixel fallback
+    nearest = torch.clamp(torch.round(c4 - 0.5), 0.0, float(in_size - 1))
+    onehot = ((pos == nearest) & live).to(w.dtype)
+    band = torch.where(total > 0.0, w / torch.where(total == 0.0, 1.0, total), onehot)
+    return starts, band
+
+
+def _digitize_band(band: torch.Tensor, pb: int) -> torch.Tensor:
+    """``K = round_half_away(band * 2^pb)`` as int32 (the JAX package's
+    ``_digitize_band`` before its split into int8 digits)."""
+    scaled = band * float(1 << pb)
+    return torch.where(scaled < 0, scaled - 0.5, scaled + 0.5).to(torch.int32)
+
+
+def _compact(starts: torch.Tensor, band: torch.Tensor, out_size: int):
+    """Per output row: ``(first [N, out] int32, cnt [N, out] int32, w [N,
+    out, K])``.  Row ``u`` reads inputs ``first + j`` for ``j < cnt`` with
+    weight ``w[.., j]`` (zero for ``j >= cnt``): its band column from the
+    first to the last nonzero weight.  Taps outside that range carry zero
+    weight, so skipping them changes no sum."""
+    N, nt, k, L = band.shape
+    rows = band.permute(0, 1, 3, 2).reshape(N, nt * L, k)[:, :out_size]
+    nz = rows != 0
+    any_nz = nz.any(dim=2)
+    ar = torch.arange(k, device=band.device)
+    j0 = torch.where(any_nz, nz.int().argmax(dim=2), 0)
+    j1 = torch.where(any_nz, k - nz.flip(2).int().argmax(dim=2), 0)
+    cnt = (j1 - j0).to(torch.int32)
+    idx = (j0[..., None] + ar).clamp_(max=k - 1)
+    w = torch.where(ar < cnt[..., None], rows.gather(2, idx), 0)
+    tile_start = starts.repeat_interleave(L, dim=1)[:, :out_size]
+    first = (tile_start + j0).to(torch.int32)
+    return first.contiguous(), cnt.contiguous(), w.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Plain version and kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _store_u8(acc: torch.Tensor, pb: int | None) -> torch.Tensor:
+    """uint8 lattice: ``(S + 2^(pb-1)) >> pb`` for integer sums, ``floor(v +
+    0.5)`` for float sums, clamped to [0, 255] (a no-op where admission's
+    clip-free bound holds)."""
+    if pb is not None:
+        v = (acc + (1 << (pb - 1))) >> pb
+    else:
+        v = torch.floor(acc + 0.5)
+    return v.clamp_(0, 255).to(torch.uint8)
+
+
+def _crop_pass_plain(x4: torch.Tensor, first, cnt, w, pb: int | None) -> torch.Tensor:
+    """One pass's plain version: ``x4[N, R, n_in, inner]`` uint8 ->
+    ``[N, R, n_out, inner]`` uint8 with per-image row tables; taps summed
+    in order from ``j = 0``, each product and sum rounded (float) or exact
+    (int32)."""
+    N, R, n_in, inner = x4.shape
+    n_out = first.shape[1]
+    adt = torch.int32 if pb is not None else torch.float32
+    acc = torch.zeros((N, R, n_out, inner), dtype=adt, device=x4.device)
+    taps = int(cnt.max()) if cnt.numel() else 0
+    for j in range(taps):
+        idx = (first + j).clamp(max=n_in - 1).long()
+        xv = x4.gather(2, idx[:, None, :, None].expand(N, R, n_out, inner))
+        acc = acc + w[:, None, :, j, None] * xv.to(adt)
+    return _store_u8(acc, pb)
+
+
+def _check_int32(name: str, k: int, pb: int | None) -> None:
+    """The int32 accumulator's bound, on the host before a launch: rows of
+    non-negative renormalised weights (sums within 2^-20 of 1 in float32)
+    sum to at most ``2^pb (1 + 2^-20) + k/2`` after rounding, so a row's
+    sum stays below 255 times that, plus ``2^(pb-1)``."""
+    if pb is None:
+        return
+    worst = 255 * ((1 << pb) + (1 << pb >> 20) + k // 2 + 1) + (1 << (pb - 1))
+    if worst >= 1 << 31:
+        raise ValueError(f"crop {name} pass: a {k}-tap window at pb={pb} can "
+                         f"overflow the int32 accumulator ({worst} >= 2^31)")
+
+
+def _launch(lib, x, out, first, cnt, w, N, R, n_in, inner, n_out, pb, dev):
+    global launches_crop
+    err = lib.ia_crop_pass(
+        x.data_ptr(), out.data_ptr(), N, R, n_in, inner, n_out,
+        first.data_ptr(), cnt.data_ptr(), w.data_ptr(), w.shape[-1],
+        -1 if pb is None else pb, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"crop_resample launch failed: cudaError {err}")
+    launches_crop += 1
+
+
+def _crop_resample_plain(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Tensor:
+    """The kernel's plain version, on any device: both passes of
+    :func:`_crop_pass_plain`."""
+    N, C, H, W = x.shape
+    OH, OW = tab_h[0].shape[1], tab_w[0].shape[1]
+    inter = _crop_pass_plain(x, *tab_h, pb_h)
+    y = _crop_pass_plain(inter.reshape(N, C * OH, W, 1), *tab_w, pb_w)
+    return y.reshape(N, C, OH, OW)
+
+
+def _crop_resample_cuda(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Tensor:
+    from .. import native
+
+    N, C, H, W = x.shape
+    OH, OW = tab_h[0].shape[1], tab_w[0].shape[1]
+    _check_int32("H", tab_h[2].shape[-1], pb_h)
+    _check_int32("W", tab_w[2].shape[-1], pb_w)
+    lib = native.build()
+    dev = x.device
+    x = x.contiguous()
+    inter = torch.empty((N, C, OH, W), dtype=torch.uint8, device=dev)
+    out = torch.empty((N, C, OH, OW), dtype=torch.uint8, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        _launch(lib, x, inter, *tab_h, N, C, H, W, OH, pb_h, dev)
+        _launch(lib, inter, out, *tab_w, N, C * OH, W, 1, OW, pb_w, dev)
+    return out
+
+
+def _crop_resample(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Tensor:
+    """Both passes: uint8 ``x[N, C, H, W]`` -> uint8 ``[N, C, OH, OW]`` over
+    the compact row tables ``tab_* = (first, cnt, w)`` (float32 ``w`` and
+    ``pb None``, or int32 ``w`` and ``pb``): the kernel on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    if x.device.type == "cuda":
+        return _crop_resample_cuda(x, tab_h, tab_w, pb_h, pb_w)
+    if x.device.type == "cpu":
+        return _crop_resample_plain(x, tab_h, tab_w, pb_h, pb_w)
+    raise ValueError(f"crop_resample runs on CUDA (kernel) or CPU (plain "
+                     f"version), not on {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# Admission + entry
+# ---------------------------------------------------------------------------
+
+
+def _mode(method: str, antialias: bool) -> str:
+    if not antialias and get_filter(method).name in CUBIC_NAMES:
+        return "bicubic075"
+    return method
+
+
+def crop_windowed_supported(x, out_hw, method: str, antialias: bool,
+                            max_box_frac=1.0) -> bool:
+    """Admission for the windowed route: uint8 NCHW, a non-negative filter
+    (the uint8 intermediate and the clip-free integer epilogue are exact to
+    the +-1 gate only there, and integer outputs need no autodiff), and a
+    box-span bound in ``(0, 1]``.
+
+    The JAX package also turns the route down when windowing saves less
+    than 30% of the dense route's multiply-adds, and when its bands and
+    blocks overflow a VMEM budget; both were measured for or sized by the
+    TPU and are dropped.  The kernel stages nothing in shared memory (each
+    thread reads its taps through the caches), so no window is too large
+    for it; :func:`_check_int32` bounds the accumulator before a launch."""
+    if x.ndim != 4 or x.dtype != torch.uint8:
+        return False
+    fh, fw = _fracs(max_box_frac)
+    if not (0.0 < fh <= 1.0 and 0.0 < fw <= 1.0):
+        return False
+    return filter_is_nonnegative(_mode(method, antialias))
+
+
+def crop_and_resize_windowed(
+    x: torch.Tensor,
+    boxes: torch.Tensor,
+    out_hw: tuple[int, int],
+    method: str = "bilinear",
+    antialias: bool = True,
+    max_box_frac=1.0,
+    precision: str = "pil_int8",
+) -> torch.Tensor:
+    """Windowed crop+resize: uint8 ``[N, C, H, W]`` and boxes ``[N, 4]``
+    (normalised ``(y0, x0, y1, x1)``) -> uint8 ``[N, C, OH, OW]``; the JAX
+    package's ``crop_and_resize_windowed``, on every device.
+
+    ``max_box_frac`` bounds the box span per axis (1.0 = the whole image);
+    a box larger than the bound renormalises over the truncated window, as
+    there.  ``precision`` is ``"pil_int8"`` (fixed-point weights, the
+    default) or ``"split"`` (float32 weights); see the module note.
+    Callers route through :func:`crop_windowed_supported`.
+    """
+    if debug_enabled():
+        print(f"[ia-tpu] crop_resample {precision} ({x.device.type})")
+    return _crop_resample(x, *_windowed_tables(x, boxes, out_hw, method, antialias,
+                                               max_box_frac, precision))
+
+
+def _windowed_tables(x, boxes, out_hw, method, antialias, max_box_frac,
+                     precision):
+    """``(tab_h, tab_w, pb_h, pb_w)`` for :func:`_crop_resample`: the
+    per-image bands on ``x``'s device, compacted per output row."""
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be one of {_PRECISIONS}, got {precision!r}")
+    N, C, H, W = x.shape
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    mode = _mode(method, antialias)
+    support = get_filter(mode).support
+    align_h, Hp, k_h, W2, k_w = _geom(H, W, oh, ow, support, antialias,
+                                      max_box_frac)
+    digit = precision == "pil_int8"
+    fh, fw = _fracs(max_box_frac)
+    pb_h, _ = _digit_plan(Hp, oh, support, antialias, fh)
+    pb_w, _ = _digit_plan(W2, ow, support, antialias, fw)
+    b = boxes.to(device=x.device, dtype=torch.float32)
+    starts_h, band_h = _windowed_band(b[:, 0] * H, b[:, 2] * H, H, oh, k_h, Hp,
+                                      align_h, mode, antialias)
+    # The TPU clips pass 2's starts into its pass-1 intermediate, whose width
+    # (a multiple of its VMEM-sized column chunk) may exceed W2.  Clipping
+    # into W2 gives the same taps: a start clipped to W2 - k_w (a multiple of
+    # 128) belongs to a tile whose taps all lie in [W2 - k_w, W), inside
+    # either window.
+    starts_w, band_w = _windowed_band(b[:, 1] * W, b[:, 3] * W, W, ow, k_w,
+                                      W2, _LANE, mode, antialias)
+    if digit:
+        band_h, band_w = _digitize_band(band_h, pb_h), _digitize_band(band_w, pb_w)
+    else:
+        pb_h = pb_w = None
+    return (_compact(starts_h, band_h, oh), _compact(starts_w, band_w, ow),
+            pb_h, pb_w)

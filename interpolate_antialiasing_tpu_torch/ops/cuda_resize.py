@@ -17,8 +17,15 @@ and its launch count:
     Wrapper :func:`resize_axis`; plain version :func:`_resample_axis_plain`;
     count ``launches_axis``.
 
+Each pass is given as an :class:`..weights.AxisSpec` (the forward matrix
+``W``) or as :class:`..weights.Tables`: ``adjoint_tables(spec)`` runs the
+same kernel over ``W^T``, which is how the backward pass of the resize runs
+(the JAX package's ``resize2d_onekernel_transpose`` and
+``resize_axis_transpose_pallas`` reuse their forward kernels over
+transposed bands the same way).
+
 Both take uint8, float32 or bfloat16 and give uint8, float32 or bfloat16,
-with float32 weights (the float64 ``compute_tables`` cast once) and float32
+with float32 weights (the float64 tables cast once) and float32
 sums, each product and each sum rounded in tap order
 (:func:`.resize_xla.gather_reduce`), so a kernel and its plain version agree
 bit for bit.  A uint8 store is ``floor(v + 0.5)`` clamped to [0, 255]; uint8 ->
@@ -38,7 +45,7 @@ import torch
 from .. import native
 from ..config import debug_enabled
 from .resize_xla import gather_reduce
-from .weights import AxisSpec, compute_tables
+from .weights import AxisSpec, Tables, as_tables
 
 __all__ = ["resize2d", "resize_axis"]
 
@@ -64,28 +71,29 @@ _INT_MAX = 2**31 - 1
 # ---------------------------------------------------------------------------
 
 
+Pass = AxisSpec | Tables  # a forward spec, or the tables of any pass
+
+
 @cache
-def _tables(spec: AxisSpec) -> tuple[np.ndarray, np.ndarray]:
-    """``(xmin[out] int32, w[out, ntaps] float32)``: the float64 weights of
-    :func:`..weights.compute_tables`, cast once.  Read-only (cached)."""
-    xmin, _, w = compute_tables(spec, dtype=np.float64)
-    xmin = np.ascontiguousarray(xmin, dtype=np.int32)
-    w = np.ascontiguousarray(w, dtype=np.float32)
-    for a in (xmin, w):
-        a.setflags(write=False)
-    return xmin, w
+def _tables(t: Pass) -> tuple[np.ndarray, np.ndarray]:
+    """``(xmin[out] int32, w[out, ntaps] float32)``: the pass's float64
+    tables (:func:`..weights.as_tables`), cast once.  Read-only (cached)."""
+    tb = as_tables(t)
+    w = np.ascontiguousarray(tb.w, dtype=np.float32)
+    w.setflags(write=False)
+    return tb.xmin, w
 
 
 @lru_cache(maxsize=256)
-def _tables_on(spec: AxisSpec, device: torch.device):
+def _tables_on(t: Pass, device: torch.device):
     """:func:`_tables` as tensors on ``device``, uploaded once per device."""
-    xmin, w = _tables(spec)
+    xmin, w = _tables(t)
     return (torch.from_numpy(xmin.copy()).to(device),
             torch.from_numpy(w.copy()).to(device))
 
 
 @cache
-def _plan2d(spec_h: AxisSpec) -> tuple[int, int, int] | None:
+def _plan2d(spec_h: Pass) -> tuple[int, int, int] | None:
     """``(tile_r, tile_c, rows_cap)`` for resample2d, or None where no tile
     fits a block's shared memory.
 
@@ -132,7 +140,7 @@ def _store(v: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     return v.to(out_dtype)  # bfloat16: round to nearest even
 
 
-def _resample2d_plain(x3: torch.Tensor, spec_h: AxisSpec, spec_w: AxisSpec,
+def _resample2d_plain(x3: torch.Tensor, spec_h: Pass, spec_w: Pass,
                       out_dtype: torch.dtype) -> torch.Tensor:
     """resample2d's plain PyTorch version, on any device: ``x3[B, H, W]`` ->
     ``[B, OH, OW]``, W pass then H pass."""
@@ -142,7 +150,7 @@ def _resample2d_plain(x3: torch.Tensor, spec_h: AxisSpec, spec_w: AxisSpec,
     return _store(gather_reduce(y, spec_h, 1, torch.float32), out_dtype)
 
 
-def _resample_axis_plain(x3: torch.Tensor, spec: AxisSpec,
+def _resample_axis_plain(x3: torch.Tensor, spec: Pass,
                          out_dtype: torch.dtype) -> torch.Tensor:
     """resample_axis's plain PyTorch version, on any device:
     ``x3[outer, n_in, inner]`` -> ``[outer, n_out, inner]``."""
@@ -226,11 +234,12 @@ def _resample_axis_cuda(x3, spec, out_dtype) -> torch.Tensor:
     return out
 
 
-def resize2d(x: torch.Tensor, spec_h: AxisSpec, spec_w: AxisSpec,
+def resize2d(x: torch.Tensor, spec_h: Pass, spec_w: Pass,
              out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Separable 2-D resize of the trailing ``[H, W]`` axes of ``x`` (any
     leading axes) in one resample2d launch — the counterpart of the JAX
-    package's ``resize2d_onekernel`` and ``resize2d_streamed``.
+    package's ``resize2d_onekernel`` and ``resize2d_streamed``, and, over
+    :func:`..weights.adjoint_tables`, of ``resize2d_onekernel_transpose``.
 
     ``x`` is uint8, float32 or bfloat16; ``out_dtype`` uint8 (``floor(v +
     0.5)`` clamped), float32 or bfloat16, by default float32 for uint8 input
@@ -262,12 +271,13 @@ def resize2d(x: torch.Tensor, spec_h: AxisSpec, spec_w: AxisSpec,
     return y.reshape(*lead, spec_h.out_size, spec_w.out_size)
 
 
-def resize_axis(x: torch.Tensor, spec: AxisSpec, axis: int,
+def resize_axis(x: torch.Tensor, spec: Pass, axis: int,
                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Resize ``axis`` of ``x`` (any rank) in one resample_axis launch — the
-    counterpart of the JAX package's ``resize_axis_pallas``.  ``x`` is viewed
-    as ``[outer, n_in, inner]``, so NCHW and NHWC both run without moves.
-    Dtypes as :func:`resize2d`."""
+    counterpart of the JAX package's ``resize_axis_pallas`` (and, over
+    :func:`..weights.adjoint_tables`, of ``resize_axis_transpose_pallas``).
+    ``x`` is viewed as ``[outer, n_in, inner]``, so NCHW and NHWC both run
+    without moves.  Dtypes as :func:`resize2d`."""
     out_dtype = _check(x, out_dtype)
     axis = axis % x.ndim
     if x.shape[axis] != spec.in_size:

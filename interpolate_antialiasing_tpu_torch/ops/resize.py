@@ -17,9 +17,14 @@ Routing follows the JAX package's **accelerator** routes on every device:
     package's plain (non-kernel) formulations (:mod:`.resize_xla`).
 
 On a CUDA tensor the kernel routes launch the kernels; on a CPU tensor they
-run the kernels' plain versions.  Autograd is not ported yet: a call on an
-input that requires grad, with grad mode on, raises NotImplementedError
-(ROADMAP queue 1 item 4) on every device.
+run the kernels' plain versions.
+
+Autograd: the float passes are linear, and run as ``torch.autograd.Function``
+pairs (:mod:`.autograd`, the port of the JAX package's primitives) whose
+backward is the exact adjoint ``W^T``: :func:`_plane_adjoint` and
+:func:`_transpose_axis` run the same kernels over transposed tables
+(``auto``/``pallas``, float32 and bfloat16) or the plain dense adjoint
+(float64 and the ``dense``/``gather``/``banded``/``xla`` backends).
 """
 
 from __future__ import annotations
@@ -29,13 +34,19 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..config import debug_enabled, default_backend
+from ..config import debug_enabled, default_backend, full_f32
 from .cuda_resize import KERNEL_DTYPES, resize2d, resize_axis
 from .pil_exact import _PIL_AUTO_METHODS, resize_pil_exact
-from .resize_xla import resize_axis_banded, resize_axis_dense, resize_axis_gather
-from .weights import AxisSpec, make_axis_spec
+from .resize_xla import (
+    _dense_on,
+    resize_axis_banded,
+    resize_axis_dense,
+    resize_axis_gather,
+)
+from .weights import AxisSpec, adjoint_tables, make_axis_spec
 
-__all__ = ["resize", "resize_plane", "interpolate", "resize_nd", "image_resize"]
+__all__ = ["resize", "resize_plane", "resize_plane_vjp", "interpolate",
+           "resize_nd", "image_resize"]
 
 _BACKENDS = ("auto", "xla", "pallas", "dense", "gather", "banded", "pil_exact")
 
@@ -48,16 +59,6 @@ _FORMATS = {
     "channels_first": (-2, -1),
     "channels_last": (-3, -2),
 }
-
-
-def _refuse_grad(x: torch.Tensor) -> None:
-    """The kernels' outputs carry no grad_fn: refuse rather than lose a
-    gradient silently (on every device, so CPU and GPU behave alike)."""
-    if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "autograd through the port's resize is not ported yet (ROADMAP "
-            "queue 1 item 4): call it under torch.no_grad() or on a detached "
-            "input")
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +116,15 @@ def _apply_axis(x: torch.Tensor, spec: AxisSpec, axis: int,
     return fn(x, spec, axis)
 
 
+def _apply_axis_diff(x: torch.Tensor, spec: AxisSpec, axis: int,
+                     backend: str) -> torch.Tensor:
+    """One pass as a differentiable op (its backward is
+    :func:`_transpose_axis`), on every backend route."""
+    from .autograd import apply_axis
+
+    return apply_axis(x, spec, axis, backend)
+
+
 # ---------------------------------------------------------------------------
 # Separable 2-D plane resize
 # ---------------------------------------------------------------------------
@@ -139,6 +149,56 @@ def _resize_plane_impl(
     return _apply_axis(y, spec_h, h_axis, backend)
 
 
+def _transpose_axis(g: torch.Tensor, spec: AxisSpec, axis: int,
+                    backend: str) -> torch.Tensor:
+    """Apply ``W^T`` along ``axis``: the exact adjoint of :func:`_apply_axis`
+    (``g`` has ``spec.out_size`` there, the result ``spec.in_size``).
+
+    ``auto``/``pallas`` with float32 or bfloat16 runs one resample_axis
+    launch over the transposed tables (the JAX package's
+    ``resize_axis_transpose_pallas``); float64 and the plain backends
+    contract with ``dense_matrix(spec).T`` (its einsum), TF32 off."""
+    if backend in ("auto", "pallas") and g.dtype in (torch.float32, torch.bfloat16):
+        if debug_enabled():
+            print(f"[ia-tpu] adjoint axis={axis} {spec.out_size}->{spec.in_size} "
+                  "resample_axis")
+        return resize_axis(g, adjoint_tables(spec), axis)
+    W = _dense_on(spec, g.dtype, g.device)  # [out, in]
+    with full_f32():
+        y = torch.matmul(g.movedim(axis, -1), W)
+    return y.movedim(-1, axis)
+
+
+def _plane_adjoint(g: torch.Tensor, spec_h: AxisSpec, spec_w: AxisSpec,
+                   h_axis: int, w_axis: int, backend: str) -> torch.Tensor:
+    """Exact adjoint of :func:`_resize_plane_impl`.  A trailing ``[H, W]``
+    plane under ``auto``/``pallas`` in float32 or bfloat16 is one resample2d
+    launch over the transposed tables, W pass then H pass (the JAX
+    package's ``resize2d_onekernel_transpose``); otherwise the per-axis
+    adjoints in reverse pass order, H first, then W."""
+    if (
+        backend in ("auto", "pallas")
+        and g.dtype in (torch.float32, torch.bfloat16)
+        and h_axis % g.ndim == g.ndim - 2
+        and w_axis % g.ndim == g.ndim - 1
+    ):
+        if debug_enabled():
+            print("[ia-tpu] adjoint plane resample2d")
+        return resize2d(g, adjoint_tables(spec_h), adjoint_tables(spec_w),
+                        out_dtype=g.dtype)
+    gh = _transpose_axis(g, spec_h, h_axis, backend)
+    return _transpose_axis(gh, spec_w, w_axis, backend)
+
+
+def resize_plane_vjp(x: torch.Tensor, spec_h: AxisSpec, spec_w: AxisSpec,
+                     h_axis: int, w_axis: int, backend: str) -> torch.Tensor:
+    """Spec-level plane entry: the differentiable plane op (backward
+    :func:`_plane_adjoint`, forward mode and ``torch.func.vmap`` too)."""
+    from .autograd import apply_plane
+
+    return apply_plane(x, spec_h, spec_w, h_axis, w_axis, backend)
+
+
 def resize_plane(
     x: torch.Tensor,
     out_hw: tuple[int, int],
@@ -152,12 +212,13 @@ def resize_plane(
     span_h: tuple[float, float] | None = None,
     span_w: tuple[float, float] | None = None,
 ) -> torch.Tensor:
-    """Separable resize of the (h_axis, w_axis) plane.
+    """Differentiable separable resize of the (h_axis, w_axis) plane.
 
     Input must already be a floating dtype; use :func:`resize` for the full
-    dtype/layout surface.  Not differentiable yet (see the module note).
+    dtype/layout surface.  Reverse mode (the exact adjoint, any order),
+    forward mode (``torch.func.jvp``) and ``torch.func.vmap`` work on every
+    backend route.
     """
-    _refuse_grad(x)
     backend = backend or default_backend()
     sfh, sfw = scale_factors if scale_factors is not None else (None, None)
     spec_w = make_axis_spec(
@@ -168,7 +229,7 @@ def resize_plane(
         x.shape[h_axis], out_hw[0], mode, antialias, align_corners, sfh,
         span=span_h,
     )
-    return _resize_plane_impl(x, spec_h, spec_w, h_axis, w_axis, backend)
+    return resize_plane_vjp(x, spec_h, spec_w, h_axis, w_axis, backend)
 
 
 # ---------------------------------------------------------------------------
@@ -622,14 +683,14 @@ def resize_nd(
 ) -> torch.Tensor:
     """Separable N-D resize: one pass per axis, innermost first (e.g. an
     antialiased trilinear volume resize with ``axes=(-3, -2, -1)``).  Under
-    ``auto``/``pallas`` each pass runs the resample_axis kernel."""
+    ``auto``/``pallas`` each pass runs the resample_axis kernel.
+    Differentiable (each pass is a linear op with its exact adjoint)."""
     if len(sizes) != len(axes):
         raise ValueError("sizes and axes must have equal length")
-    _refuse_grad(x)
     backend = backend or default_backend()
     y = x.to(_compute_dtype(x.dtype))
     order = sorted(zip(axes, sizes), key=lambda t: -(t[0] % x.ndim))
     for ax, sz in order:  # innermost axis first, like the separable driver
         spec = make_axis_spec(y.shape[ax], int(sz), method, antialias, align_corners)
-        y = _apply_axis(y, spec, ax % y.ndim, backend)
+        y = _apply_axis_diff(y, spec, ax % y.ndim, backend)
     return _finalize_dtype(y, x.dtype)

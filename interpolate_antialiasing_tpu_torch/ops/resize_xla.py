@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import full_f32
-from .weights import AxisSpec, banded_tiles, compute_tables, dense_matrix
+from .weights import AxisSpec, Tables, as_tables, banded_tiles, dense_matrix
 
 __all__ = [
     "resize_axis_dense",
@@ -68,20 +68,21 @@ def resize_axis_dense(x: torch.Tensor, spec: AxisSpec, axis: int) -> torch.Tenso
 
 
 @lru_cache(maxsize=256)
-def _gather_on(spec: AxisSpec, dtype: torch.dtype, device: torch.device):
+def _gather_on(t: AxisSpec | Tables, dtype: torch.dtype, device: torch.device):
     # Tables are always built in float64 (Pillow evaluates filters in double)
     # and cast once — float32 table construction can flip xmin boundaries.
-    xmin, _size, w = compute_tables(spec, dtype=np.float64)
-    return (torch.from_numpy(xmin.astype(np.int64)).to(device),
-            torch.from_numpy(w).to(device=device, dtype=dtype))
+    tb = as_tables(t)
+    return (torch.from_numpy(tb.xmin.astype(np.int64)).to(device),
+            torch.from_numpy(tb.w.copy()).to(device=device, dtype=dtype))
 
 
-def gather_reduce(x: torch.Tensor, spec: AxisSpec, axis: int,
+def gather_reduce(x: torch.Tensor, spec: AxisSpec | Tables, axis: int,
                   dtype: torch.dtype) -> torch.Tensor:
     """``sum_k w[o, k] * x[.., clamp(xmin[o] + k, 0, in - 1), ..]`` along
     ``axis``, in ``dtype``: taps in order from ``k = 0``, each product and
     each sum rounded to ``dtype`` (no fused multiply-add).  Out-of-range taps
-    carry zero weight, so the clamp never adds signal.
+    carry zero weight, so the clamp never adds signal.  ``spec`` is a
+    forward pass or the :class:`..weights.Tables` of any pass (an adjoint's).
 
     This is the order and rounding of the resample kernels, so with
     ``dtype=float32`` it is their plain version bit for bit."""

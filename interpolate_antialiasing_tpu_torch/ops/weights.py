@@ -7,12 +7,13 @@ expression for expression so both packages build identical float64 tables:
   2. ``dense_matrix`` — the banded weight matrix ``W[out, in]`` (the oracle).
   3. ``banded_tiles`` — the tile-compacted band ``[n_tiles, k_in, tile]``
      with per-tile window starts, which the plain ``resize_axis_banded``
-     route contracts tile by tile.
+     route contracts tile by tile; ``banded_tiles_from_matrix`` builds the
+     same from any banded matrix (the JAX package's adjoint bands).
+  4. ``Tables`` — the compact ``(xmin, w)`` tables of one pass, for the
+     forward matrix ``W`` (:func:`forward_tables`) or its adjoint ``W^T``
+     (:func:`adjoint_tables`), which is what the CUDA kernels read.
 
-The port's CUDA kernels read the compact tables directly; ``pick_tile_h``
-(the JAX package's matrix-unit tile picker) is not ported, nor is
-``banded_tiles_from_matrix``, which the JAX package uses for its backward
-pass and its matrix-unit kernels' bands (autograd comes to the port later).
+``pick_tile_h`` (the JAX package's matrix-unit tile picker) is not ported.
 
 Algorithm (identical to the reference / Pillow):
 
@@ -31,6 +32,7 @@ band non-Toeplitz and is required for Pillow bit-parity.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -43,6 +45,12 @@ __all__ = [
     "compute_tables",
     "dense_matrix",
     "banded_tiles",
+    "banded_tiles_from_matrix",
+    "Tables",
+    "forward_tables",
+    "adjoint_tables",
+    "compact_tables",
+    "as_tables",
     "pil_box_f32",
     "area_pixel_compute_scale",
 ]
@@ -396,3 +404,126 @@ def banded_tiles(
         n_tiles=n_tiles,
         out_padded=out_padded,
     )
+
+
+def banded_tiles_from_matrix(
+    W: np.ndarray, tile: int = 128, dtype=np.float32, align: int = 8,
+    in_cap: int | None = None,
+) -> BandedTiles:
+    """Tile-compact an arbitrary banded matrix ``W[out, in]``, as the JAX
+    package does for its adjoint bands (the transposed resize matrix is
+    again banded, with monotone window starts).  Window extents come from
+    the nonzero structure of each row tile; ``in_cap`` as in
+    :func:`banded_tiles`."""
+    out, insz = W.shape
+    n_tiles = -(-out // tile)
+    out_padded = n_tiles * tile
+    if in_cap is None:
+        in_cap = _round_up(insz, align)
+
+    los, his = [], []
+    for t in range(n_tiles):
+        rows = W[t * tile : min((t + 1) * tile, out)]
+        nz = np.nonzero(np.any(rows != 0.0, axis=0))[0]
+        if nz.size:
+            lo, hi = int(nz[0]), int(nz[-1]) + 1
+        else:
+            lo, hi = 0, 1
+        lo = (lo // align) * align
+        los.append(lo)
+        his.append(hi)
+    k_in = _round_up(max(hi - lo for lo, hi in zip(los, his)), align)
+    k_in = min(k_in, in_cap)
+
+    starts = np.zeros((n_tiles,), dtype=np.int32)
+    band = np.zeros((n_tiles, k_in, tile), dtype=np.float64)
+    for t in range(n_tiles):
+        start = max(0, min(los[t], in_cap - k_in))
+        starts[t] = start
+        rows = W[t * tile : min((t + 1) * tile, out)]
+        seg = rows[:, start : min(start + k_in, insz)]
+        band[t, : seg.shape[1], : seg.shape[0]] = seg.T
+    return BandedTiles(
+        starts=starts,
+        band=band.astype(dtype),
+        tile=tile,
+        k_in=k_in,
+        n_tiles=n_tiles,
+        out_padded=out_padded,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Compact tables of one pass, forward or adjoint
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Tables:
+    """The compact tables of one banded pass ``y = M @ x`` with ``M[out,
+    in]``: output ``o`` reads inputs ``xmin[o] + k`` for ``k < ntaps`` with
+    weight ``w[o, k]`` (float64; taps past ``in_size`` carry zero weight and
+    are clamped to the edge by every reader).  One object per spec and
+    direction (the builders are cached), so it hashes by identity and keys
+    the per-device caches of its readers.  Read-only."""
+
+    in_size: int
+    out_size: int
+    xmin: np.ndarray  # [out] int32
+    w: np.ndarray  # [out, ntaps] float64
+
+    @property
+    def ntaps(self) -> int:
+        return self.w.shape[1]
+
+
+def _frozen(*arrays) -> None:
+    for a in arrays:
+        a.setflags(write=False)
+
+
+@functools.cache
+def forward_tables(spec: AxisSpec) -> Tables:
+    """``W``'s tables: :func:`compute_tables` in float64."""
+    xmin, _, w = compute_tables(spec, dtype=np.float64)
+    xmin = np.ascontiguousarray(xmin, dtype=np.int32)
+    w = np.ascontiguousarray(w)
+    _frozen(xmin, w)
+    return Tables(spec.in_size, spec.out_size, xmin, w)
+
+
+def compact_tables(M: np.ndarray) -> Tables:
+    """Compact tables of a banded matrix ``M[out, in]`` whose nonzero
+    columns lie, row by row, in one range: row ``o`` gets ``xmin[o]`` = its
+    first nonzero column and the weights up to its last, zeros inside the
+    range kept, every row padded with zeros to the widest range.  A row with
+    no nonzero gets ``xmin = 0`` and zero weights."""
+    out, insz = M.shape
+    nz = M != 0.0
+    any_nz = nz.any(axis=1)
+    first = np.where(any_nz, nz.argmax(axis=1), 0)
+    last = np.where(any_nz, insz - 1 - nz[:, ::-1].argmax(axis=1), 0)
+    ntaps = int(max((last - first + 1).max(), 1))
+    cols = first[:, None] + np.arange(ntaps)[None, :]
+    keep = (cols <= last[:, None]) & any_nz[:, None]
+    w = np.where(keep, M[np.arange(out)[:, None], np.minimum(cols, insz - 1)], 0.0)
+    xmin = np.ascontiguousarray(first, dtype=np.int32)
+    w = np.ascontiguousarray(w, dtype=np.float64)
+    _frozen(xmin, w)
+    return Tables(insz, out, xmin, w)
+
+
+@functools.cache
+def adjoint_tables(spec: AxisSpec) -> Tables:
+    """``W^T``'s tables, from ``dense_matrix(spec, float64).T``: the
+    adjoint of the pass maps ``spec.out_size`` values to ``spec.in_size``.
+    ``W^T`` is banded with monotone window starts (each input pixel is read
+    by one contiguous range of outputs), so its rows compact like ``W``'s;
+    an upsampling axis gives each input many outputs (64 -> 196 bicubic:
+    about 12 taps)."""
+    return compact_tables(dense_matrix(spec, dtype=np.float64).T)
+
+
+def as_tables(t: AxisSpec | Tables) -> Tables:
+    """A pass given as a spec (its forward tables) or as tables."""
+    return t if isinstance(t, Tables) else forward_tables(t)

@@ -16,10 +16,13 @@ import math
 import pytest
 import torch
 
+import interpolate_antialiasing_tpu_torch as iat
+from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
+from interpolate_antialiasing_tpu_torch.ops.crop import sample_boxes
 from interpolate_antialiasing_tpu_torch.ops.resize_xla import resize_axis_dense
-from interpolate_antialiasing_tpu_torch.ops.weights import make_axis_spec
+from interpolate_antialiasing_tpu_torch.ops.weights import adjoint_tables, make_axis_spec
 
 pytestmark = pytest.mark.cuda
 
@@ -72,6 +75,62 @@ def test_resample_axis_kernel_matches_plain(dev, axis, idt, odt):
     x3 = x.reshape(math.prod(x.shape[:ax]), x.shape[ax], math.prod(x.shape[ax + 1:]))
     want = cr._resample_axis_plain(x3, spec, odt).reshape(got.shape)
     _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic", "lanczos3", "box"])
+def test_adjoint_resample2d_matches_plain(dev, mode, dt):
+    """resample2d over transposed tables (the plane adjoint): H downsampled,
+    W upsampled, so the W adjoint has many taps per output."""
+    th = adjoint_tables(make_axis_spec(97, 40, mode))
+    tw = adjoint_tables(make_axis_spec(131, 260, mode))
+    g = _input((3, 40, 260), dt, dev, seed=3)
+    before = cr.launches_2d
+    got = cr.resize2d(g, th, tw, dt)
+    torch.cuda.synchronize()
+    assert cr.launches_2d == before + 1 and got.shape == (3, 97, 131)
+    _assert_equal(got, cr._resample2d_plain(g, th, tw, dt))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis", [-1, 1])
+def test_adjoint_resample_axis_matches_plain(dev, axis, dt):
+    g = _input((2, 31, 83, 3) if axis == 1 else (2, 57, 31), dt, dev, seed=4)
+    t = adjoint_tables(make_axis_spec(64, 31, "bicubic"))
+    before = cr.launches_axis
+    got = cr.resize_axis(g, t, axis, dt)
+    torch.cuda.synchronize()
+    assert cr.launches_axis == before + 1 and got.shape[axis] == 64
+    ax = axis % g.ndim
+    g3 = g.reshape(math.prod(g.shape[:ax]), g.shape[ax], math.prod(g.shape[ax + 1:]))
+    _assert_equal(got, cr._resample_axis_plain(g3, t, dt).reshape(got.shape))
+
+
+def test_resize_plane_gradient_runs_the_adjoint_kernel(dev):
+    x = _input((2, 3, 97, 131), torch.float32, dev, seed=5).requires_grad_()
+    before = cr.launches_2d
+    y = iat.resize_plane(x, (40, 260), 2, 3, mode="bicubic")
+    g, = torch.autograd.grad(y, x, grad_outputs=y)
+    torch.cuda.synchronize()
+    assert cr.launches_2d == before + 2
+    xc = x.detach().cpu().requires_grad_()
+    yc = iat.resize_plane(xc, (40, 260), 2, 3, mode="bicubic")
+    gc, = torch.autograd.grad(yc, xc, grad_outputs=yc)
+    _assert_equal(g.cpu(), gc)
+
+
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+@pytest.mark.parametrize("frac", [1.0, 0.45])
+def test_crop_kernel_matches_plain(dev, precision, frac):
+    x = _input((4, 3, 300, 520), torch.uint8, dev, seed=6)
+    gen = torch.Generator().manual_seed(0)
+    boxes = sample_boxes(gen, 4, 300, 520, (0.05, 0.2)).to(dev)
+    tables = cc._windowed_tables(x, boxes, (96, 112), "bilinear", True, frac, precision)
+    before = cc.launches_crop
+    got = cc._crop_resample(x, *tables)
+    torch.cuda.synchronize()
+    assert cc.launches_crop == before + 2
+    _assert_equal(got, cc._crop_resample_plain(x, *tables))
 
 
 def test_pil_kernel_takes_more_than_65535_planes(dev):

@@ -18,6 +18,7 @@ Two references, with the tolerances they admit:
 Inputs are made from a numpy seed and handed to both packages.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -279,30 +280,53 @@ def test_eval_pipeline_float32_domain_matches_jax(short_side):
 
 
 # ---------------------------------------------------------------------------
-# Autograd refusal, host plan, routing
+# Gradients, host plan, routing
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize(
-    "call",
-    [lambda x: iat.resize(x, (10, 12)),
-     lambda x: iat.resize(x, (10, 12), backend="dense"),
-     lambda x: iat.resize_plane(x, (10, 12), 2, 3),
-     lambda x: iat.resize_nd(x, (10,), (2,)),
-     lambda x: iat.interpolate(x, size=(10, 12)),
-     lambda x: iat.image_resize(x, (1, 2, 10, 12)),
-     lambda x: iat.VideoDownscaler((10, 12))(x)],
-    ids=["resize", "resize_dense", "resize_plane", "resize_nd", "interpolate",
-         "image_resize", "video_downscaler"],
+    "entry",
+    ["resize", "resize_dense", "resize_plane", "resize_nd", "interpolate",
+     "image_resize", "video_downscaler"],
 )
-def test_requires_grad_is_refused(call):
-    x = torch.rand((1, 2, 20, 24), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        call(x)
-    with torch.no_grad():
-        y = call(x)
-    assert y.grad_fn is None
-    assert call(x.detach()).shape == y.shape
+def test_requires_grad_is_refused(entry):
+    """An input that requires grad is no longer refused: every public float
+    entry is differentiable, and its gradient equals ``jax.vjp`` of the JAX
+    package's entry on the same input and cotangent (float64 to 1e-12,
+    float32 to 1e-5 * max; ``VideoDownscaler`` computes in bfloat16, so
+    within one bfloat16 rounding, 2^-7 * max).  Under ``no_grad`` the
+    output carries no grad_fn and is the same."""
+    port, ref = {
+        "resize": (lambda m, x: m.resize(x, (10, 12)), None),
+        "resize_dense": (lambda m, x: m.resize(x, (10, 12), backend="dense"), None),
+        "resize_plane": (lambda m, x: m.resize_plane(x, (10, 12), 2, 3), None),
+        "resize_nd": (lambda m, x: m.resize_nd(x, (10,), (2,)), None),
+        "interpolate": (lambda m, x: m.interpolate(x, size=(10, 12)), None),
+        "image_resize": (lambda m, x: m.image_resize(x, (1, 2, 10, 12)), None),
+        "video_downscaler": (lambda m, x: iat.VideoDownscaler((10, 12))(x),
+                             lambda x: JaxVideo((10, 12))(x)),
+    }[entry]
+    ref = ref or (lambda x: port(ia, x))
+    dtypes = ["float32"] if entry == "video_downscaler" else ["float64", "float32"]
+    for dt in dtypes:
+        rng = np.random.default_rng(12)
+        xn = rng.random((1, 2, 20, 24)).astype(dt)
+        x = torch.from_numpy(xn).requires_grad_()
+        y = port(iat, x)
+        ct = rng.random(tuple(y.shape)).astype(np.float32)
+        gx, = torch.autograd.grad(y, x, torch.from_numpy(ct).to(y.dtype))
+        assert gx.dtype == x.dtype and gx.shape == x.shape
+        yj, vjp = jax.vjp(ref, jnp.asarray(xn))
+        want = np.asarray(vjp(jnp.asarray(ct).astype(yj.dtype))[0], np.float64)
+        err = np.abs(gx.numpy().astype(np.float64) - want).max()
+        peak = np.abs(want).max()
+        tol = {"float64": 1e-12, "float32": 1e-5 * peak}[dt]
+        if entry == "video_downscaler":
+            tol = 2.0**-7 * peak
+        assert err <= tol, (dt, err)
+        with torch.no_grad():
+            y0 = port(iat, x)
+        assert y0.grad_fn is None and torch.equal(y0, y.detach())
 
 
 def test_plan_narrows_columns_for_an_extreme_downscale():

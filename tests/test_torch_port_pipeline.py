@@ -223,6 +223,12 @@ def test_port_imports_no_jax():
         "import interpolate_antialiasing_tpu_torch.native\n"
         "import interpolate_antialiasing_tpu_torch.ops.cuda_resize\n"
         "import interpolate_antialiasing_tpu_torch.ops.resize_xla\n"
+        "import interpolate_antialiasing_tpu_torch.ops.autograd\n"
+        "import interpolate_antialiasing_tpu_torch.ops.api\n"
+        "import interpolate_antialiasing_tpu_torch.ops.crop\n"
+        "import interpolate_antialiasing_tpu_torch.ops.crop_cuda\n"
+        "import interpolate_antialiasing_tpu_torch.models.train\n"
+        "import interpolate_antialiasing_tpu_torch.models.aa_resize\n"
         "import interpolate_antialiasing_tpu_torch.utils.timing\n"
         "import interpolate_antialiasing_tpu_torch.utils.imageio\n"
         "import interpolate_antialiasing_tpu_torch.utils.metrics\n"
@@ -233,6 +239,12 @@ def test_port_imports_no_jax():
         "iat.VideoDownscaler((8, 8))(x.float())\n"
         "iat.interpolate(x.float(), size=(8, 8), mode='bicubic', backend='dense')\n"
         "iat.resize_nd(x.float(), (5,), (-1,))\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "iat.random_resized_crop(g, x, (8, 8))\n"
+        "iat.ImageNetTrainPipeline(size=(8, 8))(g, x)\n"
+        "xf = x.float().requires_grad_()\n"
+        "iat.resize_plane(xf, (8, 8), 2, 3).sum().backward()\n"
+        "iat.Trainer(resize_to=(8, 8)).step(x.float(), torch.zeros(1, dtype=torch.long))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'interpolate_antialiasing_tpu.')) or m == "
         "'interpolate_antialiasing_tpu')\n"
@@ -265,7 +277,7 @@ def test_build_is_keyed_by_sources():
     assert path.parent.parent == native._BUILD_DIR
     assert path.name == native._LIB_NAME
     assert [p.name for p in native._sources()] == [
-        "pil_resample.cu", "resample2d.cu", "resample_axis.cu"]
+        "crop_resample.cu", "pil_resample.cu", "resample2d.cu", "resample_axis.cu"]
     assert native._lib_path() == path  # stable for unchanged sources
 
 
