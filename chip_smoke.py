@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper card and the
-CUDA toolkit.  It builds the port's four CUDA kernels from the sources in
+CUDA toolkit.  It builds the port's five CUDA kernels from the sources in
 the checkout and then:
 
 1. holds each kernel against its plain PyTorch version, bit for bit: the
@@ -13,8 +13,12 @@ the checkout and then:
    package's kernel-test shapes (they round each product and each sum in
    the plain version's tap order, so any difference is a fault), the same
    two kernels over transposed tables (the resize's adjoint, f32 and bf16),
-   and the crop kernel's integer and float variants on the JAX package's
-   crop-test windows and at full size;
+   the crop kernel's integer and float variants on the JAX package's
+   crop-test windows and at full size, the sharded byte-exact route's
+   kernel (pil_resample_axis) over every shard's tables of 2, 4 and 8
+   shards, each filter, divisible and ceil-padded sizes, middle axis, last
+   axis and NHWC, and the per-axis float kernel over every shard's tables
+   and their transposes (f32 and bf16);
 2. drives the port's main paths through their public entry points, each
    with every launch count set to 0 just before it and read just after:
    the uint8 ImageNet-eval pipeline (Pillow kernel); BASELINE config 5
@@ -28,8 +32,22 @@ the checkout and then:
    ``crop_and_resize`` on the batch and ``random_resized_crop`` on 4K
    frames through the crop kernel).  Each is checked bit for bit against
    the same call with every kernel replaced by its plain version on the
-   card, with TF32 off and cuDNN deterministic;
-3. times each kernel beside its plain version on the card, in turns.
+   card, with TF32 off and cuDNN deterministic.  Then the sharded path at
+   the size it exists for, through the shard bodies on 4 shards (each
+   extended block built from the padded image as the ring delivers it):
+   ``resize_sharded_pil_exact``'s passes on a uint8 [3, 32768, 32768]
+   image -> 8192x8192 and a ceil-padded lanczos3 case, byte-equal to the
+   same shard bodies on the plain versions and to ``resize_pil_exact``;
+   ``resize_sharded`` and its VJP on a float32 [1, 3, 16384, 16384] image
+   -> 4096x4096 bicubic, equal bit for bit to the same shard bodies on the
+   plain versions and within 1e-5 of the largest value of ``resize`` and
+   ``resize_plane``'s VJP; and the public entry points (DTensor out) at the
+   same sizes and ``Trainer(mesh=...)`` in a one-rank NCCL group, against
+   their single-device counterparts (``--ranks N`` runs these group phases
+   across N cards of one host, one rank per card);
+3. times each kernel beside its plain version on the card, in turns, with
+   the least time the card could take for the same work and, where one
+   PyTorch call computes the same function, that call's time.
 
 Every phase prints one JSON line (each kernel-vs-plain case goes to
 ``smoke_out/chip_smoke_cases.jsonl``); any failure raises and exits
@@ -44,6 +62,7 @@ is held to its plain version.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import json
 import math
 import subprocess
@@ -71,6 +90,7 @@ from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
 from interpolate_antialiasing_tpu_torch.ops.crop import box_fracs, sample_boxes
 from interpolate_antialiasing_tpu_torch.ops.resize_xla import resize_axis_dense
 from interpolate_antialiasing_tpu_torch.ops.weights import adjoint_tables, make_axis_spec
+from interpolate_antialiasing_tpu_torch.parallel import halo
 from interpolate_antialiasing_tpu_torch.utils.timing import time_cuda
 
 MODES = ("bilinear", "bicubic", "lanczos3", "box", "hamming")
@@ -87,6 +107,17 @@ CONFIG4 = ((8, 3, 438, 906), (196, 320))  # BASELINE config 4: the VJP, f32
 TRAIN_B64 = ((64, 3, 438, 906), (224, 224))  # run_all's crop / train-aug batch
 CROP_4K = ((8, 3, 2160, 3840), (224, 224))  # RandomResizedCrop of 4K frames
 TRAIN_STEPS = 3
+# the sharded main path: images too large for one card, H split over 4 shards
+SHARDS = 4
+SHARD_U8 = ((3, 32768, 32768), (8192, 8192), "bilinear")  # uint8 CHW, 3.2 GB
+SHARD_U8_CEIL = ((3, 16387, 16411), (4099, 4097), "lanczos3")  # ceil-padded blocks
+SHARD_F32 = ((1, 3, 16384, 16384), (4096, 4096), "bicubic")  # float32 NCHW, 3.2 GB
+
+# the card's peaks (H100 SXM datasheet, at 700 W): device
+# memory, and float32 outside the tensor cores, the rate at which the int32
+# multiply-adds of the integer kernels are counted too
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12
 
 U8, F32, BF16 = torch.uint8, torch.float32, torch.bfloat16
 DTYPES = (U8, F32, BF16)
@@ -158,6 +189,41 @@ def _card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+
+
+def _bound(nbytes: int, macs: int) -> dict:
+    """The least time the card could take: the bytes the function must move
+    (each input, tables included, read once; each output written once) over
+    the memory rate, or its operations (two per multiply-add, counting the
+    taps these tables weight) over the peak rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / CUDA_CORE_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "ops": int(2 * macs)}
+
+
+def _nz(w) -> int:
+    """Taps with nonzero weight over all outputs of a pass's table."""
+    return int(np.count_nonzero(np.asarray(w)))
+
+
+def _nbytes(*arrays) -> int:
+    return sum(int(np.asarray(a).nbytes) for a in arrays)
+
+
+def _library(fn, want: torch.Tensor | None = None):
+    """``(ms, note)`` of one PyTorch call that computes the kernel's function:
+    timed where it runs and (for the uint8 kernels) gives the same bytes,
+    else ``(None, why not)``."""
+    try:
+        got = fn()
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 — a yardstick that does not exist
+        return None, f"{type(e).__name__}: {str(e)[:120]}"
+    if want is not None and (got.shape != want.shape or not torch.equal(got, want)):
+        return None, "differs from the kernel's bytes"
+    return time_cuda(fn, iters=10, warmup=2), "same function"
 
 
 # ---------------------------------------------------------------------------
@@ -468,6 +534,70 @@ def check_crop_kernel(dev) -> float:
     return tally.summary()
 
 
+def _pil_axis_cases():
+    """(name, x shape, axis, (xmin, Wb)): every shard's tables of n in {2,
+    4, 8} shards, each filter, divisible and ceil-padded sizes, on the
+    middle axis, the last axis and an NHWC view; and the W pass's tables."""
+    for n in (2, 4, 8):
+        for mode in MODES:
+            for ih, oh in ((96, 40), (97, 41)):
+                plan, starts, wsh = halo._int_halo_tables(ih, oh, mode, n)
+                for layout, shape, axis in (("mid", (3, plan.ext, 70), 1),
+                                            ("last", (3, 70, plan.ext), 2),
+                                            ("nhwc", (2, plan.ext, 70, 3), 1)):
+                    for d in range(n):
+                        yield (f"n={n} {mode} {ih}->{oh} {layout} shard {d}", shape, axis,
+                               (starts[d], wsh[d]))
+    for mode in MODES:
+        yield (f"w pass {mode}", (3, 40, 111), 2, pe._int_tables(111, 59, mode))
+
+
+def check_pil_axis_kernel(dev) -> float:
+    """pil_resample_axis against its plain version on the card, byte for
+    byte."""
+    tally = _Tally("pil_resample_axis")
+    seed = 700
+    for name, shape, axis, tables in _pil_axis_cases():
+        seed += 1
+        x = _rand(shape, U8, dev, seed)
+        before = pe.launches_axis
+        got = pe._resample_axis(x, tables, axis)
+        torch.cuda.synchronize()
+        if pe.launches_axis != before + 1:
+            raise RuntimeError(f"pil_resample_axis {name}: not launched")
+        want = pe._resample_axis_plain(_view3(x, axis), tables).reshape(got.shape)
+        tally.add(name, _compare(f"pil_resample_axis {name}", got, want),
+                  shape=list(shape), axis=axis, out=list(got.shape),
+                  taps=int(tables[1].shape[1]))
+    return tally.summary()
+
+
+def check_shard_tables_kernel(dev) -> float:
+    """Kernel B over every shard's compact tables of ``Wl[d]`` and of
+    ``Wl[d]^T`` (the sharded float H pass, queue 2 row 9, and its adjoint),
+    f32 and bf16, bit for bit."""
+    tally = _Tally("resample_axis shard tables")
+    seed = 900
+    for n in (2, 4, 8):
+        for mode in ("bilinear", "bicubic", "lanczos3"):
+            for ih, oh in ((128, 48), (129, 40)):
+                plan = halo.plan_halo_banded(ih, oh, mode, True, n)
+                for d in range(n):
+                    for which, t in zip(("forward", "adjoint"), halo._shard_tables(plan, d)):
+                        for dt in (F32, BF16):
+                            seed += 1
+                            x = _rand((2, t.in_size, 37), dt, dev, seed)
+                            before = cr.launches_axis
+                            got = cr.resize_axis(x, t, 1, dt)
+                            torch.cuda.synchronize()
+                            if cr.launches_axis != before + 1:
+                                raise RuntimeError("resample_axis shard tables: not launched")
+                            want = cr._resample_axis_plain(x, t, dt)
+                            name = f"n={n} {mode} {ih}->{oh} shard {d} {which} {dt}"
+                            tally.add(name, _compare(name, got, want), taps=t.ntaps)
+    return tally.summary()
+
+
 # ---------------------------------------------------------------------------
 # 3. the main paths
 # ---------------------------------------------------------------------------
@@ -475,11 +605,13 @@ def check_crop_kernel(dev) -> float:
 
 def _counts() -> dict:
     return {"pil_resample_2pass": pe.launches, "resample2d": cr.launches_2d,
-            "resample_axis": cr.launches_axis, "crop_resample": cc.launches_crop}
+            "resample_axis": cr.launches_axis, "crop_resample": cc.launches_crop,
+            "pil_resample_axis": pe.launches_axis}
 
 
 def _reset() -> None:
     pe.launches = cr.launches_2d = cr.launches_axis = cc.launches_crop = 0
+    pe.launches_axis = 0
 
 
 def _expect(phase: str, want: dict) -> dict:
@@ -497,16 +629,17 @@ def _plain_kernels():
     """Every kernel's wrapper runs its plain version on the card instead of
     launching (no count moves): the reference run of a main path."""
     saved = (cr._resample2d_cuda, cr._resample_axis_cuda,
-             pe._resample_2pass_cuda, cc._crop_resample_cuda)
+             pe._resample_2pass_cuda, cc._crop_resample_cuda, pe._resample_axis_cuda)
     cr._resample2d_cuda = lambda x3, sh, sw, odt, plan: cr._resample2d_plain(x3, sh, sw, odt)
     cr._resample_axis_cuda = cr._resample_axis_plain
     pe._resample_2pass_cuda = pe._resample_2pass_plain
     cc._crop_resample_cuda = cc._crop_resample_plain
+    pe._resample_axis_cuda = pe._resample_axis_plain
     try:
         yield
     finally:
         (cr._resample2d_cuda, cr._resample_axis_cuda,
-         pe._resample_2pass_cuda, cc._crop_resample_cuda) = saved
+         pe._resample_2pass_cuda, cc._crop_resample_cuda, pe._resample_axis_cuda) = saved
 
 
 def main_path_u8_pipeline(dev) -> int:
@@ -728,6 +861,296 @@ def main_path_train(dev) -> tuple[int, int]:
     return n_crop, TRAIN_STEPS
 
 
+def _sharded_pil(x: torch.Tensor, size, mode: str) -> torch.Tensor:
+    """resize_sharded_pil_exact's shard bodies over SHARDS shards of H: each
+    shard's W pass on its block, each extended block built from the padded
+    W-pass image as the ring delivers it, each shard's H pass, stitched."""
+    tables = halo._int_halo_tables(x.shape[1], size[0], mode, SHARDS)
+    plan = tables[0]
+    xp = halo._pad_axis(x, 1, SHARDS * plan.hl - x.shape[1])
+    tw = pe._int_tables(x.shape[2], size[1], mode)
+    yw = torch.cat([halo._pil_w_pass(b, tw, 2, True) for b in xp.split(plan.hl, 1)], 1)
+    exts = halo._extended_blocks(yw, plan, SHARDS, 1)
+    del yw
+    return torch.cat([halo._own_rows(halo._shard_h_int(e, tables, d, 1), 1, size[0],
+                                     plan.ol, d) for d, e in enumerate(exts)], 1)
+
+
+def main_path_sharded_pil(dev) -> int:
+    """The sharded byte-exact route at the size it exists for: uint8 CHW
+    [3, 32768, 32768] (3.2 GB) -> 8192 x 8192 bilinear, and a ceil-padded
+    lanczos3 case, through the shard bodies on 4 shards; byte-equal to the
+    same shard bodies with pil_resample_axis replaced by its plain version,
+    and to the single-device resize_pil_exact."""
+    total = 0
+    for (shape, size, mode) in (SHARD_U8, SHARD_U8_CEIL):
+        g = torch.Generator(device=dev).manual_seed(31)
+        x = torch.randint(0, 256, shape, dtype=U8, device=dev, generator=g)
+        _reset()
+        y = _sharded_pil(x, size, mode)
+        torch.cuda.synchronize()
+        counts = _expect(f"sharded pil {shape}", {"pil_resample_axis": 2 * SHARDS})
+        total += counts["pil_resample_axis"]
+        with _plain_kernels():
+            ref = _sharded_pil(x, size, mode)
+        res = _compare(f"sharded pil {shape} vs plain", y, ref)
+        del ref
+        want = pe.resize_pil_exact(x, size, method=mode)
+        if y.shape != want.shape or not torch.equal(y, want):
+            raise RuntimeError(f"sharded pil {shape}: differs from resize_pil_exact in "
+                               f"{int((y != want).sum())} bytes")
+        _line("main_path", path=f"sharded resize_sharded_pil_exact {mode}",
+              shape=list(shape), out=list(y.shape), shards=SHARDS,
+              halo=halo._int_halo_tables(shape[1], size[0], mode, SHARDS)[0].halo,
+              launches=counts, **res, bytes_equal_to_single_device=True)
+        del x, y, want
+        torch.cuda.empty_cache()
+    return total
+
+
+def main_path_sharded_float(dev) -> int:
+    """resize_sharded and its VJP at the size the route exists for: f32
+    [1, 3, 16384, 16384] (3.2 GB) -> 4096 x 4096 bicubic through the shard
+    bodies on 4 shards (W pass and H pass on kernel B, the H pass over each
+    shard's tables; backward over their transposes); output and gradient
+    equal bit for bit to the same bodies with kernel B replaced by its plain
+    version, and within 1e-5 of the largest value of the single-device
+    resize and resize_plane's VJP."""
+    (shape, size, mode) = SHARD_F32
+    x = _rand(shape, F32, dev, 33).div_(255.0)
+    cot = _rand((*shape[:2], *size), F32, dev, 34).div_(255.0)
+    plan = halo.plan_halo_banded(shape[2], size[0], mode, True, SHARDS)
+    spec_w = make_axis_spec(shape[3], size[1], mode)
+    from interpolate_antialiasing_tpu_torch.ops.resize import _apply_axis_diff
+
+    def sharded_vjp():
+        xr = x.detach().requires_grad_()
+        xp = halo._pad_axis(xr, 2, SHARDS * plan.hl - shape[2])
+        yw = torch.cat([_apply_axis_diff(b, spec_w, 3, "auto")
+                        for b in xp.split(plan.hl, 2)], 2)
+        y = torch.cat([halo._own_rows(halo._shard_h_float(e, plan, d, 2), 2, size[0],
+                                      plan.ol, d)
+                       for d, e in enumerate(halo._extended_blocks(yw, plan, SHARDS, 2))], 2)
+        g, = torch.autograd.grad(y, xr, grad_outputs=cot)
+        return y.detach(), g
+
+    _reset()
+    y, g = sharded_vjp()
+    torch.cuda.synchronize()
+    counts = _expect("sharded float", {"resample_axis": 4 * SHARDS})
+    with _plain_kernels():
+        y_plain, g_plain = sharded_vjp()
+    res = {"max_abs_err_vs_plain": _compare("sharded float vs plain", y, y_plain)["max_abs_err"],
+           "grad_max_abs_err_vs_plain": _compare("sharded float gradient vs plain", g,
+                                                 g_plain)["max_abs_err"]}
+    del y_plain, g_plain
+    xr = x.detach().requires_grad_()
+    want = resize_plane(xr, size, 2, 3, mode=mode)
+    gw, = torch.autograd.grad(want, xr, grad_outputs=cot)
+    res.update(max_abs_err=_max_abs(y, want.detach()), grad_max_abs_err=_max_abs(g, gw))
+    for k, a, b in (("max_abs_err", y, want.detach()), ("grad_max_abs_err", g, gw)):
+        if not bool(torch.isfinite(a).all()) or res[k] > 1e-5 * float(b.abs().max()):
+            raise RuntimeError(f"sharded float: {k} {res[k]} against the single device")
+    _line("main_path", path=f"sharded resize_sharded + VJP {mode}", shape=list(shape),
+          out=list(y.shape), shards=SHARDS, halo=plan.halo, launches=counts, **res)
+    return counts["resample_axis"]
+
+
+# launches per rank of each phase of group_phases, whatever the number of ranks
+GROUP_LAUNCHES = {
+    "pil": {"pil_resample_axis": 2},  # the W pass and the H pass of the rank's block
+    "float": {"resample_axis": 4},  # W and H passes, and their adjoints backward
+    "halo_h": {"resample_axis": 1},
+    "dp": {"pil_resample_2pass": 1},
+    "trainer": {"resample_axis": 2 * 2},  # two steps, W and H passes (no adjoint)
+}
+
+
+def group_phases(dev, n: int) -> list[dict]:
+    """This rank's share of the sharded path in an ``n``-rank NCCL group,
+    one rank per card: the public entry points at the sharded main path's
+    full size, H split over the ``n`` ranks of the ``sp`` axis (the ring
+    exchanges halo rows between cards; with one rank the halo is 0).  The
+    forward calls take a DTensor sharded over H, the float VJP the tensor
+    every rank holds whole; every output is a DTensor.  Each phase runs with
+    the launch counts set to 0 just before it and read just after, and the
+    rank's rows are held to the single-device result on its own card; then
+    the data-parallel resize and the dp x sp Trainer against the
+    single-device Trainer.  Raises on the first failure; returns one line
+    per phase, with host-clock times of the sharded call and of the ring."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from interpolate_antialiasing_tpu_torch.parallel import (
+        data_parallel_resize,
+        halo_resize_h,
+        make_mesh,
+        resize_sharded,
+        resize_sharded_pil_exact,
+        shard_batch,
+    )
+    from interpolate_antialiasing_tpu_torch.parallel.sharding import _as_dtensor, _block
+
+    mesh = make_mesh((1, n), ("data", "sp"))
+    d, group, rank = mesh.get_local_rank("sp"), mesh.get_group("sp"), dist.get_rank()
+    where = f"group of {n}, rank {rank}"
+
+    def run(phase, fn):
+        _reset()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, _expect(f"{where}: {phase}", GROUP_LAUNCHES[phase])
+
+    def sharded(x, h_axis):
+        return _as_dtensor(_block(x, h_axis, n, d), mesh, (Replicate(), Shard(h_axis)),
+                           tuple(x.shape))
+
+    def local(name, y, want_shape):
+        if not isinstance(y, DTensor) or tuple(y.shape) != tuple(want_shape):
+            raise RuntimeError(f"{where}: {name} gave {type(y).__name__} "
+                               f"{tuple(y.shape)}, not a DTensor {tuple(want_shape)}")
+        return y.to_local().detach()
+
+    def within(name, got, want):
+        err = _max_abs(got, want)
+        if not bool(torch.isfinite(got).all()) or err > 1e-5 * float(want.abs().max()):
+            raise RuntimeError(f"{where}: {name} max abs err {err} against the single device")
+        return err
+
+    def host_ms(fn, iters):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    lines = []
+    # the byte-exact route: uint8 [3, 32768, 32768] -> 8192^2
+    (shape, size, mode) = SHARD_U8
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randint(0, 256, shape, dtype=U8, device=dev, generator=gen)
+    xd = sharded(x, 1)
+    y, counts = run("pil", lambda: resize_sharded_pil_exact(xd, size, mesh, mode=mode))
+    ref = pe.resize_pil_exact(x, size, method=mode)
+    if not torch.equal(local("resize_sharded_pil_exact", y, ref.shape), _block(ref, 1, n, d)):
+        raise RuntimeError(f"{where}: resize_sharded_pil_exact != resize_pil_exact")
+    plan = halo._int_halo_tables(shape[1], size[0], mode, n)[0]
+    rows = _rand((shape[0], plan.hl, size[1]), U8, dev, 35)
+    lines.append({
+        "phase": "group_pil", "rank": rank, "ranks": n, "shape": list(shape),
+        "size": list(size), "halo": plan.halo, "launches": counts,
+        "bytes_equal_to_single_device": True,
+        "sharded_call_host_ms": host_ms(
+            lambda: resize_sharded_pil_exact(xd, size, mesh, mode=mode), 5),
+        "ring_host_ms": host_ms(lambda: halo._ring_halo_extend(rows, plan.halo, 1, group), 20),
+        "single_card_ms": time_cuda(lambda: pe.resize_pil_exact(x, size, method=mode),
+                                    iters=5)})
+    del x, xd, y, ref, rows
+    torch.cuda.empty_cache()
+
+    # the float route and its VJP, then the H pass alone: f32 [1, 3, 16384, 16384]
+    (shape, size, mode) = SHARD_F32
+    x = _rand(shape, F32, dev, 33).div_(255.0)
+    cot = _rand((*shape[:2], *size), F32, dev, 34).div_(255.0)
+
+    def vjp():
+        xr = x.detach().requires_grad_()
+        y = resize_sharded(xr, size, mesh, mode=mode)
+        g, = torch.autograd.grad(y.to_local(), xr, grad_outputs=_block(cot, 2, n, d))
+        return y, g
+
+    (y, gx), counts = run("float", vjp)
+    xr = x.detach().requires_grad_()
+    want = resize_plane(xr, size, 2, 3, mode=mode)
+    gw, = torch.autograd.grad(want, xr, grad_outputs=cot)
+    want = want.detach()
+    lines.append({
+        "phase": "group_float", "rank": rank, "ranks": n, "shape": list(shape),
+        "size": list(size), "launches": counts,
+        "max_abs_err": within("resize_sharded", local("resize_sharded", y, want.shape),
+                              _block(want, 2, n, d)),
+        "grad_max_abs_err": within("resize_sharded's VJP", _block(gx, 2, n, d),
+                                   _block(gw, 2, n, d))})
+    del y, gx, xr, want, gw
+    torch.cuda.empty_cache()
+    xd = sharded(x, 2)
+    yh, counts = run("halo_h", lambda: halo_resize_h(xd, size[0], mesh, mode=mode))
+    want = cr.resize_axis(x, make_axis_spec(shape[2], size[0], mode), 2)
+    lines.append({
+        "phase": "group_halo_h", "rank": rank, "ranks": n, "shape": list(shape),
+        "out_h": size[0], "launches": counts,
+        "max_abs_err": within("halo_resize_h", local("halo_resize_h", yh, want.shape),
+                              _block(want, 2, n, d))})
+    del x, cot, xd, yh, want
+    torch.cuda.empty_cache()
+
+    # data-parallel resize and the Trainer on a dp x sp mesh
+    mesh_dp = make_mesh((2, n // 2), ("data", "sp")) if n % 2 == 0 else mesh
+    xb = _rand(ENTRY[0], U8, dev, 43)
+    yd, counts = run("dp", lambda: data_parallel_resize(shard_batch(xb, mesh_dp), ENTRY[1],
+                                                        mesh_dp))
+    blk = _block(xb, 0, mesh_dp.size(0), mesh_dp.get_local_rank("data"))
+    if not torch.equal(local("data_parallel_resize", yd, (ENTRY[0][0], 3, *ENTRY[1])),
+                       resize(blk, ENTRY[1])):
+        raise RuntimeError(f"{where}: data_parallel_resize != resize of the rank's block")
+    lines.append({"phase": "group_dp", "rank": rank, "mesh": list(mesh_dp.shape),
+                  "batch": list(ENTRY[0]), "launches": counts, "bytes_equal": True})
+    imgs = _rand((16, 3, 224, 224), F32, dev, 44).div_(255.0)
+    labels = torch.from_numpy(np.random.default_rng(0).integers(0, 10, 16)).to(dev)
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        tr = Trainer(mesh=mesh_dp, seed=0)
+        losses, counts = run("trainer", lambda: [float(tr.step(imgs, labels))
+                                                 for _ in range(2)])
+        ref = Trainer(seed=0, device=dev)
+        ref_losses = [float(ref.step(imgs, labels)) for _ in range(2)]
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    if not all(math.isfinite(a) and abs(a - b) <= 1e-5 * abs(b)
+               for a, b in zip(losses, ref_losses)):
+        raise RuntimeError(f"{where}: Trainer losses {losses} vs single device {ref_losses}")
+    perr = max(_max_abs(p.detach(), ref.params[k].detach())
+               / float(ref.params[k].detach().abs().max()) for k, p in tr.params.items())
+    if perr > 1e-5:
+        raise RuntimeError(f"{where}: Trainer parameters differ by {perr} (relative)")
+    lines.append({"phase": "group_trainer", "rank": rank, "mesh": list(mesh_dp.shape),
+                  "launches": counts, "losses": losses, "ref_losses": ref_losses,
+                  "param_rel_err": perr})
+    return lines
+
+
+def _in_group(rank: int, n: int, store: str) -> list[dict]:
+    """:func:`group_phases` as rank ``rank`` (on card ``rank``) of an
+    ``n``-rank NCCL group started over the file ``store``, TF32 off."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=180))
+    try:
+        with full_f32():
+            return group_phases(torch.device("cuda", rank), n)
+    finally:
+        dist.destroy_process_group()
+
+
+def main_path_one_rank_group() -> tuple[int, int]:
+    """:func:`group_phases` in a one-rank NCCL group (NCCL takes one rank
+    per card; ``--ranks N`` runs the same phases across N cards)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lines = _in_group(0, 1, f"{tmp}/store")
+    for ln in lines:
+        _line("main_path", path=f"one-rank NCCL group: {ln.pop('phase')}", **ln)
+    return (sum(ln["launches"]["pil_resample_axis"] for ln in lines),
+            sum(ln["launches"]["resample_axis"] for ln in lines))
+
+
 def check_crop_against_dense(dev) -> None:
     """The windowed route against the dense route on the main path's calls:
     within one grey level (the windowed route rounds its intermediate to
@@ -757,16 +1180,25 @@ def _turns(kernel, plain, iters: int, warmup: int) -> dict:
     return ms
 
 
-def time_pil_kernel(dev, rng, card) -> tuple[float, float]:
+def time_pil_kernel(dev, rng, card) -> dict:
     def timed(shape, size, iters):
         x3 = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
         x3 = x3.reshape(-1, shape[-2], shape[-1]).to(dev)
         tw = pe._int_tables(shape[-1], size[1], "bilinear")
         th = pe._int_tables(shape[-2], size[0], "bilinear")
-        return _turns(lambda: pe._resample_2pass(x3, tw, th),
-                      lambda: pe._resample_2pass_plain(x3, tw, th), iters, 3)
+        ms = _turns(lambda: pe._resample_2pass(x3, tw, th),
+                    lambda: pe._resample_2pass_plain(x3, tw, th), iters, 3)
+        P, (H, W), (OH, OW) = x3.shape[0], shape[-2:], size
+        bound = _bound(P * (H * W + OH * OW) + _nbytes(*tw, *th),
+                       P * (H * _nz(tw[1]) + OW * _nz(th[1])))
+        x4 = x3.reshape(P, 1, H, W)
+        lib_ms, lib_note = _library(
+            lambda: torch.nn.functional.interpolate(x4, size, mode="bilinear",
+                                                    antialias=True),
+            pe._resample_2pass(x3, tw, th).reshape(P, 1, OH, OW))
+        return ms, bound, lib_ms, lib_note
 
-    bench = timed(*BENCH, iters=20)
+    bench, bound, lib_ms, lib_note = timed(*BENCH, iters=20)
     k_ms = sum(bench["kernel"]) / 2
     p_ms = sum(bench["plain"]) / 2
     n_out = BENCH[0][0] * BENCH[1][0] * BENCH[1][1]  # images x oh x ow
@@ -774,33 +1206,41 @@ def time_pil_kernel(dev, rng, card) -> tuple[float, float]:
           kernel_ms=bench["kernel"], plain_ms=bench["plain"],
           kernel_out_mpix_s=n_out / (k_ms * 1e-3) / 1e6,
           plain_out_mpix_s=n_out / (p_ms * 1e-3) / 1e6,
-          kernel_faster=k_ms < p_ms)
-    uhd = timed(*UHD, iters=10)
+          kernel_faster=k_ms < p_ms, **bound, library_ms=lib_ms, library=lib_note)
+    uhd, uhd_bound, uhd_lib, uhd_note = timed(*UHD, iters=10)
     _line("time_4k_hd", card=card, shape=list(UHD[0]), size=list(UHD[1]),
-          kernel_ms=uhd["kernel"], plain_ms=uhd["plain"])
+          kernel_ms=uhd["kernel"], plain_ms=uhd["plain"], **uhd_bound,
+          library_ms=uhd_lib, library=uhd_note)
     erng = np.random.default_rng(0)
     x = torch.from_numpy((erng.random(ENTRY[0]) * 255).astype(np.uint8)).to(dev)
     pipe = ImageNetEvalPipeline(size=ENTRY[1]).to(dev)
     _line("time_entry_pipeline", card=card, batch=list(ENTRY[0]),
           size=list(ENTRY[1]), ms=time_cuda(pipe, x, iters=20, warmup=3))
-    return k_ms, p_ms
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": lib_ms}
 
 
-def time_float_kernels(dev, card) -> tuple[float, float, float, float]:
+def time_float_kernels(dev, card) -> tuple[dict, dict]:
+    F = torch.nn.functional
     with full_f32():
         # resample2d on config 5 (bf16 4K -> HD, 192 planes)
         (shape, ohw) = CONFIG5
-        x3 = _view3(_rand(shape, BF16, dev, 11), -2)
+        x = _rand(shape, BF16, dev, 11)
+        x3 = _view3(x, -2)
         sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
         c5 = _turns(lambda: cr.resize2d(x3, sh, sw, BF16),
                     lambda: cr._resample2d_plain(x3, sh, sw, BF16), 5, 1)
         k5 = sum(c5["kernel"]) / 2
-        moved = x3.numel() * 2 + x3.shape[0] * ohw[0] * ohw[1] * 2  # bytes
+        P = x3.shape[0]
+        bound = _bound(2 * P * (shape[-2] * shape[-1] + ohw[0] * ohw[1])
+                       + _nbytes(*cr._tables(sh), *cr._tables(sw)),
+                       P * (shape[-2] * _nz(cr._tables(sw)[1]) + ohw[1] * _nz(cr._tables(sh)[1])))
+        lib5, note5 = _library(lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True))
         _line("time_config5", card=card, kernel="resample2d", shape=list(shape),
               size=list(ohw), kernel_ms=c5["kernel"], plain_ms=c5["plain"],
-              kernel_gb_s=moved / (k5 * 1e-3) / 1e9,
-              frames_per_s=shape[0] / (k5 * 1e-3))
-        del x3
+              kernel_gb_s=bound["bytes"] / (k5 * 1e-3) / 1e9,
+              frames_per_s=shape[0] / (k5 * 1e-3), **bound, library_ms=lib5, library=note5)
+        del x, x3
         torch.cuda.empty_cache()
         # resample2d on the f32 headline, NCHW
         (shape, ohw) = HEADLINE
@@ -808,9 +1248,15 @@ def time_float_kernels(dev, card) -> tuple[float, float, float, float]:
         sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
         hd = _turns(lambda: cr.resize2d(x3, sh, sw, F32),
                     lambda: cr._resample2d_plain(x3, sh, sw, F32), 50, 3)
+        P, H, W = x3.shape
+        hb = _bound(4 * P * (H * W + ohw[0] * ohw[1])
+                    + _nbytes(*cr._tables(sh), *cr._tables(sw)),
+                    P * (H * _nz(cr._tables(sw)[1]) + ohw[1] * _nz(cr._tables(sh)[1])))
+        x4 = x3.reshape(shape)
+        libh, noteh = _library(lambda: F.interpolate(x4, ohw, mode="bilinear", antialias=True))
         _line("time_headline_nchw", card=card, kernel="resample2d",
               shape=list(shape), size=list(ohw), kernel_ms=hd["kernel"],
-              plain_ms=hd["plain"])
+              plain_ms=hd["plain"], **hb, library_ms=libh, library=noteh)
         # resample_axis on the f32 headline, NHWC: the W pass, then the H pass
         xn = _rand(shape, F32, dev, 13).permute(0, 2, 3, 1).contiguous()
         t = cr.resize_axis(xn, sw, 2)
@@ -818,16 +1264,30 @@ def time_float_kernels(dev, card) -> tuple[float, float, float, float]:
                     lambda: cr._resample_axis_plain(_view3(xn, 2), sw, F32), 50, 3)
         hp = _turns(lambda: cr.resize_axis(t, sh, 1),
                     lambda: cr._resample_axis_plain(_view3(t, 1), sh, F32), 50, 3)
+        H, W, C = shape[-2], shape[-1], shape[1]
+        bw = _bound(4 * C * H * (W + ohw[1]) + _nbytes(*cr._tables(sw)),
+                    C * H * _nz(cr._tables(sw)[1]))
+        bh = _bound(4 * C * ohw[1] * (H + ohw[0]) + _nbytes(*cr._tables(sh)),
+                    C * ohw[1] * _nz(cr._tables(sh)[1]))
+        libn, noten = _library(lambda: F.interpolate(xn.permute(0, 3, 1, 2), ohw,
+                                                     mode="bilinear", antialias=True))
         _line("time_headline_nhwc", card=card, kernel="resample_axis",
               shape=list(xn.shape), size=list(ohw),
               w_pass_kernel_ms=wp["kernel"], w_pass_plain_ms=wp["plain"],
-              h_pass_kernel_ms=hp["kernel"], h_pass_plain_ms=hp["plain"])
-    return (k5, sum(c5["plain"]) / 2,
-            sum(wp["kernel"]) / 2 + sum(hp["kernel"]) / 2,
-            sum(wp["plain"]) / 2 + sum(hp["plain"]) / 2)
+              h_pass_kernel_ms=hp["kernel"], h_pass_plain_ms=hp["plain"],
+              w_pass_bound_ms=bw["bound_ms"], h_pass_bound_ms=bh["bound_ms"],
+              bound_by=[bw["bound_by"], bh["bound_by"]], library_ms=libn, library=noten)
+    r2d = {"ms": k5, "plain_ms": sum(c5["plain"]) / 2, "bound_ms": bound["bound_ms"],
+           "bound_by": bound["bound_by"], "library_ms": lib5}
+    rax = {"ms": sum(wp["kernel"]) / 2 + sum(hp["kernel"]) / 2,
+           "plain_ms": sum(wp["plain"]) / 2 + sum(hp["plain"]) / 2,
+           "bound_ms": bw["bound_ms"] + bh["bound_ms"],
+           "bound_by": bw["bound_by"] if bw["bound_by"] == bh["bound_by"] else "bytes",
+           "library_ms": libn}
+    return r2d, rax
 
 
-def time_train_kernels(dev, card) -> tuple[float, float]:
+def time_train_kernels(dev, card) -> dict:
     """The adjoint of config 4 and the crop kernel, beside their plain
     versions; and the whole calls the main path makes."""
     with full_f32():
@@ -837,6 +1297,13 @@ def time_train_kernels(dev, card) -> tuple[float, float]:
         g3 = _view3(_rand((*shape[:2], *ohw), F32, dev, 81), -2)
         adj = _turns(lambda: cr.resize2d(g3, th, tw, F32),
                      lambda: cr._resample2d_plain(g3, th, tw, F32), 20, 3)
+        P = g3.shape[0]
+        ab = _bound(4 * P * (ohw[0] * ohw[1] + shape[2] * shape[3])
+                    + _nbytes(th.xmin, tw.xmin) + 4 * (th.w.size + tw.w.size),
+                    P * (ohw[0] * _nz(tw.w) + shape[3] * _nz(th.w)))
+        g4 = g3.reshape(*shape[:2], *ohw)
+        liba, notea = _library(lambda: torch.ops.aten._upsample_bilinear2d_aa_backward(
+            g4, list(ohw), list(shape), False, None, None))
         x = _rand(shape, F32, dev, 82).requires_grad_()
 
         def vjp():
@@ -845,7 +1312,8 @@ def time_train_kernels(dev, card) -> tuple[float, float]:
 
         _line("time_config4", card=card, kernel="resample2d adjoint",
               shape=list(shape), size=list(ohw), adjoint_kernel_ms=adj["kernel"],
-              adjoint_plain_ms=adj["plain"], vjp_call_ms=time_cuda(vjp, iters=10))
+              adjoint_plain_ms=adj["plain"], vjp_call_ms=time_cuda(vjp, iters=10),
+              **ab, library_ms=liba, library=notea)
         del x
         out = {}
         for name, (shape, size), boxes in [
@@ -860,10 +1328,19 @@ def time_train_kernels(dev, card) -> tuple[float, float]:
                 t = cc._windowed_tables(x, b, size, "bilinear", True, frac, precision)
                 ms = _turns(lambda: cc._crop_resample_cuda(x, *t),
                             lambda: cc._crop_resample_plain(x, *t), 10, 2)
-                out[(name, precision)] = ms
+                (fh, ch, _), (fw, cw, _) = t[0], t[1]
+                N, C, H, W = shape
+                # the tables' bytes this run's boxes need: first, count and
+                # the weights of the counted taps
+                tab = 8 * (fh.numel() + fw.numel()) + 4 * int(ch.sum() + cw.sum())
+                bound = _bound(N * C * (H * W + size[0] * size[1]) + tab,
+                               C * W * int(ch.sum()) + C * size[0] * int(cw.sum()))
+                out[(name, precision)] = (ms, bound)
                 _line("time_crop", card=card, kernel="crop_resample", case=name,
                       precision=precision, shape=list(shape), size=list(size),
-                      kernel_ms=ms["kernel"], plain_ms=ms["plain"])
+                      kernel_ms=ms["kernel"], plain_ms=ms["plain"], **bound,
+                      library_ms=None, library="no PyTorch call crops per-image boxes "
+                      "with antialiasing")
             calls = {
                 "windowed": lambda: crop_and_resize(x, b, size, max_box_frac=frac),
                 "dense": lambda: crop_and_resize(x, b, size, use_windowed=False),
@@ -873,8 +1350,132 @@ def time_train_kernels(dev, card) -> tuple[float, float]:
                                       for k, f in calls.items()})
             del x
             torch.cuda.empty_cache()
-    b64 = out[("b64", "pil_int8")]
-    return sum(b64["kernel"]) / 2, sum(b64["plain"]) / 2
+    b64, bound = out[("b64", "pil_int8")]
+    return {"ms": sum(b64["kernel"]) / 2, "plain_ms": sum(b64["plain"]) / 2,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None}
+
+
+def time_sharded_kernels(dev, card) -> tuple[dict, dict]:
+    """The two kernels of the sharded path at its shard shapes, beside their
+    plain versions: pil_resample_axis on one shard of the 32768^2 uint8
+    image (the H pass over shard 1's tables, and the W pass), and kernel B
+    on one shard of the 16384^2 float32 image (the H pass over shard 1's
+    tables of Wl[1], and over those of its transpose)."""
+    (shape, size, mode), d = SHARD_U8, 1
+    tables = halo._int_halo_tables(shape[1], size[0], mode, SHARDS)
+    plan, starts, wsh = tables
+    th = (starts[d], wsh[d])
+    ext = _rand((shape[0], plan.ext, size[1]), U8, dev, 51)
+    _compare("pil_resample_axis shard H pass", pe._resample_axis(ext, th, 1),
+             pe._resample_axis_plain(ext, th))
+    hp = _turns(lambda: pe._resample_axis(ext, th, 1),
+                lambda: pe._resample_axis_plain(ext, th), 5, 1)
+    hb = _bound(shape[0] * size[1] * (plan.ext + plan.ol) + _nbytes(*th),
+                shape[0] * size[1] * _nz(th[1]))
+    del ext
+    tw = pe._int_tables(shape[2], size[1], mode)
+    blk = _rand((shape[0], plan.hl, shape[2]), U8, dev, 52)
+    _compare("pil_resample_axis shard W pass", pe._resample_axis(blk, tw, 2),
+             pe._resample_axis_plain(_view3(blk, 2), tw).reshape(shape[0], plan.hl, size[1]))
+    wp = _turns(lambda: pe._resample_axis(blk, tw, 2),
+                lambda: pe._resample_axis_plain(_view3(blk, 2), tw), 5, 1)
+    wb = _bound(shape[0] * plan.hl * (shape[2] + size[1]) + _nbytes(*tw),
+                shape[0] * plan.hl * _nz(tw[1]))
+    del blk
+    torch.cuda.empty_cache()
+    _line("time_sharded_pil", card=card, kernel="pil_resample_axis", image=list(shape),
+          size=list(size), shard=d, h_pass_shape=[shape[0], plan.ext, size[1]],
+          h_pass_kernel_ms=hp["kernel"], h_pass_plain_ms=hp["plain"], h_pass_bound=hb,
+          w_pass_shape=[shape[0], plan.hl, shape[2]], w_pass_kernel_ms=wp["kernel"],
+          w_pass_plain_ms=wp["plain"], w_pass_bound=wb, library_ms=None,
+          library="none: the pass is an int32 product, a shift and a clamp, and "
+          "CUDA has no integer matmul")
+    pil = {"ms": sum(hp["kernel"]) / 2, "plain_ms": sum(hp["plain"]) / 2,
+           "bound_ms": hb["bound_ms"], "bound_by": hb["bound_by"], "library_ms": None}
+
+    (shape, size, mode) = SHARD_F32
+    plan = halo.plan_halo_banded(shape[2], size[0], mode, True, SHARDS)
+    fwd, adj = halo._shard_tables(plan, d)
+    C, W = shape[1], size[1]
+    with full_f32():
+        ext = _rand((C, plan.ext_pad, W), F32, dev, 53)
+        g = _rand((C, plan.ol, W), F32, dev, 54)
+        _compare("resample_axis shard forward", cr.resize_axis(ext, fwd, 1, F32),
+                 cr._resample_axis_plain(ext, fwd, F32))
+        _compare("resample_axis shard adjoint", cr.resize_axis(g, adj, 1, F32),
+                 cr._resample_axis_plain(g, adj, F32))
+        fp = _turns(lambda: cr.resize_axis(ext, fwd, 1, F32),
+                    lambda: cr._resample_axis_plain(ext, fwd, F32), 10, 2)
+        ap = _turns(lambda: cr.resize_axis(g, adj, 1, F32),
+                    lambda: cr._resample_axis_plain(g, adj, F32), 10, 2)
+        # the library's yardstick: one float32 matmul of the dense Wl[d]
+        # (and of its transpose) with the shard's rows
+        wd = torch.from_numpy(np.asarray(plan.Wl[d], np.float32)).to(dev)
+        wdt = wd.t().contiguous()
+        libf, notef = _library(lambda: torch.matmul(wd, ext))
+        liba, notea = _library(lambda: torch.matmul(wdt, g))
+    fb = _bound(4 * C * W * (plan.ext_pad + plan.ol) + _nbytes(fwd.xmin, fwd.w.astype(np.float32)),
+                C * W * _nz(fwd.w))
+    ab = _bound(4 * C * W * (plan.ol + plan.ext_pad) + _nbytes(adj.xmin, adj.w.astype(np.float32)),
+                C * W * _nz(adj.w))
+    del ext, g, wd, wdt
+    torch.cuda.empty_cache()
+    _line("time_sharded_float", card=card, kernel="resample_axis over shard tables",
+          image=list(shape), size=list(size), shard=d, ext_shape=[C, plan.ext_pad, W],
+          forward_kernel_ms=fp["kernel"], forward_plain_ms=fp["plain"], forward_bound=fb,
+          adjoint_kernel_ms=ap["kernel"], adjoint_plain_ms=ap["plain"], adjoint_bound=ab,
+          library_ms=libf, library=f"torch.matmul(Wl[d], rows), TF32 off: {notef}",
+          adjoint_library_ms=liba, adjoint_library=f"torch.matmul(Wl[d]^T, rows): {notea}")
+    return pil, {"ms": sum(fp["kernel"]) / 2, "plain_ms": sum(fp["plain"]) / 2,
+                 "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"], "library_ms": libf}
+
+
+# ---------------------------------------------------------------------------
+# 5. with --ranks N: the group phases across N cards, one rank per card
+# ---------------------------------------------------------------------------
+
+
+def _rank_child(rank: int, n: int, tmp: str) -> None:
+    """One spawned rank of ``--ranks n``: its lines, or its error, to a file
+    the parent reads."""
+    try:
+        lines = _in_group(rank, n, f"{tmp}/store")
+    except Exception as e:  # noqa: BLE001 — reported by the parent
+        import traceback
+
+        lines = [{"phase": "error", "rank": rank, "error": f"{type(e).__name__}: {e}",
+                  "traceback": traceback.format_exc()[-3000:]}]
+    Path(tmp, f"rank{rank}.json").write_text(json.dumps(lines))
+
+
+def ranks_main(n: int) -> None:
+    """``--ranks n``: :func:`group_phases` across ``n`` cards of one host,
+    one spawned rank per card."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        raise SystemExit(f"chip_smoke --ranks {n}: needs {n} CUDA cards")
+    card = _card()
+    print(card, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    native.build()  # once, before the ranks load it
+    _line("build", seconds=round(time.perf_counter() - t0, 3))
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_rank_child, args=(n, tmp), nprocs=n, start_method="spawn")
+        results = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(n)]
+    failed = 0
+    for lines in results:
+        for ln in lines:
+            print(json.dumps(ln), flush=True)
+        failed += len(lines) != len(GROUP_LAUNCHES)
+    if failed:
+        raise SystemExit(f"chip_smoke --ranks {n}: {failed} rank(s) failed")
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 
 
 def main() -> None:
@@ -898,6 +1499,8 @@ def main() -> None:
             err_2d, err_axis = check_float_kernels(dev)
             adj_2d, adj_axis = check_adjoint_kernels(dev)
             crop_err = check_crop_kernel(dev)
+            pil_axis_err = check_pil_axis_kernel(dev)
+            shard_err = check_shard_tables_kernel(dev)
         finally:
             CASES_LOG.parent.mkdir(exist_ok=True)
             CASES_LOG.write_text("".join(c + "\n" for c in _cases))
@@ -914,10 +1517,17 @@ def main() -> None:
         torch.cuda.empty_cache()
         check_crop_against_dense(dev)
         torch.cuda.empty_cache()
-    pil_ms, pil_plain_ms = time_pil_kernel(dev, rng, card)
-    ms_2d, plain_2d, ms_axis, plain_axis = time_float_kernels(dev, card)
+        sh_pil = main_path_sharded_pil(dev)
+        sh_axis = main_path_sharded_float(dev)
+        torch.cuda.empty_cache()
+        rank_pil, rank_axis = main_path_one_rank_group()
+        torch.cuda.empty_cache()
+    t_pil = time_pil_kernel(dev, rng, card)
+    t_2d, t_axis = time_float_kernels(dev, card)
     torch.cuda.empty_cache()
-    crop_ms, crop_plain_ms = time_train_kernels(dev, card)
+    t_crop = time_train_kernels(dev, card)
+    torch.cuda.empty_cache()
+    t_pil_axis, t_shard = time_sharded_kernels(dev, card)
 
     print(card, flush=True)  # again, near the end of a long output
     print(json.dumps({"kernels": [
@@ -925,28 +1535,32 @@ def main() -> None:
          "source": "interpolate_antialiasing_tpu_torch/csrc/pil_resample.cu",
          "replaces": "interpolate_antialiasing_tpu/ops/pil_exact.py:504",
          "also_serves": "interpolate_antialiasing_tpu/ops/pil_exact.py:824",
-         "launches": pil_launches, "max_abs_err": pil_err,
-         "ms": pil_ms, "plain_ms": pil_plain_ms},
+         "launches": pil_launches, "max_abs_err": pil_err, **t_pil},
         {"name": "resample2d", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cu",
          "replaces": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1003",
          "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1475, "
                         ":1176 (adjoint)",
          "launches": c5_launches + hl_2d + f32_launches + c4_2d + train_2d,
-         "max_abs_err": max(err_2d, adj_2d), "ms": ms_2d, "plain_ms": plain_2d},
+         "max_abs_err": max(err_2d, adj_2d), **t_2d},
         {"name": "resample_axis", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cu",
          "replaces": "interpolate_antialiasing_tpu/ops/pallas_resize.py:172",
          "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:184, "
-                        ":258, :275, :1727 (adjoint)",
-         "launches": hl_axis + c4_axis, "max_abs_err": max(err_axis, adj_axis),
-         "ms": ms_axis, "plain_ms": plain_axis},
+                        ":258, :275, :1727 (adjoint), :583 (sharded H pass over "
+                        "per-shard tables)",
+         "launches": hl_axis + c4_axis + sh_axis + rank_axis,
+         "max_abs_err": max(err_axis, adj_axis, shard_err), **t_axis,
+         "shard_tables": t_shard},
         {"name": "crop_resample", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/crop_resample.cu",
          "replaces": "interpolate_antialiasing_tpu/ops/crop_pallas.py:250, :280",
          "also_serves": "interpolate_antialiasing_tpu/ops/crop_pallas.py:303, :318",
-         "launches": crop_launches, "max_abs_err": crop_err,
-         "ms": crop_ms, "plain_ms": crop_plain_ms},
+         "launches": crop_launches, "max_abs_err": crop_err, **t_crop},
+        {"name": "pil_resample_axis", "route": "cuda",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/pil_resample_axis.cu",
+         "replaces": "interpolate_antialiasing_tpu/ops/pil_exact.py:407",
+         "launches": sh_pil + rank_pil, "max_abs_err": pil_axis_err, **t_pil_axis},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
@@ -954,4 +1568,14 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="run only the sharded phases across this many cards of one "
+                         "host, one rank per card (default: the one-card smoke test)")
+    ranks = ap.parse_args().ranks
+    if ranks > 1:
+        ranks_main(ranks)
+    else:
+        main()

@@ -19,14 +19,21 @@ never jax.  Ported so far, the serving paths and the training path:
   ImageNetTrainPipeline  — uint8 batch -> RandomResizedCrop + flip -> normalised
   VideoDownscaler        — bf16 frames -> bf16 frames (nn.Module)
   AAResize               — the resize as a parameter-free nn.Module
-  Trainer, params_from_jax — the small resize + conv model's SGD loop
+  Trainer, params_from_jax — the small resize + conv model's SGD loop (one
+                           card, or a DeviceMesh: data x spatial sharding)
+  parallel               — torch.distributed: make_mesh, shard_batch,
+                           data_parallel_resize, halo-exchange resize_sharded
+                           / resize_sharded_pil_exact / halo_resize_h,
+                           dryrun_multichip
 
 Autograd through every float resize is the exact adjoint (forward mode and
-``torch.func.vmap`` too).  Four hand-written CUDA kernels (``csrc/``) run on
+``torch.func.vmap`` too).  Five hand-written CUDA kernels (``csrc/``) run on
 CUDA tensors, their plain PyTorch versions on CPU tensors:
 pil_resample_2pass (Pillow's integer passes), resample2d (both float passes
 of a plane, and of its adjoint), resample_axis (one pass over any axis, or
-its adjoint) and crop_resample (the windowed crop's two passes).
+its adjoint, or a shard's H pass), crop_resample (the windowed crop's two
+passes) and pil_resample_axis (one Pillow pass over any axis: the sharded
+byte-exact route).
 
 Environment dials, shared with the JAX package: IA_TPU_DEBUG, IA_TPU_BACKEND,
 IA_TPU_PIL_DIGITS, IA_TPU_PRECISION.
@@ -51,6 +58,7 @@ from .ops.api import (
 from .ops.crop import crop_and_resize, random_resized_crop
 from .ops.pil_exact import resize_pil_exact
 from .ops.resize import image_resize, interpolate, resize, resize_nd, resize_plane
+from . import parallel
 
 __version__ = "0.1.0"
 
@@ -59,4 +67,4 @@ __all__ = ["resize", "resize_plane", "resize_nd", "interpolate", "image_resize",
            "linear_forward", "nearest_forward", "cubic_forward",
            "linear_backward", "nearest_backward", "cubic_backward",
            "ImageNetEvalPipeline", "ImageNetTrainPipeline", "VideoDownscaler",
-           "AAResize", "Trainer", "params_from_jax", "__version__"]
+           "AAResize", "Trainer", "params_from_jax", "parallel", "__version__"]

@@ -10,12 +10,17 @@ JAX package's functional surface over a dict of tensors in its layouts
 ``[2*width, num_classes]``, applied as ``x @ head + bias``), so
 :func:`params_from_jax` copies JAX parameters over unchanged.
 
-The JAX package shards this step over a device mesh (batch data-parallel,
-spatial H sharding); the port runs one device, and a ``mesh`` raises
-NotImplementedError (ROADMAP queue 1 item 9).
+With a ``DeviceMesh`` (``make_train_step(mesh)``, ``Trainer(mesh=...)``)
+the step is the JAX package's sharded one, run by every rank: each takes its
+block of the batch over the ``data`` axis; with an ``sp`` axis the resize is
+``parallel.resize_sharded`` over the H shards of that axis's ranks, whose
+results are gathered (differentiably) before the convolutions; the loss is
+the global mean and the gradients are all-reduced over the ``data`` axis.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -28,13 +33,6 @@ __all__ = ["init_params", "forward", "loss_fn", "make_train_step", "Trainer",
            "ResizeConvNet", "params_from_jax"]
 
 MOMENTUM = 0.9
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded train step (mesh=...) is not ported yet: the port "
-            "runs one device (ROADMAP queue 1 item 9)")
 
 
 def init_params(generator: torch.Generator | None = None, num_classes: int = 10,
@@ -54,21 +52,51 @@ def init_params(generator: torch.Generator | None = None, num_classes: int = 10,
     }
 
 
+def _sharded_resize(images: torch.Tensor, resize_to, mesh, spatial_axis: str):
+    """This rank's images (whole along H) resized by ``resize_sharded`` over
+    the ranks of ``mesh[spatial_axis]``, each resizing its H shard, then
+    gathered back to whole images by a differentiable all-gather."""
+    from torch.distributed.nn.functional import all_gather
+
+    from ..parallel.halo import _pad_axis, _resize_sharded_block
+    from ..parallel.sharding import _axis_group, _block
+
+    sub = mesh[spatial_axis]
+    _, n, d, group = _axis_group(sub, spatial_axis)
+    y = _resize_sharded_block(_block(images, 2, n, d), images.shape, resize_to, sub,
+                              spatial_axis, "bilinear", True, 2, 3, None)
+    ol = -(-resize_to[0] // n)
+    with warnings.catch_warnings():
+        # newer releases mark this public differentiable all-gather deprecated
+        # in favour of a private module; it stays the documented one
+        warnings.simplefilter("ignore", FutureWarning)
+        parts = all_gather(_pad_axis(y, 2, ol - y.shape[2]), group=group)
+    return torch.cat(parts, 2).narrow(2, 0, resize_to[0])
+
+
 def forward(params: dict[str, torch.Tensor], images: torch.Tensor,
-            resize_to: tuple[int, int] = (64, 64), mesh=None) -> torch.Tensor:
+            resize_to: tuple[int, int] = (64, 64), spatial_axis: str | None = None,
+            mesh=None) -> torch.Tensor:
     """images: float NCHW of any size -> logits.  The first stage is the
-    antialiased resize (differentiable: its backward is the adjoint)."""
-    _no_mesh(mesh)
-    x = resize_plane(images, resize_to, h_axis=2, w_axis=3, mode="bilinear")
+    antialiased resize (differentiable: its backward is the adjoint).  With
+    a ``mesh`` and a ``spatial_axis``, ``images`` is this rank's block of
+    the batch and the resize is sharded over H (:func:`_sharded_resize`)."""
+    if spatial_axis is not None and mesh is not None:
+        x = _sharded_resize(images, tuple(resize_to), mesh, spatial_axis)
+    else:
+        x = resize_plane(images, resize_to, h_axis=2, w_axis=3, mode="bilinear")
     x = F.relu(F.conv2d(x, params["conv1"], padding=1))  # SAME, stride 1
     x = F.relu(F.conv2d(x, params["conv2"], padding=1))
     x = x.mean(dim=(2, 3))  # [N, C]
     return x @ params["head"] + params["bias"]
 
 
-def loss_fn(params, images, labels, resize_to=(64, 64), mesh=None) -> torch.Tensor:
-    """Mean cross-entropy of the logits against integer ``labels``."""
-    logp = torch.log_softmax(forward(params, images, resize_to, mesh), dim=-1)
+def loss_fn(params, images, labels, resize_to=(64, 64), spatial_axis=None,
+            mesh=None) -> torch.Tensor:
+    """Mean cross-entropy of the logits against integer ``labels`` (over
+    this rank's images, with a mesh)."""
+    logp = torch.log_softmax(forward(params, images, resize_to, spatial_axis, mesh),
+                             dim=-1)
     return -logp.gather(1, labels.long()[:, None]).mean()
 
 
@@ -81,19 +109,67 @@ def _sgd_momentum(params: dict, momentum: dict, grads: dict, lr: float) -> None:
             params[k].sub_(lr * momentum[k])
 
 
-def make_train_step(mesh=None, resize_to: tuple[int, int] = (64, 64),
-                    lr: float = 1e-2):
+def _mesh_axes(mesh, data_axis: str, spatial_axis: str | None):
+    """The mesh's data axis (required) and its spatial axis, or None where
+    the mesh has none (a plain data-parallel mesh works as is)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh, got "
+                        f"{type(mesh).__name__}")
+    names = mesh.mesh_dim_names or ()
+    if data_axis not in names:
+        raise ValueError(f"mesh has no data axis {data_axis!r} (axes {names})")
+    return spatial_axis if spatial_axis in names else None
+
+
+def _data_block(t: torch.Tensor, mesh, data_axis: str) -> torch.Tensor:
+    """This rank's block of the batch: a DTensor's local block (as
+    ``parallel.shard_batch`` places it), or ``torch.chunk``'s block of a
+    tensor every rank holds whole."""
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel.sharding import _batch_block
+
+    if isinstance(t, DTensor):
+        return t.to_local()
+    return _batch_block(t, mesh, data_axis)[0]
+
+
+def make_train_step(mesh=None, data_axis: str = "data", spatial_axis: str | None = "sp",
+                    resize_to: tuple[int, int] = (64, 64), lr: float = 1e-2):
     """An SGD-with-momentum step over parameter dicts:
     ``step(params, momentum, images, labels) -> loss``, updating ``params``
-    and ``momentum`` in place (the JAX package's step returns new dicts)."""
-    _no_mesh(mesh)
+    and ``momentum`` in place (the JAX package's step returns new dicts).
+
+    With a ``DeviceMesh`` every rank calls the step with the same
+    parameters and the whole batch (or a DTensor sharded over
+    ``data_axis``): it trains on its block of the batch, the resize sharded
+    over ``spatial_axis`` where the mesh has one; the loss returned is the
+    global mean and the gradients are all-reduced over ``data_axis``, so
+    every rank applies the same update."""
+    if mesh is not None:
+        spatial_axis = _mesh_axes(mesh, data_axis, spatial_axis)
 
     def step(params, momentum, images, labels):
         leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
-        loss = loss_fn(leaves, images, labels, resize_to)
+        if mesh is None:
+            loss = loss_fn(leaves, images, labels, resize_to)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            _sgd_momentum(params, momentum, dict(zip(leaves, grads)), lr)
+            return loss.detach()
+        x = _data_block(images, mesh, data_axis)
+        y = _data_block(labels, mesh, data_axis)
+        logp = torch.log_softmax(forward(leaves, x, resize_to, spatial_axis, mesh), dim=-1)
+        # this rank's share of the global mean
+        loss = -logp.gather(1, y.long()[:, None]).sum() / images.shape[0]
         grads = torch.autograd.grad(loss, list(leaves.values()))
-        _sgd_momentum(params, momentum, dict(zip(leaves, grads)), lr)
-        return loss.detach()
+        flat = torch.cat([loss.detach().reshape(1)] + [g.reshape(-1) for g in grads])
+        torch.distributed.all_reduce(flat, group=mesh.get_group(data_axis))
+        parts = flat[1:].split([g.numel() for g in grads])
+        _sgd_momentum(params, momentum, {k: p.view_as(g) for k, p, g in
+                                         zip(leaves, parts, grads)}, lr)
+        return flat[0]
 
     return step
 
@@ -138,14 +214,28 @@ def params_from_jax(params: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
 class Trainer:
     """Minimal training loop: a :class:`ResizeConvNet` and its momentum,
     stepped by :func:`make_train_step`'s update.  ``state_dict`` (for
-    example from :func:`params_from_jax`) replaces the random init;
-    ``device`` places the model."""
+    example from :func:`params_from_jax`) replaces the random init.  The
+    model lives on the CUDA card unless ``device`` says otherwise (with no
+    card, ``device=None`` raises); with a ``mesh`` (a ``DeviceMesh``), on the
+    mesh's device type, every rank stepping its block of the batch."""
 
     def __init__(self, mesh=None, resize_to=(64, 64), num_classes=10, seed=0,
                  state_dict: dict | None = None,
-                 device: torch.device | str | None = None):
-        _no_mesh(mesh)
+                 device: torch.device | str | None = None,
+                 data_axis: str = "data", spatial_axis: str | None = "sp"):
+        self.mesh = mesh
         self.resize_to = tuple(resize_to)
+        if mesh is not None:
+            spatial_axis = _mesh_axes(mesh, data_axis, spatial_axis)
+            if device is None:
+                device = "cpu" if mesh.device_type == "cpu" else torch.device(
+                    mesh.device_type, torch.cuda.current_device())
+        elif device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Trainer runs on the CUDA card by default and none is available; "
+                    "pass device='cpu' to train on the CPU")
+            device = torch.device("cuda", torch.cuda.current_device())
         gen = torch.Generator().manual_seed(seed)
         self.model = ResizeConvNet(num_classes, resize_to=self.resize_to,
                                    generator=gen)
@@ -154,7 +244,9 @@ class Trainer:
         self.model.to(device)
         self.momentum = {k: torch.zeros_like(p)
                          for k, p in self.model.params().items()}
-        self.step_fn = make_train_step(None, resize_to=self.resize_to)
+        self.step_fn = make_train_step(mesh, data_axis=data_axis,
+                                       spatial_axis=spatial_axis,
+                                       resize_to=self.resize_to)
 
     @property
     def params(self) -> dict[str, torch.Tensor]:

@@ -52,6 +52,9 @@ _SIGNATURES = {
     # x, out, N, R, n_in, inner, n_out, first, cnt, w, k, pb, stream
     "ia_crop_pass": (
         _I, [_P, _P, _I, _L, _I, _L, _I, _P, _P, _P, _I, _I, _P]),
+    # x, out, outer, n_in, inner, n_out, xmin, wb, ntaps, pb, stream
+    "ia_pil_resample_axis": (
+        _I, [_P, _P, _L, _I, _L, _I, _P, _P, _I, _I, _P]),
 }
 
 

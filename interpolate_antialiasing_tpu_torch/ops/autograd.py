@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from .resize import _apply_axis, _plane_adjoint, _resize_plane_impl, _transpose_axis
+from .resize import Pass, _apply_axis, _plane_adjoint, _resize_plane_impl, _transpose_axis
 from .weights import AxisSpec
 
 __all__ = ["apply_axis", "apply_plane"]
@@ -48,7 +48,8 @@ def _require_float(x: torch.Tensor, name: str) -> None:
 
 
 class _AxisPass(torch.autograd.Function):
-    """``W`` along ``axis``; args ``(x, spec, axis, backend)``."""
+    """``W`` along ``axis``; args ``(x, spec, axis, backend)``, ``spec`` an
+    :class:`AxisSpec` or ``(tables of W, tables of W^T)``."""
 
     @staticmethod
     def forward(x, spec, axis, backend):
@@ -99,14 +100,19 @@ class _AxisAdjoint(torch.autograd.Function):
         return _AxisAdjoint.apply(g.movedim(in_dims[0], 0), spec, axis + 1, backend), 0
 
 
-def apply_axis(x: torch.Tensor, spec: AxisSpec, axis: int,
+def apply_axis(x: torch.Tensor, spec: Pass, axis: int,
                backend: str) -> torch.Tensor:
     """The differentiable 1-D pass (axis normalised to a non-negative
-    index)."""
+    index).  ``spec`` is an :class:`AxisSpec`, or a pass's ``Tables`` with
+    its adjoint's, ``(tables of W, tables of W^T)``: the sharded H pass
+    runs each shard's local matrix that way, kernel B forward and over
+    ``W^T`` backward (the port of the JAX package's
+    ``halo_local_contract_p``)."""
     _require_float(x, "aa_resize_axis")
-    if x.shape[axis] != spec.in_size:
+    in_size = spec[0].in_size if isinstance(spec, tuple) else spec.in_size
+    if x.shape[axis] != in_size:
         raise ValueError(f"aa_resize_axis: axis {axis} has size {x.shape[axis]}, "
-                         f"spec expects {spec.in_size}")
+                         f"spec expects {in_size}")
     return _AxisPass.apply(x, spec, axis % x.ndim, backend)
 
 

@@ -15,7 +15,11 @@ Both passes run in one hand-written CUDA kernel (``csrc/pil_resample.cu``,
 the counterpart of the JAX package's ``_kernel_2pass_pil``) through the
 wrapper :func:`_resample_2pass`.  Its plain PyTorch version,
 :func:`_resample_2pass_plain`, computes the same bytes with tensor ops; the
-wrapper takes it for tensors on the CPU.
+wrapper takes it for tensors on the CPU.  One pass over one axis runs the
+``pil_resample_axis`` kernel (``csrc/pil_resample_axis.cu``, the
+counterpart of ``digit_pass_mid_dynamic``) through :func:`_resample_axis`,
+plain version :func:`_resample_axis_plain`: the sharded byte-exact route's
+shard-local passes.
 
 The host tables (``_int_tables``, ``_int_matrix``, ``_nearest_indices``,
 ``_needs_clip``) are copied expression for expression from the JAX package,
@@ -38,10 +42,12 @@ __all__ = ["resize_pil_exact", "PRECISION_BITS"]
 
 PRECISION_BITS = 32 - 8 - 2  # Pillow Resample.c
 
-# Launches of the pil_resample_2pass CUDA kernel: :func:`_resample_2pass`
-# adds one per kernel launch and nowhere else, so a run can show that its
-# main path went through the kernel.
+# Launches of the pil_resample_2pass and pil_resample_axis CUDA kernels:
+# :func:`_resample_2pass` and :func:`_resample_axis` each add one per kernel
+# launch and nowhere else, so a run can show that its main path went through
+# the kernel.
 launches = 0
+launches_axis = 0
 
 _PIL_AUTO_METHODS = ("bilinear", "bicubic", "box", "nearest", "lanczos3",
                      "hamming")
@@ -291,6 +297,78 @@ def _resample_2pass(x3: torch.Tensor, tw, th,
     raise ValueError(
         f"pil_resample_2pass runs on CUDA (kernel) or CPU (plain version), "
         f"not on {x3.device}")
+
+
+# ---------------------------------------------------------------------------
+# One Pillow pass over one axis: the pil_resample_axis kernel (the sharded
+# byte-exact route's shard-local passes), its plain version and its wrapper
+# ---------------------------------------------------------------------------
+
+
+def _resample_axis_plain(x3: torch.Tensor, tables,
+                         pb: int = PRECISION_BITS) -> torch.Tensor:
+    """The pil_resample_axis kernel's plain PyTorch version, on any device:
+    uint8 ``x3[outer, n_in, inner]`` -> uint8 ``[outer, n_out, inner]``,
+    :func:`_pass_last_int_banded` along the middle axis of the view."""
+    dev, n_in = x3.device, x3.shape[1]
+    xmin, Wb = _on(tables[0], dev), _on(tables[1], dev)
+    acc = torch.full((x3.shape[0], Wb.shape[0], x3.shape[2]), 1 << (pb - 1),
+                     dtype=torch.int32, device=dev)
+    for k in range(Wb.shape[1]):
+        idx = (xmin.long() + k).clamp(0, n_in - 1)
+        acc += x3.index_select(1, idx).to(torch.int32) * Wb[:, k, None]
+    return (acc >> pb).clamp_(0, 255).to(torch.uint8)
+
+
+def _resample_axis_cuda(x3: torch.Tensor, tables, pb: int) -> torch.Tensor:
+    global launches_axis
+    from .. import native
+
+    lib = native.build()
+    outer, n_in, inner = x3.shape
+    n_out, ntaps = tables[1].shape
+    out = torch.empty((outer, n_out, inner), dtype=torch.uint8, device=x3.device)
+    if out.numel() == 0:
+        return out
+    dev = x3.device
+    xmin, wb = _on(tables[0], dev), _on(tables[1], dev)
+    with torch.cuda.device(dev):
+        err = lib.ia_pil_resample_axis(
+            x3.data_ptr(), out.data_ptr(), outer, n_in, inner, n_out,
+            xmin.data_ptr(), wb.data_ptr(), ntaps, pb,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pil_resample_axis launch failed: cudaError {err}")
+    launches_axis += 1
+    return out
+
+
+def _resample_axis(x: torch.Tensor, tables, axis: int,
+                   pb: int = PRECISION_BITS) -> torch.Tensor:
+    """uint8 ``x`` of any rank -> uint8 with ``axis`` resampled by one
+    Pillow fixed-point pass over the ``(xmin, Wb)`` int32 host tables (the
+    counterpart of the JAX package's ``digit_pass_mid_dynamic`` and of
+    ``_pass_last_int_banded``).  ``x`` is viewed as ``[outer, n_in,
+    inner]``, so a middle axis, the last axis and NHWC all run without
+    moves.  A CUDA tensor goes through the ``pil_resample_axis`` kernel; a
+    CPU tensor through the plain version; any other device raises."""
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.uint8:
+        raise ValueError("pil_resample_axis takes a uint8 tensor")
+    if not 1 <= pb <= 30:
+        raise ValueError(f"precision bits must lie in [1, 30], got {pb}")
+    axis %= x.ndim
+    _check_tables("axis", tables, x.shape[axis], pb)
+    lead, trail = x.shape[:axis], x.shape[axis + 1:]
+    x3 = x.reshape(math.prod(lead), x.shape[axis], math.prod(trail)).contiguous()
+    if x.device.type == "cuda":
+        y = _resample_axis_cuda(x3, tables, pb)
+    elif x.device.type == "cpu":
+        y = _resample_axis_plain(x3, tables, pb)
+    else:
+        raise ValueError(
+            f"pil_resample_axis runs on CUDA (kernel) or CPU (plain version), "
+            f"not on {x.device}")
+    return y.reshape(*lead, tables[1].shape[0], *trail)
 
 
 # ---------------------------------------------------------------------------

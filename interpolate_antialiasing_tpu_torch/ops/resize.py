@@ -43,7 +43,12 @@ from .resize_xla import (
     resize_axis_dense,
     resize_axis_gather,
 )
-from .weights import AxisSpec, adjoint_tables, make_axis_spec
+from .weights import AxisSpec, Tables, adjoint_tables, make_axis_spec
+
+# One 1-D pass: a spec (its forward tables, and the adjoint of those), or a
+# pass's tables with its adjoint's tables, ``(tables of W, tables of W^T)``
+# (the sharded H pass's per-shard tables).
+Pass = AxisSpec | tuple[Tables, Tables]
 
 __all__ = ["resize", "resize_plane", "resize_plane_vjp", "interpolate",
            "resize_nd", "image_resize"]
@@ -93,8 +98,22 @@ def _pick_method_f64(spec: AxisSpec) -> str:
     return "banded" if spec.in_size * spec.out_size > (1 << 16) else "dense"
 
 
-def _apply_axis(x: torch.Tensor, spec: AxisSpec, axis: int,
+def _apply_tables(x: torch.Tensor, t: Tables, axis: int, backend: str) -> torch.Tensor:
+    """One pass given by its tables: the resample_axis kernel under
+    ``auto``/``pallas`` for its dtypes, else the dense product of the
+    tables' matrix (TF32 off)."""
+    if backend in ("auto", "pallas") and x.dtype in KERNEL_DTYPES:
+        return resize_axis(x, t, axis)
+    W = _dense_on(t, x.dtype, x.device)  # [out, in]
+    with full_f32():
+        y = torch.matmul(x.movedim(axis, -1), W.T)
+    return y.movedim(-1, axis)
+
+
+def _apply_axis(x: torch.Tensor, spec: Pass, axis: int,
                 backend: str) -> torch.Tensor:
+    if isinstance(spec, tuple):
+        return _apply_tables(x, spec[0], axis, backend)
     if x.dtype == torch.float64 and backend in ("auto", "xla"):
         method = _pick_method_f64(spec)
     else:
@@ -149,7 +168,7 @@ def _resize_plane_impl(
     return _apply_axis(y, spec_h, h_axis, backend)
 
 
-def _transpose_axis(g: torch.Tensor, spec: AxisSpec, axis: int,
+def _transpose_axis(g: torch.Tensor, spec: Pass, axis: int,
                     backend: str) -> torch.Tensor:
     """Apply ``W^T`` along ``axis``: the exact adjoint of :func:`_apply_axis`
     (``g`` has ``spec.out_size`` there, the result ``spec.in_size``).
@@ -157,7 +176,10 @@ def _transpose_axis(g: torch.Tensor, spec: AxisSpec, axis: int,
     ``auto``/``pallas`` with float32 or bfloat16 runs one resample_axis
     launch over the transposed tables (the JAX package's
     ``resize_axis_transpose_pallas``); float64 and the plain backends
-    contract with ``dense_matrix(spec).T`` (its einsum), TF32 off."""
+    contract with ``dense_matrix(spec).T`` (its einsum), TF32 off.  A pass
+    given as ``(tables, adjoint tables)`` runs its adjoint tables."""
+    if isinstance(spec, tuple):
+        return _apply_tables(g, spec[1], axis, backend)
     if backend in ("auto", "pallas") and g.dtype in (torch.float32, torch.bfloat16):
         if debug_enabled():
             print(f"[ia-tpu] adjoint axis={axis} {spec.out_size}->{spec.in_size} "

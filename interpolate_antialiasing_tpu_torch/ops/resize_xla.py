@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import full_f32
-from .weights import AxisSpec, Tables, as_tables, banded_tiles, dense_matrix
+from .weights import AxisSpec, Tables, as_tables, banded_tiles, dense_matrix, tables_matrix
 
 __all__ = [
     "resize_axis_dense",
@@ -51,9 +51,12 @@ def _check_axis(x: torch.Tensor, spec: AxisSpec, axis: int) -> None:
 
 
 @lru_cache(maxsize=256)
-def _dense_on(spec: AxisSpec, dtype: torch.dtype, device: torch.device):
-    return torch.from_numpy(dense_matrix(spec, dtype=_table_dtype_for(dtype))).to(
-        device=device, dtype=dtype)
+def _dense_on(spec: AxisSpec | Tables, dtype: torch.dtype, device: torch.device):
+    """The pass's dense ``[out, in]`` matrix on ``device``: a spec's
+    :func:`..weights.dense_matrix`, or the matrix of a pass's tables."""
+    M = (tables_matrix(spec).astype(_table_dtype_for(dtype))
+         if isinstance(spec, Tables) else dense_matrix(spec, dtype=_table_dtype_for(dtype)))
+    return torch.from_numpy(M).to(device=device, dtype=dtype)
 
 
 def resize_axis_dense(x: torch.Tensor, spec: AxisSpec, axis: int) -> torch.Tensor:

@@ -51,6 +51,7 @@ __all__ = [
     "adjoint_tables",
     "compact_tables",
     "as_tables",
+    "tables_matrix",
     "pil_box_f32",
     "area_pixel_compute_scale",
 ]
@@ -527,3 +528,15 @@ def adjoint_tables(spec: AxisSpec) -> Tables:
 def as_tables(t: AxisSpec | Tables) -> Tables:
     """A pass given as a spec (its forward tables) or as tables."""
     return t if isinstance(t, Tables) else forward_tables(t)
+
+
+def tables_matrix(t: Tables) -> np.ndarray:
+    """The dense float64 matrix ``M[out, in]`` of a pass's tables (the
+    inverse of :func:`compact_tables`; taps past ``in_size`` carry zero
+    weight and are dropped)."""
+    M = np.zeros((t.out_size, t.in_size), dtype=np.float64)
+    rows = np.repeat(np.arange(t.out_size), t.ntaps)
+    cols = (t.xmin[:, None].astype(np.int64) + np.arange(t.ntaps)[None, :]).reshape(-1)
+    keep = cols < t.in_size
+    np.add.at(M, (rows[keep], cols[keep]), t.w.reshape(-1)[keep])
+    return M

@@ -154,3 +154,40 @@ def test_dense_route_keeps_tf32_off(dev):
         assert torch.backends.cuda.matmul.allow_tf32  # the caller's setting
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("layout", ["mid", "last", "nhwc"])
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic", "lanczos3", "box", "hamming"])
+def test_pil_resample_axis_kernel_matches_plain(dev, mode, layout):
+    """The sharded byte-exact route's kernel over every shard's tables of a
+    ceil-padded 4-shard plan, byte for byte."""
+    from interpolate_antialiasing_tpu_torch.parallel import halo
+
+    plan, starts, wsh = halo._int_halo_tables(97, 41, mode, 4)
+    shape, axis = {"mid": ((3, plan.ext, 70), 1), "last": ((3, 70, plan.ext), 2),
+                   "nhwc": ((2, plan.ext, 70, 3), 1)}[layout]
+    x = _input(shape, torch.uint8, dev, seed=7)
+    for d in range(4):
+        before = pe.launches_axis
+        got = pe._resample_axis(x, (starts[d], wsh[d]), axis)
+        torch.cuda.synchronize()
+        assert pe.launches_axis == before + 1
+        assert torch.equal(got.cpu(), pe._resample_axis(x.cpu(), (starts[d], wsh[d]), axis))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic", "lanczos3"])
+def test_resample_axis_over_shard_tables_matches_plain(dev, mode, dt):
+    """Kernel B over each shard's compact tables of ``Wl[d]`` and of
+    ``Wl[d]^T`` (the sharded float H pass and its adjoint)."""
+    from interpolate_antialiasing_tpu_torch.parallel import halo
+
+    plan = halo.plan_halo_banded(129, 40, mode, True, 4)
+    for d in range(4):
+        for t, n_in in zip(halo._shard_tables(plan, d), (plan.ext_pad, plan.ol)):
+            x = _input((2, n_in, 37), dt, dev, seed=8 + d)
+            before = cr.launches_axis
+            got = cr.resize_axis(x, t, 1, dt)
+            torch.cuda.synchronize()
+            assert cr.launches_axis == before + 1
+            _assert_equal(got, cr._resample_axis_plain(x, t, dt))

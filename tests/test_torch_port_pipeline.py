@@ -232,6 +232,10 @@ def test_port_imports_no_jax():
         "import interpolate_antialiasing_tpu_torch.utils.timing\n"
         "import interpolate_antialiasing_tpu_torch.utils.imageio\n"
         "import interpolate_antialiasing_tpu_torch.utils.metrics\n"
+        "import interpolate_antialiasing_tpu_torch.parallel\n"
+        "import interpolate_antialiasing_tpu_torch.parallel.halo\n"
+        "import interpolate_antialiasing_tpu_torch.parallel.sharding\n"
+        "import interpolate_antialiasing_tpu_torch.parallel.dryrun\n"
         "import torch\n"
         "x = torch.zeros((1, 3, 16, 16), dtype=torch.uint8)\n"
         "iat.ImageNetEvalPipeline(size=(8, 8))(x)\n"
@@ -244,7 +248,13 @@ def test_port_imports_no_jax():
         "iat.ImageNetTrainPipeline(size=(8, 8))(g, x)\n"
         "xf = x.float().requires_grad_()\n"
         "iat.resize_plane(xf, (8, 8), 2, 3).sum().backward()\n"
-        "iat.Trainer(resize_to=(8, 8)).step(x.float(), torch.zeros(1, dtype=torch.long))\n"
+        "iat.Trainer(resize_to=(8, 8), device='cpu').step(x.float(), torch.zeros(1, dtype=torch.long))\n"
+        "from interpolate_antialiasing_tpu_torch.parallel import halo\n"
+        "plan = halo.plan_halo_banded(16, 8, 'bilinear', True, 2)\n"
+        "ext = halo._extended_blocks(x.float(), plan, 2, 2)\n"
+        "halo._shard_h_float(ext[0], plan, 0, 2)\n"
+        "halo._shard_h_int(halo._extended_blocks(x, plan, 2, 2)[1], "
+        "halo._int_halo_tables(16, 8, 'bilinear', 2), 1, 2)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'interpolate_antialiasing_tpu.')) or m == "
         "'interpolate_antialiasing_tpu')\n"
@@ -277,7 +287,8 @@ def test_build_is_keyed_by_sources():
     assert path.parent.parent == native._BUILD_DIR
     assert path.name == native._LIB_NAME
     assert [p.name for p in native._sources()] == [
-        "crop_resample.cu", "pil_resample.cu", "resample2d.cu", "resample_axis.cu"]
+        "crop_resample.cu", "pil_resample.cu", "pil_resample_axis.cu", "resample2d.cu",
+        "resample_axis.cu"]
     assert native._lib_path() == path  # stable for unchanged sources
 
 

@@ -62,7 +62,7 @@ def test_trainer_matches_jax_after_two_steps():
         params, mom, loss = step(params, mom, jnp.asarray(imgs), jnp.asarray(labels))
         jlosses.append(float(loss))
 
-    tr = iat.Trainer(resize_to=(16, 16), state_dict=iat.params_from_jax(jp))
+    tr = iat.Trainer(resize_to=(16, 16), state_dict=iat.params_from_jax(jp), device="cpu")
     x, y = torch.from_numpy(imgs), torch.from_numpy(labels)
     losses = [float(tr.step(x, y)) for _ in range(2)]
     for a, b in zip(losses, jlosses):
@@ -85,7 +85,7 @@ def test_functional_surface_matches_jax():
     mom = {k: torch.zeros_like(v) for k, v in tp.items()}
     step = ttrain.make_train_step(resize_to=(16, 16))
     loss = step(tp, mom, x, torch.from_numpy(labels))
-    tr = iat.Trainer(resize_to=(16, 16), state_dict=iat.params_from_jax(jp))
+    tr = iat.Trainer(resize_to=(16, 16), state_dict=iat.params_from_jax(jp), device="cpu")
     assert float(tr.step(x, torch.from_numpy(labels))) == float(loss)
     for k in tp:
         assert torch.equal(tr.params[k].detach(), tp[k])
@@ -95,7 +95,7 @@ def test_trainer_learns_on_a_fixed_batch():
     """tests/test_models.py::test_train_step_single: the loss falls over six
     steps from the port's own random init."""
     imgs, labels = _batch()
-    tr = iat.Trainer(resize_to=(16, 16))
+    tr = iat.Trainer(resize_to=(16, 16), device="cpu")
     x, y = torch.from_numpy(imgs), torch.from_numpy(labels)
     l0 = float(tr.step(x, y))
     for _ in range(5):
@@ -148,12 +148,16 @@ def test_params_from_jax_and_module_layout():
     assert 0.05 < float(p["conv2"].std()) < 0.2 and not p["bias"].any()
 
 
-def test_mesh_is_not_ported():
-    for call in (lambda: iat.Trainer(mesh=object()),
-                 lambda: ttrain.make_train_step(mesh=object()),
-                 lambda: ttrain.forward({}, torch.zeros(1), mesh=object())):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            call()
+def test_trainer_without_a_device_runs_on_the_card():
+    """``device=None`` means the CUDA card: with none, the Trainer raises
+    rather than train on the CPU; on a machine with a card, the model lands
+    there."""
+    if torch.cuda.is_available():
+        tr = iat.Trainer(resize_to=(8, 8))
+        assert all(p.is_cuda for p in tr.params.values())
+        return
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        iat.Trainer(resize_to=(8, 8))
 
 
 # ---------------------------------------------------------------------------
