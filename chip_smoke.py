@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper card and the
-CUDA toolkit.  It builds the port's five CUDA kernels from the sources in
-the checkout and then:
+CUDA toolkit.  It builds the port's CUDA kernels from the sources in the
+checkout (five sources; resample2d and resample_axis each with a twin that
+synthesises its weights in the kernel, ``fused=True``) and then:
 
 1. holds each kernel against its plain PyTorch version, bit for bit: the
    Pillow kernel against a CPU copy (including a 70,000-plane batch, past
@@ -18,7 +19,10 @@ the checkout and then:
    kernel (pil_resample_axis) over every shard's tables of 2, 4 and 8
    shards, each filter, divisible and ceil-padded sizes, middle axis, last
    axis and NHWC, and the per-axis float kernel over every shard's tables
-   and their transposes (f32 and bf16);
+   and their transposes (f32 and bf16), and the two fused twins (weights
+   synthesised in the kernel) over every continuous filter, dtype pair and
+   axis kind, up- and downscale, align_corners, a span and the case where
+   no resample2d tile fits;
 2. drives the port's main paths through their public entry points, each
    with every launch count set to 0 just before it and read just after:
    the uint8 ImageNet-eval pipeline (Pillow kernel); BASELINE config 5
@@ -44,7 +48,14 @@ the checkout and then:
    ``resize_plane``'s VJP; and the public entry points (DTensor out) at the
    same sizes and ``Trainer(mesh=...)`` in a one-rank NCCL group, against
    their single-device counterparts (``--ranks N`` runs these group phases
-   across N cards of one host, one rank per card);
+   across N cards of one host, one rank per card).  Then the fused route at
+   full width (config 5 and configs 1-2 through ``resize2d(fused=True)`` /
+   ``resize_axis(fused=True)``, the bench batch u8 -> u8), against the
+   fused plain versions bit for bit and the table route within its bound;
+   BASELINE config 3 through ``ShapeBucketResizer`` (64 uint8 images in 8
+   ImageNet-like shapes -> 224x224, one Pillow-kernel launch per shape);
+   ``scale_and_translate`` and its VJP on config 1's image; and
+   ``reducing_gap`` 2 and 3 on a 4K frame -> 224x224;
 3. times each kernel beside its plain version on the card, in turns, with
    the least time the card could take for the same work and, where one
    PyTorch call computes the same function, that call's time.
@@ -82,8 +93,10 @@ from interpolate_antialiasing_tpu_torch import (
     random_resized_crop,
     resize,
     resize_plane,
+    scale_and_translate,
 )
 from interpolate_antialiasing_tpu_torch.config import full_f32
+from interpolate_antialiasing_tpu_torch.models import ShapeBucketResizer
 from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
@@ -112,6 +125,18 @@ SHARDS = 4
 SHARD_U8 = ((3, 32768, 32768), (8192, 8192), "bilinear")  # uint8 CHW, 3.2 GB
 SHARD_U8_CEIL = ((3, 16387, 16411), (4099, 4097), "lanczos3")  # ceil-padded blocks
 SHARD_F32 = ((1, 3, 16384, 16384), (4096, 4096), "bicubic")  # float32 NCHW, 3.2 GB
+# the filters the fused kernels synthesise (triangle, Keys cubic, Hamming,
+# Lanczos 3 and 5)
+FUSED_MODES = ("bilinear", "bicubic", "hamming", "lanczos3", "lanczos5")
+# BASELINE config 3: batch-64 arbitrary-size -> 224x224, ImageNet eval-style;
+# 8 ImageNet-like (H, W) shapes, 8 uint8 CHW images each
+CONFIG3_SHAPES = ((375, 500), (500, 375), (333, 500), (500, 333), (500, 500),
+                  (480, 640), (600, 800), (768, 1024))
+CONFIG3_SIZE = (224, 224)
+REDUCE_4K = ((3, 2160, 3840), (224, 224))  # reducing_gap on a 4K frame
+# scale_and_translate on config 1's image: (out H, W), scale, translation
+AFFINE_CASES = (("zoom and shift", (188, 317), (0.43, 0.35), (3.0, -2.5)),
+                ("negative scale", (188, 317), (-0.43, 0.35), (188.0, -2.5)))
 
 # the card's peaks (H100 SXM datasheet, at 700 W): device
 # memory, and float32 outside the tensor cores, the rate at which the int32
@@ -598,6 +623,88 @@ def check_shard_tables_kernel(dev) -> float:
     return tally.summary()
 
 
+def _fused2d_cases():
+    """(name, x shape, (oh, ow), mode, spec kwargs, in dtype, out dtype)"""
+    for mode in FUSED_MODES:
+        for idt in DTYPES:
+            for odt in DTYPES:
+                yield (f"down {mode}", (3, 57, 83), (24, 31), mode, {}, idt, odt)
+        yield (f"up {mode}", (3, 41, 60), (90, 130), mode, {}, F32, F32)
+        yield (f"align_corners {mode}", (2, 97, 131), (40, 160), mode,
+               dict(align_corners=True), F32, F32)
+        yield (f"span {mode}", (2, 97, 131), (40, 60), mode, dict(span=(3.5, 90.0)),
+               F32, F32)
+    yield ("extreme_downscale", (1, 2160, 96), (8, 48), "lanczos3", {}, F32, F32)
+    for shape, ohw, mode, idt, odt in JAX_CASES:
+        if mode in FUSED_MODES:
+            yield ("jax_case", shape, ohw, mode, {}, idt, odt)
+
+
+def _fused_axis_cases():
+    """(name, x shape, axis, n_out, mode, spec kwargs, in dtype, out dtype):
+    inner == 1 (the last axis) and inner > 1 (a middle axis)."""
+    for mode in FUSED_MODES:
+        for idt in DTYPES:
+            for odt in DTYPES:
+                yield (f"last {mode}", (2, 57, 83), -1, 31, mode, {}, idt, odt)
+                yield (f"mid {mode}", (2, 57, 83, 3), 1, 130, mode, {}, idt, odt)
+        yield (f"align_corners {mode}", (2, 3, 97, 131), -2, 40, mode,
+               dict(align_corners=True), F32, F32)
+        yield (f"span {mode}", (2, 3, 97, 131), -1, 60, mode, dict(span=(3.5, 90.0)),
+               F32, F32)
+
+
+def check_fused_kernels(dev) -> tuple[float, float]:
+    """The fused twins of resample2d and resample_axis (weights synthesised
+    in the kernel) against their plain versions on the card, bit for bit:
+    the plain versions build the weights with the kernels' float32
+    operations in their order, through torch's CUDA sin and cos."""
+    t2d, tax = _Tally("resample2d_fused"), _Tally("resample_axis_fused")
+    seed = 1000
+    for name, shape, ohw, mode, kw, idt, odt in _fused2d_cases():
+        seed += 1
+        x = _rand(shape, idt, dev, seed)
+        sh = make_axis_spec(shape[-2], ohw[0], mode, **kw)
+        sw = make_axis_spec(shape[-1], ohw[1], mode, **kw)
+        before = _counts()
+        got = cr.resize2d(x, sh, sw, odt, fused=True)
+        torch.cuda.synchronize()
+        if _counts() != dict(before, resample2d_fused=before["resample2d_fused"] + 1):
+            raise RuntimeError(f"resample2d_fused {name}: not launched once, alone")
+        want = cr._resample2d_fused_plain(_view3(x, -2), sh, sw, odt).reshape(got.shape)
+        t2d.add(name, _compare(f"resample2d_fused {name}", got, want), shape=list(shape),
+                out=list(got.shape), mode=mode, **kw, dtypes=[str(idt), str(odt)],
+                plan=list(cr._plan2d_synth(sh)))
+    # no output tile's row window fits shared memory: two fused axis passes
+    x = _rand((2, 58200, 4), F32, dev, 1100)
+    sh, sw = make_axis_spec(58200, 1, "bilinear"), make_axis_spec(4, 4, "bilinear")
+    if cr._plan2d_synth(sh) is not None:
+        raise RuntimeError("the fused fallback case fits a tile")
+    before = _counts()
+    got = cr.resize2d(x, sh, sw, F32, fused=True)
+    torch.cuda.synchronize()
+    if _counts() != dict(before, resample_axis_fused=before["resample_axis_fused"] + 2):
+        raise RuntimeError("the fused fallback did not run two fused resample_axis passes")
+    y = cr._resample_axis_fused_plain(_view3(x, 2), sw, F32).reshape(x.shape)
+    want = cr._resample_axis_fused_plain(_view3(y, 1), sh, F32).reshape(got.shape)
+    tax.add("no_tile_fits_fallback", _compare("fused fallback", got, want),
+            shape=list(x.shape), out=list(got.shape), taps=sh.ntaps)
+    for name, shape, axis, n_out, mode, kw, idt, odt in _fused_axis_cases():
+        seed += 1
+        x = _rand(shape, idt, dev, seed)
+        spec = make_axis_spec(shape[axis], n_out, mode, **kw)
+        before = _counts()
+        got = cr.resize_axis(x, spec, axis, odt, fused=True)
+        torch.cuda.synchronize()
+        if _counts() != dict(before, resample_axis_fused=before["resample_axis_fused"] + 1):
+            raise RuntimeError(f"resample_axis_fused {name}: not launched once, alone")
+        want = cr._resample_axis_fused_plain(_view3(x, axis), spec, odt).reshape(got.shape)
+        tax.add(name, _compare(f"resample_axis_fused {name}", got, want),
+                shape=list(shape), axis=axis, out=list(got.shape), mode=mode, **kw,
+                dtypes=[str(idt), str(odt)])
+    return t2d.summary(), tax.summary()
+
+
 # ---------------------------------------------------------------------------
 # 3. the main paths
 # ---------------------------------------------------------------------------
@@ -606,12 +713,14 @@ def check_shard_tables_kernel(dev) -> float:
 def _counts() -> dict:
     return {"pil_resample_2pass": pe.launches, "resample2d": cr.launches_2d,
             "resample_axis": cr.launches_axis, "crop_resample": cc.launches_crop,
-            "pil_resample_axis": pe.launches_axis}
+            "pil_resample_axis": pe.launches_axis,
+            "resample2d_fused": cr.launches_2d_fused,
+            "resample_axis_fused": cr.launches_axis_fused}
 
 
 def _reset() -> None:
     pe.launches = cr.launches_2d = cr.launches_axis = cc.launches_crop = 0
-    pe.launches_axis = 0
+    pe.launches_axis = cr.launches_2d_fused = cr.launches_axis_fused = 0
 
 
 def _expect(phase: str, want: dict) -> dict:
@@ -629,17 +738,22 @@ def _plain_kernels():
     """Every kernel's wrapper runs its plain version on the card instead of
     launching (no count moves): the reference run of a main path."""
     saved = (cr._resample2d_cuda, cr._resample_axis_cuda,
-             pe._resample_2pass_cuda, cc._crop_resample_cuda, pe._resample_axis_cuda)
+             pe._resample_2pass_cuda, cc._crop_resample_cuda, pe._resample_axis_cuda,
+             cr._resample2d_fused_cuda, cr._resample_axis_fused_cuda)
     cr._resample2d_cuda = lambda x3, sh, sw, odt, plan: cr._resample2d_plain(x3, sh, sw, odt)
     cr._resample_axis_cuda = cr._resample_axis_plain
     pe._resample_2pass_cuda = pe._resample_2pass_plain
     cc._crop_resample_cuda = cc._crop_resample_plain
     pe._resample_axis_cuda = pe._resample_axis_plain
+    cr._resample2d_fused_cuda = (
+        lambda x3, sh, sw, odt, plan: cr._resample2d_fused_plain(x3, sh, sw, odt))
+    cr._resample_axis_fused_cuda = cr._resample_axis_fused_plain
     try:
         yield
     finally:
         (cr._resample2d_cuda, cr._resample_axis_cuda,
-         pe._resample_2pass_cuda, cc._crop_resample_cuda, pe._resample_axis_cuda) = saved
+         pe._resample_2pass_cuda, cc._crop_resample_cuda, pe._resample_axis_cuda,
+         cr._resample2d_fused_cuda, cr._resample_axis_fused_cuda) = saved
 
 
 def main_path_u8_pipeline(dev) -> int:
@@ -789,6 +903,206 @@ def main_path_config4(dev) -> tuple[int, int]:
         _line("main_path", path=f"config 4 {name}", shape=list(shape), out=list(ohw),
               grad_shape=list(got.shape), launches=counts, **res)
     return n2d, naxis
+
+
+def _within_bf16_step(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """bfloat16 outputs of two float32 sums that differ in their last bits:
+    each element within one bfloat16 step (2^-7 of the larger value)."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    if not bool((d <= 2.0**-7 * torch.maximum(g.abs(), w.abs())).all()):
+        raise RuntimeError(f"{name}: more than one bfloat16 step from the table route")
+    return float(d.max())
+
+
+def main_path_fused(dev) -> tuple[int, int]:
+    """Row 8 at full width, through the fused route's entry points: BASELINE
+    config 5 through ``resize2d(fused=True)``, configs 1-2 NCHW through
+    ``resize2d(fused=True)`` and NHWC through two ``resize_axis(fused=True)``,
+    and the bench batch u8 -> u8; each with the counts set to 0 just before
+    and read just after (the fused kernels only, no table kernel), held to
+    the fused plain versions bit for bit and to the table route within one
+    bfloat16 step (config 5), 3e-5 * max (float32: the JAX package's kernel
+    test bound, tests/test_pallas_kernels.py:39) or one grey level (u8,
+    tests/test_resize2d_fused.py:89-90)."""
+    n2d = naxis = 0
+    # config 5: bf16 [64, 3, 2160, 3840] -> 1080 x 1920
+    (shape, ohw) = CONFIG5
+    x = _rand(shape, BF16, dev, 5)
+    sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
+    _reset()
+    y = cr.resize2d(x, sh, sw, BF16, fused=True)
+    torch.cuda.synchronize()
+    counts = _expect("fused config 5", {"resample2d_fused": 1})
+    n2d += counts["resample2d_fused"]
+    res = _compare("fused config 5 vs plain", y,
+                   cr._resample2d_fused_plain(_view3(x, -2), sh, sw, BF16).reshape(y.shape))
+    res["max_abs_err_vs_tables"] = _within_bf16_step(
+        "fused config 5", y, cr.resize2d(x, sh, sw, BF16))
+    _line("main_path", path="config 5 resize2d(fused=True)", shape=list(shape),
+          out=list(y.shape), dtype=str(y.dtype), launches=counts, **res)
+    del x, y
+    torch.cuda.empty_cache()
+
+    # configs 1-2: f32 [1, 3, 438, 906] -> 196 x 320, NCHW and NHWC
+    (shape, ohw) = HEADLINE
+    for mode in ("bilinear", "bicubic"):
+        sh, sw = make_axis_spec(shape[-2], ohw[0], mode), make_axis_spec(shape[-1], ohw[1], mode)
+        x = _rand(shape, F32, dev, 7)
+        _reset()
+        y = cr.resize2d(x, sh, sw, F32, fused=True)
+        torch.cuda.synchronize()
+        counts = _expect(f"fused headline NCHW {mode}", {"resample2d_fused": 1})
+        n2d += counts["resample2d_fused"]
+        res = _compare(f"fused headline NCHW {mode} vs plain", y,
+                       cr._resample2d_fused_plain(_view3(x, -2), sh, sw, F32).reshape(y.shape))
+        table = cr.resize2d(x, sh, sw, F32)
+        res["max_abs_err_vs_tables"] = _max_abs(y, table)
+        if res["max_abs_err_vs_tables"] > 3e-5 * float(table.abs().max()):
+            raise RuntimeError(f"fused headline NCHW {mode}: {res['max_abs_err_vs_tables']} "
+                               "from the table route")
+        _line("main_path", path=f"configs 1-2 resize2d(fused=True) NCHW {mode}",
+              shape=list(shape), out=list(y.shape), launches=counts, **res)
+
+        xn = x.permute(0, 2, 3, 1).contiguous()
+        _reset()
+        y = cr.resize_axis(cr.resize_axis(xn, sw, 2, fused=True), sh, 1, fused=True)
+        torch.cuda.synchronize()
+        counts = _expect(f"fused headline NHWC {mode}", {"resample_axis_fused": 2})
+        naxis += counts["resample_axis_fused"]
+        t = cr._resample_axis_fused_plain(_view3(xn, 2), sw, F32).reshape(1, shape[-2], ohw[1], 3)
+        res = _compare(f"fused headline NHWC {mode} vs plain", y,
+                       cr._resample_axis_fused_plain(_view3(t, 1), sh, F32).reshape(y.shape))
+        table = cr.resize_axis(cr.resize_axis(xn, sw, 2), sh, 1)
+        res["max_abs_err_vs_tables"] = _max_abs(y, table)
+        if res["max_abs_err_vs_tables"] > 3e-5 * float(table.abs().max()):
+            raise RuntimeError(f"fused headline NHWC {mode}: {res['max_abs_err_vs_tables']} "
+                               "from the table route")
+        _line("main_path", path=f"configs 1-2 resize_axis(fused=True) NHWC {mode}",
+              shape=list(xn.shape), out=list(y.shape), launches=counts, **res)
+
+    # the bench batch, u8 [64, 3, 438, 906] -> 196 x 320 u8 -> u8
+    (shape, ohw) = BENCH
+    x = _rand(shape, U8, dev, 8)
+    sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
+    _reset()
+    y = cr.resize2d(x, sh, sw, U8, fused=True)
+    torch.cuda.synchronize()
+    counts = _expect("fused bench u8", {"resample2d_fused": 1})
+    n2d += counts["resample2d_fused"]
+    res = _compare("fused bench u8 vs plain", y,
+                   cr._resample2d_fused_plain(_view3(x, -2), sh, sw, U8).reshape(y.shape))
+    table = cr.resize2d(x, sh, sw, U8)
+    res["max_abs_err_vs_tables"] = _max_abs(y, table)
+    res["differing_from_tables"] = int((y != table).sum())
+    if res["max_abs_err_vs_tables"] > 1.0:
+        raise RuntimeError(f"fused bench u8: {res['max_abs_err_vs_tables']} grey levels "
+                           "from the table route")
+    _line("main_path", path="bench batch resize2d(fused=True) u8->u8", shape=list(shape),
+          out=list(y.shape), launches=counts, elements=y.numel(), **res)
+    return n2d, naxis
+
+
+def main_path_config3(dev) -> int:
+    """BASELINE config 3 through ``ShapeBucketResizer`` (its default device,
+    the card): 64 uint8 CHW images from a seed in 8 ImageNet-like shapes, in
+    shuffled order, -> 224 x 224 on the Pillow route.  One
+    ``pil_resample_2pass`` launch per shape (8); the output in input order
+    byte-equal to per-image ``resize_pil_exact`` and to the same call with
+    the kernel replaced by its plain version."""
+    rng = np.random.default_rng(3)
+    images = [rng.integers(0, 256, (3, h, w), dtype=np.uint8)
+              for h, w in CONFIG3_SHAPES for _ in range(8)]
+    images = [images[i] for i in rng.permutation(len(images))]
+    r = ShapeBucketResizer(CONFIG3_SIZE)
+    _reset()
+    y = r(images)
+    torch.cuda.synchronize()
+    counts = _expect("config 3", {"pil_resample_2pass": len(CONFIG3_SHAPES)})
+    if tuple(y.shape) != (len(images), 3, *CONFIG3_SIZE) or y.device != dev:
+        raise RuntimeError(f"config 3: {tuple(y.shape)} on {y.device}")
+    want = torch.stack([pe.resize_pil_exact(torch.from_numpy(im).to(dev), CONFIG3_SIZE)
+                        for im in images])
+    if not torch.equal(y, want):
+        raise RuntimeError(f"config 3: {int((y != want).sum())} bytes differ from "
+                           "per-image resize_pil_exact")
+    with _plain_kernels():
+        ref = r(images)
+    _compare("config 3 vs plain", y, ref)
+    t0 = time.perf_counter()
+    calls = 5
+    for _ in range(calls):
+        r(images)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    _line("main_path", path="config 3 ShapeBucketResizer", images=len(images),
+          shapes=[list(s) for s in CONFIG3_SHAPES], size=list(CONFIG3_SIZE),
+          launches=counts, shapes_served=r.shapes_compiled,
+          bytes_equal_to_per_image=True, bytes_equal_to_plain=True,
+          host_ms_per_batch=host_ms)
+    return counts["pil_resample_2pass"]
+
+
+def main_path_scale_translate(dev) -> int:
+    """``scale_and_translate`` on config 1's f32 image [1, 3, 438, 906] with
+    Python parameters (the static route): one resample2d launch forward and
+    one (its adjoint) for the VJP; equal to the same calls on the plain
+    versions, and within 5e-5 of the tensor-parameter (dense) route, output
+    and gradient (relative to the gradient's largest value)."""
+    shape = HEADLINE[0]
+    x = _rand(shape, F32, dev, 91).div_(255.0)
+    total = 0
+    for name, ohw, sc, tr in AFFINE_CASES:
+        out_shape = (*shape[:2], *ohw)
+        cot = _rand(out_shape, F32, dev, 92).div_(255.0)
+
+        def fwd_vjp(sc=sc, tr=tr):
+            xr = x.detach().requires_grad_()
+            y = scale_and_translate(xr, out_shape, (2, 3), sc, tr, "linear")
+            return y.detach(), torch.autograd.grad(y, xr, grad_outputs=cot)[0]
+
+        _reset()
+        y, g = fwd_vjp()
+        torch.cuda.synchronize()
+        counts = _expect(f"scale_and_translate {name}", {"resample2d": 2})
+        total += counts["resample2d"]
+        with _plain_kernels():
+            y_p, g_p = fwd_vjp()
+        res = {"max_abs_err_vs_plain": _compare(f"{name} vs plain", y, y_p)["max_abs_err"],
+               "grad_max_abs_err_vs_plain": _compare(f"{name} grad vs plain", g,
+                                                     g_p)["max_abs_err"]}
+        yd, gd = fwd_vjp(torch.tensor(sc, device=dev), torch.tensor(tr, device=dev))
+        res.update(max_abs_err_vs_dense=_max_abs(y, yd), grad_max_abs_err_vs_dense=_max_abs(g, gd))
+        if res["max_abs_err_vs_dense"] > 5e-5 or \
+                res["grad_max_abs_err_vs_dense"] > 5e-5 * float(gd.abs().max()):
+            raise RuntimeError(f"scale_and_translate {name}: {res} against the dense route")
+        _line("main_path", path=f"scale_and_translate {name}", shape=list(shape),
+              out=list(out_shape), scale=list(sc), translation=list(tr), launches=counts,
+              **res)
+    return total
+
+
+def main_path_reducing_gap(dev) -> int:
+    """``resize`` with ``reducing_gap`` 2 and 3 on a uint8 4K frame ->
+    224 x 224: ``reduce_pil_exact`` (plain torch) then one
+    ``pil_resample_2pass`` launch; equal to the same call with the kernel
+    replaced by its plain version."""
+    (shape, size) = REDUCE_4K
+    g = torch.Generator(device=dev).manual_seed(93)
+    x = torch.randint(0, 256, shape, dtype=U8, device=dev, generator=g)
+    total = 0
+    for gap in (2.0, 3.0):
+        _reset()
+        y = resize(x, size, reducing_gap=gap)
+        torch.cuda.synchronize()
+        counts = _expect(f"reducing_gap {gap}", {"pil_resample_2pass": 1})
+        total += counts["pil_resample_2pass"]
+        with _plain_kernels():
+            ref = resize(x, size, reducing_gap=gap)
+        res = _compare(f"reducing_gap {gap} vs plain", y, ref)
+        _line("main_path", path=f"resize reducing_gap={gap}", shape=list(shape),
+              out=list(y.shape), launches=counts, bytes_equal_to_plain=True, **res)
+    return total
 
 
 def main_path_train(dev) -> tuple[int, int]:
@@ -1287,6 +1601,93 @@ def time_float_kernels(dev, card) -> tuple[dict, dict]:
     return r2d, rax
 
 
+def _synth_nz(spec) -> int:
+    """Taps with nonzero synthesised weight over all outputs of a pass."""
+    return int(torch.count_nonzero(cr._synth_tables(spec, torch.device("cpu"))[1]))
+
+
+def time_fused_kernels(dev, card) -> tuple[dict, dict]:
+    """Row 8: the fused kernels beside the table kernels at the same shapes
+    and their plain versions, in turns (plain, fused, fused, plain; the
+    table kernel before and after), with the bound (bytes over 3.35 TB/s,
+    no table bytes; or the nonzero taps' multiply-adds over 67 T/s) and
+    ``F.interpolate(antialias=True)``: config 5 (resample2d_fused), configs
+    1-2 NCHW (resample2d_fused) and NHWC (resample_axis_fused, W pass then
+    H pass)."""
+    F = torch.nn.functional
+    out = {}
+    with full_f32():
+        (shape, ohw) = CONFIG5
+        x = _rand(shape, BF16, dev, 11)
+        x3 = _view3(x, -2)
+        sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
+        table = [time_cuda(lambda: cr.resize2d(x3, sh, sw, BF16), iters=5, warmup=1)]
+        c5 = _turns(lambda: cr.resize2d(x3, sh, sw, BF16, fused=True),
+                    lambda: cr._resample2d_fused_plain(x3, sh, sw, BF16), 5, 1)
+        table.append(time_cuda(lambda: cr.resize2d(x3, sh, sw, BF16), iters=5, warmup=1))
+        P = x3.shape[0]
+        bound = _bound(2 * P * (shape[-2] * shape[-1] + ohw[0] * ohw[1]),
+                       P * (shape[-2] * _synth_nz(sw) + ohw[1] * _synth_nz(sh)))
+        lib5, note5 = _library(lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True))
+        k5 = sum(c5["kernel"]) / 2
+        _line("time_fused_config5", card=card, kernel="resample2d_fused", shape=list(shape),
+              size=list(ohw), kernel_ms=c5["kernel"], plain_ms=c5["plain"],
+              table_kernel_ms=table, kernel_gb_s=bound["bytes"] / (k5 * 1e-3) / 1e9,
+              **bound, library_ms=lib5, library=note5)
+        out["2d"] = {"ms": k5, "plain_ms": sum(c5["plain"]) / 2, "bound_ms": bound["bound_ms"],
+                     "bound_by": bound["bound_by"], "library_ms": lib5}
+        del x, x3
+        torch.cuda.empty_cache()
+
+        (shape, ohw) = HEADLINE
+        for mode in ("bilinear", "bicubic"):
+            x3 = _view3(_rand(shape, F32, dev, 12), -2)
+            sh, sw = make_axis_spec(shape[-2], ohw[0], mode), make_axis_spec(shape[-1], ohw[1], mode)
+            table = [time_cuda(lambda: cr.resize2d(x3, sh, sw, F32), iters=50, warmup=3)]
+            hd = _turns(lambda: cr.resize2d(x3, sh, sw, F32, fused=True),
+                        lambda: cr._resample2d_fused_plain(x3, sh, sw, F32), 50, 3)
+            table.append(time_cuda(lambda: cr.resize2d(x3, sh, sw, F32), iters=50, warmup=3))
+            P, H, W = x3.shape
+            hb = _bound(4 * P * (H * W + ohw[0] * ohw[1]),
+                        P * (H * _synth_nz(sw) + ohw[1] * _synth_nz(sh)))
+            x4 = x3.reshape(shape)
+            libh, noteh = _library(lambda: F.interpolate(x4, ohw, mode=mode, antialias=True))
+            _line("time_fused_headline_nchw", card=card, kernel="resample2d_fused", mode=mode,
+                  shape=list(shape), size=list(ohw), kernel_ms=hd["kernel"],
+                  plain_ms=hd["plain"], table_kernel_ms=table, **hb, library_ms=libh,
+                  library=noteh)
+
+        xn = _rand(shape, F32, dev, 13).permute(0, 2, 3, 1).contiguous()
+        sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
+        t = cr.resize_axis(xn, sw, 2, fused=True)
+        tables = {"w": [time_cuda(lambda: cr.resize_axis(xn, sw, 2), iters=50, warmup=3)],
+                  "h": [time_cuda(lambda: cr.resize_axis(t, sh, 1), iters=50, warmup=3)]}
+        wp = _turns(lambda: cr.resize_axis(xn, sw, 2, fused=True),
+                    lambda: cr._resample_axis_fused_plain(_view3(xn, 2), sw, F32), 50, 3)
+        hp = _turns(lambda: cr.resize_axis(t, sh, 1, fused=True),
+                    lambda: cr._resample_axis_fused_plain(_view3(t, 1), sh, F32), 50, 3)
+        tables["w"].append(time_cuda(lambda: cr.resize_axis(xn, sw, 2), iters=50, warmup=3))
+        tables["h"].append(time_cuda(lambda: cr.resize_axis(t, sh, 1), iters=50, warmup=3))
+        H, W, C = shape[-2], shape[-1], shape[1]
+        bw = _bound(4 * C * H * (W + ohw[1]), C * H * _synth_nz(sw))
+        bh = _bound(4 * C * ohw[1] * (H + ohw[0]), C * ohw[1] * _synth_nz(sh))
+        libn, noten = _library(lambda: F.interpolate(xn.permute(0, 3, 1, 2), ohw,
+                                                     mode="bilinear", antialias=True))
+        _line("time_fused_headline_nhwc", card=card, kernel="resample_axis_fused",
+              shape=list(xn.shape), size=list(ohw),
+              w_pass_kernel_ms=wp["kernel"], w_pass_plain_ms=wp["plain"],
+              w_pass_table_kernel_ms=tables["w"], h_pass_kernel_ms=hp["kernel"],
+              h_pass_plain_ms=hp["plain"], h_pass_table_kernel_ms=tables["h"],
+              w_pass_bound_ms=bw["bound_ms"], h_pass_bound_ms=bh["bound_ms"],
+              bound_by=[bw["bound_by"], bh["bound_by"]], library_ms=libn, library=noten)
+    out["axis"] = {"ms": sum(wp["kernel"]) / 2 + sum(hp["kernel"]) / 2,
+                   "plain_ms": sum(wp["plain"]) / 2 + sum(hp["plain"]) / 2,
+                   "bound_ms": bw["bound_ms"] + bh["bound_ms"],
+                   "bound_by": bw["bound_by"] if bw["bound_by"] == bh["bound_by"] else "bytes",
+                   "library_ms": libn}
+    return out["2d"], out["axis"]
+
+
 def time_train_kernels(dev, card) -> dict:
     """The adjoint of config 4 and the crop kernel, beside their plain
     versions; and the whole calls the main path makes."""
@@ -1501,6 +1902,7 @@ def main() -> None:
             crop_err = check_crop_kernel(dev)
             pil_axis_err = check_pil_axis_kernel(dev)
             shard_err = check_shard_tables_kernel(dev)
+            fused_2d_err, fused_axis_err = check_fused_kernels(dev)
         finally:
             CASES_LOG.parent.mkdir(exist_ok=True)
             CASES_LOG.write_text("".join(c + "\n" for c in _cases))
@@ -1509,9 +1911,15 @@ def main() -> None:
         pil_launches = main_path_u8_pipeline(dev)
         c5_launches = main_path_config5(dev)
         torch.cuda.empty_cache()
+        fused_2d, fused_axis = main_path_fused(dev)
+        torch.cuda.empty_cache()
         hl_2d, hl_axis = main_path_headline(dev)
         f32_launches = main_path_f32_pipeline(dev)
         c4_2d, c4_axis = main_path_config4(dev)
+        torch.cuda.empty_cache()
+        c3_launches = main_path_config3(dev)
+        st_2d = main_path_scale_translate(dev)
+        gap_launches = main_path_reducing_gap(dev)
         torch.cuda.empty_cache()
         crop_launches, train_2d = main_path_train(dev)
         torch.cuda.empty_cache()
@@ -1525,6 +1933,8 @@ def main() -> None:
     t_pil = time_pil_kernel(dev, rng, card)
     t_2d, t_axis = time_float_kernels(dev, card)
     torch.cuda.empty_cache()
+    t_2d_fused, t_axis_fused = time_fused_kernels(dev, card)
+    torch.cuda.empty_cache()
     t_crop = time_train_kernels(dev, card)
     torch.cuda.empty_cache()
     t_pil_axis, t_shard = time_sharded_kernels(dev, card)
@@ -1535,13 +1945,14 @@ def main() -> None:
          "source": "interpolate_antialiasing_tpu_torch/csrc/pil_resample.cu",
          "replaces": "interpolate_antialiasing_tpu/ops/pil_exact.py:504",
          "also_serves": "interpolate_antialiasing_tpu/ops/pil_exact.py:824",
-         "launches": pil_launches, "max_abs_err": pil_err, **t_pil},
+         "launches": pil_launches + c3_launches + gap_launches, "max_abs_err": pil_err,
+         **t_pil},
         {"name": "resample2d", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cu",
          "replaces": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1003",
          "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1475, "
                         ":1176 (adjoint)",
-         "launches": c5_launches + hl_2d + f32_launches + c4_2d + train_2d,
+         "launches": c5_launches + hl_2d + f32_launches + c4_2d + train_2d + st_2d,
          "max_abs_err": max(err_2d, adj_2d), **t_2d},
         {"name": "resample_axis", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cu",
@@ -1561,6 +1972,21 @@ def main() -> None:
          "source": "interpolate_antialiasing_tpu_torch/csrc/pil_resample_axis.cu",
          "replaces": "interpolate_antialiasing_tpu/ops/pil_exact.py:407",
          "launches": sh_pil + rank_pil, "max_abs_err": pil_axis_err, **t_pil_axis},
+        {"name": "resample2d_fused", "route": "cuda",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cu",
+         "weights": "interpolate_antialiasing_tpu_torch/csrc/ia_taps.cuh",
+         "replaces": "interpolate_antialiasing_tpu/ops/pallas_resize.py:258",
+         "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:275 (the "
+                        "fused_spec branches of _kernel_{last,mid}_unrolled, "
+                        "resize2d_pallas(fused=True))",
+         "launches": fused_2d, "max_abs_err": fused_2d_err, **t_2d_fused},
+        {"name": "resample_axis_fused", "route": "cuda",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cu",
+         "weights": "interpolate_antialiasing_tpu_torch/csrc/ia_taps.cuh",
+         "replaces": "interpolate_antialiasing_tpu/ops/pallas_resize.py:227",
+         "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:239, "
+                        ":197 (_synth_band)",
+         "launches": fused_axis, "max_abs_err": fused_axis_err, **t_axis_fused},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

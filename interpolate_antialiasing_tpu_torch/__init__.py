@@ -12,12 +12,20 @@ never jax.  Ported so far, the serving paths and the training path:
   interpolate            — torch.nn.functional.interpolate-shaped shim
   image_resize           — jax.image.resize-shaped shim
   resize_pil_exact       — Pillow's 8bpc two-pass resample, byte for byte
+                           (with reducing_gap: PIL's reduce-then-resample)
+  reduce_pil_exact       — PIL.Image.reduce, byte for byte
+  scale_and_translate    — jax.image.scale_and_translate drop-in
+  make_axis_spec, compute_tables, dense_matrix — the weight-table builders
+  ResizeOptions          — resize's keyword arguments, bundled
   crop_and_resize        — per-image boxes, windowed kernel or dense route
   random_resized_crop    — antialiased RandomResizedCrop (torch.Generator)
   linear/nearest/cubic_forward, *_backward — the reference's op surface
   ImageNetEvalPipeline   — uint8 batch -> resize -> normalised float (nn.Module)
   ImageNetTrainPipeline  — uint8 batch -> RandomResizedCrop + flip -> normalised
   VideoDownscaler        — bf16 frames -> bf16 frames (nn.Module)
+  models.ShapeBucketResizer, models.resize_mixed_batch — mixed-size batches
+                           (BASELINE config 3), one call per shape
+  models.aa_pyramid      — antialiased mip chains
   AAResize               — the resize as a parameter-free nn.Module
   Trainer, params_from_jax — the small resize + conv model's SGD loop (one
                            card, or a DeviceMesh: data x spatial sharding)
@@ -33,7 +41,9 @@ pil_resample_2pass (Pillow's integer passes), resample2d (both float passes
 of a plane, and of its adjoint), resample_axis (one pass over any axis, or
 its adjoint, or a shard's H pass), crop_resample (the windowed crop's two
 passes) and pil_resample_axis (one Pillow pass over any axis: the sharded
-byte-exact route).
+byte-exact route).  resample2d and resample_axis also synthesise their
+weights in the kernel from the spec under ``fused=True``
+(``ops.cuda_resize``), the JAX package's in-kernel weight route.
 
 Environment dials, shared with the JAX package: IA_TPU_DEBUG, IA_TPU_BACKEND,
 IA_TPU_PIL_DIGITS, IA_TPU_PRECISION.
@@ -55,16 +65,21 @@ from .ops.api import (
     nearest_backward,
     nearest_forward,
 )
+from .config import ResizeOptions
 from .ops.crop import crop_and_resize, random_resized_crop
-from .ops.pil_exact import resize_pil_exact
+from .ops.pil_exact import reduce_pil_exact, resize_pil_exact
 from .ops.resize import image_resize, interpolate, resize, resize_nd, resize_plane
+from .ops.scale_translate import scale_and_translate
+from .ops.weights import compute_tables, dense_matrix, make_axis_spec
 from . import parallel
 
 __version__ = "0.1.0"
 
-__all__ = ["resize", "resize_plane", "resize_nd", "interpolate", "image_resize",
-           "resize_pil_exact", "crop_and_resize", "random_resized_crop",
+__all__ = ["resize", "interpolate", "resize_plane", "resize_nd", "image_resize",
+           "scale_and_translate", "crop_and_resize", "random_resized_crop",
+           "reduce_pil_exact", "resize_pil_exact",
            "linear_forward", "nearest_forward", "cubic_forward",
            "linear_backward", "nearest_backward", "cubic_backward",
+           "make_axis_spec", "compute_tables", "dense_matrix", "ResizeOptions",
            "ImageNetEvalPipeline", "ImageNetTrainPipeline", "VideoDownscaler",
            "AAResize", "Trainer", "params_from_jax", "parallel", "__version__"]

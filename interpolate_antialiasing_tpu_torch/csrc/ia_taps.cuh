@@ -1,0 +1,171 @@
+// Where a float resample kernel takes each output's weights from: host
+// tables (TableTaps) or the pass's closed form, evaluated in the kernel
+// (SynthTaps).  resample_axis.cu and resample2d.cu are templated on it, so
+// each keeps one multiply-add loop for both sources:
+//
+//   const auto row = taps.row(o);
+//   for (int k = 0; k < taps.ntaps; ++k)
+//     acc = mac(acc, row(k), x[clamp(row.first + k, 0, in - 1)]);
+//
+// SynthTaps replaces the weight-band synthesis of the JAX package's
+// _kernel_last_fused / _kernel_mid_fused and of the fused_spec branch of
+// _kernel_last_unrolled / _kernel_mid_unrolled
+// (interpolate_antialiasing_tpu/ops/pallas_resize.py::_synth_band): no weight
+// crosses device memory.  For output o of a pass over in_size inputs, every
+// step in float32, each rounded (the intrinsics are never contracted into a
+// fused multiply-add), in the order of the plain version
+// (cuda_resize.py::_synth_tables):
+//
+//   center = scale * (o + 0.5) + offset          (align_corners: scale * o + 0.5)
+//   first  = floor(center - support + 0.5)       (may lie before the axis)
+//   w_k    = filter((first + k - center + 0.5) * invscale), k < ntaps,
+//            0 where first + k lies outside [0, in_size - 1]
+//   total  = w_0 + w_1 + ... in tap order, 1 where it is 0
+//   weight = w_k / total
+//
+// The window of ntaps = ceil(support) * 2 + 1 taps from `first` covers every
+// tap where the filter is nonzero; the TPU kernel evaluates the same filter
+// over its tile's whole band, whose other taps weigh 0.  Continuous filters
+// only (triangle, Keys cubic, Hamming, Lanczos): the host gate sends box,
+// nearest, area and the non-renorm borders to the tables, as the JAX
+// package's gate does.
+//
+// Bounds: synthesis is arithmetic, 2 * ntaps filter evaluations and ntaps
+// divisions per output element (the filter is evaluated once for the sum and
+// once per tap of the multiply-add; nothing is cached), against the table
+// route's ntaps weight loads, most of them from L1.  A block's weights could
+// live in shared memory; that is for a later version.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "ia_dtypes.cuh"
+
+namespace ia {
+
+// filter codes (cuda_resize.py::_SYNTH_FILTERS)
+enum SynthFilter : int { kTriangle = 0, kCubic = 1, kHamming = 2, kLanczos = 3 };
+
+// One pass's closed form.  Every float is the spec's Python float rounded to
+// float32 once, on the host (JAX's weak typing does the same).  c0, c1, c2:
+// a + 2, a + 3 and a of the Keys cubic; c0 = n of Lanczos-n.
+struct Synth {
+  int filter, in_size, ntaps, align_corners;
+  float scale, invscale, support, offset;
+  float c0, c1, c2;
+};
+
+// float32(pi), as jnp.sinc and jnp.pi * x round it
+constexpr float kPi = 3.14159265358979323846f;
+
+// jnp.sinc: sin(pi x) / (pi x) with pi x rounded once; 1 at 0
+__device__ __forceinline__ float sinc_f32(float x) {
+  if (x == 0.0f) return 1.0f;
+  const float px = __fmul_rn(kPi, x);
+  return __fdiv_rn(sinf(px), px);
+}
+
+// The JAX package's filters (ops/filters.py) evaluated in float32, operation
+// by operation as jnp evaluates them on float32 arguments.
+__device__ __forceinline__ float synth_filter(const Synth& s, float x) {
+  const float ax = fabsf(x);
+  switch (s.filter) {
+    case kTriangle:
+      return ax < 1.0f ? __fsub_rn(1.0f, ax) : 0.0f;
+    case kCubic: {
+      if (ax < 1.0f) {  // ((a + 2) * ax - (a + 3)) * ax * ax + 1
+        const float t = __fsub_rn(__fmul_rn(s.c0, ax), s.c1);
+        return __fadd_rn(__fmul_rn(__fmul_rn(t, ax), ax), 1.0f);
+      }
+      if (ax < 2.0f) {  // (((ax - 5) * ax + 8) * ax - 4) * a
+        const float t = __fadd_rn(__fmul_rn(__fsub_rn(ax, 5.0f), ax), 8.0f);
+        return __fmul_rn(__fsub_rn(__fmul_rn(t, ax), 4.0f), s.c2);
+      }
+      return 0.0f;
+    }
+    case kHamming: {  // sinc(x) * (0.54f + 0.46f * cos(pi x)), exactly 1 at 0
+      if (!(ax < 1.0f)) return 0.0f;
+      if (ax == 0.0f) return 1.0f;
+      const float px = __fmul_rn(kPi, x);
+      const float win = __fadd_rn(0.54f, __fmul_rn(0.46f, cosf(px)));
+      return __fmul_rn(__fdiv_rn(sinf(px), px), win);
+    }
+    case kLanczos:  // sinc(x) * sinc(x / n)
+      if (!(ax < s.c0)) return 0.0f;
+      return __fmul_rn(sinc_f32(x), sinc_f32(__fdiv_rn(x, s.c0)));
+  }
+  return 0.0f;
+}
+
+__device__ __forceinline__ float synth_center(const Synth& s, int o) {
+  const float of = (float)o;
+  if (s.align_corners) return __fadd_rn(__fmul_rn(s.scale, of), 0.5f);
+  return __fadd_rn(__fmul_rn(s.scale, __fadd_rn(of, 0.5f)), s.offset);
+}
+
+__device__ __forceinline__ int synth_first(const Synth& s, float center) {
+  return (int)floorf(__fadd_rn(__fsub_rn(center, s.support), 0.5f));
+}
+
+// The unnormalised weight of input position `pos` (0 off the axis).
+__device__ __forceinline__ float synth_raw(const Synth& s, int pos, float center) {
+  if (pos < 0 || pos > s.in_size - 1) return 0.0f;
+  const float arg = __fmul_rn(__fadd_rn(__fsub_rn((float)pos, center), 0.5f),
+                              s.invscale);
+  return synth_filter(s, arg);
+}
+
+// ---------------------------------------------------------------------------
+// The two weight sources
+// ---------------------------------------------------------------------------
+
+// Host tables: xmin int32 [out], w float32 row-major [out, ntaps].
+struct TableTaps {
+  const int* xmin;
+  const float* w;
+  int ntaps;
+
+  struct Row {
+    int first;
+    const float* w;
+    __device__ __forceinline__ float operator()(int k) const { return w[k]; }
+  };
+  __device__ __forceinline__ int first(int o) const { return xmin[o]; }
+  __device__ __forceinline__ Row row(int o) const {
+    return {xmin[o], w + (long long)o * ntaps};
+  }
+};
+
+// Weights synthesised from the pass's closed form.
+struct SynthTaps {
+  Synth s;
+  int ntaps;
+
+  struct Row {
+    Synth s;
+    int first;
+    float center, total;
+    __device__ __forceinline__ float operator()(int k) const {
+      return __fdiv_rn(synth_raw(s, first + k, center), total);
+    }
+  };
+  __device__ __forceinline__ int first(int o) const {
+    return synth_first(s, synth_center(s, o));
+  }
+  __device__ __forceinline__ Row row(int o) const {
+    const float center = synth_center(s, o);
+    const int first = synth_first(s, center);
+    float total = 0.0f;
+    for (int k = 0; k < ntaps; ++k) {
+      total = __fadd_rn(total, synth_raw(s, first + k, center));
+    }
+    return {s, first, center, total == 0.0f ? 1.0f : total};
+  }
+};
+
+__host__ __forceinline__ SynthTaps synth_taps(const Synth& s) {
+  return {s, s.ntaps};
+}
+
+}  // namespace ia

@@ -22,6 +22,14 @@
 // streamed route rounds it to bfloat16 for bfloat16 input; this is more
 // precise).
 //
+// The weights come from host tables (ia_resample2d) or are synthesised from
+// each pass's closed form in the kernel (ia_resample2d_fused, the
+// counterpart of the fused_spec branch of _kernel_last_unrolled /
+// _kernel_mid_unrolled in resize2d_pallas(fused=True)): each block
+// synthesises the W weights of its columns and the H weights of its rows,
+// and no weight crosses device memory.  The kernel is templated on the
+// weight source (ia_taps.cuh) and keeps one multiply-add loop per pass.
+//
 // Design: one block per (plane, tile_r output rows, tile_c output columns),
 // all on gridDim.x (planes on .z would cap a launch at 65,535 planes).  The
 // block runs the W pass for every input row its output rows read (the
@@ -45,6 +53,7 @@
 #include <climits>
 
 #include "ia_dtypes.cuh"
+#include "ia_taps.cuh"
 
 namespace {
 
@@ -54,17 +63,14 @@ constexpr int kThreads = 256;
 
 struct Plan2d {
   int H, W, OH, OW;
-  int ntaps_w, ntaps_h;
   int quant;  // uint8 -> uint8: quantise the W pass result
   int tile_r, tile_c, n_ty, n_tx, rows_cap;
 };
 
-template <typename Tin, typename Tout>
+template <typename Tin, typename Tout, typename Taps>
 __global__ void __launch_bounds__(kThreads)
 resample2d_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
-                  const int* __restrict__ xmin_w, const float* __restrict__ w_w,
-                  const int* __restrict__ ymin_h, const float* __restrict__ w_h,
-                  Plan2d p) {
+                  Taps taps_w, Taps taps_h, Plan2d p) {
   extern __shared__ float inter[];  // [rows_cap][tile_c] W-pass result
   __shared__ int s_r0, s_r1;
 
@@ -84,9 +90,9 @@ resample2d_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
   if (tid == 0) {
     int r0 = p.H, r1 = 0;
     for (int i = 0; i < th; ++i) {
-      const int y = ymin_h[oy0 + i];
+      const int y = taps_h.first(oy0 + i);
       r0 = min(r0, clampi(y, 0, p.H - 1));
-      r1 = max(r1, clampi(y + p.ntaps_h - 1, 0, p.H - 1) + 1);
+      r1 = max(r1, clampi(y + taps_h.ntaps - 1, 0, p.H - 1) + 1);
     }
     s_r0 = r0;
     s_r1 = r1;
@@ -104,13 +110,11 @@ resample2d_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
     const int c = i % p.tile_c;
     if (c >= tw) continue;
     const int rr = i / p.tile_c;
-    const int ox = ox0 + c;
     const Tin* row = xb + (long long)(r0 + rr) * p.W;
-    const int xm = xmin_w[ox];
-    const float* wk = w_w + (long long)ox * p.ntaps_w;
+    const auto wk = taps_w.row(ox0 + c);
     float acc = 0.0f;
-    for (int k = 0; k < p.ntaps_w; ++k) {
-      acc = mac(acc, wk[k], load_f32(row + clampi(xm + k, 0, p.W - 1)));
+    for (int k = 0; k < taps_w.ntaps; ++k) {
+      acc = mac(acc, wk(k), load_f32(row + clampi(wk.first + k, 0, p.W - 1)));
     }
     inter[rr * p.tile_c + c] = p.quant ? quant_u8(acc) : acc;
   }
@@ -122,40 +126,55 @@ resample2d_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
     const int c = i % p.tile_c;
     if (c >= tw) continue;
     const int oy = oy0 + i / p.tile_c;
-    const int ym = ymin_h[oy];
-    const float* wk = w_h + (long long)oy * p.ntaps_h;
+    const auto wk = taps_h.row(oy);
     float acc = 0.0f;
-    for (int k = 0; k < p.ntaps_h; ++k) {
-      const int r = clampi(ym + k, 0, p.H - 1) - r0;
-      acc = mac(acc, wk[k], inter[r * p.tile_c + c]);
+    for (int k = 0; k < taps_h.ntaps; ++k) {
+      const int r = clampi(wk.first + k, 0, p.H - 1) - r0;
+      acc = mac(acc, wk(k), inter[r * p.tile_c + c]);
     }
     store_f32(ob + (long long)oy * p.OW + ox0 + c, acc);
   }
 }
 
+template <typename Taps>
 struct Args2d {
   const void* x;
   void* out;
-  const void *xmin_w, *w_w, *ymin_h, *w_h;
+  Taps taps_w, taps_h;
   Plan2d p;
   unsigned blocks;
   int smem;
   cudaStream_t stream;
 };
 
-template <typename Tin, typename Tout>
+template <typename Taps>
 struct Launch2d {
-  static int run(const Args2d& a) {
-    cudaError_t err = cudaFuncSetAttribute(
-        resample2d_kernel<Tin, Tout>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
-    if (err != cudaSuccess) return (int)err;
-    resample2d_kernel<Tin, Tout><<<a.blocks, kThreads, a.smem, a.stream>>>(
-        (const Tin*)a.x, (Tout*)a.out, (const int*)a.xmin_w,
-        (const float*)a.w_w, (const int*)a.ymin_h, (const float*)a.w_h, a.p);
-    return (int)cudaGetLastError();
-  }
+  template <typename Tin, typename Tout>
+  struct Op {
+    static int run(const Args2d<Taps>& a) {
+      cudaError_t err = cudaFuncSetAttribute(
+          resample2d_kernel<Tin, Tout, Taps>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+      if (err != cudaSuccess) return (int)err;
+      resample2d_kernel<Tin, Tout, Taps><<<a.blocks, kThreads, a.smem, a.stream>>>(
+          (const Tin*)a.x, (Tout*)a.out, a.taps_w, a.taps_h, a.p);
+      return (int)cudaGetLastError();
+    }
+  };
 };
+
+template <typename Taps>
+int launch_2d(const void* x, void* out, int in_dt, int out_dt, int B, int H,
+              int W, int OH, int OW, const Taps& taps_w, const Taps& taps_h,
+              int quant, int tile_r, int tile_c, int rows_cap, void* stream) {
+  Plan2d p{H, W, OH, OW, quant, tile_r, tile_c,
+           (OH + tile_r - 1) / tile_r, (OW + tile_c - 1) / tile_c, rows_cap};
+  const long long blocks = (long long)B * p.n_ty * p.n_tx;
+  if (B < 1 || blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  const Args2d<Taps> a{x, out, taps_w, taps_h, p, (unsigned)blocks,
+                       rows_cap * tile_c * (int)sizeof(float), (cudaStream_t)stream};
+  return ia::dispatch_dtypes<Launch2d<Taps>::template Op>(in_dt, out_dt, a);
+}
 
 }  // namespace
 
@@ -172,13 +191,27 @@ int ia_resample2d(const void* x, void* out, int in_dt, int out_dt, int B,
                   const void* w_w, int ntaps_w, const void* ymin_h,
                   const void* w_h, int ntaps_h, int quant, int tile_r,
                   int tile_c, int rows_cap, void* stream) {
-  Plan2d p{H, W, OH, OW, ntaps_w, ntaps_h, quant, tile_r, tile_c,
-           (OH + tile_r - 1) / tile_r, (OW + tile_c - 1) / tile_c, rows_cap};
-  const long long blocks = (long long)B * p.n_ty * p.n_tx;
-  if (B < 1 || blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  const Args2d a{x, out, xmin_w, w_w, ymin_h, w_h, p, (unsigned)blocks,
-                 rows_cap * tile_c * (int)sizeof(float), (cudaStream_t)stream};
-  return ia::dispatch_dtypes<Launch2d>(in_dt, out_dt, a);
+  const ia::TableTaps taps_w{(const int*)xmin_w, (const float*)w_w, ntaps_w};
+  const ia::TableTaps taps_h{(const int*)ymin_h, (const float*)w_h, ntaps_h};
+  return launch_2d(x, out, in_dt, out_dt, B, H, W, OH, OW, taps_w, taps_h,
+                   quant, tile_r, tile_c, rows_cap, stream);
+}
+
+// The same with each pass's weights synthesised in the kernel from
+// `*spec_w` and `*spec_h` (host pointers, read before the launch; their
+// in_size is W and H).  The host plans rows_cap over the H windows of the
+// synthesised first taps, computed in float32 as the kernel computes them.
+int ia_resample2d_fused(const void* x, void* out, int in_dt, int out_dt,
+                        int B, int H, int W, int OH, int OW,
+                        const ia::Synth* spec_w, const ia::Synth* spec_h,
+                        int quant, int tile_r, int tile_c, int rows_cap,
+                        void* stream) {
+  if (spec_w->in_size != W || spec_h->in_size != H) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_2d(x, out, in_dt, out_dt, B, H, W, OH, OW,
+                   ia::synth_taps(*spec_w), ia::synth_taps(*spec_h), quant,
+                   tile_r, tile_c, rows_cap, stream);
 }
 
 }  // extern "C"

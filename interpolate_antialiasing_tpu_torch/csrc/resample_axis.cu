@@ -16,6 +16,12 @@
 // Stores as in ia_dtypes.cuh: uint8 floor(v + 0.5) clamped, bfloat16
 // round-to-nearest-even.
 //
+// The weights come from host tables (ia_resample_axis) or are synthesised
+// from the pass's closed form in the kernel (ia_resample_axis_fused, the
+// counterpart of _kernel_last_fused / _kernel_mid_fused): the kernel is
+// templated on the weight source (ia_taps.cuh) and keeps one multiply-add
+// loop for both.
+//
 // Design: one thread per output element over the flat output index
 // ((j * n_out + o) * inner + i), so neighbouring threads take neighbouring
 // inner elements (a coalesced row of the middle-axis pass) or, when inner
@@ -32,6 +38,7 @@
 #include <stdint.h>
 
 #include "ia_dtypes.cuh"
+#include "ia_taps.cuh"
 
 namespace {
 
@@ -40,22 +47,22 @@ using namespace ia;
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 1LL << 22;
 
+template <typename Taps>
 struct ArgsAxis {
   const void* x;
   void* out;
-  const void *xmin, *w;
+  Taps taps;
   long long inner, total;
-  int n_in, n_out, ntaps;
+  int n_in, n_out;
   unsigned blocks;
   cudaStream_t stream;
 };
 
-template <typename Tin, typename Tout>
+template <typename Tin, typename Tout, typename Taps>
 __global__ void __launch_bounds__(kThreads)
 resample_axis_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
-                     const int* __restrict__ xmin, const float* __restrict__ w,
-                     long long inner, long long total, int n_in, int n_out,
-                     int ntaps) {
+                     Taps taps, long long inner, long long total, int n_in,
+                     int n_out) {
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
        idx < total; idx += stride) {
@@ -64,25 +71,40 @@ resample_axis_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
     const int o = (int)(jo % n_out);
     const long long j = jo / n_out;
     const Tin* xp = x + j * n_in * inner + i;
-    const int xm = xmin[o];
-    const float* wk = w + (long long)o * ntaps;
+    const auto row = taps.row(o);
     float acc = 0.0f;
-    for (int k = 0; k < ntaps; ++k) {
-      acc = mac(acc, wk[k], load_f32(xp + clampi(xm + k, 0, n_in - 1) * inner));
+    for (int k = 0; k < taps.ntaps; ++k) {
+      acc = mac(acc, row(k), load_f32(xp + clampi(row.first + k, 0, n_in - 1) * inner));
     }
     store_f32(out + idx, acc);
   }
 }
 
-template <typename Tin, typename Tout>
+template <typename Taps>
 struct LaunchAxis {
-  static int run(const ArgsAxis& a) {
-    resample_axis_kernel<Tin, Tout><<<a.blocks, kThreads, 0, a.stream>>>(
-        (const Tin*)a.x, (Tout*)a.out, (const int*)a.xmin, (const float*)a.w,
-        a.inner, a.total, a.n_in, a.n_out, a.ntaps);
-    return (int)cudaGetLastError();
-  }
+  template <typename Tin, typename Tout>
+  struct Op {
+    static int run(const ArgsAxis<Taps>& a) {
+      resample_axis_kernel<Tin, Tout, Taps><<<a.blocks, kThreads, 0, a.stream>>>(
+          (const Tin*)a.x, (Tout*)a.out, a.taps, a.inner, a.total, a.n_in,
+          a.n_out);
+      return (int)cudaGetLastError();
+    }
+  };
 };
+
+template <typename Taps>
+int launch_axis(const void* x, void* out, int in_dt, int out_dt,
+                long long outer, int n_in, long long inner, int n_out,
+                const Taps& taps, void* stream) {
+  const long long total = outer * n_out * inner;
+  if (total < 1 || n_in < 1 || taps.ntaps < 1) return (int)cudaErrorInvalidValue;
+  long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  const ArgsAxis<Taps> a{x, out, taps, inner, total, n_in, n_out,
+                         (unsigned)blocks, (cudaStream_t)stream};
+  return ia::dispatch_dtypes<LaunchAxis<Taps>::template Op>(in_dt, out_dt, a);
+}
 
 }  // namespace
 
@@ -96,13 +118,19 @@ int ia_resample_axis(const void* x, void* out, int in_dt, int out_dt,
                      long long outer, int n_in, long long inner, int n_out,
                      const void* xmin, const void* w, int ntaps,
                      void* stream) {
-  const long long total = outer * n_out * inner;
-  if (total < 1 || n_in < 1 || ntaps < 1) return (int)cudaErrorInvalidValue;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const ArgsAxis a{x, out, xmin, w, inner, total, n_in, n_out, ntaps,
-                   (unsigned)blocks, (cudaStream_t)stream};
-  return ia::dispatch_dtypes<LaunchAxis>(in_dt, out_dt, a);
+  const ia::TableTaps taps{(const int*)xmin, (const float*)w, ntaps};
+  return launch_axis(x, out, in_dt, out_dt, outer, n_in, inner, n_out, taps,
+                     stream);
+}
+
+// The same pass with each output's weights synthesised in the kernel from
+// `*spec` (a host pointer, read before the launch; spec->in_size == n_in).
+int ia_resample_axis_fused(const void* x, void* out, int in_dt, int out_dt,
+                           long long outer, int n_in, long long inner,
+                           int n_out, const ia::Synth* spec, void* stream) {
+  if (spec->in_size != n_in) return (int)cudaErrorInvalidValue;
+  return launch_axis(x, out, in_dt, out_dt, outer, n_in, inner, n_out,
+                     ia::synth_taps(*spec), stream);
 }
 
 }  // extern "C"

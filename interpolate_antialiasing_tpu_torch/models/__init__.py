@@ -1,10 +1,12 @@
 from .aa_resize import AAResize
+from .batch import ShapeBucketResizer, resize_mixed_batch
 from .preprocess import (
     ImageNetEvalPipeline,
     ImageNetTrainPipeline,
     VideoDownscaler,
     imagenet_eval_preprocess,
 )
+from .pyramid import aa_pyramid
 from .train import (
     ResizeConvNet,
     Trainer,
@@ -21,6 +23,9 @@ __all__ = [
     "ImageNetTrainPipeline",
     "VideoDownscaler",
     "imagenet_eval_preprocess",
+    "aa_pyramid",
+    "resize_mixed_batch",
+    "ShapeBucketResizer",
     "ResizeConvNet",
     "Trainer",
     "forward",

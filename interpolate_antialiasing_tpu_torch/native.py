@@ -49,6 +49,13 @@ _SIGNATURES = {
     # x, out, in_dt, out_dt, outer, n_in, inner, n_out, xmin, w, ntaps, stream
     "ia_resample_axis": (
         _I, [_P, _P, _I, _I, _L, _I, _L, _I, _P, _P, _I, _P]),
+    # x, out, in_dt, out_dt, B, H, W, OH, OW, &spec_w, &spec_h, quant, tile_r,
+    # tile_c, rows_cap, stream (spec: ia::Synth, csrc/ia_taps.cuh)
+    "ia_resample2d_fused": (
+        _I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P]),
+    # x, out, in_dt, out_dt, outer, n_in, inner, n_out, &spec, stream
+    "ia_resample_axis_fused": (
+        _I, [_P, _P, _I, _I, _L, _I, _L, _I, _P, _P]),
     # x, out, N, R, n_in, inner, n_out, first, cnt, w, k, pb, stream
     "ia_crop_pass": (
         _I, [_P, _P, _I, _L, _I, _L, _I, _P, _P, _P, _I, _I, _P]),

@@ -24,6 +24,18 @@ same kernel over ``W^T``, which is how the backward pass of the resize runs
 ``resize_axis_transpose_pallas`` reuse their forward kernels over
 transposed bands the same way).
 
+``fused=True`` (the JAX package's keyword of ``resize_axis_pallas`` and
+``resize2d_pallas``) synthesises each output's weights inside the kernel
+from the spec's closed form instead of uploading tables: the same two
+kernels, templated on the weight source (``csrc/ia_taps.cuh``), replace
+``_kernel_last_fused`` / ``_kernel_mid_fused`` and the ``fused_spec``
+branch of the unrolled kernels.  Counts ``launches_axis_fused`` and
+``launches_2d_fused``; plain versions :func:`_resample_axis_fused_plain`
+and :func:`_resample2d_fused_plain`, over the weights
+:func:`_synth_tables` builds with the kernel's float32 operations in the
+kernel's order.  The JAX package's gate applies: box, nearest, area and any
+border but ``renorm`` run the tables (each pass gated on its own spec).
+
 Both take uint8, float32 or bfloat16 and give uint8, float32 or bfloat16,
 with float32 weights (the float64 tables cast once) and float32
 sums, each product and each sum rounded in tap order
@@ -36,6 +48,7 @@ raises; a CPU tensor runs the plain version; any other device raises.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import cache, lru_cache
 
@@ -44,15 +57,24 @@ import torch
 
 from .. import native
 from ..config import debug_enabled
-from .resize_xla import gather_reduce
+from .filters import (
+    hamming_filter,
+    keys_cubic_filter,
+    lanczos3_filter,
+    lanczos5_filter,
+    triangle_filter,
+)
+from .resize_xla import gather_reduce, gather_reduce_weights
 from .weights import AxisSpec, Tables, as_tables
 
-__all__ = ["resize2d", "resize_axis"]
+__all__ = ["resize2d", "resize_axis", "synth_applies"]
 
 # Launches of each kernel: the wrappers add one per kernel launch and
 # nowhere else, so a run can show that its main path went through them.
 launches_2d = 0
 launches_axis = 0
+launches_2d_fused = 0
+launches_axis_fused = 0
 
 # dtype codes of the C entry points (csrc/ia_dtypes.cuh)
 _DTYPES = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -92,21 +114,20 @@ def _tables_on(t: Pass, device: torch.device):
             torch.from_numpy(w.copy()).to(device))
 
 
-@cache
-def _plan2d(spec_h: Pass) -> tuple[int, int, int] | None:
+def _plan_rows(first: np.ndarray, ntaps: int, H: int,
+               OH: int) -> tuple[int, int, int] | None:
     """``(tile_r, tile_c, rows_cap)`` for resample2d, or None where no tile
     fits a block's shared memory.
 
     A block holds the W pass result for its output tile's input row window,
     ``rows_cap x tile_c`` floats.  The window of each ``tile_r``-row tile is
-    computed exactly as the kernel computes it; the plan takes the largest
-    tile (``tile_r * tile_c`` outputs, then the wider one) that fits, so an
-    extreme downscale whose rows read a long window runs narrower column
-    tiles rather than leaving the kernel."""
-    ymin, w = _tables(spec_h)
-    H, OH, ntaps = spec_h.in_size, spec_h.out_size, w.shape[1]
-    lo = np.clip(ymin.astype(np.int64), 0, H - 1)
-    hi = np.clip(ymin.astype(np.int64) + ntaps - 1, 0, H - 1) + 1
+    computed from the H pass's first taps ``first[OH]`` exactly as the
+    kernel computes it; the plan takes the largest tile (``tile_r * tile_c``
+    outputs, then the wider one) that fits, so an extreme downscale whose
+    rows read a long window runs narrower column tiles rather than leaving
+    the kernel."""
+    lo = np.clip(first.astype(np.int64), 0, H - 1)
+    hi = np.clip(first.astype(np.int64) + ntaps - 1, 0, H - 1) + 1
     best = None
     for tile_r in _TILE_R:
         n = -(-OH // tile_r)
@@ -121,6 +142,159 @@ def _plan2d(spec_h: Pass) -> tuple[int, int, int] | None:
         return None
     _, tile_c, tile_r, rows_cap = best
     return tile_r, tile_c, rows_cap
+
+
+@cache
+def _plan2d(spec_h: Pass) -> tuple[int, int, int] | None:
+    """:func:`_plan_rows` over the H pass's tables."""
+    ymin, w = _tables(spec_h)
+    return _plan_rows(ymin, w.shape[1], spec_h.in_size, spec_h.out_size)
+
+
+@cache
+def _plan2d_synth(spec_h: AxisSpec) -> tuple[int, int, int] | None:
+    """:func:`_plan_rows` over the first taps the fused kernel synthesises."""
+    return _plan_rows(_synth_first(spec_h), spec_h.ntaps, spec_h.in_size,
+                      spec_h.out_size)
+
+
+# ---------------------------------------------------------------------------
+# In-kernel weight synthesis: the spec's float32 constants, the host's first
+# taps and the plain version's weights
+# ---------------------------------------------------------------------------
+
+# the JAX package's continuous filters -> (code of csrc/ia_taps.cuh, (c0, c1,
+# c2)): a + 2, a + 3 and a of the Keys cubic; the order n of Lanczos-n
+_SYNTH_FILTERS = {
+    triangle_filter: (0, (0.0, 0.0, 0.0)),
+    keys_cubic_filter: (1, (1.5, 2.5, -0.5)),
+    hamming_filter: (2, (0.0, 0.0, 0.0)),
+    lanczos3_filter: (3, (3.0, 0.0, 0.0)),
+    lanczos5_filter: (3, (5.0, 0.0, 0.0)),
+}
+_PI_F32 = float(np.float32(np.pi))  # jnp.sinc's and jnp.pi * x's float32 pi
+# Hamming's window constants, Pillow's float literals (ops/filters.py)
+_HAMMING_A = float(np.float32(0.54))
+_HAMMING_B = float(np.float32(0.46))
+
+
+class _SynthSpec(ctypes.Structure):
+    """The C struct ``ia::Synth`` (csrc/ia_taps.cuh)."""
+
+    _fields_ = [(n, ctypes.c_int) for n in ("filter", "in_size", "ntaps", "align_corners")] + \
+        [(n, ctypes.c_float) for n in ("scale", "invscale", "support", "offset",
+                                       "c0", "c1", "c2")]
+
+
+def synth_applies(spec: Pass) -> bool:
+    """Whether ``fused=True`` synthesises this pass's weights: the JAX
+    package's gate (``resize_axis_pallas``), continuous filters with the
+    ``renorm`` border; box, nearest, area and the ``replicate`` and ``zero``
+    borders run the tables (as does the a = -0.75 cubic, which only the
+    ``replicate`` border uses)."""
+    return (isinstance(spec, AxisSpec)
+            and spec.mode not in ("box", "nearest", "area")
+            and spec.border == "renorm"
+            and spec.filter.fn in _SYNTH_FILTERS)
+
+
+@cache
+def _synth_consts(spec: AxisSpec) -> dict:
+    """The spec's closed form as the kernel reads it: every Python float
+    rounded to float32 once (as JAX's weak typing rounds ``spec.scale``
+    and friends inside ``_synth_band``), as Python floats."""
+    code, (c0, c1, c2) = _SYNTH_FILTERS[spec.filter.fn]
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    return dict(filter=code, in_size=spec.in_size, ntaps=spec.ntaps,
+                align_corners=int(spec.align_corners), scale=f32(spec.scale),
+                invscale=f32(spec.invscale), support=f32(spec.support),
+                offset=f32(spec.span[0]) if spec.span is not None else 0.0,
+                c0=f32(c0), c1=f32(c1), c2=f32(c2))
+
+
+@cache
+def _synth_struct(spec: AxisSpec) -> _SynthSpec:
+    return _SynthSpec(**_synth_consts(spec))
+
+
+@cache
+def _synth_first(spec: AxisSpec) -> np.ndarray:
+    """Each output's first tap, ``floor(center - support + 0.5)`` in
+    float32 as the kernel computes it (numpy float32 rounds every
+    operation): the host plans resample2d's row windows from it.
+    Read-only (cached)."""
+    c = _synth_consts(spec)
+    f = np.float32
+    o = np.arange(spec.out_size, dtype=np.float32)
+    if spec.align_corners:
+        center = f(c["scale"]) * o + f(0.5)
+    else:
+        center = f(c["scale"]) * (o + f(0.5)) + f(c["offset"])
+    first = np.floor(center - f(c["support"]) + f(0.5)).astype(np.int64)
+    first.setflags(write=False)
+    return first
+
+
+def _sinc(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sinc``: ``sin(pi x) / (pi x)`` with ``pi x`` rounded once, 1
+    at 0 (``torch.sinc`` rounds otherwise)."""
+    zero = x == 0.0
+    px = torch.where(zero, 1.0, x * _PI_F32)
+    return torch.where(zero, 1.0, torch.sin(px) / px)
+
+
+def _synth_filter(code: int, consts: dict, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``synth_filter``: the JAX package's filters evaluated on
+    float32 tensors, operation by operation.  Every constant is exact in
+    float32, and every division is by a tensor (a division by a CPU scalar
+    on the card multiplies by its reciprocal)."""
+    ax = x.abs()
+    if code == 0:  # triangle
+        return torch.where(ax < 1.0, 1.0 - ax, 0.0)
+    if code == 1:  # Keys cubic
+        inner = ((ax * consts["c0"] - consts["c1"]) * ax) * ax + 1.0
+        outer = (((ax - 5.0) * ax + 8.0) * ax - 4.0) * consts["c2"]
+        return torch.where(ax < 1.0, inner, torch.where(ax < 2.0, outer, 0.0))
+    if code == 2:  # Hamming
+        px = torch.where(ax == 0.0, 1.0, x * _PI_F32)
+        val = (torch.sin(px) / px) * (torch.cos(px) * _HAMMING_B + _HAMMING_A)
+        val = torch.where(ax == 0.0, 1.0, val)
+        return torch.where(ax < 1.0, val, 0.0)
+    n = consts["c0"]  # Lanczos-n
+    val = _sinc(x) * _sinc(x / torch.full_like(x, n))
+    return torch.where(ax < n, val, 0.0)
+
+
+def _synth_tables(spec: AxisSpec, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(first[out] int64, w[out, ntaps] float32)`` on ``device``: the
+    weights the fused kernels synthesise (``csrc/ia_taps.cuh``), with the
+    same float32 operations in the same order, so the plain version and the
+    kernel agree bit for bit where their sin/cos agree.
+
+    ``center = scale * (o + 0.5) + span[0]`` (``align_corners``: ``scale *
+    o + 0.5``); tap ``k`` of ``ntaps`` from ``first = floor(center -
+    support + 0.5)`` weighs ``filter((first + k - center + 0.5) *
+    invscale)``, 0 off ``[0, in_size - 1]``; the taps' sum, in tap order
+    (1 where it is 0), divides them: the JAX package's ``_synth_band`` per
+    output."""
+    c = _synth_consts(spec)
+    o = torch.arange(spec.out_size, dtype=torch.float32, device=device)
+    if spec.align_corners:
+        center = o * c["scale"] + 0.5
+    else:
+        center = (o + 0.5) * c["scale"]
+        if spec.span is not None:
+            center = center + c["offset"]
+    first = torch.floor(center - c["support"] + 0.5)
+    pos = first[:, None] + torch.arange(spec.ntaps, dtype=torch.float32, device=device)
+    arg = ((pos - center[:, None]) + 0.5) * c["invscale"]
+    w = _synth_filter(c["filter"], c, arg)
+    w = torch.where((pos >= 0.0) & (pos <= float(spec.in_size - 1)), w, 0.0)
+    total = torch.zeros_like(center)
+    for k in range(spec.ntaps):
+        total = total + w[:, k]
+    total = torch.where(total == 0.0, 1.0, total)
+    return first.to(torch.int64), w / total[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -155,6 +329,27 @@ def _resample_axis_plain(x3: torch.Tensor, spec: Pass,
     """resample_axis's plain PyTorch version, on any device:
     ``x3[outer, n_in, inner]`` -> ``[outer, n_out, inner]``."""
     return _store(gather_reduce(x3, spec, 1, torch.float32), out_dtype)
+
+
+def _synth_pass(x3: torch.Tensor, spec: AxisSpec, axis: int) -> torch.Tensor:
+    first, w = _synth_tables(spec, x3.device)
+    return gather_reduce_weights(x3, first, w, axis, torch.float32)
+
+
+def _resample2d_fused_plain(x3: torch.Tensor, spec_h: AxisSpec, spec_w: AxisSpec,
+                            out_dtype: torch.dtype) -> torch.Tensor:
+    """The fused resample2d's plain PyTorch version, on any device:
+    :func:`_resample2d_plain` over :func:`_synth_tables`' weights."""
+    y = _synth_pass(x3, spec_w, 2)
+    if x3.dtype == torch.uint8 and out_dtype == torch.uint8:
+        y = _quant_u8(y)
+    return _store(_synth_pass(y, spec_h, 1), out_dtype)
+
+
+def _resample_axis_fused_plain(x3: torch.Tensor, spec: AxisSpec,
+                               out_dtype: torch.dtype) -> torch.Tensor:
+    """The fused resample_axis's plain PyTorch version, on any device."""
+    return _store(_synth_pass(x3, spec, 1), out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -234,8 +429,73 @@ def _resample_axis_cuda(x3, spec, out_dtype) -> torch.Tensor:
     return out
 
 
+def _resample2d_fused_cuda(x3, spec_h, spec_w, out_dtype, plan) -> torch.Tensor:
+    global launches_2d_fused
+    lib = native.build()
+    tile_r, tile_c, rows_cap = plan
+    B, H, W = x3.shape
+    OH, OW = spec_h.out_size, spec_w.out_size
+    out = torch.empty((B, OH, OW), dtype=out_dtype, device=x3.device)
+    if B == 0:
+        return out
+    dev = x3.device
+    sw, sh = _synth_struct(spec_w), _synth_struct(spec_h)
+    quant = int(x3.dtype == torch.uint8 and out_dtype == torch.uint8)
+    per_plane = -(-OH // tile_r) * -(-OW // tile_c)
+    with torch.cuda.device(dev):
+        for b0, n in native.plane_chunks(B, _INT_MAX // per_plane):
+            err = lib.ia_resample2d_fused(
+                x3.data_ptr() + b0 * H * W * x3.element_size(),
+                out.data_ptr() + b0 * OH * OW * out.element_size(),
+                _DTYPES[x3.dtype], _DTYPES[out_dtype], n, H, W, OH, OW,
+                ctypes.addressof(sw), ctypes.addressof(sh), quant, tile_r,
+                tile_c, rows_cap, _stream(dev))
+            if err != 0:
+                raise RuntimeError(f"resample2d (fused) launch failed: cudaError {err}")
+            launches_2d_fused += 1
+    return out
+
+
+def _resample_axis_fused_cuda(x3, spec, out_dtype) -> torch.Tensor:
+    global launches_axis_fused
+    lib = native.build()
+    outer, n_in, inner = x3.shape
+    out = torch.empty((outer, spec.out_size, inner), dtype=out_dtype,
+                      device=x3.device)
+    if out.numel() == 0:
+        return out
+    dev = x3.device
+    with torch.cuda.device(dev):
+        err = lib.ia_resample_axis_fused(
+            x3.data_ptr(), out.data_ptr(), _DTYPES[x3.dtype], _DTYPES[out_dtype],
+            outer, n_in, inner, spec.out_size,
+            ctypes.addressof(_synth_struct(spec)), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"resample_axis (fused) launch failed: cudaError {err}")
+    launches_axis_fused += 1
+    return out
+
+
+def _fused_gate(fused: bool, *specs: Pass) -> list[bool]:
+    """Per pass, whether ``fused=True`` synthesises its weights; raises for
+    :class:`..weights.Tables` (an adjoint's or a shard's tables have no
+    closed form)."""
+    if not fused:
+        return [False] * len(specs)
+    if any(isinstance(s, Tables) for s in specs):
+        raise ValueError("fused=True synthesises a forward pass's weights from "
+                         "its AxisSpec; Tables (an adjoint's or a shard's) have "
+                         "no closed form")
+    gate = [synth_applies(s) for s in specs]
+    if debug_enabled() and not all(gate):
+        print("[ia-tpu] fused=True: box/nearest/area or a non-renorm border "
+              "runs the tables")
+    return gate
+
+
 def resize2d(x: torch.Tensor, spec_h: Pass, spec_w: Pass,
-             out_dtype: torch.dtype | None = None) -> torch.Tensor:
+             out_dtype: torch.dtype | None = None,
+             fused: bool = False) -> torch.Tensor:
     """Separable 2-D resize of the trailing ``[H, W]`` axes of ``x`` (any
     leading axes) in one resample2d launch — the counterpart of the JAX
     package's ``resize2d_onekernel`` and ``resize2d_streamed``, and, over
@@ -247,48 +507,72 @@ def resize2d(x: torch.Tensor, spec_h: Pass, spec_w: Pass,
     a block's shared memory (:func:`_plan2d`), the call runs two
     resample_axis passes instead, W then H, as the JAX package's
     ``resize2d_pallas`` fallback does; nothing raises for size.
+
+    ``fused=True`` synthesises both passes' weights in the kernel (the JAX
+    package's ``resize2d_pallas(fused=True)``), no tables uploaded, where
+    both specs pass :func:`synth_applies`; the no-tile fallback then runs
+    two fused resample_axis passes.  Where only one spec does, each pass
+    runs on its own, W then H, with its own weights (the same sums as one
+    launch: the intermediate is float32, or the uint8 lattice, either way).
     """
     out_dtype = _check(x, out_dtype)
     if x.ndim < 2 or x.shape[-2] != spec_h.in_size or x.shape[-1] != spec_w.in_size:
         raise ValueError(
             f"resize2d: trailing axes {tuple(x.shape[-2:])} != "
             f"({spec_h.in_size}, {spec_w.in_size})")
-    plan = _plan2d(spec_h)
+    fused_h, fused_w = _fused_gate(fused, spec_h, spec_w)
+    plan = None
+    if fused_h == fused_w:
+        plan = _plan2d_synth(spec_h) if fused_h else _plan2d(spec_h)
     if plan is None:
         if debug_enabled():
-            print("[ia-tpu] resample2d: no tile fits, two resample_axis passes")
+            print("[ia-tpu] resample2d: no tile fits (or one pass fused), "
+                  "two resample_axis passes")
         quant = x.dtype == torch.uint8 and out_dtype == torch.uint8
-        y = resize_axis(x, spec_w, -1, torch.uint8 if quant else torch.float32)
-        return resize_axis(y, spec_h, -2, out_dtype)
+        y = resize_axis(x, spec_w, -1, torch.uint8 if quant else torch.float32,
+                        fused=fused_w)
+        return resize_axis(y, spec_h, -2, out_dtype, fused=fused_h)
     lead = x.shape[:-2]
     x3 = x.reshape(math.prod(lead), spec_h.in_size, spec_w.in_size).contiguous()
     if debug_enabled():
-        print(f"[ia-tpu] resample2d {x.dtype}->{out_dtype} ({x.device.type})")
+        print(f"[ia-tpu] resample2d{' (fused)' if fused_h else ''} "
+              f"{x.dtype}->{out_dtype} ({x.device.type})")
     if x.device.type == "cuda":
-        y = _resample2d_cuda(x3, spec_h, spec_w, out_dtype, plan)
+        launch = _resample2d_fused_cuda if fused_h else _resample2d_cuda
+        y = launch(x3, spec_h, spec_w, out_dtype, plan)
+    elif fused_h:
+        y = _resample2d_fused_plain(x3, spec_h, spec_w, out_dtype)
     else:
         y = _resample2d_plain(x3, spec_h, spec_w, out_dtype)
     return y.reshape(*lead, spec_h.out_size, spec_w.out_size)
 
 
 def resize_axis(x: torch.Tensor, spec: Pass, axis: int,
-                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                out_dtype: torch.dtype | None = None,
+                fused: bool = False) -> torch.Tensor:
     """Resize ``axis`` of ``x`` (any rank) in one resample_axis launch — the
     counterpart of the JAX package's ``resize_axis_pallas`` (and, over
     :func:`..weights.adjoint_tables`, of ``resize_axis_transpose_pallas``).
     ``x`` is viewed as ``[outer, n_in, inner]``, so NCHW and NHWC both run
-    without moves.  Dtypes as :func:`resize2d`."""
+    without moves.  Dtypes as :func:`resize2d`.  ``fused=True`` synthesises
+    the weights in the kernel where :func:`synth_applies` (the JAX
+    package's ``fused=True``); a :class:`..weights.Tables` pass raises."""
     out_dtype = _check(x, out_dtype)
     axis = axis % x.ndim
     if x.shape[axis] != spec.in_size:
         raise ValueError(f"axis {axis} has {x.shape[axis]} != {spec.in_size}")
+    fused, = _fused_gate(fused, spec)
     lead, trail = x.shape[:axis], x.shape[axis + 1:]
     x3 = x.reshape(math.prod(lead), spec.in_size, math.prod(trail)).contiguous()
     if debug_enabled():
-        print(f"[ia-tpu] resample_axis axis={axis} {spec.in_size}->"
-              f"{spec.out_size} {x.dtype}->{out_dtype} ({x.device.type})")
+        print(f"[ia-tpu] resample_axis{' (fused)' if fused else ''} axis={axis} "
+              f"{spec.in_size}->{spec.out_size} {x.dtype}->{out_dtype} "
+              f"({x.device.type})")
     if x.device.type == "cuda":
-        y = _resample_axis_cuda(x3, spec, out_dtype)
+        launch = _resample_axis_fused_cuda if fused else _resample_axis_cuda
+        y = launch(x3, spec, out_dtype)
+    elif fused:
+        y = _resample_axis_fused_plain(x3, spec, out_dtype)
     else:
         y = _resample_axis_plain(x3, spec, out_dtype)
     return y.reshape(*lead, spec.out_size, *trail)

@@ -38,7 +38,7 @@ import torch
 from ..config import debug_enabled
 from .weights import make_axis_spec, pil_box_f32
 
-__all__ = ["resize_pil_exact", "PRECISION_BITS"]
+__all__ = ["resize_pil_exact", "reduce_pil_exact", "PRECISION_BITS"]
 
 PRECISION_BITS = 32 - 8 - 2  # Pillow Resample.c
 
@@ -372,6 +372,76 @@ def _resample_axis(x: torch.Tensor, tables, axis: int,
 
 
 # ---------------------------------------------------------------------------
+# PIL.Image.reduce (plain PyTorch: the JAX package runs it as one XLA reduce)
+# ---------------------------------------------------------------------------
+
+
+def _reduce_grids(span: int, out: int, f: int) -> np.ndarray:
+    """Block extent per output index along ONE axis (edge-clipped)."""
+    d = np.full(out, f, np.int64)
+    if out * f > span:
+        d[-1] = span - (out - 1) * f
+    return d
+
+
+def reduce_pil_exact(
+    x: torch.Tensor,
+    factor: int | tuple[int, int],
+    box: tuple[int, int, int, int] | None = None,
+    data_format: str | None = None,
+) -> torch.Tensor:
+    """Bit-identical ``PIL.Image.reduce``: integer-factor block average.
+
+    ``factor``: int or ``(factor_x, factor_y)`` (PIL order: x = width).
+    ``box``: optional INTEGER source window ``(x0, y0, x1, y1)``.  Output
+    size rounds UP (partial edge blocks average over their clipped pixel
+    count).
+
+    Pillow's Reduce.c does not divide: each output byte is
+    ``((sum + d//2) * uint32(float32(2**32) / float32(256*d))) >> 24`` with
+    ``d`` the block's (clipped) pixel count — a truncated float32
+    fixed-point reciprocal whose off-by-one-from-true-rounding cases are
+    part of the observable contract.  The tables are the JAX package's,
+    computed on the host in numpy float32; the block sums are int64 on the
+    tensor's device, then the same fixed-point epilogue (the JAX package's
+    uint32 product never wraps: ``s * mult < 2^32``).
+    """
+    from .resize import _axes_for
+
+    if x.dtype != torch.uint8:
+        raise ValueError("reduce_pil_exact is the uint8 (8bpc) pipeline")
+    fx, fy = (factor, factor) if isinstance(factor, int) else (int(factor[0]), int(factor[1]))
+    if fx < 1 or fy < 1:
+        raise ValueError(f"factor must be >= 1, got {(fx, fy)}")
+    h_axis, w_axis = _axes_for(x, data_format)
+    h_axis, w_axis = h_axis % x.ndim, w_axis % x.ndim
+    ih, iw = x.shape[h_axis], x.shape[w_axis]
+    if box is None:
+        box = (0, 0, iw, ih)
+    x0, y0, x1, y1 = (int(v) for v in box)
+    if not (0 <= x0 < x1 <= iw and 0 <= y0 < y1 <= ih):
+        raise ValueError(f"reduce box {box} must be integral within (0, 0, {iw}, {ih})")
+    sw, sh = x1 - x0, y1 - y0
+    ow, oh = -(-sw // fx), -(-sh // fy)
+    # Host epilogue tables: block pixel counts and Reduce.c multipliers.
+    dxs, dys = _reduce_grids(sw, ow, fx), _reduce_grids(sh, oh, fy)
+    d = dys[:, None] * dxs[None, :]  # [oh, ow]
+    amend = (d // 2).astype(np.uint32)
+    mult = (np.float32(2**32) / (256 * d).astype(np.float32)).astype(np.uint32)
+    # Device: crop, zero-pad to whole blocks (zeros never change sums),
+    # reshape block-sum, then the exact fixed-point epilogue.
+    y = torch.movedim(x, (h_axis, w_axis), (-2, -1))
+    lead = y.shape[:-2]
+    y = y[..., y0:y1, x0:x1]
+    y = torch.nn.functional.pad(y, (0, ow * fx - sw, 0, oh * fy - sh))
+    s = y.reshape(*lead, oh, fy, ow, fx).to(torch.int64).sum(dim=(-3, -1))
+    dev = x.device
+    v = ((s + torch.from_numpy(amend.astype(np.int64)).to(dev))
+         * torch.from_numpy(mult.astype(np.int64)).to(dev)) >> 24
+    return torch.movedim(v.to(torch.uint8), (-2, -1), (h_axis, w_axis))
+
+
+# ---------------------------------------------------------------------------
 # Public entry point
 # ---------------------------------------------------------------------------
 
@@ -406,8 +476,11 @@ def resize_pil_exact(
     whenever the per-axis tap count is <= 57; wider windows run the exact
     grid.
 
-    ``reducing_gap`` (Pillow's reduce-then-resample shortcut) is not ported
-    yet and raises NotImplementedError.
+    ``reducing_gap``: Pillow's reduce-then-resample shortcut
+    (``PIL.Image.resize(..., reducing_gap=g)``): an integer-factor
+    :func:`reduce_pil_exact` first, then the resample with the box rescaled
+    onto the reduced image; byte-identical to Pillow.  ``pil_nearest``
+    skips it, as Pillow's NEAREST does.
     """
     from ..config import default_pil_digits
     from .resize import _axes_for
@@ -434,9 +507,38 @@ def resize_pil_exact(
             print(f"[ia-tpu] digits=2 declined (ntaps={ntaps} > 57): "
                   "running the exact pb=22 grid")
     if reducing_gap is not None:
-        raise NotImplementedError(
-            "reducing_gap (Pillow's reduce-then-resample two-step, "
-            "reduce_pil_exact) is not ported yet: ROADMAP queue 1 item 2")
+        if reducing_gap < 1.0:
+            raise ValueError("reducing_gap must be 1.0 or greater")
+        # PIL.Image.resize's two-step optimisation, replicated expression by
+        # expression (truncating int() factor picks, _get_safe_box support
+        # margins, box rescale) so the shortcut output stays byte-identical.
+        # NEAREST skips it, exactly like Pillow.
+        if method != "pil_nearest":
+            from .filters import get_filter
+
+            b = tuple(float(v) for v in box) if box is not None else (
+                0.0, 0.0, float(iw), float(ih))
+            factor_x = int((b[2] - b[0]) / ow / reducing_gap) or 1
+            factor_y = int((b[3] - b[1]) / oh / reducing_gap) or 1
+            if factor_x > 1 or factor_y > 1:
+                fsup = get_filter(method).support - 0.5
+                sx = fsup * (b[2] - b[0]) / ow
+                sy = fsup * (b[3] - b[1]) / oh
+                rb = (
+                    max(0, int(b[0] - sx)),
+                    max(0, int(b[1] - sy)),
+                    min(iw, math.ceil(b[2] + sx)),
+                    min(ih, math.ceil(b[3] + sy)),
+                )
+                x = reduce_pil_exact(x, (factor_x, factor_y), box=rb,
+                                     data_format=data_format)
+                ih, iw = x.shape[h_axis], x.shape[w_axis]
+                box = (
+                    (b[0] - rb[0]) / factor_x,
+                    (b[1] - rb[1]) / factor_y,
+                    (b[2] - rb[0]) / factor_x,
+                    (b[3] - rb[1]) / factor_y,
+                )
     span_h = span_w = None
     if box is not None:
         bx0, by0, bx1, by1 = (float(v) for v in box)

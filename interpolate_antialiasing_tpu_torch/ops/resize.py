@@ -390,8 +390,11 @@ def resize(
       order (x = width axis); uint8 is byte-identical to
       ``PIL.Image.resize(size, resample, box=box)``, float is the continuous
       analogue.
-    * ``reducing_gap`` is not ported yet (NotImplementedError, ROADMAP
-      queue 1 item 2).
+    * ``reducing_gap``: PIL's two-step shortcut (integer
+      :func:`..ops.pil_exact.reduce_pil_exact` first, then the resample),
+      byte-identical to ``PIL.Image.resize(..., reducing_gap=g)``.  uint8
+      -> uint8 Pillow routes only (``auto`` or ``pil_exact``, antialias, no
+      align_corners / scale_factors); other routes raise ValueError.
     """
     if options is not None:
         explicit = (

@@ -34,6 +34,7 @@ __all__ = [
     "resize_axis_gather",
     "resize_axis_banded",
     "gather_reduce",
+    "gather_reduce_weights",
 ]
 
 
@@ -89,15 +90,25 @@ def gather_reduce(x: torch.Tensor, spec: AxisSpec | Tables, axis: int,
 
     This is the order and rounding of the resample kernels, so with
     ``dtype=float32`` it is their plain version bit for bit."""
-    axis %= x.ndim
     xmin, w = _gather_on(spec, dtype, x.device)
+    return gather_reduce_weights(x, xmin, w, axis, dtype)
+
+
+def gather_reduce_weights(x: torch.Tensor, xmin: torch.Tensor, w: torch.Tensor,
+                          axis: int, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`gather_reduce` over given weights: ``xmin[out]`` int64 (any
+    integers; each tap's index is clamped to the axis) and ``w[out, ntaps]``
+    in ``dtype``, on ``x``'s device.  The in-kernel synthesis route's plain
+    version (:mod:`.cuda_resize`) hands it the weights it builds."""
+    axis %= x.ndim
+    in_size, out_size = x.shape[axis], w.shape[0]
     shape = list(x.shape)
-    shape[axis] = spec.out_size
+    shape[axis] = out_size
     acc = torch.zeros(shape, dtype=dtype, device=x.device)
-    w_shape = (spec.out_size,) + (1,) * (x.ndim - axis - 1)
+    w_shape = (out_size,) + (1,) * (x.ndim - axis - 1)
     with full_f32():
         for k in range(w.shape[1]):
-            idx = (xmin + k).clamp_(0, spec.in_size - 1)
+            idx = (xmin + k).clamp_(0, in_size - 1)
             acc += x.index_select(axis, idx).to(dtype) * w[:, k].reshape(w_shape)
     return acc
 

@@ -42,6 +42,7 @@ from .filters import CUBIC_NAMES, Filter, get_filter
 __all__ = [
     "AxisSpec",
     "make_axis_spec",
+    "make_affine_axis_spec",
     "compute_tables",
     "dense_matrix",
     "banded_tiles",
@@ -102,9 +103,12 @@ class AxisSpec:
     invscale: float = 1.0  # argument scaling fed into the filter
     ntaps: int = 0  # static max window length = ceil(support)*2 + 1
     # Border handling: "renorm" (PIL/antialias — clip the window and
-    # renormalise) or "replicate" (classic torch non-AA — clamp tap indices
-    # to the edge, folding out-of-range weights onto the border pixel).  The
-    # JAX package's "zero" border (its scale_and_translate) is not ported.
+    # renormalise), "replicate" (classic torch non-AA — clamp tap indices
+    # to the edge, folding out-of-range weights onto the border pixel), or
+    # "zero" (jax.image.scale_and_translate — renorm over in-range taps, but
+    # an output pixel whose CENTER falls outside [0, in_size] is zeroed
+    # entirely, and near-cancelling windows below jax's 1000*eps_f32
+    # threshold are zeroed rather than renormalised).
     border: str = "renorm"
     # Optional fractional source window (lo, hi) in input-pixel units —
     # PIL.Image.resize's per-axis ``box``: centers become
@@ -209,6 +213,70 @@ def make_axis_spec(
     )
 
 
+def make_affine_axis_spec(
+    in_size: int,
+    out_size: int,
+    zoom: float,
+    translation: float,
+    mode: str = "linear",
+    antialias: bool = True,
+) -> AxisSpec:
+    """AxisSpec for one axis of ``jax.image.scale_and_translate``.
+
+    ``zoom`` is jax's ``scale`` (output pixels per input pixel, must be
+    positive — callers handle negative zoom by flipping the axis) and
+    ``translation`` its output-space offset.  jax samples at
+    ``sample_f = (i + 0.5)/zoom - translation/zoom - 0.5``; in this
+    library's center convention (``center = sample_f + 0.5``) that is the
+    span machinery with ``scale = 1/zoom`` and ``lo = -translation/zoom``
+    — the same math as a PIL resize box, minus PIL's float32 coordinate
+    boundary (jax keeps full precision, so no pil_box_f32 here) and minus
+    the in-bounds requirement.
+
+    Border: windows whose centers all land inside the axis renormalise at
+    the edges exactly like the PIL path ("renorm"); when any center exits
+    the axis, the "zero" border adds jax's center-out-of-range zeroing, and
+    the in-kernel weight synthesis leaves such specs to the tables.
+    """
+    if in_size <= 0 or out_size <= 0:
+        raise ValueError(
+            f"axis sizes must be positive, got in={in_size} out={out_size}"
+        )
+    zoom = float(zoom)
+    translation = float(translation)
+    if not zoom > 0.0:
+        raise ValueError(f"zoom must be positive here (flip first), got {zoom}")
+    filt = get_filter(mode)
+    scale = 1.0 / zoom
+    lo = -translation * scale
+    hi = lo + scale * out_size
+    if antialias and scale >= 1.0:
+        support = filt.support * scale
+        invscale = 1.0 / scale
+    else:
+        support = filt.support
+        invscale = 1.0
+    ntaps = int(math.ceil(support)) * 2 + 1
+    # centers are monotonic in i (zoom > 0): the first/last decide range
+    c0 = lo + scale * 0.5
+    c1 = lo + scale * (out_size - 0.5)
+    in_range = 0.0 <= c0 and c1 <= float(in_size)
+    span = None if (lo, hi) == (0.0, float(in_size)) else (lo, hi)
+    return AxisSpec(
+        in_size=in_size,
+        out_size=out_size,
+        mode=filt.name,
+        antialias=antialias,
+        align_corners=False,
+        scale=scale,
+        support=support,
+        invscale=invscale,
+        ntaps=ntaps,
+        border="renorm" if in_range else "zero",
+        span=span,
+    )
+
+
 def _centers(spec: AxisSpec, dtype) -> np.ndarray:
     i = np.arange(spec.out_size, dtype=dtype)
     if spec.align_corners:
@@ -260,6 +328,21 @@ def compute_tables(
     valid = j[None, :] < size[:, None].astype(dtype)
     w = np.where(valid, w, 0.0)
     total = w.sum(axis=1, keepdims=True)
+    if spec.border == "zero":
+        # jax.image.scale_and_translate semantics: normalise over in-range
+        # taps, zero rows whose window mass is below 1000*eps_f32 (jax's
+        # near-cancellation guard), and zero rows whose CENTER falls
+        # outside [0, in_size] (jax's sample_f in [-0.5, in-0.5] test).
+        ok = np.abs(total) > 1000.0 * np.finfo(np.float32).eps
+        w = np.where(ok, w / np.where(ok, total, 1.0), 0.0)
+        in_range = (center >= 0.0) & (center <= float(spec.in_size))
+        w = np.where(in_range[:, None], w, 0.0)
+        # Fully-out-of-range rows are all-zero, but their raw xmin/size can
+        # point far outside the axis (clamped floor of a distant center) —
+        # clamp them so every reader's window stays in bounds.
+        xmin = np.clip(xmin, 0, max(spec.in_size - 1, 0))
+        size = np.clip(size, 0, None)
+        return xmin.astype(np.int32), size.astype(np.int32), w.astype(dtype)
     # Guard total == 0 exactly like the reference — leave the raw (all-zero)
     # weights in place.
     w = np.where(total != 0.0, w / np.where(total == 0.0, 1.0, total), w)

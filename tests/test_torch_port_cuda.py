@@ -191,3 +191,52 @@ def test_resample_axis_over_shard_tables_matches_plain(dev, mode, dt):
             torch.cuda.synchronize()
             assert cr.launches_axis == before + 1
             _assert_equal(got, cr._resample_axis_plain(x, t, dt))
+
+
+# ---------------------------------------------------------------------------
+# In-kernel weight synthesis (fused=True): both kernels' fused twins against
+# their plain versions on the same card, bit for bit
+# ---------------------------------------------------------------------------
+
+CONTINUOUS = ["bilinear", "bicubic", "hamming", "lanczos3", "lanczos5"]
+
+
+@pytest.mark.parametrize("odt", DTYPES)
+@pytest.mark.parametrize("idt", DTYPES)
+@pytest.mark.parametrize("mode", CONTINUOUS)
+def test_resample2d_fused_kernel_matches_plain(dev, mode, idt, odt):
+    x = _input((3, 97, 131), idt, dev, seed=9)
+    sh, sw = make_axis_spec(97, 40, mode), make_axis_spec(131, 260, mode)
+    before = (cr.launches_2d_fused, cr.launches_2d)
+    got = cr.resize2d(x, sh, sw, odt, fused=True)
+    torch.cuda.synchronize()
+    assert (cr.launches_2d_fused, cr.launches_2d) == (before[0] + 1, before[1])
+    _assert_equal(got, cr._resample2d_fused_plain(x, sh, sw, odt))
+
+
+@pytest.mark.parametrize("odt", DTYPES)
+@pytest.mark.parametrize("idt", DTYPES)
+@pytest.mark.parametrize("axis", [-1, 1])
+@pytest.mark.parametrize("mode", CONTINUOUS)
+def test_resample_axis_fused_kernel_matches_plain(dev, mode, axis, idt, odt):
+    x = _input((2, 57, 83, 3), idt, dev, seed=10)
+    spec = make_axis_spec(x.shape[axis], 130 if axis == 1 else 31, mode)
+    before = (cr.launches_axis_fused, cr.launches_axis)
+    got = cr.resize_axis(x, spec, axis, odt, fused=True)
+    torch.cuda.synchronize()
+    assert (cr.launches_axis_fused, cr.launches_axis) == (before[0] + 1, before[1])
+    ax = axis % x.ndim
+    x3 = x.reshape(math.prod(x.shape[:ax]), x.shape[ax], math.prod(x.shape[ax + 1:]))
+    _assert_equal(got, cr._resample_axis_fused_plain(x3, spec, odt).reshape(got.shape))
+
+
+@pytest.mark.parametrize("kw", [dict(align_corners=True), dict(span=(3.5, 90.0))],
+                         ids=["align_corners", "span"])
+@pytest.mark.parametrize("mode", CONTINUOUS)
+def test_fused_kernels_align_corners_and_span(dev, mode, kw):
+    x = _input((2, 97, 131), torch.float32, dev, seed=11)
+    sh, sw = make_axis_spec(97, 40, mode, **kw), make_axis_spec(131, 60, mode, **kw)
+    _assert_equal(cr.resize2d(x, sh, sw, fused=True),
+                  cr._resample2d_fused_plain(x, sh, sw, torch.float32))
+    _assert_equal(cr.resize_axis(x, sh, 1, fused=True),
+                  cr._resample_axis_fused_plain(x, sh, torch.float32))

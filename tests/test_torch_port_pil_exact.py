@@ -190,7 +190,7 @@ def test_rejects_like_jax():
     xt = torch.zeros((3, 20, 20), dtype=torch.uint8)
     xj = jnp.zeros((3, 20, 20), jnp.uint8)
     for kw in [dict(digits=4), dict(box=(0.0, 0.0, 30.0, 10.0)),
-               dict(box=(5.0, 0.0, 5.0, 10.0))]:
+               dict(box=(5.0, 0.0, 5.0, 10.0)), dict(reducing_gap=0.5)]:
         with pytest.raises(ValueError) as et:
             tpe.resize_pil_exact(xt, (10, 10), **kw)
         with pytest.raises(ValueError) as ej:
@@ -198,5 +198,9 @@ def test_rejects_like_jax():
         assert str(et.value) == str(ej.value)
     with pytest.raises(ValueError, match="uint8"):
         tpe.resize_pil_exact(torch.zeros((3, 20, 20)), (10, 10))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        tpe.resize_pil_exact(xt, (10, 10), reducing_gap=2.0)
+    # reducing_gap, once refused here, now gives the JAX package's bytes
+    # (a 2 x 2 reduce, then the resample)
+    img = _img((3, 20, 20))
+    np.testing.assert_array_equal(
+        tpe.resize_pil_exact(torch.from_numpy(img), (10, 10), reducing_gap=1.0).numpy(),
+        np.asarray(jpe.resize_pil_exact(jnp.asarray(img), (10, 10), reducing_gap=1.0)))

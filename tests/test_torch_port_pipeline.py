@@ -132,23 +132,23 @@ def test_resize_routes_match_jax(jax_accel_route, shape, kw):
      (torch.uint8, dict(scale_factors=(0.5, 0.5))),
      (torch.uint8, dict(output_dtype=torch.float32)),
      (torch.uint8, dict(backend="xla")),
-     (torch.uint8, dict(reducing_gap=2.0))],
+     (torch.uint8, dict(reducing_gap=1.0))],
     ids=["float32", "nearest_legacy", "area", "lanczos5", "align_corners",
          "no_antialias", "scale_factors", "float_out", "backend_xla",
          "reducing_gap"],
 )
 def test_unported_routes_raise(jax_accel_route, dtype, kw):
-    """The routes that raised NotImplementedError before the float route
-    was ported now match the JAX package's accelerator route (uint8 within
-    1, float32 within the tolerance of its kernel tests); reducing_gap is
-    still not ported and still raises."""
+    """The routes that raised NotImplementedError in earlier slices of the
+    port now match the JAX package's accelerator route (uint8 within 1,
+    float32 within the tolerance of its kernel tests); reducing_gap (a 2 x 2
+    reduce here, then the Pillow resample) byte for byte."""
     x = _img((1, 3, 20, 30))
     xin = x.astype(np.float32) if dtype == torch.float32 else x
-    if "reducing_gap" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
-            iat.resize(torch.from_numpy(xin), (10, 15), **kw)
-        return
     got = iat.resize(torch.from_numpy(xin), (10, 15), **kw)
+    if "reducing_gap" in kw:
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(ia.resize(jnp.asarray(xin), (10, 15), **kw)))
+        return
     jkw = dict(kw, output_dtype=jnp.float32) if "output_dtype" in kw else kw
     want = np.asarray(ia.resize(jnp.asarray(xin), (10, 15), **jkw))
     assert tuple(got.shape) == want.shape and got.numpy().dtype == want.dtype
@@ -236,6 +236,9 @@ def test_port_imports_no_jax():
         "import interpolate_antialiasing_tpu_torch.parallel.halo\n"
         "import interpolate_antialiasing_tpu_torch.parallel.sharding\n"
         "import interpolate_antialiasing_tpu_torch.parallel.dryrun\n"
+        "import interpolate_antialiasing_tpu_torch.ops.scale_translate\n"
+        "import interpolate_antialiasing_tpu_torch.models.batch\n"
+        "import interpolate_antialiasing_tpu_torch.models.pyramid\n"
         "import torch\n"
         "x = torch.zeros((1, 3, 16, 16), dtype=torch.uint8)\n"
         "iat.ImageNetEvalPipeline(size=(8, 8))(x)\n"
@@ -255,6 +258,16 @@ def test_port_imports_no_jax():
         "halo._shard_h_float(ext[0], plan, 0, 2)\n"
         "halo._shard_h_int(halo._extended_blocks(x, plan, 2, 2)[1], "
         "halo._int_halo_tables(16, 8, 'bilinear', 2), 1, 2)\n"
+        "iat.scale_and_translate(x.float(), (1, 3, 8, 8), (2, 3), (0.5, 0.5), (0.0, 0.0))\n"
+        "iat.scale_and_translate(x.float(), (1, 3, 8, 8), (2, 3), torch.tensor([0.5, 0.5]),"
+        " torch.tensor([0.0, 0.0]))\n"
+        "iat.reduce_pil_exact(x, 2)\n"
+        "iat.resize(x, (4, 4), reducing_gap=1.0)\n"
+        "iat.models.resize_mixed_batch([x[0].numpy()], (8, 8), device='cpu')\n"
+        "iat.models.aa_pyramid(x.float(), 2)\n"
+        "from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr\n"
+        "from interpolate_antialiasing_tpu_torch.ops.weights import make_axis_spec as m\n"
+        "cr.resize2d(x, m(16, 8, 'lanczos3'), m(16, 8, 'hamming'), fused=True)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'interpolate_antialiasing_tpu.')) or m == "
         "'interpolate_antialiasing_tpu')\n"
