@@ -4,8 +4,11 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card and the
 CUDA toolkit.  It builds the port's CUDA kernels from the sources in the
-checkout (five sources; resample2d and resample_axis each with a twin that
-synthesises its weights in the kernel, ``fused=True``) and then:
+checkout (resample2d and resample_axis each with a twin that synthesises its
+weights in the kernel, ``fused=True``), prints what ``ptxas -v`` reported
+for resample2d's instantiations and resample2d's plan at config 5 and the
+headline (tile, ring chunk, shared bytes, blocks, resident blocks per SM),
+and then:
 
 1. holds each kernel against its plain PyTorch version, bit for bit: the
    Pillow kernel against a CPU copy (including a 70,000-plane batch, past
@@ -58,7 +61,11 @@ synthesises its weights in the kernel, ``fused=True``) and then:
    ``reducing_gap`` 2 and 3 on a 4K frame -> 224x224;
 3. times each kernel beside its plain version on the card, in turns, with
    the least time the card could take for the same work and, where one
-   PyTorch call computes the same function, that call's time.
+   PyTorch call computes the same function, that call's time; the float
+   kernels also by device time per launch (torch.profiler kernel records,
+   ``*_device_ms``) apart from the wrapper's host time per call
+   (``*_host_us``), since CUDA events around back-to-back calls measure the
+   host where it is the slower (batch 1).
 
 Every phase prints one JSON line (each kernel-vs-plain case goes to
 ``smoke_out/chip_smoke_cases.jsonl``); any failure raises and exits
@@ -76,6 +83,7 @@ import contextlib
 import datetime
 import json
 import math
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -251,6 +259,119 @@ def _library(fn, want: torch.Tensor | None = None):
     return time_cuda(fn, iters=10, warmup=2), "same function"
 
 
+def _device_ms(fn, iters: int, match: str | None = None) -> float:
+    """Device time of ``fn()`` from torch.profiler's kernel records over
+    ``iters`` calls after one untimed call: per launch of the kernels whose
+    name contains ``match``, or, with ``match`` None, every kernel of the
+    call summed per call (a library call).  The host's pace does not enter
+    it (CUDA events around back-to-back calls measure the host where it is
+    slower than the card).  Raises where the profiler saw no such device
+    time: there is no fallback to events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    hit = [e for e in kernels if match is None or match in e.name]
+    total_us = sum(e.time_range.elapsed_us() for e in hit)
+    if not hit or total_us <= 0:
+        raise RuntimeError(f"the profiler saw no device time of {match or 'the call'} "
+                           f"({len(kernels)} device records)")
+    return total_us / 1e3 / (len(hit) if match else iters)
+
+
+def _host_us(fn, iters: int) -> float:
+    """Host microseconds per call of ``fn()``: the wrapper's own time to
+    check, plan and enqueue (the card may still be running)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def _kernel_times(fn, iters: int, match: str) -> dict:
+    return {"device_ms": _device_ms(fn, iters, match), "host_us": _host_us(fn, iters)}
+
+
+def _plan_of(x: torch.Tensor, sh, sw, fused: bool = False) -> list | None:
+    """Kernel A's plan for ``x`` as :func:`cr.resize2d` takes it."""
+    plan = (cr._plan2d_synth if fused else cr._plan2d)(
+        sh, sw, x.element_size(), max(1, math.prod(x.shape[:-2])), cr._n_sm(x.device))
+    return None if plan is None else list(plan)
+
+
+def print_kernel_a_plans(dev) -> None:
+    """Kernel A's plan at config 5 and the headline, tables and synthesised
+    weights: tile, ring chunk, shared bytes, blocks, the plan's estimate of
+    resident blocks per SM and the card's (occupancy API: registers count
+    too)."""
+    for name, (shape, ohw), dt, mode in [("config 5", CONFIG5, BF16, "bilinear"),
+                                         ("headline", HEADLINE, F32, "bilinear"),
+                                         ("headline", HEADLINE, F32, "bicubic")]:
+        sh = make_axis_spec(shape[-2], ohw[0], mode)
+        sw = make_axis_spec(shape[-1], ohw[1], mode)
+        for fused in (False, True):
+            plan = (cr._plan2d_synth if fused else cr._plan2d)(
+                sh, sw, torch.empty(0, dtype=dt).element_size(), math.prod(shape[:-2]),
+                cr._n_sm(dev))
+            _line("plan_resample2d", case=name, mode=mode, fused=fused, shape=list(shape),
+                  size=list(ohw), dtype=str(dt), taps=[sh.ntaps, sw.ntaps],
+                  **plan._asdict(), sms=cr._n_sm(dev),
+                  card_resident_per_sm=cr.occupancy_2d(plan, dt, dt, sw.ntaps, sh.ntaps,
+                                                        fused))
+
+
+PTXAS_LOG = Path("smoke_out") / "ptxas_resample2d.jsonl"
+
+
+def print_ptxas() -> None:
+    """What ``nvcc -Xptxas -v`` reported for kernel A's instantiations
+    (native.ptxas_log): one line per (weight source, TC, tap bucket) with
+    the most registers, spill bytes and static shared memory over the dtype
+    pairs; every instantiation's line to ``PTXAS_LOG``."""
+    rows, cur = [], None
+    for line in native.ptxas_log().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"name": m.group(1)} if "resample2d_kernel" in m.group(1) else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+            t = re.search(r"(TableTaps|SynthTaps)ELi(\d+)ELi(\d+)E", cur["name"])
+            cur["group"] = [t.group(1), int(t.group(2)), int(t.group(3))] if t else None
+            rows.append(cur)
+            cur = None
+    if not rows:
+        raise RuntimeError("ptxas -v reported no resample2d instantiation")
+    PTXAS_LOG.parent.mkdir(exist_ok=True)
+    PTXAS_LOG.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    groups = {}
+    for r in rows:
+        groups.setdefault(json.dumps(r["group"]), []).append(r)
+    for key, rs in sorted(groups.items()):
+        g = json.loads(key) or ["?", 0, 0]
+        _line("ptxas_resample2d", taps=g[0], tile_c=g[1], tap_bucket=g[2],
+              instantiations=len(rs), max_registers=max(r["registers"] for r in rs),
+              max_spill_bytes=max(r.get("spill", 0) for r in rs),
+              static_smem=max(r["static_smem"] for r in rs))
+
+
 # ---------------------------------------------------------------------------
 # 1. the Pillow kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -317,8 +438,25 @@ def _float2d_cases():
            dict(align_corners=True), F32, F32)
     # 2160 -> 8 lanczos3 reads ~1,600 rows per output row: tile_c < 64
     yield ("extreme_downscale", (1, 2160, 96), (8, 48), "lanczos3", {}, F32, F32)
+    yield from _kernel_a_edges(("lanczos3", "lanczos5", "bicubic", "bilinear"))
     for shape, ohw, mode, idt, odt in JAX_CASES:
         yield ("jax_case", shape, ohw, mode, {}, idt, odt)
+
+
+def _kernel_a_edges(modes):
+    """Kernel A's edges: an extreme downscale along W (a span of 2160
+    columns through the ring), taps past the largest unrolled bucket
+    (lanczos5 x6: 61 taps), fewer blocks than SMs, one output column and one
+    output row; and rows that start off 16 bytes (odd widths, and a plane
+    offset: a name starting "offset" runs on ``x[1:]``) for each dtype."""
+    lanczos3, lanczos5, bicubic, bilinear = modes
+    yield ("extreme_downscale_w", (1, 96, 2160), (48, 8), lanczos3, {}, F32, F32)
+    yield ("ntaps_61", (1, 64, 600), (10, 100), lanczos5, {}, F32, F32)
+    yield ("few_blocks", (1, 17, 23), (8, 11), bicubic, {}, F32, F32)
+    yield ("one_column", (2, 50, 70), (30, 1), bilinear, {}, F32, F32)
+    yield ("one_row", (2, 50, 70), (1, 30), bilinear, {}, F32, F32)
+    for dt in DTYPES:
+        yield ("offset_unaligned", (4, 37, 83), (17, 29), bicubic, {}, dt, dt)
 
 
 def _axis_cases():
@@ -361,6 +499,8 @@ def check_float_kernels(dev) -> tuple[float, float]:
     for name, shape, ohw, mode, kw, idt, odt in _float2d_cases():
         seed += 1
         x = _rand(shape, idt, dev, seed)
+        if name.startswith("offset"):
+            x = x[1:]
         sh = make_axis_spec(shape[-2], ohw[0], mode, **kw)
         sw = make_axis_spec(shape[-1], ohw[1], mode, **kw)
         before = cr.launches_2d
@@ -369,10 +509,11 @@ def check_float_kernels(dev) -> tuple[float, float]:
         if cr.launches_2d != before + 1:
             raise RuntimeError(f"resample2d {name}: not launched")
         want = cr._resample2d_plain(_view3(x, -2), sh, sw, odt).reshape(got.shape)
-        t2d.add(name, _compare(f"resample2d {name}", got, want), shape=list(shape),
+        t2d.add(name, _compare(f"resample2d {name}", got, want), shape=list(x.shape),
                 out=list(got.shape), mode=mode, **kw, dtypes=[str(idt), str(odt)],
-                plan=list(cr._plan2d(sh)))
-    if cr._plan2d(make_axis_spec(2160, 8, "lanczos3"))[1] >= 64:
+                plan=_plan_of(x, sh, sw))
+    if cr._plan2d(make_axis_spec(2160, 8, "lanczos3"), make_axis_spec(96, 48, "lanczos3"),
+                  4, 1, cr._n_sm(dev)).tile_c >= 64:
         raise RuntimeError("the extreme downscale kept 64-column tiles")
     # NHWC uint8 through the public entry: moves through NCHW around one
     # resample2d launch
@@ -391,7 +532,7 @@ def check_float_kernels(dev) -> tuple[float, float]:
     # no output tile's row window fits shared memory: two resample_axis passes
     x = _rand((2, 58200, 4), F32, dev, 100)
     sh, sw = make_axis_spec(58200, 1, "box"), make_axis_spec(4, 4, "box")
-    if cr._plan2d(sh) is not None:
+    if _plan_of(x, sh, sw) is not None:
         raise RuntimeError("the fallback case fits a tile")
     before = cr.launches_axis
     got = cr.resize2d(x, sh, sw, F32)
@@ -480,7 +621,7 @@ def check_adjoint_kernels(dev) -> tuple[float, float]:
             want = cr._resample2d_plain(_view3(g, -2), th, tw, dt).reshape(got.shape)
             t2d.add(name, _compare(f"resample2d adjoint {name}", got, want),
                     shape=list(gshape), out=list(got.shape), mode=mode,
-                    dtype=str(dt), taps=[th.ntaps, tw.ntaps], plan=list(cr._plan2d(th)))
+                    dtype=str(dt), taps=[th.ntaps, tw.ntaps], plan=_plan_of(g, th, tw))
     for name, gshape, axis, n_out, mode in _adjoint_axis_cases():
         t = adjoint_tables(make_axis_spec(n_out, gshape[axis], mode))
         for dt in (F32, BF16):
@@ -635,6 +776,7 @@ def _fused2d_cases():
         yield (f"span {mode}", (2, 97, 131), (40, 60), mode, dict(span=(3.5, 90.0)),
                F32, F32)
     yield ("extreme_downscale", (1, 2160, 96), (8, 48), "lanczos3", {}, F32, F32)
+    yield from _kernel_a_edges(("lanczos3", "lanczos5", "bicubic", "bilinear"))
     for shape, ohw, mode, idt, odt in JAX_CASES:
         if mode in FUSED_MODES:
             yield ("jax_case", shape, ohw, mode, {}, idt, odt)
@@ -664,6 +806,8 @@ def check_fused_kernels(dev) -> tuple[float, float]:
     for name, shape, ohw, mode, kw, idt, odt in _fused2d_cases():
         seed += 1
         x = _rand(shape, idt, dev, seed)
+        if name.startswith("offset"):
+            x = x[1:]
         sh = make_axis_spec(shape[-2], ohw[0], mode, **kw)
         sw = make_axis_spec(shape[-1], ohw[1], mode, **kw)
         before = _counts()
@@ -672,13 +816,13 @@ def check_fused_kernels(dev) -> tuple[float, float]:
         if _counts() != dict(before, resample2d_fused=before["resample2d_fused"] + 1):
             raise RuntimeError(f"resample2d_fused {name}: not launched once, alone")
         want = cr._resample2d_fused_plain(_view3(x, -2), sh, sw, odt).reshape(got.shape)
-        t2d.add(name, _compare(f"resample2d_fused {name}", got, want), shape=list(shape),
+        t2d.add(name, _compare(f"resample2d_fused {name}", got, want), shape=list(x.shape),
                 out=list(got.shape), mode=mode, **kw, dtypes=[str(idt), str(odt)],
-                plan=list(cr._plan2d_synth(sh)))
+                plan=_plan_of(x, sh, sw, fused=True))
     # no output tile's row window fits shared memory: two fused axis passes
     x = _rand((2, 58200, 4), F32, dev, 1100)
     sh, sw = make_axis_spec(58200, 1, "bilinear"), make_axis_spec(4, 4, "bilinear")
-    if cr._plan2d_synth(sh) is not None:
+    if _plan_of(x, sh, sw, fused=True) is not None:
         raise RuntimeError("the fused fallback case fits a tile")
     before = _counts()
     got = cr.resize2d(x, sh, sw, F32, fused=True)
@@ -1550,10 +1694,14 @@ def time_float_kernels(dev, card) -> tuple[dict, dict]:
                        + _nbytes(*cr._tables(sh), *cr._tables(sw)),
                        P * (shape[-2] * _nz(cr._tables(sw)[1]) + ohw[1] * _nz(cr._tables(sh)[1])))
         lib5, note5 = _library(lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True))
+        d5 = _kernel_times(lambda: cr.resize2d(x3, sh, sw, BF16), 5, "resample2d_kernel")
+        lib5_dev = _device_ms(lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True), 5)
         _line("time_config5", card=card, kernel="resample2d", shape=list(shape),
               size=list(ohw), kernel_ms=c5["kernel"], plain_ms=c5["plain"],
-              kernel_gb_s=bound["bytes"] / (k5 * 1e-3) / 1e9,
-              frames_per_s=shape[0] / (k5 * 1e-3), **bound, library_ms=lib5, library=note5)
+              kernel_device_ms=d5["device_ms"], kernel_host_us=d5["host_us"],
+              kernel_gb_s=bound["bytes"] / (d5["device_ms"] * 1e-3) / 1e9,
+              frames_per_s=shape[0] / (d5["device_ms"] * 1e-3), **bound, library_ms=lib5,
+              library_device_ms=lib5_dev, library=note5)
         del x, x3
         torch.cuda.empty_cache()
         # resample2d on the f32 headline, NCHW
@@ -1568,9 +1716,14 @@ def time_float_kernels(dev, card) -> tuple[dict, dict]:
                     P * (H * _nz(cr._tables(sw)[1]) + ohw[1] * _nz(cr._tables(sh)[1])))
         x4 = x3.reshape(shape)
         libh, noteh = _library(lambda: F.interpolate(x4, ohw, mode="bilinear", antialias=True))
+        dh = _kernel_times(lambda: cr.resize2d(x3, sh, sw, F32), 50, "resample2d_kernel")
         _line("time_headline_nchw", card=card, kernel="resample2d",
               shape=list(shape), size=list(ohw), kernel_ms=hd["kernel"],
-              plain_ms=hd["plain"], **hb, library_ms=libh, library=noteh)
+              plain_ms=hd["plain"], kernel_device_ms=dh["device_ms"],
+              kernel_host_us=dh["host_us"], **hb, library_ms=libh,
+              library_device_ms=_device_ms(
+                  lambda: F.interpolate(x4, ohw, mode="bilinear", antialias=True), 50),
+              library=noteh)
         # resample_axis on the f32 headline, NHWC: the W pass, then the H pass
         xn = _rand(shape, F32, dev, 13).permute(0, 2, 3, 1).contiguous()
         t = cr.resize_axis(xn, sw, 2)
@@ -1585,19 +1738,29 @@ def time_float_kernels(dev, card) -> tuple[dict, dict]:
                     C * ohw[1] * _nz(cr._tables(sh)[1]))
         libn, noten = _library(lambda: F.interpolate(xn.permute(0, 3, 1, 2), ohw,
                                                      mode="bilinear", antialias=True))
+        dw = _kernel_times(lambda: cr.resize_axis(xn, sw, 2), 50, "resample_axis")
+        dhp = _kernel_times(lambda: cr.resize_axis(t, sh, 1), 50, "resample_axis")
+        libn_dev = _device_ms(lambda: F.interpolate(xn.permute(0, 3, 1, 2), ohw,
+                                                    mode="bilinear", antialias=True), 50)
         _line("time_headline_nhwc", card=card, kernel="resample_axis",
               shape=list(xn.shape), size=list(ohw),
               w_pass_kernel_ms=wp["kernel"], w_pass_plain_ms=wp["plain"],
               h_pass_kernel_ms=hp["kernel"], h_pass_plain_ms=hp["plain"],
+              w_pass_device_ms=dw["device_ms"], h_pass_device_ms=dhp["device_ms"],
+              w_pass_host_us=dw["host_us"], h_pass_host_us=dhp["host_us"],
               w_pass_bound_ms=bw["bound_ms"], h_pass_bound_ms=bh["bound_ms"],
-              bound_by=[bw["bound_by"], bh["bound_by"]], library_ms=libn, library=noten)
-    r2d = {"ms": k5, "plain_ms": sum(c5["plain"]) / 2, "bound_ms": bound["bound_ms"],
-           "bound_by": bound["bound_by"], "library_ms": lib5}
-    rax = {"ms": sum(wp["kernel"]) / 2 + sum(hp["kernel"]) / 2,
+              bound_by=[bw["bound_by"], bh["bound_by"]], library_ms=libn,
+              library_device_ms=libn_dev, library=noten)
+    r2d = {"ms": d5["device_ms"], "call_ms": k5, "host_us": d5["host_us"],
+           "plain_ms": sum(c5["plain"]) / 2, "bound_ms": bound["bound_ms"],
+           "bound_by": bound["bound_by"], "library_ms": lib5_dev}
+    rax = {"ms": dw["device_ms"] + dhp["device_ms"],
+           "call_ms": sum(wp["kernel"]) / 2 + sum(hp["kernel"]) / 2,
+           "host_us": dw["host_us"] + dhp["host_us"],
            "plain_ms": sum(wp["plain"]) / 2 + sum(hp["plain"]) / 2,
            "bound_ms": bw["bound_ms"] + bh["bound_ms"],
            "bound_by": bw["bound_by"] if bw["bound_by"] == bh["bound_by"] else "bytes",
-           "library_ms": libn}
+           "library_ms": libn_dev}
     return r2d, rax
 
 
@@ -1630,12 +1793,19 @@ def time_fused_kernels(dev, card) -> tuple[dict, dict]:
                        P * (shape[-2] * _synth_nz(sw) + ohw[1] * _synth_nz(sh)))
         lib5, note5 = _library(lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True))
         k5 = sum(c5["kernel"]) / 2
+        d5 = _kernel_times(lambda: cr.resize2d(x3, sh, sw, BF16, fused=True), 5,
+                           "resample2d_kernel")
+        t5 = _device_ms(lambda: cr.resize2d(x3, sh, sw, BF16), 5, "resample2d_kernel")
+        lib5_dev = _device_ms(lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True), 5)
         _line("time_fused_config5", card=card, kernel="resample2d_fused", shape=list(shape),
               size=list(ohw), kernel_ms=c5["kernel"], plain_ms=c5["plain"],
-              table_kernel_ms=table, kernel_gb_s=bound["bytes"] / (k5 * 1e-3) / 1e9,
-              **bound, library_ms=lib5, library=note5)
-        out["2d"] = {"ms": k5, "plain_ms": sum(c5["plain"]) / 2, "bound_ms": bound["bound_ms"],
-                     "bound_by": bound["bound_by"], "library_ms": lib5}
+              table_kernel_ms=table, kernel_device_ms=d5["device_ms"],
+              kernel_host_us=d5["host_us"], table_kernel_device_ms=t5,
+              kernel_gb_s=bound["bytes"] / (d5["device_ms"] * 1e-3) / 1e9,
+              **bound, library_ms=lib5, library_device_ms=lib5_dev, library=note5)
+        out["2d"] = {"ms": d5["device_ms"], "call_ms": k5, "host_us": d5["host_us"],
+                     "plain_ms": sum(c5["plain"]) / 2, "bound_ms": bound["bound_ms"],
+                     "bound_by": bound["bound_by"], "library_ms": lib5_dev}
         del x, x3
         torch.cuda.empty_cache()
 
@@ -1652,10 +1822,18 @@ def time_fused_kernels(dev, card) -> tuple[dict, dict]:
                         P * (H * _synth_nz(sw) + ohw[1] * _synth_nz(sh)))
             x4 = x3.reshape(shape)
             libh, noteh = _library(lambda: F.interpolate(x4, ohw, mode=mode, antialias=True))
+            dh = _kernel_times(lambda: cr.resize2d(x3, sh, sw, F32, fused=True), 50,
+                               "resample2d_kernel")
+            th = _kernel_times(lambda: cr.resize2d(x3, sh, sw, F32), 50, "resample2d_kernel")
+            lib_dev = _device_ms(lambda: F.interpolate(x4, ohw, mode=mode, antialias=True), 50)
             _line("time_fused_headline_nchw", card=card, kernel="resample2d_fused", mode=mode,
                   shape=list(shape), size=list(ohw), kernel_ms=hd["kernel"],
-                  plain_ms=hd["plain"], table_kernel_ms=table, **hb, library_ms=libh,
-                  library=noteh)
+                  plain_ms=hd["plain"], table_kernel_ms=table,
+                  kernel_device_ms=dh["device_ms"], kernel_host_us=dh["host_us"],
+                  table_kernel_device_ms=th["device_ms"], table_kernel_host_us=th["host_us"],
+                  **hb, library_ms=libh, library_device_ms=lib_dev, library=noteh,
+                  fused_over_library=dh["device_ms"] / lib_dev,
+                  table_over_library=th["device_ms"] / lib_dev)
 
         xn = _rand(shape, F32, dev, 13).permute(0, 2, 3, 1).contiguous()
         sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
@@ -1673,18 +1851,27 @@ def time_fused_kernels(dev, card) -> tuple[dict, dict]:
         bh = _bound(4 * C * ohw[1] * (H + ohw[0]), C * ohw[1] * _synth_nz(sh))
         libn, noten = _library(lambda: F.interpolate(xn.permute(0, 3, 1, 2), ohw,
                                                      mode="bilinear", antialias=True))
+        dw = _kernel_times(lambda: cr.resize_axis(xn, sw, 2, fused=True), 50, "resample_axis")
+        dhp = _kernel_times(lambda: cr.resize_axis(t, sh, 1, fused=True), 50, "resample_axis")
+        libn_dev = _device_ms(lambda: F.interpolate(xn.permute(0, 3, 1, 2), ohw,
+                                                    mode="bilinear", antialias=True), 50)
         _line("time_fused_headline_nhwc", card=card, kernel="resample_axis_fused",
               shape=list(xn.shape), size=list(ohw),
               w_pass_kernel_ms=wp["kernel"], w_pass_plain_ms=wp["plain"],
               w_pass_table_kernel_ms=tables["w"], h_pass_kernel_ms=hp["kernel"],
               h_pass_plain_ms=hp["plain"], h_pass_table_kernel_ms=tables["h"],
+              w_pass_device_ms=dw["device_ms"], h_pass_device_ms=dhp["device_ms"],
+              w_pass_host_us=dw["host_us"], h_pass_host_us=dhp["host_us"],
               w_pass_bound_ms=bw["bound_ms"], h_pass_bound_ms=bh["bound_ms"],
-              bound_by=[bw["bound_by"], bh["bound_by"]], library_ms=libn, library=noten)
-    out["axis"] = {"ms": sum(wp["kernel"]) / 2 + sum(hp["kernel"]) / 2,
+              bound_by=[bw["bound_by"], bh["bound_by"]], library_ms=libn,
+              library_device_ms=libn_dev, library=noten)
+    out["axis"] = {"ms": dw["device_ms"] + dhp["device_ms"],
+                   "call_ms": sum(wp["kernel"]) / 2 + sum(hp["kernel"]) / 2,
+                   "host_us": dw["host_us"] + dhp["host_us"],
                    "plain_ms": sum(wp["plain"]) / 2 + sum(hp["plain"]) / 2,
                    "bound_ms": bw["bound_ms"] + bh["bound_ms"],
                    "bound_by": bw["bound_by"] if bw["bound_by"] == bh["bound_by"] else "bytes",
-                   "library_ms": libn}
+                   "library_ms": libn_dev}
     return out["2d"], out["axis"]
 
 
@@ -1711,10 +1898,15 @@ def time_train_kernels(dev, card) -> dict:
             y = resize_plane(x, ohw, 2, 3)
             return torch.autograd.grad(y, x, grad_outputs=y)[0]
 
+        da = _kernel_times(lambda: cr.resize2d(g3, th, tw, F32), 20, "resample2d_kernel")
         _line("time_config4", card=card, kernel="resample2d adjoint",
               shape=list(shape), size=list(ohw), adjoint_kernel_ms=adj["kernel"],
-              adjoint_plain_ms=adj["plain"], vjp_call_ms=time_cuda(vjp, iters=10),
-              **ab, library_ms=liba, library=notea)
+              adjoint_plain_ms=adj["plain"], adjoint_device_ms=da["device_ms"],
+              adjoint_host_us=da["host_us"], vjp_call_ms=time_cuda(vjp, iters=10),
+              **ab, library_ms=liba, library_device_ms=_device_ms(
+                  lambda: torch.ops.aten._upsample_bilinear2d_aa_backward(
+                      g4, list(ohw), list(shape), False, None, None), 20),
+              library=notea)
         del x
         out = {}
         for name, (shape, size), boxes in [
@@ -1892,6 +2084,8 @@ def main() -> None:
     t0 = time.perf_counter()
     native.build()
     _line("build", seconds=round(time.perf_counter() - t0, 3))
+    print_ptxas()
+    print_kernel_a_plans(dev)
 
     rng = np.random.default_rng(0)
     with full_f32():

@@ -52,6 +52,23 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// Asynchronous copies from device to shared memory (sm_80 and later): 16
+// bytes each, both addresses aligned to 16; a thread's copies
+// since its last commit form one group, and wait_1 returns when all but
+// its latest group have landed (the block then syncs to see every
+// thread's).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 template <template <typename, typename> class Op, typename Tin, typename Args>
 int dispatch_out(int out_dt, const Args& a) {
   switch (out_dt) {

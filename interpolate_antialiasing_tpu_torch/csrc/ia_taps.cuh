@@ -1,11 +1,15 @@
 // Where a float resample kernel takes each output's weights from: host
 // tables (TableTaps) or the pass's closed form, evaluated in the kernel
-// (SynthTaps).  resample_axis.cu and resample2d.cu are templated on it, so
-// each keeps one multiply-add loop for both sources:
+// (SynthTaps).  resample_axis.cu (kernel B) and resample2d.cuh (kernel A)
+// are templated on it, so each keeps one multiply-add loop for both
+// sources.  Kernel B asks for one output's taps where it uses them:
 //
 //   const auto row = taps.row(o);
 //   for (int k = 0; k < taps.ntaps; ++k)
 //     acc = mac(acc, row(k), x[clamp(row.first + k, 0, in - 1)]);
+//
+// Kernel A has the whole block write its tile's first taps and weights
+// into shared memory once (stage(), tap-major) and reads them from there.
 //
 // SynthTaps replaces the weight-band synthesis of the JAX package's
 // _kernel_last_fused / _kernel_mid_fused and of the fused_spec branch of
@@ -30,11 +34,14 @@
 // nearest, area and the non-renorm borders to the tables, as the JAX
 // package's gate does.
 //
-// Bounds: synthesis is arithmetic, 2 * ntaps filter evaluations and ntaps
-// divisions per output element (the filter is evaluated once for the sum and
-// once per tap of the multiply-add; nothing is cached), against the table
-// route's ntaps weight loads, most of them from L1.  A block's weights could
-// live in shared memory; that is for a later version.
+// Bounds: synthesis is arithmetic.  Through row(), kernel B evaluates the
+// filter 2 * ntaps times and divides ntaps times per output element (once
+// for the sum and once per tap of the multiply-add; nothing is cached).
+// Through stage(), kernel A does it once per output and tap of its tile
+// (ntaps evaluations and divisions per output column or row, shared by
+// every input row or column the block reads), so its weight work no longer
+// scales with the elements it computes; the table route's stage() is one
+// load per weight.
 
 #pragma once
 
@@ -135,6 +142,19 @@ struct TableTaps {
   __device__ __forceinline__ Row row(int o) const {
     return {xmin[o], w + (long long)o * ntaps};
   }
+  // Outputs [o0, o0 + n) of a tile of `tile` into shared memory, tap-major:
+  // ws[k * tile + t], fs[t]; slots t >= n repeat output o0 + n - 1's first
+  // tap with zero weight.  Every thread of the block calls it.
+  __device__ __forceinline__ void stage(int o0, int n, int tile, float* ws,
+                                        int* fs, float*) const {
+    for (int t = threadIdx.x; t < tile; t += blockDim.x) {
+      fs[t] = xmin[o0 + min(t, n - 1)];
+    }
+    for (int i = threadIdx.x; i < ntaps * tile; i += blockDim.x) {
+      const int k = i / tile, t = i - k * tile;
+      ws[i] = t < n ? w[(long long)(o0 + t) * ntaps + k] : 0.0f;
+    }
+  }
 };
 
 // Weights synthesised from the pass's closed form.
@@ -161,6 +181,30 @@ struct SynthTaps {
       total = __fadd_rn(total, synth_raw(s, first + k, center));
     }
     return {s, first, center, total == 0.0f ? 1.0f : total};
+  }
+  // As TableTaps::stage, the weights evaluated once per output and tap,
+  // `total[tile]` scratch: the same operations as row() in the same order,
+  // so the same floats.  Every thread of the block calls it (it syncs).
+  __device__ __forceinline__ void stage(int o0, int n, int tile, float* ws,
+                                        int* fs, float* total) const {
+    for (int i = threadIdx.x; i < ntaps * tile; i += blockDim.x) {
+      const int k = i / tile, t = i - k * tile;
+      const float center = synth_center(s, o0 + min(t, n - 1));
+      const int first = synth_first(s, center);
+      if (k == 0) fs[t] = first;
+      ws[i] = synth_raw(s, first + k, center);
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < tile; t += blockDim.x) {
+      float sum = 0.0f;
+      for (int k = 0; k < ntaps; ++k) sum = __fadd_rn(sum, ws[k * tile + t]);
+      total[t] = sum == 0.0f ? 1.0f : sum;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < ntaps * tile; i += blockDim.x) {
+      const int t = i % tile;
+      ws[i] = t < n ? __fdiv_rn(ws[i], total[t]) : 0.0f;
+    }
   }
 };
 

@@ -5,7 +5,9 @@ headers, so ``nvcc`` compiles them in seconds).  :func:`build` compiles them
 at first use into ``_build/<hash of the sources and flags>/`` beside this
 file — one ``nvcc`` per source, all started together, then one link — and
 loads the result with ``ctypes``; a later call, or a later process on the
-same checkout, reuses the library.  Nothing is fetched: the sources are the
+same checkout, reuses the library.  What ``ptxas -v`` reports for every
+kernel (registers, shared memory, spills) is kept beside the library in
+``nvcc.log`` (:func:`ptxas_log`).  Nothing is fetched: the sources are the
 package's own and the compiler is the local CUDA toolkit's.
 """
 
@@ -20,15 +22,16 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["build", "plane_chunks", "NVCC_FLAGS"]
+__all__ = ["build", "plane_chunks", "ptxas_log", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 _LIB_NAME = "libia_torch_kernels.so"
+_LOG_NAME = "nvcc.log"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,17 +45,24 @@ _SIGNATURES = {
         _I, [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
              _P]),
     # x, out, in_dt, out_dt, B, H, W, OH, OW, xmin_w, w_w, ntaps_w, ymin_h,
-    # w_h, ntaps_h, quant, tile_r, tile_c, rows_cap, stream
+    # w_h, ntaps_h, quant, tile_r, tile_c, rows_cap, cols_cap, chunk, smem,
+    # stream
     "ia_resample2d": (
         _I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I,
-             _I, _I, _I, _P]),
+             _I, _I, _I, _I, _I, _I, _P]),
+    # in_dt, out_dt, ntaps_w, ntaps_h, tile_r, tile_c, rows_cap, cols_cap,
+    # chunk, smem, &blocks (one each for the table and the fused kernel)
+    "ia_resample2d_occupancy": (_I, [_I] * 10 + [_P]),
+    "ia_resample2d_fused_occupancy": (_I, [_I] * 10 + [_P]),
     # x, out, in_dt, out_dt, outer, n_in, inner, n_out, xmin, w, ntaps, stream
     "ia_resample_axis": (
         _I, [_P, _P, _I, _I, _L, _I, _L, _I, _P, _P, _I, _P]),
     # x, out, in_dt, out_dt, B, H, W, OH, OW, &spec_w, &spec_h, quant, tile_r,
-    # tile_c, rows_cap, stream (spec: ia::Synth, csrc/ia_taps.cuh)
+    # tile_c, rows_cap, cols_cap, chunk, smem, stream (spec: ia::Synth,
+    # csrc/ia_taps.cuh)
     "ia_resample2d_fused": (
-        _I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P]),
+        _I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+             _I, _I, _P]),
     # x, out, in_dt, out_dt, outer, n_in, inner, n_out, &spec, stream
     "ia_resample_axis_fused": (
         _I, [_P, _P, _I, _I, _L, _I, _L, _I, _P, _P]),
@@ -98,8 +108,9 @@ def _lib_path() -> Path:
     return _BUILD_DIR / h.hexdigest()[:16] / _LIB_NAME
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands at once; raise with the first failure's output."""
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; raise with the first failure's output, else
+    return their outputs."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for c in cmds]
     outs = [p.communicate()[0] for p in procs]
@@ -107,6 +118,7 @@ def _run_all(cmds: list[list[str]]) -> None:
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return outs
 
 
 def _compile(lib: Path) -> None:
@@ -122,10 +134,13 @@ def _compile(lib: Path) -> None:
     # concurrent first uses of one checkout never load a half-written library
     with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
         objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
-                  for src, obj in zip(_sources(), objs)])
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                         for src, obj in zip(_sources(), objs)])
         out = str(Path(tmp) / _LIB_NAME)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs]])
+        log = Path(tmp) / _LOG_NAME
+        log.write_text("".join(f"== {src.name}\n{text}" for src, text in zip(_sources(), logs)))
+        os.replace(log, lib.parent / _LOG_NAME)
         os.replace(out, lib)
 
 
@@ -143,3 +158,11 @@ def build() -> ctypes.CDLL:
         fn.restype = restype
         fn.argtypes = argtypes
     return lib
+
+
+def ptxas_log() -> str:
+    """What ``nvcc -Xptxas -v`` reported when :func:`build` compiled the
+    current sources (``== <source>`` before each file's lines); empty where
+    this checkout has not built them."""
+    log = _lib_path().parent / _LOG_NAME
+    return log.read_text() if log.exists() else ""

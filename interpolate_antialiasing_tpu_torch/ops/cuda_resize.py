@@ -9,7 +9,8 @@ and its launch count:
     H pass.  Replaces ``_kernel_2pass`` (``resize2d_onekernel``) and serves
     the shapes of ``_kernel_2pass_streamed`` (``resize2d_streamed``).
     Wrapper :func:`resize2d`; plain version :func:`_resample2d_plain`; host
-    plan :func:`_plan2d`; count ``launches_2d``.
+    plan :func:`_plan_rows` (tiles sized for the batch and the card's SM
+    count); count ``launches_2d``.
   * **resample_axis** (``csrc/resample_axis.cu``): one pass over any axis of
     any rank.  Replaces ``_kernel_last`` / ``_kernel_mid``
     (``resize_axis_pallas``) and serves the per-axis passes of
@@ -51,6 +52,7 @@ from __future__ import annotations
 import ctypes
 import math
 from functools import cache, lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -80,11 +82,27 @@ launches_axis_fused = 0
 _DTYPES = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
 KERNEL_DTYPES = tuple(_DTYPES)
 
-# Largest dynamic shared memory one block may use on Hopper (227 KB).
+# Largest shared memory one block may use on Hopper (227 KB), and the part
+# of it the plan gives resample2d's dynamic shared memory (the rest: the
+# kernel's static shared memory, with room to spare).
 _SMEM_LIMIT = 232448
-# Output-row and output-column tiles of resample2d, largest first.
-_TILE_R = (32, 16, 8, 4, 2, 1)
-_TILE_C = (64, 32, 16, 8, 4, 2, 1)
+_SMEM_BUDGET = _SMEM_LIMIT - 1024
+# Shared memory of one SM (228 KB), and what the card keeps of it per
+# resident block (1 KB): how many blocks of a plan's size fit an SM.
+_SM_SMEM = 233472
+_SM_SMEM_PER_BLOCK = 1024
+_BLOCK_THREADS = 256  # resample2d.cuh::kThreads
+_SM_THREADS = 2048
+_H100_SMS = 132  # the plan's SM count where there is no card (CPU tensors)
+# resample2d's output-row tiles, and its output-column tiles: the kernel's
+# template values of TC (csrc/resample2d.cuh)
+_TILE_R = (64, 32, 16, 8, 4, 2, 1)
+TILE_C = (128, 64, 32, 16)
+# Resident blocks per SM the plan aims for: the kernel's register bound
+# (__launch_bounds__ in csrc/resample2d.cuh) allows four (three in the
+# 16-tap bucket), but on the H100 a whole window in one stage at three
+# blocks per SM beat a two-stage ring at four (PERF.md, section 6).
+_RESIDENT = 3
 _INT_MAX = 2**31 - 1
 
 
@@ -114,48 +132,166 @@ def _tables_on(t: Pass, device: torch.device):
             torch.from_numpy(w.copy()).to(device))
 
 
-def _plan_rows(first: np.ndarray, ntaps: int, H: int,
-               OH: int) -> tuple[int, int, int] | None:
-    """``(tile_r, tile_c, rows_cap)`` for resample2d, or None where no tile
-    fits a block's shared memory.
+class Plan2d(NamedTuple):
+    """resample2d's launch plan (:func:`_plan_rows`)."""
 
-    A block holds the W pass result for its output tile's input row window,
-    ``rows_cap x tile_c`` floats.  The window of each ``tile_r``-row tile is
-    computed from the H pass's first taps ``first[OH]`` exactly as the
-    kernel computes it; the plan takes the largest tile (``tile_r * tile_c``
-    outputs, then the wider one) that fits, so an extreme downscale whose
-    rows read a long window runs narrower column tiles rather than leaving
-    the kernel."""
-    lo = np.clip(first.astype(np.int64), 0, H - 1)
-    hi = np.clip(first.astype(np.int64) + ntaps - 1, 0, H - 1) + 1
-    best = None
-    for tile_r in _TILE_R:
-        n = -(-OH // tile_r)
-        pad = n * tile_r - OH  # edge padding repeats a member of the tile
-        lo_t = np.pad(lo, (0, pad), mode="edge").reshape(n, tile_r).min(1)
-        hi_t = np.pad(hi, (0, pad), mode="edge").reshape(n, tile_r).max(1)
-        rows = int((hi_t - lo_t).max())
-        fits = [c for c in _TILE_C if rows * c * 4 <= _SMEM_LIMIT]
-        if fits:
-            best = max(best or (0, 0, 0, 0), (tile_r * fits[0], fits[0], tile_r, rows))
-    if best is None:
-        return None
-    _, tile_c, tile_r, rows_cap = best
-    return tile_r, tile_c, rows_cap
+    tile_r: int  # output rows per block
+    tile_c: int  # output columns per block, one of TILE_C
+    rows_cap: int  # widest input row window of a row tile
+    cols_cap: int  # widest input column span of a column tile
+    chunk: int  # input rows per stage of the ring (one stage: the whole window)
+    smem: int  # dynamic shared memory per block, bytes
+    blocks: int  # blocks of one launch over all planes, one per output tile
+    resident: int  # blocks per SM that shared memory allows (at most 8)
 
 
-@cache
-def _plan2d(spec_h: Pass) -> tuple[int, int, int] | None:
-    """:func:`_plan_rows` over the H pass's tables."""
-    ymin, w = _tables(spec_h)
-    return _plan_rows(ymin, w.shape[1], spec_h.in_size, spec_h.out_size)
+def _align16(v: int) -> int:
+    return (v + 15) & ~15
 
 
-@cache
-def _plan2d_synth(spec_h: AxisSpec) -> tuple[int, int, int] | None:
+def _smem_bytes(tile_r: int, tile_c: int, rows_cap: int, cols_cap: int,
+                chunk: int, ntaps_w: int, ntaps_h: int, itemsize: int) -> int:
+    """Dynamic shared memory of one resample2d block, as the kernel lays it
+    out (csrc/resample2d.cuh::layout; the C entry point refuses a plan whose
+    bytes differ): the ring's stages of ``chunk`` input rows (one where a
+    chunk is the whole window, else two), the float32 intermediate
+    ``[rows_cap, tile_c]``, and each pass's weights (``[ntaps, tile]``),
+    first taps and synthesis sums."""
+    stride = _align16(cols_cap * itemsize) + 32
+    stages = 2 if chunk < rows_cap else 1
+    return (stages * chunk * stride + _align16(rows_cap * tile_c * 4)
+            + _align16(ntaps_w * tile_c * 4) + 2 * _align16(tile_c * 4)
+            + _align16(ntaps_h * tile_r * 4) + 2 * _align16(tile_r * 4))
+
+
+def _window(first: np.ndarray, ntaps: int, n_in: int, tile: int) -> int:
+    """The widest input window over consecutive tiles of ``tile`` outputs:
+    ``max(clamp(first + ntaps - 1) + 1) - min(clamp(first))`` per tile, the
+    taps clamped to ``[0, n_in - 1]`` as the kernel clamps them (the ragged
+    last tile: its own outputs only)."""
+    first = first.astype(np.int64)
+    lo = np.clip(first, 0, n_in - 1)
+    hi = np.clip(first + ntaps - 1, 0, n_in - 1) + 1
+    n = -(-len(first) // tile)
+    pad = n * tile - len(first)  # edge padding repeats a member of the tile
+    lo_t = np.pad(lo, (0, pad), mode="edge").reshape(n, tile).min(1)
+    hi_t = np.pad(hi, (0, pad), mode="edge").reshape(n, tile).max(1)
+    return int((hi_t - lo_t).max())
+
+
+def _plan_rows(first_h: np.ndarray, ntaps_h: int, H: int, first_w: np.ndarray,
+               ntaps_w: int, W: int, itemsize: int, planes: int,
+               n_sm: int) -> Plan2d | None:
+    """resample2d's plan for ``planes`` planes of ``[H, W]`` with
+    ``itemsize``-byte elements on a card of ``n_sm`` SMs, or None where no
+    tile fits a block's shared memory (the caller then runs two
+    resample_axis passes).
+
+    For each tile (``tile_r`` output rows from ``_TILE_R`` by ``tile_c``
+    output columns from :data:`TILE_C`), the widest input row window and
+    column span are computed from the passes' first taps (``first_h[OH]``,
+    ``first_w[OW]``) exactly as the kernel computes them, and the ring's
+    chunk is as large as :func:`_chunk` allows.  Of the tiles that fit, the
+    plan takes:
+
+    1. the most blocks up to ``2 * n_sm``: two waves of blocks, at least
+       two resident per SM, so a batch-1 image still fills the card, while
+       a large batch (config 5's 192 planes give tens of thousands of
+       blocks with any tile) keeps wide tiles;
+    2. then the most resident blocks per SM that shared memory allows, up
+       to ``_RESIDENT`` (the copies' latency is hidden by other blocks);
+    3. then the fewest chunks per block (each is a round trip to device
+       memory that the block waits for);
+    4. then tiles of at least 32 columns (16-column tiles split a warp
+       over two rows: on the H100 they ran 1.4x slower at the headline);
+    5. then the least work per output: W-pass multiply-adds over the row
+       window, H-pass multiply-adds, and staged input words (a row tile's
+       halo rows and a column tile's halo columns are the waste; a tile
+       wider than the image counts its real outputs only);
+    6. then the least shared memory, then the wider column tile.
+
+    Every tap of every output lies in its tile's window and span, which the
+    kernel checks (it traps where host and kernel disagree)."""
+    OH, OW = len(first_h), len(first_w)
+    target = 2 * n_sm
+    best, best_key = None, None
+    for tile_c in TILE_C:
+        cols_cap = _window(first_w, ntaps_w, W, tile_c)
+        stride = _align16(cols_cap * itemsize) + 32
+        for tile_r in _TILE_R:
+            rows_cap = _window(first_h, ntaps_h, H, tile_r)
+            chunk = _chunk(tile_r, tile_c, rows_cap, cols_cap, ntaps_w, ntaps_h,
+                           itemsize)
+            if chunk is None:
+                continue
+            smem = _smem_bytes(tile_r, tile_c, rows_cap, cols_cap, chunk,
+                               ntaps_w, ntaps_h, itemsize)
+            blocks = planes * -(-OH // tile_r) * -(-OW // tile_c)
+            resident = min(_SM_THREADS // _BLOCK_THREADS,
+                           _SM_SMEM // (smem + _SM_SMEM_PER_BLOCK))
+            eff_r, eff_c = min(tile_r, OH), min(tile_c, OW)
+            cost = (rows_cap * eff_c * ntaps_w + eff_r * eff_c * ntaps_h
+                    + rows_cap * stride / 4) / (eff_r * eff_c)
+            chunks = -(-rows_cap // chunk)
+            key = (min(blocks, target), min(resident, _RESIDENT), -chunks,
+                   tile_c >= 32, -cost, -smem, tile_c)
+            if best_key is None or key > best_key:
+                best_key = key
+                best = Plan2d(tile_r, tile_c, rows_cap, cols_cap, chunk, smem,
+                              blocks, resident)
+    return best
+
+
+def _chunk(tile_r: int, tile_c: int, rows_cap: int, cols_cap: int, ntaps_w: int,
+           ntaps_h: int, itemsize: int) -> int | None:
+    """Input rows per chunk of the ring: the whole window (one stage) where
+    the block then still fits ``_RESIDENT`` blocks in an SM's shared memory,
+    else the most rows of two stages that do, else the same within the
+    per-block budget; None where not even one row does."""
+    def smem(chunk):
+        return _smem_bytes(tile_r, tile_c, rows_cap, cols_cap, chunk, ntaps_w,
+                           ntaps_h, itemsize)
+
+    for budget in (_SM_SMEM // _RESIDENT - _SM_SMEM_PER_BLOCK, _SMEM_BUDGET):
+        if smem(rows_cap) <= budget:
+            return rows_cap
+        lo, hi = 1, rows_cap - 1  # the largest two-stage chunk within budget
+        if smem(lo) > budget:
+            continue
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if smem(mid) <= budget else (lo, mid - 1)
+        return lo
+    return None
+
+
+@lru_cache(maxsize=1024)
+def _plan2d(spec_h: Pass, spec_w: Pass, itemsize: int = 4, planes: int = 1,
+            n_sm: int = _H100_SMS) -> Plan2d | None:
+    """:func:`_plan_rows` over the passes' tables."""
+    ymin, wh = _tables(spec_h)
+    xmin, ww = _tables(spec_w)
+    return _plan_rows(ymin, wh.shape[1], spec_h.in_size, xmin, ww.shape[1],
+                      spec_w.in_size, itemsize, planes, n_sm)
+
+
+@lru_cache(maxsize=1024)
+def _plan2d_synth(spec_h: AxisSpec, spec_w: AxisSpec, itemsize: int = 4,
+                  planes: int = 1, n_sm: int = _H100_SMS) -> Plan2d | None:
     """:func:`_plan_rows` over the first taps the fused kernel synthesises."""
     return _plan_rows(_synth_first(spec_h), spec_h.ntaps, spec_h.in_size,
-                      spec_h.out_size)
+                      _synth_first(spec_w), spec_w.ntaps, spec_w.in_size,
+                      itemsize, planes, n_sm)
+
+
+@cache
+def _n_sm(dev: torch.device) -> int:
+    """The card's SM count (the plan's ``n_sm``); :data:`_H100_SMS` for a
+    CPU tensor, whose plan only decides between one plain 2-D pass and two
+    axis passes."""
+    if dev.type != "cuda":
+        return _H100_SMS
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -377,10 +513,31 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _plan_args(plan: Plan2d) -> tuple[int, ...]:
+    """The plan as the C entry points take it: tile_r, tile_c, rows_cap,
+    cols_cap, chunk, smem."""
+    return plan[:6]
+
+
+def occupancy_2d(plan: Plan2d, in_dtype: torch.dtype, out_dtype: torch.dtype,
+                 ntaps_w: int, ntaps_h: int, fused: bool = False) -> int:
+    """Resident blocks per SM of resample2d's kernel (``fused``: the
+    synthesising one) under ``plan`` on the current card, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives it (registers
+    and shared memory both count).  Launches nothing; needs the card."""
+    lib = native.build()
+    fn = lib.ia_resample2d_fused_occupancy if fused else lib.ia_resample2d_occupancy
+    blocks = ctypes.c_int(0)
+    err = fn(_DTYPES[in_dtype], _DTYPES[out_dtype], ntaps_w, ntaps_h,
+             *_plan_args(plan), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"resample2d occupancy query failed: cudaError {err}")
+    return blocks.value
+
+
 def _resample2d_cuda(x3, spec_h, spec_w, out_dtype, plan) -> torch.Tensor:
     global launches_2d
     lib = native.build()
-    tile_r, tile_c, rows_cap = plan
     B, H, W = x3.shape
     OH, OW = spec_h.out_size, spec_w.out_size
     out = torch.empty((B, OH, OW), dtype=out_dtype, device=x3.device)
@@ -392,7 +549,7 @@ def _resample2d_cuda(x3, spec_h, spec_w, out_dtype, plan) -> torch.Tensor:
     quant = int(x3.dtype == torch.uint8 and out_dtype == torch.uint8)
     # every block of a launch is on gridDim.x: split batches whose block
     # count would pass its 2^31 - 1 limit
-    per_plane = -(-OH // tile_r) * -(-OW // tile_c)
+    per_plane = -(-OH // plan.tile_r) * -(-OW // plan.tile_c)
     with torch.cuda.device(dev):
         for b0, n in native.plane_chunks(B, _INT_MAX // per_plane):
             err = lib.ia_resample2d(
@@ -401,7 +558,7 @@ def _resample2d_cuda(x3, spec_h, spec_w, out_dtype, plan) -> torch.Tensor:
                 _DTYPES[x3.dtype], _DTYPES[out_dtype], n, H, W, OH, OW,
                 xmin_w.data_ptr(), w_w.data_ptr(), w_w.shape[1],
                 ymin_h.data_ptr(), w_h.data_ptr(), w_h.shape[1],
-                quant, tile_r, tile_c, rows_cap, _stream(dev))
+                quant, *_plan_args(plan), _stream(dev))
             if err != 0:
                 raise RuntimeError(f"resample2d launch failed: cudaError {err}")
             launches_2d += 1
@@ -432,7 +589,6 @@ def _resample_axis_cuda(x3, spec, out_dtype) -> torch.Tensor:
 def _resample2d_fused_cuda(x3, spec_h, spec_w, out_dtype, plan) -> torch.Tensor:
     global launches_2d_fused
     lib = native.build()
-    tile_r, tile_c, rows_cap = plan
     B, H, W = x3.shape
     OH, OW = spec_h.out_size, spec_w.out_size
     out = torch.empty((B, OH, OW), dtype=out_dtype, device=x3.device)
@@ -441,15 +597,15 @@ def _resample2d_fused_cuda(x3, spec_h, spec_w, out_dtype, plan) -> torch.Tensor:
     dev = x3.device
     sw, sh = _synth_struct(spec_w), _synth_struct(spec_h)
     quant = int(x3.dtype == torch.uint8 and out_dtype == torch.uint8)
-    per_plane = -(-OH // tile_r) * -(-OW // tile_c)
+    per_plane = -(-OH // plan.tile_r) * -(-OW // plan.tile_c)
     with torch.cuda.device(dev):
         for b0, n in native.plane_chunks(B, _INT_MAX // per_plane):
             err = lib.ia_resample2d_fused(
                 x3.data_ptr() + b0 * H * W * x3.element_size(),
                 out.data_ptr() + b0 * OH * OW * out.element_size(),
                 _DTYPES[x3.dtype], _DTYPES[out_dtype], n, H, W, OH, OW,
-                ctypes.addressof(sw), ctypes.addressof(sh), quant, tile_r,
-                tile_c, rows_cap, _stream(dev))
+                ctypes.addressof(sw), ctypes.addressof(sh), quant,
+                *_plan_args(plan), _stream(dev))
             if err != 0:
                 raise RuntimeError(f"resample2d (fused) launch failed: cudaError {err}")
             launches_2d_fused += 1
@@ -500,6 +656,7 @@ def resize2d(x: torch.Tensor, spec_h: Pass, spec_w: Pass,
     leading axes) in one resample2d launch — the counterpart of the JAX
     package's ``resize2d_onekernel`` and ``resize2d_streamed``, and, over
     :func:`..weights.adjoint_tables`, of ``resize2d_onekernel_transpose``.
+    The launch's tiles follow the batch and the card (:func:`_plan_rows`).
 
     ``x`` is uint8, float32 or bfloat16; ``out_dtype`` uint8 (``floor(v +
     0.5)`` clamped), float32 or bfloat16, by default float32 for uint8 input
@@ -523,7 +680,8 @@ def resize2d(x: torch.Tensor, spec_h: Pass, spec_w: Pass,
     fused_h, fused_w = _fused_gate(fused, spec_h, spec_w)
     plan = None
     if fused_h == fused_w:
-        plan = _plan2d_synth(spec_h) if fused_h else _plan2d(spec_h)
+        args = (x.element_size(), max(1, math.prod(x.shape[:-2])), _n_sm(x.device))
+        plan = (_plan2d_synth if fused_h else _plan2d)(spec_h, spec_w, *args)
     if plan is None:
         if debug_enabled():
             print("[ia-tpu] resample2d: no tile fits (or one pass fused), "

@@ -240,3 +240,58 @@ def test_fused_kernels_align_corners_and_span(dev, mode, kw):
                   cr._resample2d_fused_plain(x, sh, sw, torch.float32))
     _assert_equal(cr.resize_axis(x, sh, 1, fused=True),
                   cr._resample_axis_fused_plain(x, sh, torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# Kernel A's edges (the redesign for Hopper): spans staged through the ring,
+# taps past the unrolled buckets, tiny grids, one-wide outputs and rows that
+# start off 16 bytes, with host tables and with synthesised weights
+# ---------------------------------------------------------------------------
+
+KERNEL_A_EDGES = [
+    ("extreme_downscale_w", (1, 96, 2160), (48, 8), "lanczos3"),
+    ("ntaps_61", (1, 64, 600), (10, 100), "lanczos5"),
+    ("few_blocks", (1, 17, 23), (8, 11), "bicubic"),
+    ("one_column", (2, 50, 70), (30, 1), "bilinear"),
+    ("one_row", (2, 50, 70), (1, 30), "bilinear"),
+]
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["tables", "fused"])
+@pytest.mark.parametrize("name,shape,ohw,mode", KERNEL_A_EDGES,
+                         ids=[c[0] for c in KERNEL_A_EDGES])
+def test_resample2d_edges_match_plain(dev, name, shape, ohw, mode, fused):
+    x = _input(shape, torch.float32, dev, seed=12)
+    sh, sw = make_axis_spec(shape[-2], ohw[0], mode), make_axis_spec(shape[-1], ohw[1], mode)
+    before = (cr.launches_2d, cr.launches_2d_fused)
+    got = cr.resize2d(x, sh, sw, fused=fused)
+    torch.cuda.synchronize()
+    assert (cr.launches_2d, cr.launches_2d_fused) == \
+        (before[0] + (not fused), before[1] + fused)
+    plain = cr._resample2d_fused_plain if fused else cr._resample2d_plain
+    _assert_equal(got, plain(x, sh, sw, torch.float32))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["tables", "fused"])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_resample2d_unaligned_rows_match_plain(dev, dt, fused):
+    """Rows 83 elements wide and a plane offset (``x[1:]``): no row starts
+    on 16 bytes, and the staged copies mask the head and tail."""
+    x = _input((4, 37, 83), dt, dev, seed=13)[1:]
+    assert x.data_ptr() % 16 != 0
+    sh, sw = make_axis_spec(37, 17, "bicubic"), make_axis_spec(83, 29, "bicubic")
+    got = cr.resize2d(x, sh, sw, dt, fused=fused)
+    plain = cr._resample2d_fused_plain if fused else cr._resample2d_plain
+    _assert_equal(got, plain(x, sh, sw, dt))
+
+
+def test_resample2d_plan_occupancy(dev):
+    """The headline plan launches at least two waves of blocks on this card,
+    and the card holds at least two of them per SM."""
+    sh, sw = make_axis_spec(438, 196), make_axis_spec(906, 320)
+    n_sm = cr._n_sm(dev)
+    for fused in (False, True):
+        plan = (cr._plan2d_synth if fused else cr._plan2d)(sh, sw, 4, 3, n_sm)
+        assert plan.blocks >= 2 * n_sm
+        assert cr.occupancy_2d(plan, torch.float32, torch.float32, sw.ntaps, sh.ntaps,
+                               fused) >= 2

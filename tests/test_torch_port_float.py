@@ -18,6 +18,9 @@ Two references, with the tolerances they admit:
 Inputs are made from a numpy seed and handed to both packages.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -329,32 +332,75 @@ def test_requires_grad_is_refused(entry):
         assert y0.grad_fn is None and torch.equal(y0, y.detach())
 
 
+def _assert_plan_covers(plan, spec_h, spec_w, itemsize):
+    """The plan's invariants: every tap of every output row lies in its row
+    tile's window, every tap of every output column in its column tile's
+    span; the chunk ring covers the window; the block's bytes are the
+    kernel's layout and fit the per-block budget."""
+    for spec, tile, cap in ((spec_h, plan.tile_r, plan.rows_cap),
+                            (spec_w, plan.tile_c, plan.cols_cap)):
+        first, w = cr._tables(spec)
+        taps = np.clip(first[:, None].astype(np.int64) + np.arange(w.shape[1]),
+                       0, spec.in_size - 1)
+        for t in range(-(-spec.out_size // tile)):
+            r = taps[t * tile:(t + 1) * tile]
+            assert r.max() - r.min() + 1 <= cap
+    assert plan.tile_c in cr.TILE_C and plan.tile_r in cr._TILE_R
+    assert 1 <= plan.chunk <= plan.rows_cap
+    assert -(-plan.rows_cap // plan.chunk) * plan.chunk >= plan.rows_cap
+    ntw, nth = cr._tables(spec_w)[1].shape[1], cr._tables(spec_h)[1].shape[1]
+    assert plan.smem == cr._smem_bytes(plan.tile_r, plan.tile_c, plan.rows_cap,
+                                       plan.cols_cap, plan.chunk, ntw, nth, itemsize)
+    # the ring's stages (one where a chunk is the whole window, else two)
+    # hold chunk rows of the widest span, 16-byte head and tail included,
+    # inside the block's bytes
+    stride = -(-plan.cols_cap * itemsize // 16) * 16 + 32
+    stages = 1 if plan.chunk == plan.rows_cap else 2
+    assert stride >= plan.cols_cap * itemsize + 30
+    assert stages * plan.chunk * stride + 4 * plan.rows_cap * plan.tile_c <= plan.smem
+    assert plan.smem <= cr._SMEM_BUDGET < cr._SMEM_LIMIT
+
+
 def test_plan_narrows_columns_for_an_extreme_downscale():
     # 2160 -> 8 lanczos3 reads ~1,600 input rows per output row
-    spec = tspec(2160, 8, "lanczos3")
-    tile_r, tile_c, rows_cap = cr._plan2d(spec)
-    assert tile_c < 64 and rows_cap * tile_c * 4 <= cr._SMEM_LIMIT
-    assert cr._plan2d(tspec(2160, 1080, "bilinear"))[:2] == (32, 64)
-    # every tap of every output row lies inside its tile's window
-    for spec in [tspec(2160, 8, "lanczos3"), tspec(438, 196, "bicubic"),
-                 tspec(33, 65, "bicubic"), tspec(40, 7, "area")]:
-        tile_r, _, rows_cap = cr._plan2d(spec)
-        ymin, w = cr._tables(spec)
-        rows = np.clip(ymin[:, None].astype(np.int64) + np.arange(w.shape[1]),
-                       0, spec.in_size - 1)
-        for t in range(-(-spec.out_size // tile_r)):
-            r = rows[t * tile_r:(t + 1) * tile_r]
-            assert r.max() - r.min() + 1 <= rows_cap
+    spec, spec_w = tspec(2160, 8, "lanczos3"), tspec(96, 48, "lanczos3")
+    plan = cr._plan2d(spec, spec_w)
+    assert plan.tile_c < 64
+    _assert_plan_covers(plan, spec, spec_w, 4)
+    # and along W: the span of 2160 columns is staged through the ring
+    plan = cr._plan2d(spec_w, spec)
+    assert plan.cols_cap == 2160
+    _assert_plan_covers(plan, spec_w, spec, 4)
+    for sh, sw in [(tspec(2160, 1080, "bilinear"), tspec(3840, 1920, "bilinear")),
+                   (tspec(438, 196, "bicubic"), tspec(906, 320, "bicubic")),
+                   (tspec(33, 65, "bicubic"), tspec(17, 5, "area")),
+                   (tspec(40, 7, "area"), tspec(23, 1, "bilinear"))]:
+        for itemsize in (1, 2, 4):
+            _assert_plan_covers(cr._plan2d(sh, sw, itemsize), sh, sw, itemsize)
+
+
+def _smallest_block(spec_h, spec_w, itemsize):
+    """The least shared memory any tile of the plan could take: one output
+    row, the narrowest column tile, a ring of one row."""
+    (fh, wh), (fw, ww) = cr._tables(spec_h), cr._tables(spec_w)
+    return min(cr._smem_bytes(1, c, cr._window(fh, wh.shape[1], spec_h.in_size, 1),
+                              cr._window(fw, ww.shape[1], spec_w.in_size, c), 1,
+                              ww.shape[1], wh.shape[1], itemsize) for c in cr.TILE_C)
 
 
 def test_plan_gives_up_only_when_no_tile_fits(monkeypatch):
-    # a window of ~70,000 rows does not fit even one column in 227 KB
-    assert cr._plan2d(tspec(70000, 1, "box")) is None
-    assert cr._plan2d(tspec(50000, 1, "box")) is not None
+    # a window of ~4,000 rows of 16 float32 columns does not fit in 227 KB;
+    # ~3,000 does (the old one-column tiles took windows up to ~58,000 rows;
+    # the kernel's narrowest tile is now 16 columns)
+    sw = tspec(4, 4, "box")
+    for n_in, fits in [(3000, True), (4000, False), (50000, False), (70000, False)]:
+        sh = tspec(n_in, 1, "box")
+        assert (cr._plan2d(sh, sw) is not None) == fits
+        assert fits == (_smallest_block(sh, sw, 4) <= cr._SMEM_BUDGET)
     # where the plan gives up, resize2d runs two resample_axis passes
     calls = []
     real = cr.resize_axis
-    monkeypatch.setattr(cr, "_plan2d", lambda spec: None)
+    monkeypatch.setattr(cr, "_plan2d", lambda *a: None)
     monkeypatch.setattr(cr, "resize_axis",
                         lambda *a, **k: calls.append(a[2:]) or real(*a, **k))
     for idt, odt, inter in [("uint8", "uint8", torch.uint8),
@@ -367,6 +413,51 @@ def test_plan_gives_up_only_when_no_tile_fits(monkeypatch):
         assert calls == [(-1, inter), (-2, TDT[odt])]
         _assert_vs_xla(got, _jax_dense2d(xj, jspec(30, 17, "bicubic"),
                                          jspec(41, 60, "bicubic"), odt), odt)
+
+
+def test_plan_tile_c_is_a_kernel_template_value():
+    """The plan's column tiles are exactly the kernel's instantiations of
+    TC (csrc/resample2d.cuh, one source each per weight source), and every
+    plan takes one of them."""
+    csrc = Path(cr.__file__).parent.parent / "csrc"
+    src = (csrc / "resample2d.cuh").read_text()
+    for prefix in ("resample2d_tc", "resample2d_fused_tc"):  # tables, synthesis
+        assert sorted(int(p.stem[len(prefix):])
+                      for p in csrc.glob(f"{prefix}*.cu")) == sorted(cr.TILE_C)
+    assert sorted(int(v) for v in re.findall(r"case (\d+): return launch_tc", src)) == \
+        sorted(cr.TILE_C)
+    for sh, sw in [(tspec(438, 196), tspec(906, 320)), (tspec(97, 40, "lanczos3"),
+                                                          tspec(131, 260, "lanczos3")),
+                   (tspec(1, 30), tspec(200, 1, "box"))]:
+        for itemsize in (1, 2, 4):
+            for planes in (1, 64):
+                assert cr._plan2d(sh, sw, itemsize, planes).tile_c in cr.TILE_C
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 66])
+def test_plan_fills_the_card(n_sm):
+    # the batch-1 headline (3 planes): at least two waves of blocks
+    sh, sw = tspec(438, 196, "bilinear"), tspec(906, 320, "bilinear")
+    plan = cr._plan2d(sh, sw, 4, 3, n_sm)
+    assert plan.blocks >= 2 * n_sm and plan.resident >= 2
+    _assert_plan_covers(plan, sh, sw, 4)
+    # config 5's 192 planes give tens of thousands of blocks with any tile:
+    # the plan keeps a wide one
+    big = cr._plan2d(tspec(2160, 1080), tspec(3840, 1920), 2, 192, n_sm)
+    assert big.tile_c >= 64 and big.blocks >= 10000 and big.resident >= 2
+    # fewer outputs than SMs: the most blocks any tile gives, one per row
+    tiny = cr._plan2d(tspec(17, 8), tspec(23, 11), 4, 1, n_sm)
+    assert (tiny.tile_r, tiny.blocks) == (1, 8)
+
+
+def test_plan_follows_the_batch():
+    """More planes need fewer blocks per plane: the tiles grow with the
+    batch, and the cache keeps one plan per argument tuple."""
+    sh, sw = tspec(438, 196, "bicubic"), tspec(906, 320, "bicubic")
+    small, large = cr._plan2d(sh, sw, 4, 1), cr._plan2d(sh, sw, 4, 192)
+    assert small.tile_r * small.tile_c <= large.tile_r * large.tile_c
+    assert small.blocks >= 2 * cr._H100_SMS
+    assert cr._plan2d(sh, sw, 4, 192) is large
 
 
 def test_cpu_tensors_run_the_plain_versions(monkeypatch, capsys):

@@ -276,7 +276,7 @@ def test_no_tile_runs_two_fused_axis_passes(monkeypatch, idt, odt):
                   jnp.uint8 if idt == torch.uint8 else jnp.float32)
     sh, sw = tspec(40, 20, "bilinear"), tspec(60, 90, "bicubic")
     want = cr.resize2d(x, sh, sw, odt, fused=True)
-    monkeypatch.setattr(cr, "_plan2d_synth", lambda spec: None)
+    monkeypatch.setattr(cr, "_plan2d_synth", lambda *a: None)
     calls = []
     orig = cr._resample_axis_fused_plain
     monkeypatch.setattr(cr, "_resample_axis_fused_plain",
@@ -288,15 +288,26 @@ def test_no_tile_runs_two_fused_axis_passes(monkeypatch, idt, odt):
 
 def test_synth_first_plans_the_kernels_window():
     """The host's float32 first taps (numpy) equal the plain version's
-    (torch) on every spec kind, and the fused plan covers the windows."""
-    for spec in (tspec(2160, 1080, "bilinear"), tspec(438, 196, "bicubic"),
-                 tspec(97, 131, "lanczos3", align_corners=True),
-                 tspec(97, 40, "hamming", span=(3.5, 90.0)), tspec(64, 196, "lanczos5")):
+    (torch) on every spec kind, and the fused plan covers the windows: every
+    tap of a row tile in its window, of a column tile in its span, the block
+    within the per-block budget."""
+    specs = (tspec(2160, 1080, "bilinear"), tspec(438, 196, "bicubic"),
+             tspec(97, 131, "lanczos3", align_corners=True),
+             tspec(97, 40, "hamming", span=(3.5, 90.0)), tspec(64, 196, "lanczos5"))
+    for spec in specs:
         first = cr._synth_first(spec)
         np.testing.assert_array_equal(first, cr._synth_tables(spec, torch.device("cpu"))[0])
-        tile_r, tile_c, rows_cap = cr._plan2d_synth(spec)
-        lo = np.clip(first, 0, spec.in_size - 1)
-        hi = np.clip(first + spec.ntaps - 1, 0, spec.in_size - 1) + 1
-        for o0 in range(0, spec.out_size, tile_r):
-            assert hi[o0:o0 + tile_r].max() - lo[o0:o0 + tile_r].min() <= rows_cap
-        assert rows_cap * tile_c * 4 <= cr._SMEM_LIMIT
+    for spec, spec_w in zip(specs, specs[1:] + specs[:1]):
+        plan = cr._plan2d_synth(spec, spec_w)
+        for sp, tile, cap in ((spec, plan.tile_r, plan.rows_cap),
+                              (spec_w, plan.tile_c, plan.cols_cap)):
+            first = cr._synth_first(sp)
+            lo = np.clip(first, 0, sp.in_size - 1)
+            hi = np.clip(first + sp.ntaps - 1, 0, sp.in_size - 1) + 1
+            for o0 in range(0, sp.out_size, tile):
+                assert hi[o0:o0 + tile].max() - lo[o0:o0 + tile].min() <= cap
+        assert plan.tile_c in cr.TILE_C and 1 <= plan.chunk <= plan.rows_cap
+        assert plan.smem == cr._smem_bytes(plan.tile_r, plan.tile_c, plan.rows_cap,
+                                           plan.cols_cap, plan.chunk, spec_w.ntaps,
+                                           spec.ntaps, 4)
+        assert plan.smem <= cr._SMEM_BUDGET

@@ -301,7 +301,9 @@ def test_build_is_keyed_by_sources():
     assert path.name == native._LIB_NAME
     assert [p.name for p in native._sources()] == [
         "crop_resample.cu", "pil_resample.cu", "pil_resample_axis.cu", "resample2d.cu",
-        "resample_axis.cu"]
+        "resample2d_fused.cu", "resample2d_fused_tc128.cu", "resample2d_fused_tc16.cu",
+        "resample2d_fused_tc32.cu", "resample2d_fused_tc64.cu", "resample2d_tc128.cu",
+        "resample2d_tc16.cu", "resample2d_tc32.cu", "resample2d_tc64.cu", "resample_axis.cu"]
     assert native._lib_path() == path  # stable for unchanged sources
 
 
