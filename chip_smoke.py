@@ -5,10 +5,12 @@
 Run from the repository root on a machine with an NVIDIA Hopper card and the
 CUDA toolkit.  It builds the port's CUDA kernels from the sources in the
 checkout (resample2d and resample_axis each with a twin that synthesises its
-weights in the kernel, ``fused=True``), prints what ``ptxas -v`` reported
-for resample2d's instantiations and resample2d's plan at config 5 and the
-headline (tile, ring chunk, shared bytes, blocks, resident blocks per SM),
-and then:
+weights in the kernel, ``fused=True``), prints the compile seconds of each
+source, what ``ptxas -v`` reported for resample2d's and the per-axis
+kernels' instantiations, resample2d's plan at config 5 and the headline
+(tile, ring chunk, shared bytes, blocks, resident blocks per SM) and the
+per-axis kernels' plan at every pass it times (``plan_resample_axis``), and
+then:
 
 1. holds each kernel against its plain PyTorch version, bit for bit: the
    Pillow kernel against a CPU copy (including a 70,000-plane batch, past
@@ -65,7 +67,11 @@ and then:
    kernels also by device time per launch (torch.profiler kernel records,
    ``*_device_ms``) apart from the wrapper's host time per call
    (``*_host_us``), since CUDA events around back-to-back calls measure the
-   host where it is the slower (batch 1).
+   host where it is the slower (batch 1); the shard passes of both per-axis
+   kernels the same way; and kernel B at config 5's frames in NHWC (bf16
+   [64, 2160, 3840, 3] -> 1080x1920 through ``resize``, tables and fused,
+   beside ``F.interpolate`` on the same channels-last tensor,
+   ``time_nhwc_config5``).
 
 Every phase prints one JSON line (each kernel-vs-plain case goes to
 ``smoke_out/chip_smoke_cases.jsonl``); any failure raises and exits
@@ -265,17 +271,23 @@ def _device_ms(fn, iters: int, match: str | None = None) -> float:
     name contains ``match``, or, with ``match`` None, every kernel of the
     call summed per call (a library call).  The host's pace does not enter
     it (CUDA events around back-to-back calls measure the host where it is
-    slower than the card).  Raises where the profiler saw no such device
-    time: there is no fallback to events."""
+    slower than the card).  The profiler now and then returns a profile
+    with no device record at all (seen on an H100, after many profiles in
+    one process): such a profile is taken again, up to three times.  Raises
+    where the profiler saw no such device time: there is no fallback to
+    events."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
     hit = [e for e in kernels if match is None or match in e.name]
     total_us = sum(e.time_range.elapsed_us() for e in hit)
     if not hit or total_us <= 0:
@@ -329,19 +341,69 @@ def print_kernel_a_plans(dev) -> None:
                                                         fused))
 
 
-PTXAS_LOG = Path("smoke_out") / "ptxas_resample2d.jsonl"
+def _axis_timed_passes():
+    """The axis kernels' timed passes: (case, kind, first taps int64, ntaps,
+    n_in, outer, inner, dtype): the NHWC headline's and NHWC config 5's W
+    and H passes (tables and fused), row 3's sharded uint8 W and H pass
+    (Pillow tables) and row 9's sharded float H pass and its adjoint."""
+    for case, (shape, ohw), dt in (("nhwc headline", HEADLINE, F32),
+                                   ("nhwc config 5", CONFIG5, BF16)):
+        N, C, H, W = shape
+        sh, sw = make_axis_spec(H, ohw[0]), make_axis_spec(W, ohw[1])
+        for p, spec, outer, inner in (("w", sw, N * H, C), ("h", sh, N, ohw[1] * C)):
+            for kind in ("table", "fused"):
+                first = (cr._synth_first(spec) if kind == "fused"
+                         else cr._tables(spec)[0].astype(np.int64))
+                yield (f"{case} {p} pass", kind, first, spec.ntaps, spec.in_size, outer,
+                       inner, dt)
+    (shape, size, mode), d = SHARD_U8, 1
+    plan, starts, wsh = halo._int_halo_tables(shape[1], size[0], mode, SHARDS)
+    tw = pe._int_tables(shape[2], size[1], mode)
+    yield ("row 3 w pass", "pil", np.asarray(tw[0], np.int64), tw[1].shape[1], shape[2],
+           shape[0] * plan.hl, 1, U8)
+    yield ("row 3 h pass", "pil", np.asarray(starts[d], np.int64), wsh[d].shape[1], plan.ext,
+           shape[0], size[1], U8)
+    (shape, size, mode) = SHARD_F32
+    plan = halo.plan_halo_banded(shape[2], size[0], mode, True, SHARDS)
+    for p, t in zip(("forward", "adjoint"), halo._shard_tables(plan, d)):
+        yield (f"row 9 {p}", "table", t.xmin.astype(np.int64), t.ntaps, t.in_size, shape[1],
+               size[1], F32)
+
+
+def print_axis_plans(dev) -> None:
+    """The axis kernels' plan at every timed pass: tile, window, vec, shared
+    bytes, blocks, the plan's estimate of resident blocks per SM and the
+    card's (occupancy API: registers count too)."""
+    n_sm = cr._n_sm(dev)
+    for case, kind, first, ntaps, n_in, outer, inner, dt in _axis_timed_passes():
+        isz = torch.empty(0, dtype=dt).element_size()
+        plan = cr._plan_axis_first(first.tobytes(), ntaps, n_in, outer, inner, isz, n_sm, True,
+                                   kind == "fused")
+        fields = {"unstaged": True} if plan is None else dict(
+            **plan._asdict(), card_resident_per_sm=cr.occupancy_axis(plan, kind, dt, dt, ntaps))
+        _line("plan_resample_axis", case=case, kind=kind, dtype=str(dt), taps=ntaps,
+              view=[outer, n_in, inner], n_out=len(first), sms=n_sm, **fields)
+
+
+PTXAS_LOG = Path("smoke_out") / "ptxas.jsonl"
+# kernel -> the names of its two template values after the weight source
+PTXAS_KERNELS = {"resample2d_kernel": ("tile_c", "tap_bucket"),
+                 "resample_axis_kernel": ("tap_bucket", "vec")}
 
 
 def print_ptxas() -> None:
-    """What ``nvcc -Xptxas -v`` reported for kernel A's instantiations
-    (native.ptxas_log): one line per (weight source, TC, tap bucket) with
-    the most registers, spill bytes and static shared memory over the dtype
-    pairs; every instantiation's line to ``PTXAS_LOG``."""
+    """What ``nvcc -Xptxas -v`` reported for kernel A's and the axis
+    kernels' instantiations (native.ptxas_log): one ``ptxas_<kernel>`` line
+    per (weight source, two template values: TC and tap bucket for kernel
+    A, tap bucket and vec for the axis kernels) with the most registers,
+    spill bytes and static shared memory over the dtype pairs; every
+    instantiation's line to ``PTXAS_LOG``."""
     rows, cur = [], None
     for line in native.ptxas_log().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            cur = {"name": m.group(1)} if "resample2d_kernel" in m.group(1) else None
+            kernel = next((k for k in PTXAS_KERNELS if k in m.group(1)), None)
+            cur = {"name": m.group(1), "kernel": kernel} if kernel else None
             continue
         if cur is None:
             continue
@@ -353,20 +415,23 @@ def print_ptxas() -> None:
             cur["registers"] = int(m.group(1))
             sm = re.search(r"(\d+) bytes smem", line)
             cur["static_smem"] = int(sm.group(1)) if sm else 0
-            t = re.search(r"(TableTaps|SynthTaps)ELi(\d+)ELi(\d+)E", cur["name"])
-            cur["group"] = [t.group(1), int(t.group(2)), int(t.group(3))] if t else None
+            t = re.search(r"(TableTaps|SynthTaps|PilTaps)ELi(\d+)ELi(\d+)E", cur["name"])
+            cur["group"] = [cur["kernel"], t.group(1), int(t.group(2)), int(t.group(3))] \
+                if t else [cur["kernel"], "?", 0, 0]
             rows.append(cur)
             cur = None
-    if not rows:
-        raise RuntimeError("ptxas -v reported no resample2d instantiation")
+    for kernel in PTXAS_KERNELS:
+        if not any(r["kernel"] == kernel for r in rows):
+            raise RuntimeError(f"ptxas -v reported no {kernel} instantiation")
     PTXAS_LOG.parent.mkdir(exist_ok=True)
     PTXAS_LOG.write_text("".join(json.dumps(r) + "\n" for r in rows))
     groups = {}
     for r in rows:
         groups.setdefault(json.dumps(r["group"]), []).append(r)
     for key, rs in sorted(groups.items()):
-        g = json.loads(key) or ["?", 0, 0]
-        _line("ptxas_resample2d", taps=g[0], tile_c=g[1], tap_bucket=g[2],
+        kernel, taps, a, b = json.loads(key)
+        names = PTXAS_KERNELS[kernel]
+        _line("ptxas_" + kernel.removesuffix("_kernel"), taps=taps, **{names[0]: a, names[1]: b},
               instantiations=len(rs), max_registers=max(r["registers"] for r in rs),
               max_spill_bytes=max(r.get("spill", 0) for r in rs),
               static_smem=max(r["static_smem"] for r in rs))
@@ -467,6 +532,30 @@ def _axis_cases():
             yield ("mid", (2, 57, 83, 3), 1, 130, "lanczos3", idt, odt)
     for mode in ("bilinear", "box", "hamming", "area"):
         yield (mode, (2, 3, 97, 131), -2, 40, mode, F32, F32)
+    yield from _axis_edges("bicubic", "lanczos3", "bilinear")
+
+
+def _axis_edges(bicubic, lanczos3, bilinear):
+    """The axis kernels' tile kinds and edges: the last axis, inner 3, 5
+    and 960, one output, upsamples, and rows that start off 16 bytes (a
+    name starting "offset" runs on ``x[1:]`` of one more plane) for each
+    dtype."""
+    yield ("inner3", (2, 57, 83, 3), 2, 31, bicubic, F32, F32)
+    yield ("inner5", (2, 57, 5), 1, 23, lanczos3, F32, F32)
+    yield ("inner960", (1, 60, 960), 1, 27, bilinear, F32, F32)
+    yield ("n_out_1", (2, 50, 7), 1, 1, bilinear, F32, F32)
+    yield ("upsample", (2, 31, 70), 1, 90, bicubic, F32, F32)
+    yield ("upsample_last", (3, 4, 31), -1, 77, lanczos3, F32, F32)
+    for dt in DTYPES:
+        yield ("offset_last", (4, 37, 83), -1, 29, bicubic, dt, dt)
+        yield ("offset_inner3", (3, 57, 83, 3), 2, 31, bicubic, dt, dt)
+        yield ("offset_inner960", (2, 60, 960), 1, 27, bilinear, dt, dt)
+
+
+def _axis_input(name, shape, dtype, dev, seed):
+    if name.startswith("offset"):
+        return _rand((shape[0] + 1, *shape[1:]), dtype, dev, seed)[1:]
+    return _rand(shape, dtype, dev, seed)
 
 
 def _view3(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -554,7 +643,7 @@ def check_float_kernels(dev) -> tuple[float, float]:
             out=list(got.shape))
     for name, shape, axis, n_out, mode, idt, odt in _axis_cases():
         seed += 1
-        x = _rand(shape, idt, dev, seed)
+        x = _axis_input(name, shape, idt, dev, seed)
         spec = make_axis_spec(shape[axis], n_out, mode)
         before = cr.launches_axis
         got = cr.resize_axis(x, spec, axis, odt)
@@ -716,6 +805,20 @@ def _pil_axis_cases():
                                (starts[d], wsh[d]))
     for mode in MODES:
         yield (f"w pass {mode}", (3, 40, 111), 2, pe._int_tables(111, 59, mode))
+    # the tile kinds: inner 3, 5, 6 and 962 (no multiple of 4: one column
+    # per thread), 8 and 960 (four), one output, an upsample; and a byte
+    # offset (a name starting "offset": no row aligned, no vector path)
+    for name, shape, n_in, n_out, mode in (
+            ("inner3", (2, 83, 3), 83, 31, "lanczos3"), ("inner5", (2, 57, 5), 57, 23, "hamming"),
+            ("inner6", (2, 57, 6), 57, 23, "bilinear"), ("inner8", (2, 57, 8), 57, 23, "bicubic"),
+            ("inner960", (1, 60, 960), 60, 27, "bilinear"),
+            ("inner962", (1, 60, 962), 60, 27, "bicubic"),
+            ("n_out_1", (2, 50, 8), 50, 1, "box"), ("upsample", (2, 31, 72), 31, 90, "bicubic"),
+            ("offset_last", (3, 40, 83), 83, 29, "bicubic"),
+            ("offset_inner960", (1, 60, 960), 60, 27, "bilinear"),
+            ("no_tile_fits", (2, 5000, 64), 5000, 1, "box")):
+        axis = 2 if name.endswith("last") else 1
+        yield (name, shape, axis, pe._int_tables(n_in, n_out, mode))
 
 
 def check_pil_axis_kernel(dev) -> float:
@@ -726,6 +829,8 @@ def check_pil_axis_kernel(dev) -> float:
     for name, shape, axis, tables in _pil_axis_cases():
         seed += 1
         x = _rand(shape, U8, dev, seed)
+        if name.startswith("offset"):
+            x = _rand((math.prod(shape) + 1,), U8, dev, seed)[1:].reshape(shape)
         before = pe.launches_axis
         got = pe._resample_axis(x, tables, axis)
         torch.cuda.synchronize()
@@ -794,6 +899,9 @@ def _fused_axis_cases():
                dict(align_corners=True), F32, F32)
         yield (f"span {mode}", (2, 3, 97, 131), -1, 60, mode, dict(span=(3.5, 90.0)),
                F32, F32)
+    for name, shape, axis, n_out, mode, idt, odt in _axis_edges("bicubic", "lanczos3",
+                                                                "bilinear"):
+        yield (name, shape, axis, n_out, mode, {}, idt, odt)
 
 
 def check_fused_kernels(dev) -> tuple[float, float]:
@@ -835,7 +943,7 @@ def check_fused_kernels(dev) -> tuple[float, float]:
             shape=list(x.shape), out=list(got.shape), taps=sh.ntaps)
     for name, shape, axis, n_out, mode, kw, idt, odt in _fused_axis_cases():
         seed += 1
-        x = _rand(shape, idt, dev, seed)
+        x = _axis_input(name, shape, idt, dev, seed)
         spec = make_axis_spec(shape[axis], n_out, mode, **kw)
         before = _counts()
         got = cr.resize_axis(x, spec, axis, odt, fused=True)
@@ -847,6 +955,163 @@ def check_fused_kernels(dev) -> tuple[float, float]:
                 shape=list(shape), axis=axis, out=list(got.shape), mode=mode, **kw,
                 dtypes=[str(idt), str(odt)])
     return t2d.summary(), tax.summary()
+
+
+# ---------------------------------------------------------------------------
+# 2b. the axis kernels' staged body at every tile the plan considers
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _forced_axis_plan(plan):
+    """The axis kernels' wrappers launch ``plan`` (a ``PlanAxis``: that
+    tile of the staged body; None: the unstaged body), whatever the host
+    plan would pick."""
+    real = cr._plan_axis_first
+    cr._plan_axis_first = lambda *args: plan
+    try:
+        yield
+    finally:
+        cr._plan_axis_first = real
+
+
+def _every_tile(first, ntaps: int, x3: torch.Tensor) -> list:
+    """Every tile ``cuda_resize._axis_candidates`` lists for a pass over
+    ``x3`` (the tiles the plan picks from; partial last tiles along each
+    axis included), then None: the unstaged body."""
+    outer, n_in, inner = x3.shape
+    plans = [p for _, p in cr._axis_candidates(
+        np.asarray(first, np.int64), ntaps, n_in, outer, inner, x3.element_size(),
+        cr._H100_SMS, x3.data_ptr() % 4 == 0)]
+    return list(dict.fromkeys(plans)) + [None]
+
+
+def _tile_cases():
+    """(name, x shape, axis, n_out, mode, in dtype, out dtype): the axis
+    edges, every dtype pair on the last axis and a wide inner, and more
+    than 16 taps (the loop bucket)."""
+    yield from _axis_edges("bicubic", "lanczos3", "bilinear")
+    for idt in DTYPES:
+        for odt in DTYPES:
+            yield ("pair_last", (2, 37, 83), -1, 29, "bicubic", idt, odt)
+            yield ("pair_inner249", (2, 57, 83, 3), 1, 23, "lanczos3", idt, odt)
+    yield ("taps_gt16_last", (3, 5, 240), -1, 30, "lanczos3", F32, F32)
+    yield ("taps_gt16_inner5", (2, 240, 5), 1, 30, "lanczos3", F32, F32)
+    yield ("offset_taps_gt16", (3, 241, 7), 1, 25, "bicubic", BF16, BF16)
+
+
+def _pil_tile_cases():
+    """(name, x shape, axis, (xmin, Wb)): the Pillow axis edges, more than
+    16 taps, and a byte offset."""
+    for name, shape, axis, tables in _pil_axis_cases():
+        if not name.startswith("n=") and not name.startswith("w pass"):
+            yield name, shape, axis, tables
+    yield ("taps_gt16", (2, 240, 8), 1, pe._int_tables(240, 20, "bicubic"))
+    yield ("offset_taps_gt16_last", (3, 6, 240), 2, pe._int_tables(240, 20, "lanczos3"))
+
+
+def _staged_offset_cases():
+    """Passes above the unstaged body's cut, on inputs that start off 16
+    bytes, through the production plan: (name, kind, x shape, axis, n_out,
+    mode, dtype)."""
+    for kind in ("table", "fused"):
+        yield (f"nhwc_w_offset {kind}", kind, (16, 437, 905, 3), 2, 300, "bicubic", F32)
+        yield (f"wide_h_offset {kind}", kind, (16, 437, 2715), 1, 200, "bilinear", F32)
+    yield ("last_offset pil", "pil", (8, 2001, 4001), 2, 1000, "bilinear", U8)
+    yield ("wide_h_offset pil", "pil", (4, 3001, 4003), 1, 1000, "bicubic", U8)
+
+
+def _offset_input(shape, dtype, dev, seed):
+    """A tensor of ``shape`` that starts one element after a 16-byte
+    boundary."""
+    return _rand((math.prod(shape) + 1,), dtype, dev, seed)[1:].reshape(shape)
+
+
+def check_axis_tiles(dev) -> tuple[float, float, float]:
+    """kernel B, its fused twin and pil_resample_axis at every tile of each
+    edge case (forced past the plan, which picks the unstaged body for
+    passes this small), bit for bit against the plain version; then
+    passes above the cut on inputs off 16 bytes through the plan itself."""
+    tallies = {k: _Tally(f"{n} every tile") for k, n in (
+        ("table", "resample_axis"), ("fused", "resample_axis_fused"),
+        ("pil", "pil_resample_axis"))}
+    counters = {"table": "resample_axis", "fused": "resample_axis_fused",
+                "pil": "pil_resample_axis"}
+    seed = 1500
+
+    def launch(kind, x, spec, axis, odt, plan):
+        before = _counts()
+        with _forced_axis_plan(plan):
+            if kind == "pil":
+                got = pe._resample_axis(x, spec, axis)
+            else:
+                got = cr.resize_axis(x, spec, axis, odt, fused=kind == "fused")
+        torch.cuda.synchronize()
+        c = counters[kind]
+        if _counts() != dict(before, **{c: before[c] + 1}):
+            raise RuntimeError(f"{c}: not launched once, alone")
+        return got
+
+    def every_tile(kind, name, x, spec, axis, odt, first, ntaps, want, **fields):
+        plans = _every_tile(first, ntaps, _view3(x, axis))
+        staged = 0
+        for plan in plans:
+            got = launch(kind, x, spec, axis, odt, plan)
+            res = _compare(f"{counters[kind]} {name} {plan}", got, want.reshape(got.shape))
+            staged += plan is not None
+        tallies[kind].add(name, res, tiles=staged, unstaged=1, shape=list(x.shape), axis=axis,
+                          taps=ntaps, dtypes=[str(x.dtype), str(odt)], **fields)
+
+    for name, shape, axis, n_out, mode, idt, odt in _tile_cases():
+        seed += 1
+        x = _axis_input(name, shape, idt, dev, seed)
+        spec = make_axis_spec(shape[axis], n_out, mode)
+        first, w = cr._tables(spec)
+        want = cr._resample_axis_plain(_view3(x, axis), spec, odt)
+        every_tile("table", name, x, spec, axis, odt, first, w.shape[1], want)
+        want = cr._resample_axis_fused_plain(_view3(x, axis), spec, odt)
+        every_tile("fused", name, x, spec, axis, odt, cr._synth_first(spec), spec.ntaps, want)
+    for name, shape, axis, tables in _pil_tile_cases():
+        seed += 1
+        x = (_offset_input(shape, U8, dev, seed) if name.startswith("offset")
+             else _rand(shape, U8, dev, seed))
+        want = pe._resample_axis_plain(_view3(x, axis), tables)
+        every_tile("pil", name, x, tables, axis, U8, tables[0], tables[1].shape[1], want)
+    for name, kind, shape, axis, n_out, mode, dt in _staged_offset_cases():
+        seed += 1
+        x = _offset_input(shape, dt, dev, seed)
+        x3 = _view3(x, axis)
+        if kind == "pil":
+            spec = pe._int_tables(shape[axis], n_out, mode)
+            first, ntaps = spec[0], spec[1].shape[1]
+            want = pe._resample_axis_plain(x3, spec)
+        else:
+            spec = make_axis_spec(shape[axis], n_out, mode)
+            fused = kind == "fused"
+            first = cr._synth_first(spec) if fused else cr._tables(spec)[0]
+            ntaps = spec.ntaps if fused else cr._tables(spec)[1].shape[1]
+            want = (cr._resample_axis_fused_plain if fused else cr._resample_axis_plain)(
+                x3, spec, dt)
+        plan = cr._plan_axis_first(np.asarray(first, np.int64).tobytes(), ntaps,
+                                   x3.shape[1], x3.shape[0], x3.shape[2], x.element_size(),
+                                   cr._n_sm(dev), x3.data_ptr() % 4 == 0, kind == "fused")
+        if plan is None:
+            raise RuntimeError(f"{name}: the plan ran the unstaged body above the cut")
+        before = _counts()
+        if kind == "pil":
+            got = pe._resample_axis(x, spec, axis)
+        else:
+            got = cr.resize_axis(x, spec, axis, dt, fused=kind == "fused")
+        torch.cuda.synchronize()
+        c = counters[kind]
+        if _counts() != dict(before, **{c: before[c] + 1}):
+            raise RuntimeError(f"{c} {name}: not launched once, alone")
+        tallies[kind].add(name, _compare(f"{c} {name}", got, want.reshape(got.shape)),
+                          plan=plan._asdict(), shape=list(shape), axis=axis,
+                          offset_bytes=x.data_ptr() % 16)
+        del x, x3, got, want
+    torch.cuda.empty_cache()
+    return tuple(t.summary() for t in tallies.values())
 
 
 # ---------------------------------------------------------------------------
@@ -1963,6 +2228,7 @@ def time_sharded_kernels(dev, card) -> tuple[dict, dict]:
              pe._resample_axis_plain(ext, th))
     hp = _turns(lambda: pe._resample_axis(ext, th, 1),
                 lambda: pe._resample_axis_plain(ext, th), 5, 1)
+    hd = _kernel_times(lambda: pe._resample_axis(ext, th, 1), 5, "resample_axis_kernel")
     hb = _bound(shape[0] * size[1] * (plan.ext + plan.ol) + _nbytes(*th),
                 shape[0] * size[1] * _nz(th[1]))
     del ext
@@ -1972,6 +2238,7 @@ def time_sharded_kernels(dev, card) -> tuple[dict, dict]:
              pe._resample_axis_plain(_view3(blk, 2), tw).reshape(shape[0], plan.hl, size[1]))
     wp = _turns(lambda: pe._resample_axis(blk, tw, 2),
                 lambda: pe._resample_axis_plain(_view3(blk, 2), tw), 5, 1)
+    wd = _kernel_times(lambda: pe._resample_axis(blk, tw, 2), 5, "resample_axis_kernel")
     wb = _bound(shape[0] * plan.hl * (shape[2] + size[1]) + _nbytes(*tw),
                 shape[0] * plan.hl * _nz(tw[1]))
     del blk
@@ -1979,11 +2246,14 @@ def time_sharded_kernels(dev, card) -> tuple[dict, dict]:
     _line("time_sharded_pil", card=card, kernel="pil_resample_axis", image=list(shape),
           size=list(size), shard=d, h_pass_shape=[shape[0], plan.ext, size[1]],
           h_pass_kernel_ms=hp["kernel"], h_pass_plain_ms=hp["plain"], h_pass_bound=hb,
+          h_pass_device_ms=hd["device_ms"], h_pass_host_us=hd["host_us"],
           w_pass_shape=[shape[0], plan.hl, shape[2]], w_pass_kernel_ms=wp["kernel"],
-          w_pass_plain_ms=wp["plain"], w_pass_bound=wb, library_ms=None,
+          w_pass_plain_ms=wp["plain"], w_pass_bound=wb, w_pass_device_ms=wd["device_ms"],
+          w_pass_host_us=wd["host_us"], library_ms=None,
           library="none: the pass is an int32 product, a shift and a clamp, and "
           "CUDA has no integer matmul")
-    pil = {"ms": sum(hp["kernel"]) / 2, "plain_ms": sum(hp["plain"]) / 2,
+    pil = {"ms": hd["device_ms"], "call_ms": sum(hp["kernel"]) / 2, "host_us": hd["host_us"],
+           "w_pass_ms": wd["device_ms"], "plain_ms": sum(hp["plain"]) / 2,
            "bound_ms": hb["bound_ms"], "bound_by": hb["bound_by"], "library_ms": None}
 
     (shape, size, mode) = SHARD_F32
@@ -2001,6 +2271,8 @@ def time_sharded_kernels(dev, card) -> tuple[dict, dict]:
                     lambda: cr._resample_axis_plain(ext, fwd, F32), 10, 2)
         ap = _turns(lambda: cr.resize_axis(g, adj, 1, F32),
                     lambda: cr._resample_axis_plain(g, adj, F32), 10, 2)
+        fd = _kernel_times(lambda: cr.resize_axis(ext, fwd, 1, F32), 10, "resample_axis_kernel")
+        ad = _kernel_times(lambda: cr.resize_axis(g, adj, 1, F32), 10, "resample_axis_kernel")
         # the library's yardstick: one float32 matmul of the dense Wl[d]
         # (and of its transpose) with the shard's rows
         wd = torch.from_numpy(np.asarray(plan.Wl[d], np.float32)).to(dev)
@@ -2016,11 +2288,75 @@ def time_sharded_kernels(dev, card) -> tuple[dict, dict]:
     _line("time_sharded_float", card=card, kernel="resample_axis over shard tables",
           image=list(shape), size=list(size), shard=d, ext_shape=[C, plan.ext_pad, W],
           forward_kernel_ms=fp["kernel"], forward_plain_ms=fp["plain"], forward_bound=fb,
+          forward_device_ms=fd["device_ms"], forward_host_us=fd["host_us"],
           adjoint_kernel_ms=ap["kernel"], adjoint_plain_ms=ap["plain"], adjoint_bound=ab,
+          adjoint_device_ms=ad["device_ms"], adjoint_host_us=ad["host_us"],
           library_ms=libf, library=f"torch.matmul(Wl[d], rows), TF32 off: {notef}",
           adjoint_library_ms=liba, adjoint_library=f"torch.matmul(Wl[d]^T, rows): {notea}")
-    return pil, {"ms": sum(fp["kernel"]) / 2, "plain_ms": sum(fp["plain"]) / 2,
+    return pil, {"ms": fd["device_ms"], "call_ms": sum(fp["kernel"]) / 2,
+                 "adjoint_ms": ad["device_ms"], "plain_ms": sum(fp["plain"]) / 2,
                  "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"], "library_ms": libf}
+
+
+def time_nhwc_config5(dev, card) -> None:
+    """Kernel B at a device-bound shape: BASELINE config 5's frames in NHWC,
+    bf16 [64, 2160, 3840, 3] -> 1080x1920 through ``resize(...,
+    data_format="NHWC")`` (a W pass with inner 3, then an H pass with inner
+    5760), tables and fused, each pass's device time per launch beside its
+    bound and ``F.interpolate``'s device time on the same channels-last
+    tensor; the output of one frame against the plain versions, bit for
+    bit."""
+    F = torch.nn.functional
+    (shape, ohw) = CONFIG5
+    N, C, H, W = shape
+    sh, sw = make_axis_spec(H, ohw[0]), make_axis_spec(W, ohw[1])
+    with full_f32():
+        x = _rand((N, H, W, C), BF16, dev, 21)
+        before = _counts()
+        y = resize(x, ohw, method="bilinear", data_format="NHWC")
+        torch.cuda.synchronize()
+        if _counts() != dict(before, resample_axis=before["resample_axis"] + 2):
+            raise RuntimeError("nhwc config 5: expected two resample_axis launches")
+        x1 = x[:1]
+        t1 = cr._resample_axis_plain(_view3(x1, 2), sw, BF16).reshape(1, H, ohw[1], C)
+        res = _compare("nhwc config 5", y[:1],
+                       cr._resample_axis_plain(_view3(t1, 1), sh, BF16).reshape(1, *ohw, C))
+        yf = cr.resize_axis(cr.resize_axis(x, sw, 2, fused=True), sh, 1, fused=True)
+        t1 = cr._resample_axis_fused_plain(_view3(x1, 2), sw, BF16).reshape(1, H, ohw[1], C)
+        res_f = _compare("nhwc config 5 fused", yf[:1], cr._resample_axis_fused_plain(
+            _view3(t1, 1), sh, BF16).reshape(1, *ohw, C))
+        del y, yf, t1
+        t = cr.resize_axis(x, sw, 2)
+        times = {}
+        for fused in (False, True):
+            k = "fused" if fused else "table"
+            times[f"{k}_w"] = _kernel_times(lambda: cr.resize_axis(x, sw, 2, fused=fused), 5,
+                                            "resample_axis_kernel")
+            times[f"{k}_h"] = _kernel_times(lambda: cr.resize_axis(t, sh, 1, fused=fused), 5,
+                                            "resample_axis_kernel")
+        xc = x.permute(0, 3, 1, 2)  # NCHW view of the channels-last frames
+        lib_dev = _device_ms(lambda: F.interpolate(xc, ohw, mode="bilinear", antialias=True), 3)
+        del x, t, xc
+        torch.cuda.empty_cache()
+    bw = _bound(2 * N * H * C * (W + ohw[1]) + _nbytes(*cr._tables(sw)),
+                N * H * C * _nz(cr._tables(sw)[1]))
+    bh = _bound(2 * N * ohw[1] * C * (H + ohw[0]) + _nbytes(*cr._tables(sh)),
+                N * ohw[1] * C * _nz(cr._tables(sh)[1]))
+    fields = {}
+    for k, v in times.items():
+        b = bw if k.endswith("_w") else bh
+        fields[f"{k}_device_ms"] = v["device_ms"]
+        fields[f"{k}_host_us"] = v["host_us"]
+        fields[f"{k}_share_of_bound"] = b["bound_ms"] / v["device_ms"]
+    tables = times["table_w"]["device_ms"] + times["table_h"]["device_ms"]
+    fused = times["fused_w"]["device_ms"] + times["fused_h"]["device_ms"]
+    _line("time_nhwc_config5", card=card, kernel="resample_axis", shape=[N, H, W, C],
+          size=list(ohw), dtype=str(BF16), **fields, w_pass_bound=bw, h_pass_bound=bh,
+          table_ms=tables, fused_ms=fused,
+          table_gb_s=(bw["bytes"] + bh["bytes"]) / (tables * 1e-3) / 1e9,
+          library_device_ms=lib_dev, table_over_library=tables / lib_dev,
+          fused_over_library=fused / lib_dev, fused_over_table=fused / tables,
+          max_abs_err=res["max_abs_err"], fused_max_abs_err=res_f["max_abs_err"])
 
 
 # ---------------------------------------------------------------------------
@@ -2083,9 +2419,13 @@ def main() -> None:
           torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
     native.build()
-    _line("build", seconds=round(time.perf_counter() - t0, 3))
+    per_source = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^== (\S+) \(([\d.]+) s\)$", native.ptxas_log(), re.M)}
+    _line("build", seconds=round(time.perf_counter() - t0, 3), nvcc_seconds=per_source,
+          slowest=max(per_source, key=per_source.get) if per_source else None)
     print_ptxas()
     print_kernel_a_plans(dev)
+    print_axis_plans(dev)
 
     rng = np.random.default_rng(0)
     with full_f32():
@@ -2097,6 +2437,7 @@ def main() -> None:
             pil_axis_err = check_pil_axis_kernel(dev)
             shard_err = check_shard_tables_kernel(dev)
             fused_2d_err, fused_axis_err = check_fused_kernels(dev)
+            tile_err, tile_fused_err, tile_pil_err = check_axis_tiles(dev)
         finally:
             CASES_LOG.parent.mkdir(exist_ok=True)
             CASES_LOG.write_text("".join(c + "\n" for c in _cases))
@@ -2132,6 +2473,8 @@ def main() -> None:
     t_crop = time_train_kernels(dev, card)
     torch.cuda.empty_cache()
     t_pil_axis, t_shard = time_sharded_kernels(dev, card)
+    torch.cuda.empty_cache()
+    time_nhwc_config5(dev, card)
 
     print(card, flush=True)  # again, near the end of a long output
     print(json.dumps({"kernels": [
@@ -2142,20 +2485,22 @@ def main() -> None:
          "launches": pil_launches + c3_launches + gap_launches, "max_abs_err": pil_err,
          **t_pil},
         {"name": "resample2d", "route": "cuda",
-         "source": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cu",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cuh",
+         "entry": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cu",
          "replaces": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1003",
          "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1475, "
                         ":1176 (adjoint)",
          "launches": c5_launches + hl_2d + f32_launches + c4_2d + train_2d + st_2d,
          "max_abs_err": max(err_2d, adj_2d), **t_2d},
         {"name": "resample_axis", "route": "cuda",
-         "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cu",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cuh",
+         "entry": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cu",
          "replaces": "interpolate_antialiasing_tpu/ops/pallas_resize.py:172",
          "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:184, "
                         ":258, :275, :1727 (adjoint), :583 (sharded H pass over "
                         "per-shard tables)",
          "launches": hl_axis + c4_axis + sh_axis + rank_axis,
-         "max_abs_err": max(err_axis, adj_axis, shard_err), **t_axis,
+         "max_abs_err": max(err_axis, adj_axis, shard_err, tile_err), **t_axis,
          "shard_tables": t_shard},
         {"name": "crop_resample", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/crop_resample.cu",
@@ -2163,11 +2508,14 @@ def main() -> None:
          "also_serves": "interpolate_antialiasing_tpu/ops/crop_pallas.py:303, :318",
          "launches": crop_launches, "max_abs_err": crop_err, **t_crop},
         {"name": "pil_resample_axis", "route": "cuda",
-         "source": "interpolate_antialiasing_tpu_torch/csrc/pil_resample_axis.cu",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cuh",
+         "entry": "interpolate_antialiasing_tpu_torch/csrc/pil_resample_axis.cu",
          "replaces": "interpolate_antialiasing_tpu/ops/pil_exact.py:407",
-         "launches": sh_pil + rank_pil, "max_abs_err": pil_axis_err, **t_pil_axis},
+         "launches": sh_pil + rank_pil, "max_abs_err": max(pil_axis_err, tile_pil_err),
+         **t_pil_axis},
         {"name": "resample2d_fused", "route": "cuda",
-         "source": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cu",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cuh",
+         "entry": "interpolate_antialiasing_tpu_torch/csrc/resample2d_fused.cu",
          "weights": "interpolate_antialiasing_tpu_torch/csrc/ia_taps.cuh",
          "replaces": "interpolate_antialiasing_tpu/ops/pallas_resize.py:258",
          "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:275 (the "
@@ -2175,12 +2523,14 @@ def main() -> None:
                         "resize2d_pallas(fused=True))",
          "launches": fused_2d, "max_abs_err": fused_2d_err, **t_2d_fused},
         {"name": "resample_axis_fused", "route": "cuda",
-         "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cu",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cuh",
+         "entry": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cu",
          "weights": "interpolate_antialiasing_tpu_torch/csrc/ia_taps.cuh",
          "replaces": "interpolate_antialiasing_tpu/ops/pallas_resize.py:227",
          "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:239, "
                         ":197 (_synth_band)",
-         "launches": fused_axis, "max_abs_err": fused_axis_err, **t_axis_fused},
+         "launches": fused_axis, "max_abs_err": max(fused_axis_err, tile_fused_err),
+         **t_axis_fused},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -1,5 +1,6 @@
-// Element loads and stores shared by the float resample kernels
-// (resample2d.cu, resample_axis.cu).
+// Element loads and stores, asynchronous copies and the exact-tap-count
+// dispatch shared by the tiled resample kernels (resample2d.cuh,
+// resample_axis.cuh).
 //
 // Pixels cross device memory in their storage type (uint8, float32 or
 // bfloat16) and are widened to float32 in registers; every sum is float32.
@@ -62,11 +63,48 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
                : "memory");
 }
+// 4 bytes, both addresses aligned to 4 (through L1: tables are reread)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 __device__ __forceinline__ void cp_async_wait_1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+// Returns when all but this thread's latest n (0 to 3) groups have landed.
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+__host__ __device__ __forceinline__ int align16(int v) { return (v + 15) & ~15; }
+
+template <int N>
+struct Int {
+  static constexpr int value = N;
+};
+
+// f(Int<n>{}) for n in [LO, HI], else f(Int<0>{}): a loop body compiled
+// once per exact tap count, chosen once per tile rather than per output.
+template <int LO, int HI, typename F>
+__device__ __forceinline__ void with_taps(int n, F&& f) {
+  if constexpr (HI < LO || HI == 0) {
+    f(Int<0>{});
+  } else {
+    if (n == HI) {
+      f(Int<HI>{});
+    } else {
+      with_taps<LO, HI - 1>(n, f);
+    }
+  }
 }
 
 template <template <typename, typename> class Op, typename Tin, typename Args>

@@ -1,15 +1,17 @@
-// Where a float resample kernel takes each output's weights from: host
-// tables (TableTaps) or the pass's closed form, evaluated in the kernel
-// (SynthTaps).  resample_axis.cu (kernel B) and resample2d.cuh (kernel A)
-// are templated on it, so each keeps one multiply-add loop for both
-// sources.  Kernel B asks for one output's taps where it uses them:
+// Where a resample kernel takes each output's weights from: float32 host
+// tables (TableTaps), the pass's closed form evaluated in the kernel
+// (SynthTaps), or Pillow's int32 fixed-point tables (PilTaps).  Kernel A
+// (resample2d.cuh) is templated on the first two, kernel B and
+// pil_resample_axis (resample_axis.cuh) on all three, so each keeps one
+// multiply-add loop for every source.  A block writes its tile's first taps
+// and weights into shared memory once, tap-major (stage(); kernel B copies
+// tables with stage_async(), 4-byte asynchronous copies), and reads them
+// from there; kernel B's unstaged body asks for one output's taps where it
+// uses them:
 //
 //   const auto row = taps.row(o);
 //   for (int k = 0; k < taps.ntaps; ++k)
 //     acc = mac(acc, row(k), x[clamp(row.first + k, 0, in - 1)]);
-//
-// Kernel A has the whole block write its tile's first taps and weights
-// into shared memory once (stage(), tap-major) and reads them from there.
 //
 // SynthTaps replaces the weight-band synthesis of the JAX package's
 // _kernel_last_fused / _kernel_mid_fused and of the fused_spec branch of
@@ -34,14 +36,13 @@
 // nearest, area and the non-renorm borders to the tables, as the JAX
 // package's gate does.
 //
-// Bounds: synthesis is arithmetic.  Through row(), kernel B evaluates the
-// filter 2 * ntaps times and divides ntaps times per output element (once
-// for the sum and once per tap of the multiply-add; nothing is cached).
-// Through stage(), kernel A does it once per output and tap of its tile
-// (ntaps evaluations and divisions per output column or row, shared by
-// every input row or column the block reads), so its weight work no longer
-// scales with the elements it computes; the table route's stage() is one
-// load per weight.
+// Bounds: synthesis is arithmetic.  Through stage(), a kernel does it once
+// per output and tap of its tile (ntaps evaluations and divisions per
+// output, shared by every input row, column or plane the block reads), so
+// its weight work does not scale with the elements it computes; the table
+// routes' stage() is one load per weight.  Through row() (kernel B's
+// unstaged body only) it is 2 * ntaps evaluations and ntaps divisions per
+// output element.
 
 #pragma once
 
@@ -142,6 +143,16 @@ struct TableTaps {
   __device__ __forceinline__ Row row(int o) const {
     return {xmin[o], w + (long long)o * ntaps};
   }
+  // As stage() for outputs [o0, o0 + n) only, by 4-byte asynchronous
+  // copies in the caller's commit group (slots t >= n are left unwritten).
+  __device__ __forceinline__ void stage_async(int o0, int n, int tile, float* ws,
+                                              int* fs) const {
+    for (int t = threadIdx.x; t < n; t += blockDim.x) cp_async4(fs + t, xmin + o0 + t);
+    for (int i = threadIdx.x; i < ntaps * n; i += blockDim.x) {
+      const int t = i / ntaps, k = i - t * ntaps;
+      cp_async4(ws + k * tile + t, w + (long long)o0 * ntaps + i);
+    }
+  }
   // Outputs [o0, o0 + n) of a tile of `tile` into shared memory, tap-major:
   // ws[k * tile + t], fs[t]; slots t >= n repeat output o0 + n - 1's first
   // tap with zero weight.  Every thread of the block calls it.
@@ -204,6 +215,34 @@ struct SynthTaps {
     for (int i = threadIdx.x; i < ntaps * tile; i += blockDim.x) {
       const int t = i % tile;
       ws[i] = t < n ? __fdiv_rn(ws[i], total[t]) : 0.0f;
+    }
+  }
+};
+
+// Pillow's 8bpc fixed-point tables (pil_exact.py::_int_tables): xmin int32
+// [out], wb int32 row-major [out, ntaps], pb precision bits.  The int32
+// accumulation (bias, products, shift and clip) is resample_axis.cuh's.
+struct PilTaps {
+  const int* xmin;
+  const int* wb;
+  int ntaps;
+  int pb;
+
+  struct Row {
+    int first;
+    const int* w;
+    __device__ __forceinline__ int operator()(int k) const { return w[k]; }
+  };
+  __device__ __forceinline__ Row row(int o) const {
+    return {xmin[o], wb + (long long)o * ntaps};
+  }
+  // As TableTaps::stage_async, int32 weights.
+  __device__ __forceinline__ void stage_async(int o0, int n, int tile, int* ws,
+                                              int* fs) const {
+    for (int t = threadIdx.x; t < n; t += blockDim.x) cp_async4(fs + t, xmin + o0 + t);
+    for (int i = threadIdx.x; i < ntaps * n; i += blockDim.x) {
+      const int t = i / ntaps, k = i - t * ntaps;
+      cp_async4(ws + k * tile + t, wb + (long long)o0 * ntaps + i);
     }
   }
 };

@@ -103,7 +103,6 @@ struct Plan2d {
   int ntaps_w, ntaps_h;
 };
 
-__host__ __device__ __forceinline__ int align16(int v) { return (v + 15) & ~15; }
 
 // Byte offsets of the dynamic shared memory; ops/cuda_resize.py::_smem_bytes
 // computes the same total.
@@ -252,26 +251,6 @@ __device__ __forceinline__ float dot_exact(const T* q, const float* w, int ws) {
 #pragma unroll
   for (int k = 0; k < N; ++k) acc = mac(acc, wv[k], xv[k]);
   return acc;
-}
-
-template <int N>
-struct Int {
-  static constexpr int value = N;
-};
-
-// f(Int<n>{}) for n in [LO, HI], else f(Int<0>{}): a loop body compiled
-// once per exact tap count, chosen once per chunk rather than per output.
-template <int LO, int HI, typename F>
-__device__ __forceinline__ void with_taps(int n, F&& f) {
-  if constexpr (HI < LO || HI == 0) {
-    f(Int<0>{});
-  } else {
-    if (n == HI) {
-      f(Int<HI>{});
-    } else {
-      with_taps<LO, HI - 1>(n, f);
-    }
-  }
 }
 
 // h_out for the rows at the image's top and bottom edges, out of line: one

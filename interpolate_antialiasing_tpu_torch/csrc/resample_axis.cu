@@ -1,109 +1,37 @@
-// One separable resample pass over one axis: x viewed as [outer, n_in,
-// inner] -> out [outer, n_out, inner], uint8 / float32 / bfloat16 in and
-// out, float32 accumulation.  inner == 1 is a pass over the last axis.
-//
-// Replaces interpolate_antialiasing_tpu/ops/pallas_resize.py::_kernel_last
-// and ::_kernel_mid (wrapper resize_axis_pallas), and serves the per-axis
-// passes of _kernel_last_unrolled / _kernel_mid_unrolled (wrapper
-// resize2d_pallas).  The TPU kernels contract one tile-compacted weight band
-// per 128 outputs on the matrix unit; here each output is a direct windowed
-// float32 multiply-add (ia_dtypes.cuh::mac, bit for bit the plain
-// version's) over the compact tables of weights.py::compute_tables:
-//
-//   out[j, o, i] = sum_k w[o, k] * x[j, clamp(xmin[o] + k, 0, n_in - 1), i]
-//
-// Taps past the window carry zero weight, so the clamp never adds signal.
-// Stores as in ia_dtypes.cuh: uint8 floor(v + 0.5) clamped, bfloat16
-// round-to-nearest-even.
-//
-// The weights come from host tables (ia_resample_axis) or are synthesised
-// from the pass's closed form in the kernel (ia_resample_axis_fused, the
-// counterpart of _kernel_last_fused / _kernel_mid_fused): the kernel is
-// templated on the weight source (ia_taps.cuh) and keeps one multiply-add
-// loop for both.
-//
-// Design: one thread per output element over the flat output index
-// ((j * n_out + o) * inner + i), so neighbouring threads take neighbouring
-// inner elements (a coalesced row of the middle-axis pass) or, when inner
-// == 1, neighbouring outputs whose windows overlap in cache.  A grid-stride
-// loop with 64-bit indices covers any element count; nothing is capped at a
-// grid dimension.
-//
-// Bounds: a pass reads n_in and writes n_out elements per (j, i) and does
-// ntaps multiply-adds per output, a few per byte moved, so device memory sets the
-// floor; the 64-bit index split and the per-tap clamp and address cost
-// instructions that may hold this first version above it.
+// Kernel B: the C entry points of resample_axis.cuh's kernel over float32
+// host tables (ia_resample_axis: a forward spec's tables, W^T's for the
+// adjoint, or a shard's) and over weights synthesised in the kernel from
+// the pass's closed form (ia_resample_axis_fused, resize_axis(fused=True)).
+// resample_axis_{table,synth}_nt{8,16,0}.cu compile the instantiations, one
+// source per weight source and tap bucket.  The design, the TPU kernels it
+// replaces and its bounds are in resample_axis.cuh.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "ia_dtypes.cuh"
-#include "ia_taps.cuh"
+#include "resample_axis.cuh"
 
 namespace {
 
 using namespace ia;
-
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 1LL << 22;
+using namespace ia::rax;
 
 template <typename Taps>
-struct ArgsAxis {
-  const void* x;
-  void* out;
-  Taps taps;
-  long long inner, total;
-  int n_in, n_out;
-  unsigned blocks;
-  cudaStream_t stream;
-};
-
-template <typename Tin, typename Tout, typename Taps>
-__global__ void __launch_bounds__(kThreads)
-resample_axis_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
-                     Taps taps, long long inner, long long total, int n_in,
-                     int n_out) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-       idx < total; idx += stride) {
-    const long long i = idx % inner;
-    const long long jo = idx / inner;
-    const int o = (int)(jo % n_out);
-    const long long j = jo / n_out;
-    const Tin* xp = x + j * n_in * inner + i;
-    const auto row = taps.row(o);
-    float acc = 0.0f;
-    for (int k = 0; k < taps.ntaps; ++k) {
-      acc = mac(acc, row(k), load_f32(xp + clampi(row.first + k, 0, n_in - 1) * inner));
-    }
-    store_f32(out + idx, acc);
+int dispatch_bucket(const Args<Taps>& a, int in_dt, int out_dt, int vec) {
+  switch (tap_bucket(a.taps.ntaps)) {
+    case 8: return launch_nt<Taps, 8>(a, in_dt, out_dt, vec);
+    case 16: return launch_nt<Taps, 16>(a, in_dt, out_dt, vec);
   }
+  return launch_nt<Taps, 0>(a, in_dt, out_dt, vec);
 }
 
 template <typename Taps>
-struct LaunchAxis {
-  template <typename Tin, typename Tout>
-  struct Op {
-    static int run(const ArgsAxis<Taps>& a) {
-      resample_axis_kernel<Tin, Tout, Taps><<<a.blocks, kThreads, 0, a.stream>>>(
-          (const Tin*)a.x, (Tout*)a.out, a.taps, a.inner, a.total, a.n_in,
-          a.n_out);
-      return (int)cudaGetLastError();
-    }
-  };
-};
-
-template <typename Taps>
-int launch_axis(const void* x, void* out, int in_dt, int out_dt,
-                long long outer, int n_in, long long inner, int n_out,
-                const Taps& taps, void* stream) {
-  const long long total = outer * n_out * inner;
-  if (total < 1 || n_in < 1 || taps.ntaps < 1) return (int)cudaErrorInvalidValue;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const ArgsAxis<Taps> a{x, out, taps, inner, total, n_in, n_out,
-                         (unsigned)blocks, (cudaStream_t)stream};
-  return ia::dispatch_dtypes<LaunchAxis<Taps>::template Op>(in_dt, out_dt, a);
+int launch(const Taps& taps, const void* x, void* out, int in_dt, int out_dt,
+           long long outer, int n_in, long long inner, int n_out,
+           const void* win0, int tile_j, int tile_o, int tile_i, int win, int vec,
+           int smem, void* stream) {
+  Args<Taps> a{};
+  a.taps = taps;
+  const int err = make_args(a, x, out, in_dt, outer, n_in, inner, n_out, win0,
+                            tile_j, tile_o, tile_i, win, vec, smem, stream);
+  return err != 0 ? err : dispatch_bucket(a, in_dt, out_dt, vec);
 }
 
 }  // namespace
@@ -113,24 +41,57 @@ extern "C" {
 // x[outer, n_in, inner] -> out[outer, n_out, inner] on `stream`, element
 // types by dtype code (0 uint8, 1 float32, 2 bfloat16).  All pointers are
 // device pointers; xmin is int32 [n_out], w float32 row-major [n_out,
-// ntaps].  Returns the cudaError_t of the launch (0 on success).
+// ntaps].  The plan (tile_j, tile_o, tile_i, win, vec, smem) is
+// ops/cuda_resize.py::_plan_axis'; smem must equal the kernel's own layout
+// of it; win0 is int32 [ceil(n_out / tile_o)] on the device, each output
+// tile's first input row (cuda_resize._win0); tile_o = 0 (with smem 0, vec
+// 1, win0 unused) runs the unstaged body.  Returns the cudaError_t of the
+// launch (0 on success).
 int ia_resample_axis(const void* x, void* out, int in_dt, int out_dt,
                      long long outer, int n_in, long long inner, int n_out,
                      const void* xmin, const void* w, int ntaps,
-                     void* stream) {
-  const ia::TableTaps taps{(const int*)xmin, (const float*)w, ntaps};
-  return launch_axis(x, out, in_dt, out_dt, outer, n_in, inner, n_out, taps,
-                     stream);
+                     const void* win0, int tile_j, int tile_o, int tile_i,
+                     int win, int vec, int smem, void* stream) {
+  const TableTaps taps{(const int*)xmin, (const float*)w, ntaps};
+  return launch(taps, x, out, in_dt, out_dt, outer, n_in, inner, n_out, win0,
+                tile_j, tile_o, tile_i, win, vec, smem, stream);
 }
 
 // The same pass with each output's weights synthesised in the kernel from
 // `*spec` (a host pointer, read before the launch; spec->in_size == n_in).
+// The host plans the windows over the synthesised first taps, computed in
+// float32 as the kernel computes them.
 int ia_resample_axis_fused(const void* x, void* out, int in_dt, int out_dt,
                            long long outer, int n_in, long long inner,
-                           int n_out, const ia::Synth* spec, void* stream) {
+                           int n_out, const Synth* spec, const void* win0,
+                           int tile_j, int tile_o, int tile_i, int win, int vec,
+                           int smem, void* stream) {
   if (spec->in_size != n_in) return (int)cudaErrorInvalidValue;
-  return launch_axis(x, out, in_dt, out_dt, outer, n_in, inner, n_out,
-                     ia::synth_taps(*spec), stream);
+  return launch(synth_taps(*spec), x, out, in_dt, out_dt, outer, n_in, inner,
+                n_out, win0, tile_j, tile_o, tile_i, win, vec, smem, stream);
+}
+
+// Resident blocks per SM of the kernel (fused: the synthesising one) for
+// these dtypes, tap count, vec and dynamic shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into *blocks; launches
+// nothing.
+int ia_resample_axis_occupancy(int fused, int in_dt, int out_dt, int ntaps,
+                               int vec, int smem, int* blocks) {
+  if (ntaps < 1 || smem < 0 || smem + 64 > kSmemLimit) return (int)cudaErrorInvalidValue;
+  if (fused) {
+    Synth s{};
+    s.ntaps = ntaps;
+    Args<SynthTaps> a{};
+    a.taps = synth_taps(s);
+    a.smem = smem;
+    a.occupancy = blocks;
+    return dispatch_bucket(a, in_dt, out_dt, vec);
+  }
+  Args<TableTaps> a{};
+  a.taps = TableTaps{nullptr, nullptr, ntaps};
+  a.smem = smem;
+  a.occupancy = blocks;
+  return dispatch_bucket(a, in_dt, out_dt, vec);
 }
 
 }  // extern "C"

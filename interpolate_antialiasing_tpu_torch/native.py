@@ -20,6 +20,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from pathlib import Path
 
 __all__ = ["build", "plane_chunks", "ptxas_log", "NVCC_FLAGS"]
@@ -54,24 +56,31 @@ _SIGNATURES = {
     # chunk, smem, &blocks (one each for the table and the fused kernel)
     "ia_resample2d_occupancy": (_I, [_I] * 10 + [_P]),
     "ia_resample2d_fused_occupancy": (_I, [_I] * 10 + [_P]),
-    # x, out, in_dt, out_dt, outer, n_in, inner, n_out, xmin, w, ntaps, stream
+    # x, out, in_dt, out_dt, outer, n_in, inner, n_out, xmin, w, ntaps, win0,
+    # then the plan (tile_j, tile_o, tile_i, win, vec, smem), stream
     "ia_resample_axis": (
-        _I, [_P, _P, _I, _I, _L, _I, _L, _I, _P, _P, _I, _P]),
+        _I, [_P, _P, _I, _I, _L, _I, _L, _I, _P, _P, _I, _P] + [_I] * 6 + [_P]),
+    # fused, in_dt, out_dt, ntaps, vec, smem, &blocks
+    "ia_resample_axis_occupancy": (_I, [_I] * 6 + [_P]),
     # x, out, in_dt, out_dt, B, H, W, OH, OW, &spec_w, &spec_h, quant, tile_r,
     # tile_c, rows_cap, cols_cap, chunk, smem, stream (spec: ia::Synth,
     # csrc/ia_taps.cuh)
     "ia_resample2d_fused": (
         _I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
              _I, _I, _P]),
-    # x, out, in_dt, out_dt, outer, n_in, inner, n_out, &spec, stream
+    # x, out, in_dt, out_dt, outer, n_in, inner, n_out, &spec, win0, the plan,
+    # stream
     "ia_resample_axis_fused": (
-        _I, [_P, _P, _I, _I, _L, _I, _L, _I, _P, _P]),
+        _I, [_P, _P, _I, _I, _L, _I, _L, _I, _P, _P] + [_I] * 6 + [_P]),
     # x, out, N, R, n_in, inner, n_out, first, cnt, w, k, pb, stream
     "ia_crop_pass": (
         _I, [_P, _P, _I, _L, _I, _L, _I, _P, _P, _P, _I, _I, _P]),
-    # x, out, outer, n_in, inner, n_out, xmin, wb, ntaps, pb, stream
+    # x, out, outer, n_in, inner, n_out, xmin, wb, ntaps, pb, win0, the plan,
+    # stream
     "ia_pil_resample_axis": (
-        _I, [_P, _P, _L, _I, _L, _I, _P, _P, _I, _I, _P]),
+        _I, [_P, _P, _L, _I, _L, _I, _P, _P, _I, _I, _P] + [_I] * 6 + [_P]),
+    # ntaps, vec, smem, &blocks
+    "ia_pil_resample_axis_occupancy": (_I, [_I] * 3 + [_P]),
 }
 
 
@@ -108,13 +117,23 @@ def _lib_path() -> Path:
     return _BUILD_DIR / h.hexdigest()[:16] / _LIB_NAME
 
 
-def _run_all(cmds: list[list[str]]) -> list[str]:
+def _run_all(cmds: list[list[str]]) -> list[tuple[str, float]]:
     """Run the commands at once; raise with the first failure's output, else
-    return their outputs."""
+    return each one's output and its seconds from the common start."""
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
-    for cmd, proc, out in zip(cmds, procs, outs):
+    outs: list = [None] * len(procs)
+
+    def wait(i):
+        outs[i] = (procs[i].communicate()[0], time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for cmd, proc, (out, _) in zip(cmds, procs, outs):
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
@@ -139,7 +158,8 @@ def _compile(lib: Path) -> None:
         out = str(Path(tmp) / _LIB_NAME)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs]])
         log = Path(tmp) / _LOG_NAME
-        log.write_text("".join(f"== {src.name}\n{text}" for src, text in zip(_sources(), logs)))
+        log.write_text("".join(f"== {src.name} ({sec:.1f} s)\n{text}"
+                               for src, (text, sec) in zip(_sources(), logs)))
         os.replace(log, lib.parent / _LOG_NAME)
         os.replace(out, lib)
 
@@ -162,7 +182,8 @@ def build() -> ctypes.CDLL:
 
 def ptxas_log() -> str:
     """What ``nvcc -Xptxas -v`` reported when :func:`build` compiled the
-    current sources (``== <source>`` before each file's lines); empty where
+    current sources (``== <source> (<seconds> s)`` before each file's
+    lines: its compile time, all started together); empty where
     this checkout has not built them."""
     log = _lib_path().parent / _LOG_NAME
     return log.read_text() if log.exists() else ""

@@ -11,12 +11,15 @@ and its launch count:
     Wrapper :func:`resize2d`; plain version :func:`_resample2d_plain`; host
     plan :func:`_plan_rows` (tiles sized for the batch and the card's SM
     count); count ``launches_2d``.
-  * **resample_axis** (``csrc/resample_axis.cu``): one pass over any axis of
-    any rank.  Replaces ``_kernel_last`` / ``_kernel_mid``
-    (``resize_axis_pallas``) and serves the per-axis passes of
-    ``_kernel_last_unrolled`` / ``_kernel_mid_unrolled`` (``resize2d_pallas``).
-    Wrapper :func:`resize_axis`; plain version :func:`_resample_axis_plain`;
-    count ``launches_axis``.
+  * **resample_axis** (``csrc/resample_axis.cuh``, entry
+    ``csrc/resample_axis.cu``): one pass over any axis of any rank.
+    Replaces ``_kernel_last`` / ``_kernel_mid`` (``resize_axis_pallas``) and
+    serves the per-axis passes of ``_kernel_last_unrolled`` /
+    ``_kernel_mid_unrolled`` (``resize2d_pallas``).  Wrapper
+    :func:`resize_axis`; plain version :func:`_resample_axis_plain`; host
+    plan :func:`_plan_axis` (tiles per axis kind, sized for the shape and
+    the card's SM count; ``ops/pil_exact.py`` plans the Pillow twin of the
+    kernel with it too); count ``launches_axis``.
 
 Each pass is given as an :class:`..weights.AxisSpec` (the forward matrix
 ``W``) or as :class:`..weights.Tables`: ``adjoint_tables(spec)`` runs the
@@ -294,6 +297,244 @@ def _n_sm(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+class PlanAxis(NamedTuple):
+    """resample_axis' and pil_resample_axis' launch plan (:func:`_plan_axis`)."""
+
+    tile_j: int  # planes (along outer) per block
+    tile_o: int  # outputs per block, along the resampled axis
+    tile_i: int  # inner columns per block (inner itself: one run per plane)
+    win: int  # widest input window of a tile, along the resampled axis
+    vec: int  # inner columns per thread: 4 (uint8, aligned) or 1
+    smem: int  # dynamic shared memory per block, bytes
+    blocks: int  # blocks of the launch, one per tile
+    resident: int  # blocks per SM that shared memory allows (at most 8)
+
+
+# the axis kernels' tiles: outputs, planes and inner spans per block
+_AXIS_TILE_O = (256, 128, 64, 32, 16, 8, 4, 2, 1)
+_AXIS_TILE_J = (64, 32, 16, 8, 4, 2, 1)
+_AXIS_TILE_I = (512, 256, 128, 64, 32)
+# The plan's model of a launch on the H100, fitted to every tile timed on
+# the card by tools/sweep_axis_plans.py (device time, L2 flushed before
+# each launch).  The shapes it was checked on, and how its pick ranked
+# (PERF.md section 6, PR 7): the fastest tile at config 5's NHWC H pass
+# (bf16 [64, 2160, 5760] -> 1080 rows, tables and synthesised weights),
+# row 9's sharded f32 H pass and its adjoint ([3, 4112, 4096] -> 1024 rows
+# and back) and row 3's sharded uint8 H pass ([3, 8196, 8192] -> 2048
+# rows); 1.03x and 1.07x the fastest at config 5's NHWC W pass ([138240,
+# 3840, 3] -> 1920, tables and synthesised weights) and 1.08x at row 3's
+# W pass ([24576, 32768, 1] -> 8192).  Between the unstaged cut and those
+# passes (the NHWC headline at 2 to 32 frames) its pick was 1.0-1.5x the
+# best of its own three best-ranked tiles.  The model: a block's chain of
+# copies and barriers costs ~3 us that other resident blocks hide (at most
+# four resident: the kernel's __launch_bounds__, three in the 16-tap
+# bucket), and its threads issue instructions at about half the SMs' peak
+# (128 per cycle at 1.755 GHz): per output three per tap and ten per column
+# step (of V outputs), per row of a thread 8 where it keeps one output for
+# the whole tile, else 160 (weights reloaded, addresses, the column loop's
+# setup), and 10 per 16-byte piece staged.
+_AXIS_BLOCK_US = 3.0
+_AXIS_ISSUE_PER_SM_US = 128 * 1755 * 0.5
+# A pass that moves at most this many bytes (input and output) runs the
+# kernel's unstaged body, by weight source: host tables (float and Pillow)
+# and synthesised weights.  Set from the crossover of the plan's tile and
+# the unstaged body on the H100 (device ms, L2 flushed before each launch;
+# tools/sweep_axis_plans.py --cut, PERF.md section 6, PR 7).  Tables: the
+# body wins at the NHWC headline's W pass for 1, 2 and 4 frames (6.4, 12.9,
+# 25.8 MB: 0.0067 against 0.0121, 0.0111 against 0.0191, 0.0197 against
+# 0.0277 ms) and its H pass for 1-4 frames (<= 9.7 MB); at 19.5 MB the H
+# pass ties (0.0191) and config 4's NHWC adjoint H pass takes the tile
+# (0.0207 against 0.0290); from 39 MB the tile wins (H pass 0.0289 against
+# 0.0357), but for the W pass at 51.6 MB (0.0407 against 0.0370).  Pillow:
+# the body at 6.4 MB (0.0185 against 0.0271), the tile at 25.8 MB (0.0449
+# against 0.0682).  Synthesised weights cost the body a filter evaluation
+# per element: the tile ties at 6.4 MB (0.0130 against 0.0129) and wins
+# from 4.9 MB on (0.0102 against 0.0126); the body wins at 2.4 MB (0.0075
+# against 0.0083).
+_AXIS_UNSTAGED_BYTES = 16 << 20
+_AXIS_UNSTAGED_BYTES_FUSED = 4 << 20
+
+
+def _axis_smem_bytes(tile_j: int, tile_o: int, tile_i: int, win: int, ntaps: int,
+                     itemsize: int, n_in: int, inner: int) -> int:
+    """Dynamic shared memory of one axis-kernel block, as the kernel lays it
+    out (csrc/resample_axis.cuh::layout; the C entry point refuses a plan
+    whose bytes differ): the staged window, then the weights ``[ntaps,
+    tile_o]``, the first taps and the synthesis sums.  Where ``tile_i ==
+    inner`` each plane's window is one run of ``win * inner`` elements,
+    ``tile_j`` runs; else ``win`` runs of ``tile_i`` elements.  Each run has
+    room for a 15-byte head and tail, and the stride between runs is
+    congruent, mod 16, to their distance in device memory."""
+    if tile_i == inner:
+        stride = _align16(win * inner * itemsize + 15) + 16 + (n_in * inner * itemsize) % 16
+        data = tile_j * stride + 16
+    else:
+        stride = _align16(tile_i * itemsize + 15) + 16 + (inner * itemsize) % 16
+        data = win * stride + 16
+    return _align16(data) + _align16(ntaps * tile_o * 4) + 2 * _align16(tile_o * 4)
+
+
+def _lanes(tile_i: int, vec: int) -> int:
+    """Lanes of a warp per output row (the kernel's G): the inner span's
+    columns per ``vec``, rounded up to a power of two, at most 32; 1 for a
+    row of at most 3 columns (one thread takes NHWC's channels)."""
+    cols, g = -(-tile_i // vec), 1
+    while cols > 3 and g < 32 and g < cols:
+        g *= 2
+    return g
+
+
+def _plan_axis(first: np.ndarray, ntaps: int, n_in: int, outer: int, inner: int,
+               itemsize: int, n_sm: int, vec4: bool = False) -> PlanAxis | None:
+    """The axis kernels' tile for a pass over ``x[outer, n_in, inner]`` with
+    first taps ``first[n_out]`` and ``itemsize``-byte elements on a card of
+    ``n_sm`` SMs, or None where no tile fits a block's shared memory.
+    ``vec4``: the input's address is a multiple of 4, so uint8 may take four
+    columns per thread.
+
+    The kind of pass sets the tiles tried: one run per plane (``tile_i ==
+    inner``) with ``tile_j`` planes sharing the weights, which the last axis
+    (inner == 1) and a narrow inner (NHWC's 3 channels) take; and, for a
+    wide inner, ``tile_i``-column spans of one plane.  Each ``tile_o`` of
+    :data:`_AXIS_TILE_O` has its widest window from ``first``, computed as
+    the kernel computes it (:func:`_window`).  Of the tiles that fit, the
+    plan takes the one with at least a block per SM (where the shape has
+    that many) and the least time by the model above: the blocks' chains
+    over the resident blocks, plus the instructions they issue."""
+    best = max(_axis_candidates(first, ntaps, n_in, outer, inner, itemsize, n_sm, vec4),
+               default=None)
+    return None if best is None else best[1]
+
+
+def _axis_candidates(first: np.ndarray, ntaps: int, n_in: int, outer: int, inner: int,
+                     itemsize: int, n_sm: int, vec4: bool = False):
+    """``(key, plan)`` for every tile :func:`_plan_axis` considers that fits
+    a block; the plan is the one with the largest key."""
+    n_out = len(first)
+    shapes = [(tj, inner) for tj in _AXIS_TILE_J]
+    shapes += [(1, ti) for ti in _AXIS_TILE_I if ti < inner]
+    per_sm = 3 if ntaps > 8 else 4  # resident blocks the registers allow
+    for tile_o in _AXIS_TILE_O:
+        win = _window(first, ntaps, n_in, tile_o)
+        eff_o = min(tile_o, n_out)
+        for tile_j, tile_i in shapes:
+            vec = 4 if (vec4 and itemsize == 1 and inner % 4 == 0 and tile_i % 4 == 0) else 1
+            g = _lanes(tile_i, vec)
+            step = (_BLOCK_THREADS // 32) * (32 // g)  # rows per pass of the block
+            smem = _axis_smem_bytes(tile_j, tile_o, tile_i, win, ntaps, itemsize, n_in, inner)
+            if smem > _SMEM_BUDGET:
+                continue
+            blocks = -(-outer // tile_j) * -(-n_out // tile_o) * -(-inner // tile_i)
+            if blocks > _INT_MAX:
+                continue
+            resident = min(_SM_THREADS // _BLOCK_THREADS, _SM_SMEM // (smem + _SM_SMEM_PER_BLOCK))
+            eff_j, eff_i = min(tile_j, outer), min(tile_i, inner)
+            rows = eff_j * eff_o
+            split = 1
+            while split * 2 * rows <= step:
+                split *= 2
+            passes = -(-eff_i // (g * vec * split))  # column passes per row
+            # output slots the block's threads pass through, idle ones included
+            slots = -(-rows // (step // split)) * (step // split) * passes * g * vec * split
+            staged = (eff_j * win * inner if tile_i == inner else win * eff_i) * itemsize
+            # a thread that keeps one output for the whole tile (the slots'
+            # pass is a multiple of tile_o) moves only the plane between rows
+            per_row = 8 if (step // split) % tile_o == 0 else 160
+            instr = ((3 * ntaps + 10 / vec) * slots + per_row * rows * g * split
+                     + 10 * staged / 16)
+            waves_us = blocks * _AXIS_BLOCK_US / (n_sm * min(resident, per_sm))
+            issue_us = blocks * instr / (n_sm * _AXIS_ISSUE_PER_SM_US)
+            key = (min(blocks, n_sm), min(resident, 2), -(waves_us + issue_us), -smem, tile_o,
+                   tile_j, tile_i)
+            yield key, PlanAxis(tile_j, tile_o, tile_i, win, vec, smem, blocks, resident)
+
+
+@lru_cache(maxsize=1024)
+def _plan_axis_first(first_key: bytes, ntaps: int, n_in: int, outer: int, inner: int,
+                     itemsize: int, n_sm: int, vec4: bool,
+                     fused: bool = False) -> PlanAxis | None:
+    """The launch plan of the axis kernels' wrappers, over first taps given
+    as int64 bytes (a hashable key for any table's first taps): None, the
+    unstaged body, for a pass that moves at most :data:`_AXIS_UNSTAGED_BYTES`
+    (``fused``: :data:`_AXIS_UNSTAGED_BYTES_FUSED`) or where no tile fits;
+    else :func:`_plan_axis`'s tile."""
+    cut = _AXIS_UNSTAGED_BYTES_FUSED if fused else _AXIS_UNSTAGED_BYTES
+    if outer * inner * (n_in + len(first_key) // 8) * itemsize <= cut:
+        return None
+    return _plan_axis(np.frombuffer(first_key, np.int64), ntaps, n_in, outer, inner,
+                      itemsize, n_sm, vec4)
+
+
+def _plan_axis_spec(spec: Pass, fused: bool, outer: int, inner: int, itemsize: int = 4,
+                    n_sm: int = _H100_SMS, vec4: bool = False) -> PlanAxis | None:
+    """:func:`_plan_axis_first` over a pass's tables (``fused``: over the
+    first taps the fused kernel synthesises)."""
+    ntaps = spec.ntaps if fused else _tables(spec)[1].shape[1]
+    return _plan_axis_first(_first_key(spec, fused), ntaps, spec.in_size, outer, inner,
+                            itemsize, n_sm, vec4, fused)
+
+
+def _win0(first: np.ndarray, n_in: int, tile_o: int) -> np.ndarray:
+    """Each output tile's first input row, int32 ``[ceil(n_out / tile_o)]``:
+    the least of its outputs' first taps clamped to the axis, as
+    :func:`_window` computes it.  The kernel stages ``win`` rows from there,
+    so a block needs no first taps before its copies start."""
+    lo = np.clip(first.astype(np.int64), 0, n_in - 1)
+    n = -(-len(lo) // tile_o)
+    lo = np.pad(lo, (0, n * tile_o - len(lo)), mode="edge").reshape(n, tile_o).min(1)
+    return lo.astype(np.int32)
+
+
+@lru_cache(maxsize=256)
+def _win0_on(first_key: bytes, n_in: int, tile_o: int, device: torch.device) -> torch.Tensor:
+    """:func:`_win0` over int64 first taps given as bytes, on ``device``,
+    uploaded once per table, tile and device."""
+    return torch.from_numpy(_win0(np.frombuffer(first_key, np.int64), n_in, tile_o)).to(device)
+
+
+# Values derived from read-only host tables (the cached tables of
+# weights.compute_tables, pil_exact._int_tables and the halo plans), by the
+# array's identity: a repeated call neither copies nor hashes the table's
+# bytes again.  Each entry keeps its array alive, so an identity is never
+# reused while it is cached.
+_SEEN: dict = {}
+
+
+def _memo(a: np.ndarray, what, make):
+    """``make()``, computed once per read-only array ``a`` and ``what``."""
+    if a.flags.writeable:  # may change: derive anew
+        return make()
+    hit = _SEEN.get((id(a), what))
+    if hit is None or hit[0] is not a:
+        if len(_SEEN) >= 1024:
+            _SEEN.clear()
+        hit = _SEEN[(id(a), what)] = (a, make())
+    return hit[1]
+
+
+def _first_taps_key(first: np.ndarray) -> bytes:
+    """First taps as int64 bytes: the key of :func:`_plan_axis_first` and of
+    the window tables (one bytes object per table, so its hash is computed
+    once)."""
+    return _memo(first, "first", lambda: np.asarray(first, np.int64).tobytes())
+
+
+@cache
+def _first_key(spec: Pass, fused: bool) -> bytes:
+    """A pass's first taps (``fused``: the synthesised ones) as int64 bytes."""
+    return _first_taps_key(_synth_first(spec) if fused else _tables(spec)[0])
+
+
+def axis_launch_args(plan: PlanAxis | None, first_key: bytes, n_in: int,
+                     device: torch.device) -> tuple[int, ...]:
+    """The window table's address and the plan as the axis kernels' C entry
+    points take them: win0, tile_j, tile_o, tile_i, win, vec, smem; 0 and
+    tile_o = 0 (the unstaged body) for None."""
+    if plan is None:
+        return (0, 0, 0, 0, 0, 1, 0)
+    return (_win0_on(first_key, n_in, plan.tile_o, device).data_ptr(), *plan[:6])
+
+
 # ---------------------------------------------------------------------------
 # In-kernel weight synthesis: the spec's float32 constants, the host's first
 # taps and the plain version's weights
@@ -565,6 +806,32 @@ def _resample2d_cuda(x3, spec_h, spec_w, out_dtype, plan) -> torch.Tensor:
     return out
 
 
+def _axis_plan(x3: torch.Tensor, spec: Pass, fused: bool) -> PlanAxis | None:
+    outer, _, inner = x3.shape
+    return _plan_axis_spec(spec, fused, outer, inner, x3.element_size(),
+                           _n_sm(x3.device), x3.data_ptr() % 4 == 0)
+
+
+def occupancy_axis(plan: PlanAxis, kind: str, in_dtype: torch.dtype,
+                   out_dtype: torch.dtype, ntaps: int) -> int:
+    """Resident blocks per SM of the axis kernel ``kind`` (``"table"``,
+    ``"fused"`` or ``"pil"``, uint8 -> uint8) under ``plan`` on the current
+    card, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives it.
+    Launches nothing; needs the card."""
+    lib = native.build()
+    blocks = ctypes.c_int(0)
+    if kind == "pil":
+        err = lib.ia_pil_resample_axis_occupancy(ntaps, plan.vec, plan.smem,
+                                                 ctypes.byref(blocks))
+    else:
+        err = lib.ia_resample_axis_occupancy(int(kind == "fused"), _DTYPES[in_dtype],
+                                             _DTYPES[out_dtype], ntaps, plan.vec,
+                                             plan.smem, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"resample_axis occupancy query failed: cudaError {err}")
+    return blocks.value
+
+
 def _resample_axis_cuda(x3, spec, out_dtype) -> torch.Tensor:
     global launches_axis
     lib = native.build()
@@ -575,11 +842,13 @@ def _resample_axis_cuda(x3, spec, out_dtype) -> torch.Tensor:
         return out
     dev = x3.device
     xmin, w = _tables_on(spec, dev)
+    plan = _axis_plan(x3, spec, False)
     with torch.cuda.device(dev):
         err = lib.ia_resample_axis(
             x3.data_ptr(), out.data_ptr(), _DTYPES[x3.dtype], _DTYPES[out_dtype],
             outer, n_in, inner, spec.out_size, xmin.data_ptr(), w.data_ptr(),
-            w.shape[1], _stream(dev))
+            w.shape[1], *axis_launch_args(plan, _first_key(spec, False), n_in, dev),
+            _stream(dev))
     if err != 0:
         raise RuntimeError(f"resample_axis launch failed: cudaError {err}")
     launches_axis += 1
@@ -621,11 +890,13 @@ def _resample_axis_fused_cuda(x3, spec, out_dtype) -> torch.Tensor:
     if out.numel() == 0:
         return out
     dev = x3.device
+    plan = _axis_plan(x3, spec, True)
     with torch.cuda.device(dev):
         err = lib.ia_resample_axis_fused(
             x3.data_ptr(), out.data_ptr(), _DTYPES[x3.dtype], _DTYPES[out_dtype],
             outer, n_in, inner, spec.out_size,
-            ctypes.addressof(_synth_struct(spec)), _stream(dev))
+            ctypes.addressof(_synth_struct(spec)),
+            *axis_launch_args(plan, _first_key(spec, True), n_in, dev), _stream(dev))
     if err != 0:
         raise RuntimeError(f"resample_axis (fused) launch failed: cudaError {err}")
     launches_axis_fused += 1

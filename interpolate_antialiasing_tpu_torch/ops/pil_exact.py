@@ -16,10 +16,12 @@ the counterpart of the JAX package's ``_kernel_2pass_pil``) through the
 wrapper :func:`_resample_2pass`.  Its plain PyTorch version,
 :func:`_resample_2pass_plain`, computes the same bytes with tensor ops; the
 wrapper takes it for tensors on the CPU.  One pass over one axis runs the
-``pil_resample_axis`` kernel (``csrc/pil_resample_axis.cu``, the
-counterpart of ``digit_pass_mid_dynamic``) through :func:`_resample_axis`,
-plain version :func:`_resample_axis_plain`: the sharded byte-exact route's
-shard-local passes.
+``pil_resample_axis`` kernel (``csrc/resample_axis.cuh`` over Pillow's
+int32 tables, entry ``csrc/pil_resample_axis.cu``; the counterpart of
+``digit_pass_mid_dynamic``) through :func:`_resample_axis`, plain version
+:func:`_resample_axis_plain`, with the tile plan of the float axis kernel
+(``cuda_resize._plan_axis``): the sharded byte-exact route's shard-local
+passes.
 
 The host tables (``_int_tables``, ``_int_matrix``, ``_nearest_indices``,
 ``_needs_clip``) are copied expression for expression from the JAX package,
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from ..config import debug_enabled
+from . import cuda_resize as cr
 from .weights import make_axis_spec, pil_box_f32
 
 __all__ = ["resize_pil_exact", "reduce_pil_exact", "PRECISION_BITS"]
@@ -162,8 +165,11 @@ def _table_tensor(data: bytes, shape: tuple[int, ...],
 def _on(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """An int32 host table as a tensor on ``device``, uploaded once per
     distinct content and device."""
-    a = np.ascontiguousarray(a, dtype=np.int32)
-    return _table_tensor(a.tobytes(), a.shape, device)
+    def upload():
+        c = np.ascontiguousarray(a, dtype=np.int32)
+        return _table_tensor(c.tobytes(), c.shape, device)
+
+    return cr._memo(a, device, upload)
 
 
 def _pass_last_int_banded(
@@ -209,7 +215,8 @@ def _check_tables(name: str, tables, in_size: int, pb: int) -> None:
         raise ValueError(f"{name} axis is empty: in={in_size}, Wb={Wb.shape}")
     # Pillow's accumulator is int32 and so is the kernel's: the largest
     # |acc| any uint8 row can reach must stay below 2^31.
-    worst = 255 * int(np.abs(Wb.astype(np.int64)).sum(axis=1).max())
+    worst = 255 * cr._memo(
+        Wb, "row sum", lambda: int(np.abs(Wb.astype(np.int64)).sum(axis=1).max()))
     if worst + (1 << (pb - 1)) >= 1 << 31:
         raise ValueError(
             f"{name} coefficients can overflow the int32 accumulator "
@@ -332,10 +339,14 @@ def _resample_axis_cuda(x3: torch.Tensor, tables, pb: int) -> torch.Tensor:
         return out
     dev = x3.device
     xmin, wb = _on(tables[0], dev), _on(tables[1], dev)
+    key = cr._first_taps_key(tables[0])
+    plan = cr._plan_axis_first(key, ntaps, n_in, outer, inner, 1, cr._n_sm(dev),
+                               x3.data_ptr() % 4 == 0)
     with torch.cuda.device(dev):
         err = lib.ia_pil_resample_axis(
             x3.data_ptr(), out.data_ptr(), outer, n_in, inner, n_out,
             xmin.data_ptr(), wb.data_ptr(), ntaps, pb,
+            *cr.axis_launch_args(plan, key, n_in, dev),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pil_resample_axis launch failed: cudaError {err}")

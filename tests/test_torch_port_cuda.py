@@ -13,6 +13,7 @@ included, is a fault; the Pillow kernel is byte-exact as well.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -295,3 +296,235 @@ def test_resample2d_plan_occupancy(dev):
         assert plan.blocks >= 2 * n_sm
         assert cr.occupancy_2d(plan, torch.float32, torch.float32, sw.ntaps, sh.ntaps,
                                fused) >= 2
+
+
+# ---------------------------------------------------------------------------
+# Kernel B and pil_resample_axis since their redesign for Hopper: the axis
+# kinds of the tile plan (the last axis, a narrow and a wide inner), rows
+# and planes that start off 16 bytes, one output, an upsample and the
+# unstaged body where no tile fits
+# ---------------------------------------------------------------------------
+
+# (name, x shape, axis, n_out, mode)
+AXIS_EDGES = [
+    ("last", (3, 40, 83), -1, 29, "bicubic"),
+    ("inner3", (2, 57, 83, 3), 2, 31, "bicubic"),
+    ("inner5", (2, 57, 5), 1, 23, "lanczos3"),
+    ("inner960", (1, 60, 960), 1, 27, "bilinear"),
+    ("n_out_1", (2, 50, 7), 1, 1, "bilinear"),
+    ("upsample", (2, 31, 70), 1, 90, "bicubic"),
+    ("upsample_last", (3, 4, 31), -1, 77, "lanczos3"),
+]
+
+
+def _view3(x, axis):
+    ax = axis % x.ndim
+    return x.reshape(math.prod(x.shape[:ax]), x.shape[ax], math.prod(x.shape[ax + 1:]))
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("fused", [False, True], ids=["tables", "fused"])
+@pytest.mark.parametrize("name,shape,axis,n_out,mode", AXIS_EDGES,
+                         ids=[c[0] for c in AXIS_EDGES])
+def test_resample_axis_edges_match_plain(dev, name, shape, axis, n_out, mode, fused,
+                                         dt, offset):
+    x = _input(shape, dt, dev, seed=14)
+    if offset:  # a plane offset of one plane: rows start off 16 bytes
+        x = _input((shape[0] + 1, *shape[1:]), dt, dev, seed=14)[1:]
+    spec = make_axis_spec(x.shape[axis], n_out, mode)
+    before = (cr.launches_axis, cr.launches_axis_fused)
+    got = cr.resize_axis(x, spec, axis, dt, fused=fused)
+    torch.cuda.synchronize()
+    assert (cr.launches_axis, cr.launches_axis_fused) == \
+        (before[0] + (not fused), before[1] + fused)
+    plain = cr._resample_axis_fused_plain if fused else cr._resample_axis_plain
+    _assert_equal(got, plain(_view3(x, axis), spec, dt).reshape(got.shape))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["tables", "fused"])
+def test_resample_axis_unstaged_body_matches_plain(dev, fused):
+    """A window of ~2,000 (box) or ~4,000 (bilinear) rows of 64 float32
+    columns fits no tile: the kernel runs its unstaged body."""
+    mode = "bilinear" if fused else "box"
+    x = _input((2, 2000, 64), torch.float32, dev, seed=15)
+    spec = make_axis_spec(2000, 1, mode)
+    assert cr._plan_axis_spec(spec, fused, 2, 64, 4, cr._n_sm(dev), True) is None
+    got = cr.resize_axis(x, spec, 1, fused=fused)
+    plain = cr._resample_axis_fused_plain if fused else cr._resample_axis_plain
+    _assert_equal(got, plain(x, spec, torch.float32))
+
+
+# (name, x shape, axis, n_in, n_out, mode): inner 1, 3, 5, 6 (not a multiple
+# of 4), 8, 960 and 962 (not a multiple of 16 or 4)
+PIL_AXIS_EDGES = [
+    ("last", (3, 40, 83), 2, 29, "bicubic"),
+    ("inner3", (2, 83, 3), 1, 31, "lanczos3"),
+    ("inner5", (2, 57, 5), 1, 23, "hamming"),
+    ("inner6", (2, 57, 6), 1, 23, "bilinear"),
+    ("inner8", (2, 57, 8), 1, 23, "bilinear"),
+    ("inner960", (1, 60, 960), 1, 27, "bilinear"),
+    ("inner962", (1, 60, 962), 1, 27, "bicubic"),
+    ("n_out_1", (2, 50, 8), 1, 1, "box"),
+    ("upsample", (2, 31, 72), 1, 90, "bicubic"),
+]
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("name,shape,axis,n_out,mode", PIL_AXIS_EDGES,
+                         ids=[c[0] for c in PIL_AXIS_EDGES])
+def test_pil_resample_axis_edges_match_plain(dev, name, shape, axis, n_out, mode, offset):
+    x = _input(shape, torch.uint8, dev, seed=16)
+    if offset:  # one byte off: no vector path, no aligned row
+        x = _input((math.prod(shape) + 1,), torch.uint8, dev, seed=16)[1:].reshape(shape)
+        assert x.data_ptr() % 4 != 0
+    tables = pe._int_tables(shape[axis], n_out, mode)
+    before = pe.launches_axis
+    got = pe._resample_axis(x, tables, axis)
+    torch.cuda.synchronize()
+    assert pe.launches_axis == before + 1
+    assert torch.equal(got, pe._resample_axis_plain(_view3(x, axis), tables).reshape(got.shape))
+
+
+def test_pil_resample_axis_unstaged_body_matches_plain(dev):
+    x = _input((2, 5000, 64), torch.uint8, dev, seed=17)
+    tables = pe._int_tables(5000, 1, "box")
+    assert cr._plan_axis(tables[0].astype("int64"), tables[1].shape[1], 5000, 2, 64, 1,
+                         cr._n_sm(dev), True) is None
+    got = pe._resample_axis(x, tables, 1)
+    assert torch.equal(got, pe._resample_axis_plain(x, tables))
+
+
+def test_resample_axis_plan_occupancy(dev):
+    """Config 5's passes in NHWC, with tables and synthesised weights, and
+    the NHWC headline's at 64 frames launch at least a block per SM of this
+    card, and the card holds at least two of them per SM; so does the
+    sharded uint8 W pass.  The one-frame headline runs the unstaged body."""
+    n_sm = cr._n_sm(dev)
+    for n_in, n_out, outer, inner, itemsize, fused in (
+            (906, 320, 438 * 64, 3, 4, True), (438, 196, 64, 960, 4, False),
+            (3840, 1920, 64 * 2160, 3, 2, False), (2160, 1080, 64, 5760, 2, True)):
+        spec = make_axis_spec(n_in, n_out)
+        plan = cr._plan_axis_spec(spec, fused, outer, inner, itemsize, n_sm, True)
+        assert plan.blocks >= n_sm
+        dt = torch.float32 if itemsize == 4 else torch.bfloat16
+        assert cr.occupancy_axis(plan, "fused" if fused else "table", dt, dt,
+                                 spec.ntaps) >= 2
+    assert cr._plan_axis_spec(make_axis_spec(906, 320), False, 438, 3, 4, n_sm, True) is None
+    tw = pe._int_tables(32768, 8192, "bilinear")
+    plan = cr._plan_axis(tw[0].astype("int64"), tw[1].shape[1], 32768, 96, 1, 1, n_sm, True)
+    assert plan.blocks >= n_sm
+    assert cr.occupancy_axis(plan, "pil", torch.uint8, torch.uint8, tw[1].shape[1]) >= 2
+
+
+# The plan runs the unstaged body for passes as small as the edge cases
+# above: each is run again at every tile the plan considers, forced past it
+# (partial last tiles along each axis, uint8 four columns per thread where
+# the offset allows, more than 16 taps in the loop bucket).
+
+TAPS_GT16 = [
+    ("taps_gt16_last", (3, 5, 240), -1, 30, "lanczos3"),
+    ("taps_gt16_inner5", (2, 240, 5), 1, 30, "lanczos3"),
+    ("taps_gt16_inner7", (3, 241, 7), 1, 25, "bicubic"),
+]
+
+
+def _every_tile(first, ntaps, x3):
+    """Every tile cuda_resize._axis_candidates lists for a pass over ``x3``,
+    then None (the unstaged body)."""
+    outer, n_in, inner = x3.shape
+    plans = [p for _, p in cr._axis_candidates(
+        np.asarray(first, np.int64), ntaps, n_in, outer, inner, x3.element_size(),
+        cr._n_sm(x3.device), x3.data_ptr() % 4 == 0)]
+    return list(dict.fromkeys(plans)) + [None]
+
+
+def _offset_input(shape, dtype, dev, seed):
+    """``shape`` starting one element past a 16-byte boundary."""
+    return _input((math.prod(shape) + 1,), dtype, dev, seed)[1:].reshape(shape)
+
+
+def _axis_every_tile(monkeypatch, x, spec, axis, odt, fused):
+    x3 = _view3(x, axis)
+    first, w = cr._tables(spec)
+    first, ntaps = (cr._synth_first(spec), spec.ntaps) if fused else (first, w.shape[1])
+    want = (cr._resample_axis_fused_plain if fused else cr._resample_axis_plain)(x3, spec, odt)
+    plans = _every_tile(first, ntaps, x3)
+    assert len(plans) > 1
+    for plan in plans:
+        monkeypatch.setattr(cr, "_plan_axis_first", lambda *a, p=plan: p)
+        got = cr.resize_axis(x, spec, axis, odt, fused=fused)
+        _assert_equal(got, want.reshape(got.shape))
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("fused", [False, True], ids=["tables", "fused"])
+@pytest.mark.parametrize("name,shape,axis,n_out,mode", AXIS_EDGES + TAPS_GT16,
+                         ids=[c[0] for c in AXIS_EDGES + TAPS_GT16])
+def test_resample_axis_edges_every_tile(dev, monkeypatch, name, shape, axis, n_out, mode,
+                                        fused, dt, offset):
+    x = (_offset_input(shape, dt, dev, 18) if offset else _input(shape, dt, dev, 18))
+    spec = make_axis_spec(shape[axis], n_out, mode)
+    _axis_every_tile(monkeypatch, x, spec, axis, dt, fused)
+
+
+@pytest.mark.parametrize("odt", DTYPES)
+@pytest.mark.parametrize("idt", DTYPES)
+@pytest.mark.parametrize("fused", [False, True], ids=["tables", "fused"])
+@pytest.mark.parametrize("shape,axis,n_out,mode", [((2, 37, 83), -1, 29, "bicubic"),
+                                                   ((2, 57, 83, 3), 1, 23, "lanczos3")],
+                         ids=["last", "inner249"])
+def test_resample_axis_pairs_every_tile(dev, monkeypatch, shape, axis, n_out, mode, fused,
+                                        idt, odt):
+    x = _input(shape, idt, dev, 19)
+    spec = make_axis_spec(shape[axis], n_out, mode)
+    _axis_every_tile(monkeypatch, x, spec, axis, odt, fused)
+
+
+PIL_TAPS_GT16 = [("taps_gt16", (2, 240, 8), 1, 20, "bicubic"),
+                 ("taps_gt16_last", (3, 6, 240), 2, 20, "lanczos3")]
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("name,shape,axis,n_out,mode", PIL_AXIS_EDGES + PIL_TAPS_GT16,
+                         ids=[c[0] for c in PIL_AXIS_EDGES + PIL_TAPS_GT16])
+def test_pil_resample_axis_edges_every_tile(dev, monkeypatch, name, shape, axis, n_out, mode,
+                                            offset):
+    x = (_offset_input(shape, torch.uint8, dev, 20) if offset
+         else _input(shape, torch.uint8, dev, 20))
+    tables = pe._int_tables(shape[axis], n_out, mode)
+    x3 = _view3(x, axis)
+    want = pe._resample_axis_plain(x3, tables)
+    plans = _every_tile(tables[0], tables[1].shape[1], x3)
+    assert len(plans) > 1
+    for plan in plans:
+        monkeypatch.setattr(cr, "_plan_axis_first", lambda *a, p=plan: p)
+        got = pe._resample_axis(x, tables, axis)
+        assert torch.equal(got, want.reshape(got.shape)), plan
+
+
+@pytest.mark.parametrize("kind", ["table", "fused", "pil"])
+def test_axis_staged_offset_matches_plain(dev, kind):
+    """A pass above the unstaged body's cut, on an input that starts off 16
+    bytes, runs the staged body through the plan itself."""
+    shape, axis, n_out, mode, dt = (((8, 2001, 4001), 2, 1000, "bilinear", torch.uint8)
+                                    if kind == "pil" else
+                                    ((16, 437, 905, 3), 2, 300, "bicubic", torch.float32))
+    x = _offset_input(shape, dt, dev, 21)
+    x3 = _view3(x, axis)
+    if kind == "pil":
+        tables = pe._int_tables(shape[axis], n_out, mode)
+        plan = cr._plan_axis_first(np.asarray(tables[0], np.int64).tobytes(),
+                                   tables[1].shape[1], shape[axis], x3.shape[0], x3.shape[2],
+                                   1, cr._n_sm(dev), False)
+        assert plan is not None
+        got = pe._resample_axis(x, tables, axis)
+        assert torch.equal(got, pe._resample_axis_plain(x3, tables).reshape(got.shape))
+        return
+    fused = kind == "fused"
+    spec = make_axis_spec(shape[axis], n_out, mode)
+    assert cr._axis_plan(x3, spec, fused) is not None
+    got = cr.resize_axis(x, spec, axis, dt, fused=fused)
+    plain = cr._resample_axis_fused_plain if fused else cr._resample_axis_plain
+    _assert_equal(got, plain(x3, spec, dt).reshape(got.shape))

@@ -303,7 +303,9 @@ def test_build_is_keyed_by_sources():
         "crop_resample.cu", "pil_resample.cu", "pil_resample_axis.cu", "resample2d.cu",
         "resample2d_fused.cu", "resample2d_fused_tc128.cu", "resample2d_fused_tc16.cu",
         "resample2d_fused_tc32.cu", "resample2d_fused_tc64.cu", "resample2d_tc128.cu",
-        "resample2d_tc16.cu", "resample2d_tc32.cu", "resample2d_tc64.cu", "resample_axis.cu"]
+        "resample2d_tc16.cu", "resample2d_tc32.cu", "resample2d_tc64.cu", "resample_axis.cu",
+        "resample_axis_synth_nt0.cu", "resample_axis_synth_nt16.cu", "resample_axis_synth_nt8.cu",
+        "resample_axis_table_nt0.cu", "resample_axis_table_nt16.cu", "resample_axis_table_nt8.cu"]
     assert native._lib_path() == path  # stable for unchanged sources
 
 
