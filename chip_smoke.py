@@ -27,7 +27,14 @@ then:
    and their transposes (f32 and bf16), and the two fused twins (weights
    synthesised in the kernel) over every continuous filter, dtype pair and
    axis kind, up- and downscale, align_corners, a span and the case where
-   no resample2d tile fits;
+   no resample2d tile fits; and the two uint8 kernels at their edges (the
+   Pillow two-pass kernel, kernel A over Pillow's tables: the bench batch,
+   4K -> HD, 70,000 planes, more than 16 taps, pb 14, an upsample, one-row
+   and one-column outputs, an input off 16 bytes, the route where no tile
+   fits; the crop passes, kernel B with per-image tables: sub-pixel boxes,
+   boxes at each edge, max_box_frac 1.0 and 0.45, more than 128 outputs,
+   the 4K RandomResizedCrop, both precisions), each through the plan and
+   with every tile the plan considers forced, byte for byte;
 2. drives the port's main paths through their public entry points, each
    with every launch count set to 0 just before it and read just after:
    the uint8 ImageNet-eval pipeline (Pillow kernel); BASELINE config 5
@@ -67,7 +74,9 @@ then:
    kernels also by device time per launch (torch.profiler kernel records,
    ``*_device_ms``) apart from the wrapper's host time per call
    (``*_host_us``), since CUDA events around back-to-back calls measure the
-   host where it is the slower (batch 1); the shard passes of both per-axis
+   host where it is the slower (batch 1), and the uint8 kernels the same way
+   (the Pillow kernel at the bench batch and 4K -> HD, the crop's two
+   passes per call); the shard passes of both per-axis
    kernels the same way; and kernel B at config 5's frames in NHWC (bf16
    [64, 2160, 3840, 3] -> 1080x1920 through ``resize``, tables and fused,
    beside ``F.interpolate`` on the same channels-last tensor,
@@ -454,7 +463,7 @@ def _pil_cases():
            dict(size=(20, 31), method="lanczos3", box=(3.3, 4.25, 61.7, 45.5)))
     yield ("bench bilinear", BENCH[0], dict(size=BENCH[1], method="bilinear"))
     yield ("4k->hd bilinear", UHD[0], dict(size=UHD[1], method="bilinear"))
-    # past the 65,535 planes one launch takes: two launches
+    # past the 65,535 planes of a grid's y or z dimension: one launch
     yield ("70000 planes", (70000, 8, 8), dict(size=(4, 5), method="bilinear"))
 
 
@@ -466,9 +475,7 @@ def check_pil_kernel(dev, rng) -> float:
         before = pe.launches
         got = pe.resize_pil_exact(x.to(dev), **kw)
         torch.cuda.synchronize()
-        planes = math.prod(shape[:-2]) if kw.get("data_format") != "NHWC" else \
-            shape[0] * shape[-1]
-        if pe.launches != before + -(-planes // pe._GRID_LIMIT):
+        if pe.launches != before + 1:  # every block on gridDim.x: 70,000 planes too
             raise RuntimeError(f"{name}: {pe.launches - before} launches")
         want = pe.resize_pil_exact(x, **kw)  # CPU tensor: plain version
         err = _max_abs(got.cpu(), want)
@@ -783,8 +790,8 @@ def check_crop_kernel(dev) -> float:
                       _compare(f"crop_resample {name} {precision}", got, want),
                       shape=list(shape), out=list(got.shape), method=method,
                       max_box_frac=frac, pb=[tables[2], tables[3]],
-                      window=[tables[0][2].shape[-1], tables[1][2].shape[-1]],
-                      taps=[int(tables[0][1].max()), int(tables[1][1].max())])
+                      tap_bound=[tables[0].w.shape[-1], tables[1].w.shape[-1]],
+                      taps=[int(tables[0].cnt.max()), int(tables[1].cnt.max())])
             del tables, got, want
     return tally.summary()
 
@@ -963,16 +970,18 @@ def check_fused_kernels(dev) -> tuple[float, float]:
 
 
 @contextlib.contextmanager
-def _forced_axis_plan(plan):
-    """The axis kernels' wrappers launch ``plan`` (a ``PlanAxis``: that
-    tile of the staged body; None: the unstaged body), whatever the host
-    plan would pick."""
-    real = cr._plan_axis_first
-    cr._plan_axis_first = lambda *args: plan
+def _forced(module, name, fn):
+    """``module.name`` is ``fn`` inside the block (a wrapper's plan forced
+    past the host's: the axis kernels' ``cuda_resize._plan_axis_first``, a
+    ``PlanAxis`` tile of the staged body or None, the unstaged body; the
+    Pillow kernel's ``pil_exact._plan_2pass``; the crop's
+    ``crop_cuda._crop_plan``)."""
+    real = getattr(module, name)
+    setattr(module, name, fn)
     try:
-        yield
+        yield real
     finally:
-        cr._plan_axis_first = real
+        setattr(module, name, real)
 
 
 def _every_tile(first, ntaps: int, x3: torch.Tensor) -> list:
@@ -1041,7 +1050,7 @@ def check_axis_tiles(dev) -> tuple[float, float, float]:
 
     def launch(kind, x, spec, axis, odt, plan):
         before = _counts()
-        with _forced_axis_plan(plan):
+        with _forced(cr, "_plan_axis_first", lambda *args, p=plan: p):
             if kind == "pil":
                 got = pe._resample_axis(x, spec, axis)
             else:
@@ -1112,6 +1121,115 @@ def check_axis_tiles(dev) -> tuple[float, float, float]:
         del x, x3, got, want
     torch.cuda.empty_cache()
     return tuple(t.summary() for t in tallies.values())
+
+
+# ---------------------------------------------------------------------------
+# 2c. the two uint8 kernels on kernels A and B at every tile
+# ---------------------------------------------------------------------------
+
+
+def _pil_2pass_edges():
+    """(name, x3 shape, (oh, ow), mode, pb, offset): the bench batch and the
+    4K -> HD frame, 70,000 planes, lanczos3 past 16 taps (the loop bucket),
+    pb 14 (digits=2), an upsample, one-row and one-column outputs, an input
+    off 16 bytes, and a downscale where no tile fits (two pil_resample_axis
+    passes; no tile to force)."""
+    (b, c, h, w), ohw = BENCH
+    yield ("bench", (b * c, h, w), ohw, "bilinear", 22, False)
+    yield ("4k->hd", UHD[0], UHD[1], "bilinear", 22, False)
+    yield ("70000 planes", (70000, 8, 8), (4, 5), "bilinear", 22, False)
+    yield ("lanczos3 > 16 taps", (2, 300, 400), (40, 50), "lanczos3", 22, False)
+    yield ("pb 14", (3, 57, 83), (24, 31), "bicubic", 14, False)
+    yield ("upsample", (2, 31, 72), (90, 150), "bicubic", 22, False)
+    yield ("one row", (2, 40, 60), (1, 30), "hamming", 22, False)
+    yield ("one column", (2, 40, 60), (20, 1), "box", 22, False)
+    yield ("offset", (2, 57, 83), (24, 31), "bicubic", 22, True)
+    yield ("no tile fits", (1, 20000, 64), (10, 32), "lanczos3", 22, False)
+
+
+def _crop_edge_cases():
+    """(name, x shape, boxes, (oh, ow), max_box_frac): sub-pixel boxes,
+    boxes touching each edge, RandomResizedCrop draws past a 0.45 bound,
+    more than 128 outputs, the 4K random_resized_crop."""
+    sub = [[0.47, 0.55, 0.4701, 0.5502], [0.0, 0.0, 1e-4, 1e-4], [0.9999, 0.9999, 1.0, 1.0],
+           [0.2, 0.3, 0.2 + 1 / 256, 0.31]]
+    edges = [[0.0, 0.0, 1.0, 1.0], [0.0, 0.3, 0.5, 0.7], [0.5, 0.3, 1.0, 0.7],
+             [0.3, 0.0, 0.7, 0.5], [0.3, 0.5, 0.7, 1.0], [0.6, 0.0, 1.0, 1.0]]
+    rrc = sample_boxes(torch.Generator().manual_seed(5), 6, 300, 520).numpy()
+    yield ("sub-pixel", (4, 3, 300, 520), sub, (96, 112), 1.0)
+    for frac in (1.0, 0.45):
+        yield (f"edges frac {frac}", (6, 3, 300, 520), edges, (96, 112), frac)
+    yield ("rrc frac 0.45", (6, 3, 300, 520), rrc, (160, 200), 0.45)
+    yield ("wide out", (6, 1, 300, 520), rrc, (150, 300), 1.0)
+    (shape, ohw) = CROP_4K
+    yield ("4k rrc", shape, sample_boxes(torch.Generator().manual_seed(1), shape[0],
+                                         *shape[2:]).numpy(), ohw, box_fracs(*shape[2:]))
+
+
+def check_u8_tiles(dev) -> tuple[float, float]:
+    """The Pillow two-pass kernel (kernel A over Pillow's tables) and the
+    crop passes (kernel B with per-image tables) at their edges: each case
+    through the production plan, then with every tile the plan considers
+    forced (both crop passes in turn, the other on its plan, and kernel B's
+    unstaged body), byte for byte against the plain version."""
+    tp, tc = _Tally("pil_resample_2pass every tile"), _Tally("crop_resample every tile")
+    for name, shape, ohw, mode, pb, offset in _pil_2pass_edges():
+        x3 = (_offset_input(shape, U8, dev, 41) if offset else _rand(shape, U8, dev, 41))
+        tw = pe._int_tables(shape[2], ohw[1], mode, pb=pb)
+        th = pe._int_tables(shape[1], ohw[0], mode, pb=pb)
+        want = pe._resample_2pass_plain(x3, tw, th, pb)
+        plan = pe._plan_2pass(tw, th, shape[0], shape[1], shape[2], cr._n_sm(dev))
+        before = _counts()
+        res = _compare(f"pil_resample_2pass {name}", pe._resample_2pass(x3, tw, th, pb), want)
+        c = ("pil_resample_2pass", 1) if plan is not None else ("pil_resample_axis", 2)
+        if _counts() != dict(before, **{c[0]: before[c[0]] + c[1]}):
+            raise RuntimeError(f"pil_resample_2pass {name}: not {c[1]} {c[0]} launch(es)")
+        tiles = [p for _, p in cr._rows_candidates(
+            th[0], th[1].shape[1], shape[1], tw[0], tw[1].shape[1], shape[2], 1, shape[0],
+            cr._n_sm(dev), inter_size=1)]
+        for p in tiles:
+            with _forced(pe, "_plan_2pass", lambda *a, p=p: p):
+                _compare(f"pil_resample_2pass {name} {p}", pe._resample_2pass(x3, tw, th, pb),
+                         want)
+        tp.add(name, res, shape=list(shape), out=list(ohw), mode=mode, pb=pb,
+               offset_bytes=x3.data_ptr() % 16, plan=None if plan is None else plan._asdict(),
+               tiles=len(tiles))
+        del x3, want
+    for name, shape, boxes, ohw, frac in _crop_edge_cases():
+        x = _rand(shape, U8, dev, 42)
+        b = torch.as_tensor(np.asarray(boxes, np.float32)).to(dev)
+        N, C, H, W = shape
+        for precision in ("pil_int8", "split"):
+            tables = cc._windowed_tables(x, b, ohw, "bilinear", True, frac, precision)
+            want = cc._crop_resample_plain(x, *tables)
+            res = _compare(f"crop_resample {name} {precision}", cc._crop_resample(x, *tables),
+                           want)
+            n, plans = 0, []
+            for which, tab, n_in, n_out, R, inner in (
+                    ("h", tables[0], H, ohw[0], C, W), ("w", tables[1], W, ohw[1], C * ohw[0], 1)):
+                T = tab.w.shape[-1]
+                plans.append(cc._crop_plan(tab.wins, n_in, n_out, T, N, R, inner,
+                                           cr._n_sm(dev), x.data_ptr() % 4 == 0))
+                cands = [p for _, p in cr._axis_tiles(
+                    tab.wins, n_out, T, n_in, N * R, inner, 1, cr._n_sm(dev),
+                    x.data_ptr() % 4 == 0, per_img=R)]
+                for p in list(dict.fromkeys(cands)) + [None]:
+                    def pick(wins, n_in, n_out, T, N, R, inner, n_sm, vec4, p=p, which=which,
+                             real=cc._crop_plan):
+                        if (inner > 1) == (which == "h"):
+                            return p
+                        return real(wins, n_in, n_out, T, N, R, inner, n_sm, vec4)
+                    with _forced(cc, "_crop_plan", pick):
+                        _compare(f"crop_resample {name} {precision} {which} {p}",
+                                 cc._crop_resample(x, *tables), want)
+                    n += 1
+            tc.add(f"{name} {precision}", res, shape=list(shape), out=list(ohw),
+                   max_box_frac=frac, taps=[tables[0].w.shape[-1], tables[1].w.shape[-1]],
+                   plans=[None if p is None else p._asdict() for p in plans], tiles=n)
+            del tables, want
+        del x
+        torch.cuda.empty_cache()
+    return tp.summary(), tc.summary()
 
 
 # ---------------------------------------------------------------------------
@@ -1911,6 +2029,8 @@ def time_pil_kernel(dev, rng, card) -> dict:
         th = pe._int_tables(shape[-2], size[0], "bilinear")
         ms = _turns(lambda: pe._resample_2pass(x3, tw, th),
                     lambda: pe._resample_2pass_plain(x3, tw, th), iters, 3)
+        ms.update(_kernel_times(lambda: pe._resample_2pass(x3, tw, th), iters,
+                                "resample2d_kernel"))
         P, (H, W), (OH, OW) = x3.shape[0], shape[-2:], size
         bound = _bound(P * (H * W + OH * OW) + _nbytes(*tw, *th),
                        P * (H * _nz(tw[1]) + OW * _nz(th[1])))
@@ -1927,20 +2047,23 @@ def time_pil_kernel(dev, rng, card) -> dict:
     n_out = BENCH[0][0] * BENCH[1][0] * BENCH[1][1]  # images x oh x ow
     _line("time_bench", card=card, shape=list(BENCH[0]), size=list(BENCH[1]),
           kernel_ms=bench["kernel"], plain_ms=bench["plain"],
-          kernel_out_mpix_s=n_out / (k_ms * 1e-3) / 1e6,
+          kernel_device_ms=bench["device_ms"], kernel_host_us=bench["host_us"],
+          kernel_out_mpix_s=n_out / (bench["device_ms"] * 1e-3) / 1e6,
           plain_out_mpix_s=n_out / (p_ms * 1e-3) / 1e6,
           kernel_faster=k_ms < p_ms, **bound, library_ms=lib_ms, library=lib_note)
     uhd, uhd_bound, uhd_lib, uhd_note = timed(*UHD, iters=10)
     _line("time_4k_hd", card=card, shape=list(UHD[0]), size=list(UHD[1]),
-          kernel_ms=uhd["kernel"], plain_ms=uhd["plain"], **uhd_bound,
-          library_ms=uhd_lib, library=uhd_note)
+          kernel_ms=uhd["kernel"], plain_ms=uhd["plain"], kernel_device_ms=uhd["device_ms"],
+          kernel_host_us=uhd["host_us"], **uhd_bound, library_ms=uhd_lib, library=uhd_note)
     erng = np.random.default_rng(0)
     x = torch.from_numpy((erng.random(ENTRY[0]) * 255).astype(np.uint8)).to(dev)
     pipe = ImageNetEvalPipeline(size=ENTRY[1]).to(dev)
     _line("time_entry_pipeline", card=card, batch=list(ENTRY[0]),
           size=list(ENTRY[1]), ms=time_cuda(pipe, x, iters=20, warmup=3))
-    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound["bound_ms"],
-            "bound_by": bound["bound_by"], "library_ms": lib_ms}
+    return {"ms": bench["device_ms"], "device_ms": bench["device_ms"], "call_ms": k_ms,
+            "host_us": bench["host_us"], "uhd_device_ms": uhd["device_ms"], "plain_ms": p_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": lib_ms}
 
 
 def time_float_kernels(dev, card) -> tuple[dict, dict]:
@@ -2186,7 +2309,11 @@ def time_train_kernels(dev, card) -> dict:
                 t = cc._windowed_tables(x, b, size, "bilinear", True, frac, precision)
                 ms = _turns(lambda: cc._crop_resample_cuda(x, *t),
                             lambda: cc._crop_resample_plain(x, *t), 10, 2)
-                (fh, ch, _), (fw, cw, _) = t[0], t[1]
+                # both passes' launches; device_ms per call (two launches)
+                dt = _kernel_times(lambda: cc._crop_resample_cuda(x, *t), 10,
+                                   "resample_axis_kernel")
+                ms["device_ms"], ms["host_us"] = 2 * dt["device_ms"], dt["host_us"]
+                fh, ch, fw, cw = t[0].first, t[0].cnt, t[1].first, t[1].cnt
                 N, C, H, W = shape
                 # the tables' bytes this run's boxes need: first, count and
                 # the weights of the counted taps
@@ -2196,7 +2323,9 @@ def time_train_kernels(dev, card) -> dict:
                 out[(name, precision)] = (ms, bound)
                 _line("time_crop", card=card, kernel="crop_resample", case=name,
                       precision=precision, shape=list(shape), size=list(size),
-                      kernel_ms=ms["kernel"], plain_ms=ms["plain"], **bound,
+                      kernel_ms=ms["kernel"], plain_ms=ms["plain"],
+                      kernel_device_ms=ms["device_ms"], kernel_host_us=ms["host_us"],
+                      taps=[t[0].w.shape[-1], t[1].w.shape[-1]], **bound,
                       library_ms=None, library="no PyTorch call crops per-image boxes "
                       "with antialiasing")
             calls = {
@@ -2209,8 +2338,11 @@ def time_train_kernels(dev, card) -> dict:
             del x
             torch.cuda.empty_cache()
     b64, bound = out[("b64", "pil_int8")]
-    return {"ms": sum(b64["kernel"]) / 2, "plain_ms": sum(b64["plain"]) / 2,
-            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "library_ms": None}
+    return {"ms": b64["device_ms"], "device_ms": b64["device_ms"],
+            "call_ms": sum(b64["kernel"]) / 2, "host_us": b64["host_us"],
+            "split_device_ms": out[("b64", "split")][0]["device_ms"],
+            "plain_ms": sum(b64["plain"]) / 2, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": None}
 
 
 def time_sharded_kernels(dev, card) -> tuple[dict, dict]:
@@ -2438,6 +2570,7 @@ def main() -> None:
             shard_err = check_shard_tables_kernel(dev)
             fused_2d_err, fused_axis_err = check_fused_kernels(dev)
             tile_err, tile_fused_err, tile_pil_err = check_axis_tiles(dev)
+            u8_pil_err, u8_crop_err = check_u8_tiles(dev)
         finally:
             CASES_LOG.parent.mkdir(exist_ok=True)
             CASES_LOG.write_text("".join(c + "\n" for c in _cases))
@@ -2479,11 +2612,13 @@ def main() -> None:
     print(card, flush=True)  # again, near the end of a long output
     print(json.dumps({"kernels": [
         {"name": "pil_resample_2pass", "route": "cuda",
-         "source": "interpolate_antialiasing_tpu_torch/csrc/pil_resample.cu",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cuh",
+         "entry": "interpolate_antialiasing_tpu_torch/csrc/pil_resample.cu",
+         "weights": "interpolate_antialiasing_tpu_torch/csrc/ia_taps.cuh",
          "replaces": "interpolate_antialiasing_tpu/ops/pil_exact.py:504",
          "also_serves": "interpolate_antialiasing_tpu/ops/pil_exact.py:824",
-         "launches": pil_launches + c3_launches + gap_launches, "max_abs_err": pil_err,
-         **t_pil},
+         "launches": pil_launches + c3_launches + gap_launches,
+         "max_abs_err": max(pil_err, u8_pil_err), **t_pil},
         {"name": "resample2d", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cuh",
          "entry": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cu",
@@ -2503,10 +2638,12 @@ def main() -> None:
          "max_abs_err": max(err_axis, adj_axis, shard_err, tile_err), **t_axis,
          "shard_tables": t_shard},
         {"name": "crop_resample", "route": "cuda",
-         "source": "interpolate_antialiasing_tpu_torch/csrc/crop_resample.cu",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cuh",
+         "entry": "interpolate_antialiasing_tpu_torch/csrc/crop_resample.cu",
+         "weights": "interpolate_antialiasing_tpu_torch/csrc/ia_taps.cuh",
          "replaces": "interpolate_antialiasing_tpu/ops/crop_pallas.py:250, :280",
          "also_serves": "interpolate_antialiasing_tpu/ops/crop_pallas.py:303, :318",
-         "launches": crop_launches, "max_abs_err": crop_err, **t_crop},
+         "launches": crop_launches, "max_abs_err": max(crop_err, u8_crop_err), **t_crop},
         {"name": "pil_resample_axis", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cuh",
          "entry": "interpolate_antialiasing_tpu_torch/csrc/pil_resample_axis.cu",

@@ -2,88 +2,73 @@
 // x viewed as [N, R, n_in, inner] -> uint8 out [N, R, n_out, inner], each
 // output row o of image n reading its own taps:
 //
-//   out[n, r, o, i] = q( sum_{j < cnt[n, o]} w[n, o, j] * x[n, r, first[n, o] + j, i] )
+//   out[n, r, o, i] = q( sum_{j < T} w[n, o, j] * x[n, r, min(first[n, o] + j, n_in - 1), i] )
 //
 // Replaces interpolate_antialiasing_tpu/ops/crop_pallas.py::_kernel_crop_mid_dig
 // and ::_kernel_crop_last_dig (integer weights), and serves ::_kernel_crop_mid
 // and ::_kernel_crop_last (float weights, precision="split").  The host
-// (ops/crop_cuda.py) launches it twice: the H pass (inner = W, the image's
-// rows) into a uint8 intermediate, then the W pass (R = C * OH rows, inner =
-// 1) into the output.
+// (ops/crop_cuda.py) launches it twice: the H pass (R = C, inner = W, the
+// image's rows) into a uint8 intermediate, then the W pass (R = C * OH rows,
+// inner = 1) into the output.
 //
 // The TPU kernels contract a [K, 128] band per (image, 128-row tile) on the
 // matrix unit: K window pixels for every output, most of them at zero
 // weight, with int8 digit planes and pixels re-centred by -128 for its int8
-// unit.  Here each output runs a direct multiply-add over only its nonzero
-// range (the host compacts each band column to first / cnt / w), so the work
-// is ntaps, not K, per output; the digit split and the -128 bias cancel
-// exactly, so the int32 sum gives the TPU kernels' bytes:
+// unit.  Here each output runs a direct multiply-add over T taps from the
+// first nonzero one (the host compacts each band column to first / w,
+// T >= every row's nonzero count: crop_cuda._tap_bound), so the work is T,
+// not K, per output; the digit split and the -128 bias cancel exactly, so
+// the int32 sum gives the TPU kernels' bytes:
 //
-//   integer (pb >= 0): K int32 weights, S = sum K * x exact in int32 (the
+//   integer (pb >= 0): int32 weights, S = sum w * x exact in int32 (the
 //     host bounds 255 * row sum + 2^(pb-1) below 2^31 before the launch),
-//     q(S) = (S + 2^(pb-1)) >> pb;
+//     q(S) = (S + 2^(pb-1)) >> pb: PilTaps' sum from the bias;
 //   float (pb < 0): float32 weights, each product and sum rounded in tap
 //     order (ia_dtypes.cuh::mac, bit for bit the plain version's),
-//     q(v) = floor(v + 0.5).
+//     q(v) = floor(v + 0.5): TableTaps' chain stored as uint8.
 //
 // Both clamp to [0, 255], a no-op where admission's clip-free bound holds.
+// Taps past a row's count weigh 0: the int32 sum is exact, and the float
+// chain adds +0 to a non-negative sum (admission keeps only non-negative
+// filters), so summing T taps equals the plain version's.
 //
-// Design: one thread per output element over the flat output index, so
-// neighbouring threads take neighbouring inner elements (a coalesced row of
-// the H pass) or, when inner == 1, neighbouring outputs whose windows
-// overlap in cache; the row's table entries are the same for a whole warp
-// in the H pass.  Nothing is staged in shared memory: a window of any size
-// runs.  A grid-stride loop with 64-bit indices covers any element count.
+// Design: each pass is kernel B (resample_axis.cuh) with one table per
+// image (TableTaps / PilTaps image(n)), in its own instantiation (C = true)
+// compiled here: a block stages its window of input rows and its outputs'
+// weights in shared memory and computes from there; its planes lie in one
+// image (tiles along N * R are cut at each image's R planes).  A tile's
+// window starts at its outputs' least first tap, which depends on the
+// boxes: the block stages its first taps and weights, one warp reduces
+// them, then it stages the window, sized on the host from the static
+// geometry (crop_cuda._crop_windows: the tile's outputs' centres at the
+// bound's scale, both supports and T).  A box wider than max_box_frac
+// renormalises over its truncated window and may need more rows: such a
+// tile reads its taps from device memory instead of staging them.  Small
+// passes run kernel B's unstaged body, as the plan decides for kernel B.
 //
-// Bounds: the H pass reads the image once from device memory (its windows
-// overlap by the tap count over the scale, through L2) and does ntaps
-// multiply-adds per intermediate element; at 4K -> 224 that is ~21 per
-// output and one byte loaded per multiply-add, so load issue, not bytes,
-// may bound this first version.
+// Bounds: at the train shape (u8 [64, 3, 438, 906] -> 224x224) the two
+// passes read the image (76 MB) and write the output (9.6 MB) once, 0.0258
+// ms at 3.35 TB/s; the 39 MB uint8 intermediate written and read again
+// makes the two launches' floor about 0.049 ms.  A few operations per byte:
+// device memory bounds it, so the design cuts bytes and instructions per
+// output (16-byte staged copies, weights read once per block).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "resample_axis.cuh"
 
-#include <type_traits>
-
-#include "ia_dtypes.cuh"
+using namespace ia;
+using namespace ia::rax;
 
 namespace {
 
-using namespace ia;
-
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 1LL << 22;
-
-template <typename Tw>
-__global__ void __launch_bounds__(kThreads)
-crop_pass_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
-                 long long R, int n_in, long long inner, int n_out,
-                 const int* __restrict__ first, const int* __restrict__ cnt,
-                 const Tw* __restrict__ w, int k, int pb, long long total) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-       idx < total; idx += stride) {
-    const long long i = idx % inner;
-    const long long rest = idx / inner;
-    const int o = (int)(rest % n_out);
-    const long long nr = rest / n_out;
-    const long long t = (nr / R) * n_out + o;  // the image's row table
-    const uint8_t* xp = x + (nr * n_in + first[t]) * inner + i;
-    const Tw* wk = w + t * k;
-    const int taps = cnt[t];
-    float v;
-    if constexpr (std::is_same_v<Tw, int>) {
-      int acc = 0;
-      for (int j = 0; j < taps; ++j) acc += wk[j] * (int)xp[j * inner];
-      v = (float)((acc + (1 << (pb - 1))) >> pb);
-    } else {
-      float acc = 0.0f;
-      for (int j = 0; j < taps; ++j) acc = mac(acc, wk[j], (float)xp[j * inner]);
-      v = floorf(acc + 0.5f);
-    }
-    out[idx] = (uint8_t)fminf(fmaxf(v, 0.0f), 255.0f);
+// The crop instantiation (resample_axis.cuh: C = true) of the pass's tap
+// bucket.
+template <typename Taps>
+int dispatch_crop(const Args<Taps>& a, int vec) {
+  switch (tap_bucket(a.taps.ntaps)) {
+    case 8: return launch_crop_nt<Taps, 8>(a, vec);
+    case 16: return launch_crop_nt<Taps, 16>(a, vec);
   }
+  return launch_crop_nt<Taps, 0>(a, vec);
 }
 
 }  // namespace
@@ -91,27 +76,30 @@ crop_pass_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
 extern "C" {
 
 // x[N, R, n_in, inner] -> out[N, R, n_out, inner] (uint8, device pointers)
-// on `stream`; first/cnt int32 [N, n_out], w [N, n_out, k]: int32 when
-// pb >= 0, float32 when pb < 0.  Returns the cudaError_t of the launch.
+// on `stream`; first int32 [N, n_out], w [N, n_out, T]: int32 when pb >= 0,
+// float32 when pb < 0.  The plan (tile_j, tile_o, tile_i, win, vec, smem)
+// is crop_cuda._crop_plan's (cuda_resize._plan_axis' tiles with the crop's
+// windows); each block finds its tile's first input row from the first
+// taps; tile_o = 0 (smem 0, vec 1) runs the unstaged body.  Returns the
+// cudaError_t of the launch (0 on success).
 int ia_crop_pass(const void* x, void* out, int N, long long R, int n_in,
-                 long long inner, int n_out, const void* first,
-                 const void* cnt, const void* w, int k, int pb,
-                 void* stream) {
-  const long long total = (long long)N * R * n_out * inner;
-  if (total < 1 || n_in < 1 || k < 1 || pb > 30) return (int)cudaErrorInvalidValue;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (pb >= 0) {
-    crop_pass_kernel<int><<<(unsigned)blocks, kThreads, 0, s>>>(
-        (const uint8_t*)x, (uint8_t*)out, R, n_in, inner, n_out,
-        (const int*)first, (const int*)cnt, (const int*)w, k, pb, total);
-  } else {
-    crop_pass_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(
-        (const uint8_t*)x, (uint8_t*)out, R, n_in, inner, n_out,
-        (const int*)first, (const int*)cnt, (const float*)w, k, pb, total);
+                 long long inner, int n_out, const void* first, const void* w,
+                 int T, int pb, int tile_j, int tile_o, int tile_i, int win,
+                 int vec, int smem, void* stream) {
+  if (N < 1 || R < 1 || pb > 30 || pb == 0) return (int)cudaErrorInvalidValue;
+  const long long outer = (long long)N * R;
+  if (pb > 0) {
+    Args<PilTaps> a{};
+    a.taps = PilTaps{(const int*)first, (const int*)w, T, pb, n_out};
+    const int err = make_args(a, x, out, kU8, outer, n_in, inner, n_out, nullptr, tile_j,
+                              tile_o, tile_i, win, vec, smem, stream, R, true);
+    return err != 0 ? err : dispatch_crop(a, vec);
   }
-  return (int)cudaGetLastError();
+  Args<TableTaps> a{};
+  a.taps = TableTaps{(const int*)first, (const float*)w, T, n_out};
+  const int err = make_args(a, x, out, kU8, outer, n_in, inner, n_out, nullptr, tile_j,
+                            tile_o, tile_i, win, vec, smem, stream, R, true);
+  return err != 0 ? err : dispatch_crop(a, vec);
 }
 
 }  // extern "C"

@@ -1,17 +1,22 @@
 // Where a resample kernel takes each output's weights from: float32 host
 // tables (TableTaps), the pass's closed form evaluated in the kernel
-// (SynthTaps), or Pillow's int32 fixed-point tables (PilTaps).  Kernel A
-// (resample2d.cuh) is templated on the first two, kernel B and
-// pil_resample_axis (resample_axis.cuh) on all three, so each keeps one
-// multiply-add loop for every source.  A block writes its tile's first taps
-// and weights into shared memory once, tap-major (stage(); kernel B copies
-// tables with stage_async(), 4-byte asynchronous copies), and reads them
-// from there; kernel B's unstaged body asks for one output's taps where it
-// uses them:
+// (SynthTaps), or Pillow's int32 fixed-point tables (PilTaps); and how it
+// sums them (Acc below: a float32 multiply-add chain, or Pillow's int32
+// sum).  Kernel A (resample2d.cuh: resample2d, its fused twin and the
+// Pillow two-pass kernel) and kernel B (resample_axis.cuh: resample_axis,
+// its fused twin, pil_resample_axis and the crop passes) are templated on
+// all three, so each keeps one multiply-add loop for every source.  A
+// block writes its tile's first taps and weights into shared memory once,
+// tap-major (stage(); kernel B copies tables with stage_async(), 4-byte
+// asynchronous copies), and reads them from there; kernel B's unstaged
+// body asks for one output's taps where it uses them:
 //
 //   const auto row = taps.row(o);
 //   for (int k = 0; k < taps.ntaps; ++k)
 //     acc = mac(acc, row(k), x[clamp(row.first + k, 0, in - 1)]);
+//
+// The table sources can hold one table per image (the windowed crop's
+// per-image boxes): `stride` outputs apart, image(n) selects image n's.
 //
 // SynthTaps replaces the weight-band synthesis of the JAX package's
 // _kernel_last_fused / _kernel_mid_fused and of the fused_spec branch of
@@ -125,46 +130,62 @@ __device__ __forceinline__ float synth_raw(const Synth& s, int pos, float center
 }
 
 // ---------------------------------------------------------------------------
-// The two weight sources
+// The weight sources
 // ---------------------------------------------------------------------------
 
-// Host tables: xmin int32 [out], w float32 row-major [out, ntaps].
+// Outputs [o0, o0 + n) of a table (xmin [out], w [out, ntaps]) into shared
+// memory for a tile of `tile` outputs, tap-major: ws[k * tile + t], fs[t];
+// slots t >= n repeat output o0 + n - 1's first tap with zero weight.
+// Every thread of the block calls it.
+template <typename W>
+__device__ __forceinline__ void stage_table(const int* xmin, const W* w, int ntaps, int o0,
+                                            int n, int tile, W* ws, int* fs) {
+  for (int t = threadIdx.x; t < tile; t += blockDim.x) fs[t] = xmin[o0 + min(t, n - 1)];
+  for (int i = threadIdx.x; i < ntaps * tile; i += blockDim.x) {
+    const int k = i / tile, t = i - k * tile;
+    ws[i] = t < n ? w[(long long)(o0 + t) * ntaps + k] : W(0);
+  }
+}
+
+// As stage_table for outputs [o0, o0 + n) only, by 4-byte asynchronous
+// copies in the caller's commit group (slots t >= n are left unwritten).
+template <typename W>
+__device__ __forceinline__ void stage_table_async(const int* xmin, const W* w, int ntaps,
+                                                  int o0, int n, int tile, W* ws, int* fs) {
+  for (int t = threadIdx.x; t < n; t += blockDim.x) cp_async4(fs + t, xmin + o0 + t);
+  for (int i = threadIdx.x; i < ntaps * n; i += blockDim.x) {
+    const int t = i / ntaps, k = i - t * ntaps;
+    cp_async4(ws + k * tile + t, w + (long long)o0 * ntaps + i);
+  }
+}
+
+// Host tables: xmin int32 [out], w float32 row-major [out, ntaps]; with
+// stride > 0, one such table per image, image n's at xmin + n * stride.
 struct TableTaps {
   const int* xmin;
   const float* w;
   int ntaps;
+  long long stride;
 
   struct Row {
     int first;
     const float* w;
     __device__ __forceinline__ float operator()(int k) const { return w[k]; }
   };
+  __device__ __forceinline__ TableTaps image(long long n) const {
+    return {xmin + n * stride, w + n * stride * ntaps, ntaps, stride};
+  }
   __device__ __forceinline__ int first(int o) const { return xmin[o]; }
   __device__ __forceinline__ Row row(int o) const {
     return {xmin[o], w + (long long)o * ntaps};
   }
-  // As stage() for outputs [o0, o0 + n) only, by 4-byte asynchronous
-  // copies in the caller's commit group (slots t >= n are left unwritten).
   __device__ __forceinline__ void stage_async(int o0, int n, int tile, float* ws,
                                               int* fs) const {
-    for (int t = threadIdx.x; t < n; t += blockDim.x) cp_async4(fs + t, xmin + o0 + t);
-    for (int i = threadIdx.x; i < ntaps * n; i += blockDim.x) {
-      const int t = i / ntaps, k = i - t * ntaps;
-      cp_async4(ws + k * tile + t, w + (long long)o0 * ntaps + i);
-    }
+    stage_table_async(xmin, w, ntaps, o0, n, tile, ws, fs);
   }
-  // Outputs [o0, o0 + n) of a tile of `tile` into shared memory, tap-major:
-  // ws[k * tile + t], fs[t]; slots t >= n repeat output o0 + n - 1's first
-  // tap with zero weight.  Every thread of the block calls it.
-  __device__ __forceinline__ void stage(int o0, int n, int tile, float* ws,
-                                        int* fs, float*) const {
-    for (int t = threadIdx.x; t < tile; t += blockDim.x) {
-      fs[t] = xmin[o0 + min(t, n - 1)];
-    }
-    for (int i = threadIdx.x; i < ntaps * tile; i += blockDim.x) {
-      const int k = i / tile, t = i - k * tile;
-      ws[i] = t < n ? w[(long long)(o0 + t) * ntaps + k] : 0.0f;
-    }
+  __device__ __forceinline__ void stage(int o0, int n, int tile, float* ws, int* fs,
+                                        float*) const {
+    stage_table(xmin, w, ntaps, o0, n, tile, ws, fs);
   }
 };
 
@@ -172,6 +193,8 @@ struct TableTaps {
 struct SynthTaps {
   Synth s;
   int ntaps;
+
+  __device__ __forceinline__ SynthTaps image(long long) const { return *this; }
 
   struct Row {
     Synth s;
@@ -220,30 +243,102 @@ struct SynthTaps {
 };
 
 // Pillow's 8bpc fixed-point tables (pil_exact.py::_int_tables): xmin int32
-// [out], wb int32 row-major [out, ntaps], pb precision bits.  The int32
-// accumulation (bias, products, shift and clip) is resample_axis.cuh's.
+// [out], wb int32 row-major [out, ntaps], pb precision bits; per image as
+// TableTaps.  Also the windowed crop's integer tables (crop_cuda.py), whose
+// (S + 2^(pb-1)) >> pb is this sum from the bias.
 struct PilTaps {
   const int* xmin;
   const int* wb;
   int ntaps;
   int pb;
+  long long stride;
 
   struct Row {
     int first;
     const int* w;
     __device__ __forceinline__ int operator()(int k) const { return w[k]; }
   };
+  __device__ __forceinline__ PilTaps image(long long n) const {
+    return {xmin + n * stride, wb + n * stride * ntaps, ntaps, pb, stride};
+  }
   __device__ __forceinline__ Row row(int o) const {
     return {xmin[o], wb + (long long)o * ntaps};
   }
-  // As TableTaps::stage_async, int32 weights.
   __device__ __forceinline__ void stage_async(int o0, int n, int tile, int* ws,
                                               int* fs) const {
-    for (int t = threadIdx.x; t < n; t += blockDim.x) cp_async4(fs + t, xmin + o0 + t);
-    for (int i = threadIdx.x; i < ntaps * n; i += blockDim.x) {
-      const int t = i / ntaps, k = i - t * ntaps;
-      cp_async4(ws + k * tile + t, wb + (long long)o0 * ntaps + i);
-    }
+    stage_table_async(xmin, wb, ntaps, o0, n, tile, ws, fs);
+  }
+  __device__ __forceinline__ void stage(int o0, int n, int tile, int* ws, int* fs,
+                                        float*) const {
+    stage_table(xmin, wb, ntaps, o0, n, tile, ws, fs);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Accumulation: a float32 multiply-add chain, or Pillow's int32 sum
+// ---------------------------------------------------------------------------
+
+// The float sources: each tap mac() in tap order from 0, stored as
+// ia_dtypes.cuh stores.  W: a weight; A: the sum; X: an element as kernel
+// A loads it (take(), widened once; add() sums it); I: kernel A's W-pass
+// result in shared memory (float32, put on the uint8 lattice by mid()
+// where uint8 -> uint8 asks for it).
+template <typename Taps>
+struct Acc {
+  using W = float;
+  using A = float;
+  using X = float;
+  using I = float;
+  __device__ __forceinline__ static A init(const Taps&) { return 0.0f; }
+  template <typename T>
+  __device__ __forceinline__ static X take(const T* p) {
+    return load_f32(p);
+  }
+  __device__ __forceinline__ static A add(A acc, W w, X x) { return mac(acc, w, x); }
+  template <typename T>
+  __device__ __forceinline__ static A step(A acc, W w, T v) {
+    return mac(acc, w, load_f32(&v));
+  }
+  __device__ __forceinline__ static A step_byte(A acc, W w, unsigned b) {
+    return mac(acc, w, (float)b);
+  }
+  template <typename T>
+  __device__ __forceinline__ static T put(A acc, const Taps&) {
+    T v;
+    store_f32(&v, acc);
+    return v;
+  }
+  __device__ __forceinline__ static I mid(A acc, const Taps&, bool quant) {
+    return quant ? quant_u8(acc) : acc;
+  }
+};
+
+// Pillow's: acc = 2^(pb-1) + sum_k Wb[o, k] * x (exact in int32: the hosts
+// bound it), then clip8(acc >> pb); its W-pass result is that byte.
+template <>
+struct Acc<PilTaps> {
+  using W = int;
+  using A = int;
+  using X = int;
+  using I = uint8_t;
+  __device__ __forceinline__ static A init(const PilTaps& t) {
+    return 1 << (t.pb - 1);
+  }
+  __device__ __forceinline__ static X take(const uint8_t* p) { return *p; }
+  __device__ __forceinline__ static A add(A acc, W w, X x) { return acc + w * x; }
+  __device__ __forceinline__ static A step(A acc, W w, uint8_t v) {
+    return acc + w * (int)v;
+  }
+  __device__ __forceinline__ static A step_byte(A acc, W w, unsigned b) {
+    return acc + w * (int)b;
+  }
+  // signed shift: bicubic / lanczos sums can be negative
+  template <typename T>
+  __device__ __forceinline__ static T put(A acc, const PilTaps& t) {
+    return (T)clampi(acc >> t.pb, 0, 255);
+  }
+  __device__ __forceinline__ static I mid(A acc, const PilTaps& t, bool) {
+    return put<uint8_t>(acc, t);
   }
 };
 

@@ -2,26 +2,26 @@
 // Pillow's int32 tables (PilTaps), with its instantiations: one Pillow 8bpc
 // fixed-point pass over one axis, uint8 x[outer, n_in, inner] -> uint8
 // out[outer, n_out, inner], the sharded byte-exact route's shard-local H
-// and W passes.  The design, the TPU kernel it replaces
-// (pil_exact.py::_kernel_mid_digit) and its bounds are in
-// resample_axis.cuh.
+// and W passes, and the Pillow two-pass kernel's two-pass route where no
+// kernel A tile fits.  The crop passes' integer variant (crop_resample.cu)
+// runs the same instantiations.  The design, the TPU kernel it replaces
+// (pil_exact.py::_kernel_mid_digit) and its bounds are in resample_axis.cuh.
 
+#define IA_RAX_PIL_INSTANTIATE
 #include "resample_axis.cuh"
 
-namespace {
+namespace ia {
+namespace rax {
+
+template int launch_pil_nt<8>(const Args<PilTaps>&, int);
+template int launch_pil_nt<16>(const Args<PilTaps>&, int);
+template int launch_pil_nt<0>(const Args<PilTaps>&, int);
+
+}  // namespace rax
+}  // namespace ia
 
 using namespace ia;
 using namespace ia::rax;
-
-int dispatch_bucket(const Args<PilTaps>& a, int vec) {
-  switch (tap_bucket(a.taps.ntaps)) {
-    case 8: return launch_pil_nt<8>(a, vec);
-    case 16: return launch_pil_nt<16>(a, vec);
-  }
-  return launch_pil_nt<0>(a, vec);
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -38,7 +38,7 @@ int ia_pil_resample_axis(const void* x, void* out, long long outer, int n_in,
                          int smem, void* stream) {
   if (pb < 1 || pb > 30) return (int)cudaErrorInvalidValue;
   Args<PilTaps> a{};
-  a.taps = PilTaps{(const int*)xmin, (const int*)wb, ntaps, pb};
+  a.taps = PilTaps{(const int*)xmin, (const int*)wb, ntaps, pb, 0};
   const int err = make_args(a, x, out, kU8, outer, n_in, inner, n_out, win0,
                             tile_j, tile_o, tile_i, win, vec, smem, stream);
   return err != 0 ? err : dispatch_bucket(a, vec);
@@ -49,7 +49,7 @@ int ia_pil_resample_axis(const void* x, void* out, long long outer, int n_in,
 int ia_pil_resample_axis_occupancy(int ntaps, int vec, int smem, int* blocks) {
   if (ntaps < 1 || smem < 0 || smem + 64 > kSmemLimit) return (int)cudaErrorInvalidValue;
   Args<PilTaps> a{};
-  a.taps = PilTaps{nullptr, nullptr, ntaps, 22};
+  a.taps = PilTaps{nullptr, nullptr, ntaps, 22, 0};
   a.smem = smem;
   a.occupancy = blocks;
   return dispatch_bucket(a, vec);

@@ -1,10 +1,20 @@
-// Kernel A: the float two-pass separable resample of [B, H, W] planes (W
-// pass, then H pass), uint8 / float32 / bfloat16 in and out, float32
-// accumulation.  resample2d.cu instantiates it over host tables
-// (ia_resample2d), resample2d_fused.cu over weights synthesised in the
-// kernel (ia_resample2d_fused); resample2d_tc{16,32,64,128}.cu and
-// resample2d_fused_tc{16,32,64,128}.cu compile its instantiations, one
-// source per column tile and weight source.
+// Kernel A: the two-pass separable resample of [B, H, W] planes (W pass,
+// then H pass), templated on the weight source and its accumulation (Acc,
+// ia_taps.cuh):
+//
+//   * float (TableTaps, SynthTaps): uint8 / float32 / bfloat16 in and out,
+//     float32 accumulation.  resample2d.cu holds the entry point over host
+//     tables (ia_resample2d), resample2d_fused.cu over weights synthesised
+//     in the kernel (ia_resample2d_fused); resample2d_tc{16,32,64,128}.cu
+//     and resample2d_fused_tc{16,32,64,128}.cu compile its instantiations,
+//     one source per column tile and weight source;
+//   * Pillow (PilTaps): uint8 in and out, Pillow's 8bpc int32 sums and a
+//     uint8 intermediate, byte-identical to PIL.Image.resize (the Pillow
+//     two-pass kernel; entry pil_resample.cu, instantiations
+//     pil_resample_tc{16,32,64,128}.cu; see there for the TPU kernels it
+//     replaces).
+//
+// The float route:
 //
 // Replaces interpolate_antialiasing_tpu/ops/pallas_resize.py::_kernel_2pass
 // (wrapper resize2d_onekernel, and its adjoint resize2d_onekernel_transpose
@@ -23,8 +33,8 @@
 // (the replicate border folds its weights onto the edge tap on the host and
 // relies on the same clamp).  For uint8 -> uint8 the W pass result is put on
 // the uint8 lattice (floor(v + 0.5), clamped) before the H pass, as Pillow
-// and the JAX package's _quant_u8grid do.  The intermediate stays float32 in
-// shared memory for every dtype.
+// and the JAX package's _quant_u8grid do.  The float intermediate stays
+// float32 in shared memory for every dtype; Pillow's is its clip8 byte.
 //
 // Design.  One block of 256 threads per output tile (plane, tile_r output
 // rows, TC output columns), all on gridDim.x; TC (16, 32, 64 or 128) is a
@@ -49,8 +59,8 @@
 //      anywhere) and ends rounded up, so the head and tail are copied whole
 //      and skipped on read.  With two stages the copy of chunk i + 1
 //      overlaps the W pass of chunk i, and shared memory does not grow with
-//      the downscale factor (only the float32 intermediate [rows][TC]
-//      does); where the whole window fits one chunk, as the plan prefers
+//      the downscale factor (only the intermediate [rows][TC] does); where
+//      the whole window fits one chunk, as the plan prefers
 //      (each chunk is a round trip the block waits for), the ring has one
 //      stage and other resident blocks cover the wait;
 //   4. runs the W pass from the staged rows: a thread keeps one column and
@@ -62,7 +72,9 @@
 //      predicates nothing; the edge outputs clamp each tap, unrolled for up
 //      to 8 or 16 taps (NT, a template parameter: the bucket of the larger
 //      ntaps, which also bounds the registers); beyond 16, a loop;
-//   5. runs the H pass from the intermediate to the output the same way.
+//   5. runs the H pass from the intermediate to the output the same way
+//      (Pillow's: four adjacent columns per thread, one 32-bit load of its
+//      byte intermediate per tap, pil_h4).
 //
 // Bounds.  BASELINE config 5 (bf16 [64, 3, 2160, 3840] -> 1080x1920) must
 // move 3.19 GB in and 0.80 GB out, 1.19 ms at the H100's 3.35 TB/s, and
@@ -83,6 +95,7 @@
 #include <stdint.h>
 
 #include <climits>
+#include <type_traits>
 
 #include "ia_dtypes.cuh"
 #include "ia_taps.cuh"
@@ -111,17 +124,20 @@ struct Layout {
   int ring, inter, ww, fw, tw, wh, fh, th, total;
 };
 
+// itemsize: bytes of an input element; inter_size: of an intermediate one
+// (Acc<Taps>::I: 4, or 1 for Pillow's bytes).
 __host__ __device__ __forceinline__ Layout layout(int tile_r, int tile_c,
                                                   int rows_cap, int cols_cap,
                                                   int chunk, int ntaps_w,
-                                                  int ntaps_h, int itemsize) {
+                                                  int ntaps_h, int itemsize,
+                                                  int inter_size) {
   Layout L;
   // a row's copy: up to 15 bytes of head, cols_cap elements, up to 15 of tail
   L.stride = align16(cols_cap * itemsize) + 32;
   int off = 0;
   // two stages, or one where a chunk holds the whole window
   L.ring = off;  off += (chunk < rows_cap ? 2 : 1) * chunk * L.stride;
-  L.inter = off; off += align16(rows_cap * tile_c * 4);
+  L.inter = off; off += align16(rows_cap * tile_c * inter_size);
   L.ww = off;    off += align16(ntaps_w * tile_c * 4);
   L.fw = off;    off += align16(tile_c * 4);
   L.tw = off;    off += align16(tile_c * 4);
@@ -157,41 +173,39 @@ __device__ __forceinline__ void stage_rows(const char* plane, int W, int r, int 
 }
 
 // One W-pass output from a staged row: taps first + k, k < n, of the row's
-// staged span from c_lo.  NT > 0: taps unrolled (n <= NT), weights `wv` in
-// registers, every load before the multiply-add chain; an output whose
-// window lies inside the row (`inner`, most of them) loads at constant
-// offsets, the others clamp each tap.  NT = 0: a loop over any n, weights
-// from shared memory (`wcol[k * TC]`).
-template <int NT, int TC, typename Tin>
-__device__ __forceinline__ float w_out(const Tin* srow, int first, int c_lo,
-                                       int W, int n, bool inner,
-                                       const float (&wv)[NT > 0 ? NT : 1],
-                                       const float* wcol) {
+// staged span from c_lo, summed by P (Acc<Taps>) from `init`.  NT > 0: taps
+// unrolled (n <= NT), weights `wv` in registers, every load before the
+// multiply-add chain; an output whose window lies inside the row (`inner`,
+// most of them) loads at constant offsets, the others clamp each tap.
+// NT = 0: a loop over any n, weights from shared memory (`wcol[k * TC]`).
+template <int NT, int TC, typename P, typename Tin, typename Wt>
+__device__ __forceinline__ typename P::A w_out(const Tin* srow, int first, int c_lo,
+                                               int W, int n, bool inner,
+                                               const Wt (&wv)[NT > 0 ? NT : 1],
+                                               const Wt* wcol, typename P::A init) {
+  typename P::A acc = init;
   if (NT == 0) {
-    float acc = 0.0f;
     for (int k = 0; k < n; ++k) {
-      acc = mac(acc, wcol[k * TC],
-                load_f32(srow + clampi(first + k, 0, W - 1) - c_lo));
+      acc = P::add(acc, wcol[k * TC], P::take(srow + clampi(first + k, 0, W - 1) - c_lo));
     }
     return acc;
   }
-  float xv[NT > 0 ? NT : 1];
+  typename P::X xv[NT > 0 ? NT : 1];
   if (inner) {
     const Tin* q = srow + (first - c_lo);
 #pragma unroll
     for (int k = 0; k < NT; ++k) {
-      if (k < n) xv[k] = load_f32(q + k);
+      if (k < n) xv[k] = P::take(q + k);
     }
   } else {
 #pragma unroll
     for (int k = 0; k < NT; ++k) {
-      if (k < n) xv[k] = load_f32(srow + clampi(first + k, 0, W - 1) - c_lo);
+      if (k < n) xv[k] = P::take(srow + clampi(first + k, 0, W - 1) - c_lo);
     }
   }
-  float acc = 0.0f;
 #pragma unroll
   for (int k = 0; k < NT; ++k) {
-    if (k < n) acc = mac(acc, wv[k], xv[k]);
+    if (k < n) acc = P::add(acc, wv[k], xv[k]);
   }
   return acc;
 }
@@ -199,67 +213,113 @@ __device__ __forceinline__ float w_out(const Tin* srow, int first, int c_lo,
 // One H-pass output (row i of the tile, column c) from the intermediate,
 // whose row 0 is input row r0; NT as for w_out, weights wh[k * tile_r + i]
 // (one value for the warp's row: a broadcast).
-template <int NT, int TC>
-__device__ __forceinline__ float h_out(const float* inter, const float* wh,
-                                       int tile_r, int i, int first, int n,
-                                       int H, int r0, int c) {
+template <int NT, int TC, typename P, typename I, typename Wt>
+__device__ __forceinline__ typename P::A h_out(const I* inter, const Wt* wh, int tile_r,
+                                               int i, int first, int n, int H, int r0,
+                                               int c, typename P::A init) {
+  typename P::A acc = init;
   if (NT == 0) {
-    float acc = 0.0f;
     for (int k = 0; k < n; ++k) {
-      acc = mac(acc, wh[k * tile_r + i],
-                inter[(clampi(first + k, 0, H - 1) - r0) * TC + c]);
+      acc = P::add(acc, wh[k * tile_r + i],
+                   P::take(inter + (clampi(first + k, 0, H - 1) - r0) * TC + c));
     }
     return acc;
   }
-  float xv[NT > 0 ? NT : 1], wv[NT > 0 ? NT : 1];
+  typename P::X xv[NT > 0 ? NT : 1];
+  Wt wv[NT > 0 ? NT : 1];
   if (first >= 0 && first + n <= H) {
-    const float* q = inter + (first - r0) * TC + c;
+    const I* q = inter + (first - r0) * TC + c;
 #pragma unroll
     for (int k = 0; k < NT; ++k) {
-      if (k < n) xv[k] = q[k * TC];
+      if (k < n) xv[k] = P::take(q + k * TC);
     }
   } else {
 #pragma unroll
     for (int k = 0; k < NT; ++k) {
-      if (k < n) xv[k] = inter[(clampi(first + k, 0, H - 1) - r0) * TC + c];
+      if (k < n) xv[k] = P::take(inter + (clampi(first + k, 0, H - 1) - r0) * TC + c);
     }
   }
 #pragma unroll
   for (int k = 0; k < NT; ++k) {
     if (k < n) wv[k] = wh[k * tile_r + i];
   }
-  float acc = 0.0f;
 #pragma unroll
   for (int k = 0; k < NT; ++k) {
-    if (k < n) acc = mac(acc, wv[k], xv[k]);
+    if (k < n) acc = P::add(acc, wv[k], xv[k]);
   }
   return acc;
 }
 
 // Exactly N taps at constant offsets from q (W pass: a staged row; H pass:
 // the intermediate, stride XS = TC), weights w[k * ws]: every load before
-// the multiply-add chain in tap order, no tap predicated.
-template <int N, int XS, typename T>
-__device__ __forceinline__ float dot_exact(const T* q, const float* w, int ws) {
-  float xv[N], wv[N];
+// the chain in tap order, no tap predicated.
+template <int N, int XS, typename P, typename T, typename Wt>
+__device__ __forceinline__ typename P::A dot_exact(const T* q, const Wt* w, int ws,
+                                                   typename P::A init) {
+  typename P::X xv[N];
+  Wt wv[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    xv[k] = load_f32(q + k * XS);
+    xv[k] = P::take(q + k * XS);
     wv[k] = w[k * ws];
   }
-  float acc = 0.0f;
+  typename P::A acc = init;
 #pragma unroll
-  for (int k = 0; k < N; ++k) acc = mac(acc, wv[k], xv[k]);
+  for (int k = 0; k < N; ++k) acc = P::add(acc, wv[k], xv[k]);
   return acc;
 }
 
 // h_out for the rows at the image's top and bottom edges, out of line: one
 // copy rather than one per exact tap count.
-template <int NT, int TC>
-__device__ __noinline__ float h_edge(const float* inter, const float* wh,
-                                     int tile_r, int i, int first, int n, int H,
-                                     int r0, int c) {
-  return h_out<NT, TC>(inter, wh, tile_r, i, first, n, H, r0, c);
+template <int NT, int TC, typename P, typename I, typename Wt>
+__device__ __noinline__ typename P::A h_edge(const I* inter, const Wt* wh, int tile_r,
+                                             int i, int first, int n, int H, int r0,
+                                             int c, typename P::A init) {
+  return h_out<NT, TC, P>(inter, wh, tile_r, i, first, n, H, r0, c, init);
+}
+
+// ---------------------------------------------------------------------------
+// Pillow's H pass (PilTaps): four bytes per shared-memory load
+// ---------------------------------------------------------------------------
+
+// Pillow's H pass for four adjacent columns (cq..cq+3) of tile row i from
+// the uint8 intermediate: one 32-bit load per tap, its bytes summed in
+// four int32 chains.  N > 0: exactly N taps from row `first` (inside the
+// image); N == 0: n taps, each row clamped to the image.
+template <int N, int TC>
+__device__ __forceinline__ void pil_h4(const uint8_t* inter, const int* wh, int tile_r, int i,
+                                       int first, int n, int H, int r0, int cq,
+                                       int (&acc)[4]) {
+  if constexpr (N > 0) {
+    uint32_t xv[N];
+    int wv[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      xv[k] = *(const uint32_t*)(inter + (first - r0 + k) * TC + cq);
+      wv[k] = wh[k * tile_r + i];
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[v] += wv[k] * (int)((xv[k] >> (8 * v)) & 255u);
+    }
+  } else {
+    for (int k = 0; k < n; ++k) {
+      const uint32_t x =
+          *(const uint32_t*)(inter + (clampi(first + k, 0, H - 1) - r0) * TC + cq);
+      const int w = wh[k * tile_r + i];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[v] += w * (int)((x >> (8 * v)) & 255u);
+    }
+  }
+}
+
+// pil_h4's clamped edge rows, out of line
+template <int TC>
+__device__ __noinline__ void pil_h4_edge(const uint8_t* inter, const int* wh, int tile_r, int i,
+                                         int first, int n, int H, int r0, int cq,
+                                         int (&acc)[4]) {
+  pil_h4<0, TC>(inter, wh, tile_r, i, first, n, H, r0, cq, acc);
 }
 
 // TC output columns per block; NT: the tap bucket of both passes (8 or 16
@@ -268,16 +328,22 @@ template <typename Tin, typename Tout, typename Taps, int TC, int NT>
 __global__ void __launch_bounds__(kThreads, NT == 16 ? 3 : 4)
 resample2d_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
                   Taps taps_w, Taps taps_h, Plan2d p) {
+  using P = Acc<Taps>;
+  // Pillow's H pass reads its uint8 intermediate four columns per thread
+  // (pil_h4)
+  constexpr bool kPil = std::is_same_v<Taps, PilTaps>;
+  using Wt = typename P::W;
+  using I = typename P::I;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_win[4];  // r0, r1, c_lo, c_hi
   const Layout L = layout(p.tile_r, TC, p.rows_cap, p.cols_cap, p.chunk,
-                          p.ntaps_w, p.ntaps_h, (int)sizeof(Tin));
-  unsigned char* ring = smem + L.ring;      // [stages][chunk][stride] input rows
-  float* inter = (float*)(smem + L.inter);  // [rows_cap][TC] W-pass result
-  float* ww = (float*)(smem + L.ww);        // [ntaps_w][TC]
-  int* fw = (int*)(smem + L.fw);            // [TC] first W tap
-  float* wh = (float*)(smem + L.wh);        // [ntaps_h][tile_r]
-  int* fh = (int*)(smem + L.fh);            // [tile_r] first H tap
+                          p.ntaps_w, p.ntaps_h, (int)sizeof(Tin), (int)sizeof(I));
+  unsigned char* ring = smem + L.ring;  // [stages][chunk][stride] input rows
+  I* inter = (I*)(smem + L.inter);      // [rows_cap][TC] W-pass result
+  Wt* ww = (Wt*)(smem + L.ww);          // [ntaps_w][TC]
+  int* fw = (int*)(smem + L.fw);        // [TC] first W tap
+  Wt* wh = (Wt*)(smem + L.wh);          // [ntaps_h][tile_r]
+  int* fh = (int*)(smem + L.fh);        // [tile_r] first H tap
 
   const int blk = blockIdx.x;
   const int tx = blk % p.n_tx;
@@ -326,13 +392,14 @@ resample2d_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
   const int c = tid & (TC - 1);
   const int row0 = tid / TC;
   const int nw = p.ntaps_w, nh = p.ntaps_h;
-  float wv[NT > 0 ? NT : 1];
+  Wt wv[NT > 0 ? NT : 1];
 #pragma unroll
   for (int k = 0; k < NT; ++k) {
     if (k < nw) wv[k] = ww[k * TC + c];
   }
   const int first_w = fw[c];
   const bool inner_w = first_w >= 0 && first_w + nw <= p.W;
+  const typename P::A init_w = P::init(taps_w), init_h = P::init(taps_h);
 
   // 3-4. the row window through the ring, W pass per chunk, two rows per
   // step (independent chains)
@@ -365,16 +432,18 @@ resample2d_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
         const unsigned h = head0 + (unsigned)(cr0 + rr) * row_bytes;
         const Tin* s0 = (const Tin*)(st + rr * S + (h & 15));
         const Tin* s1 = (const Tin*)(st + rr1 * S + ((h + kRowStep * row_bytes) & 15));
-        float a0, a1 = 0.0f;
+        typename P::A a0, a1 = init_w;
         if constexpr (N > 0) {
-          a0 = dot_exact<N, 1>(s0 + (first_w - c_lo), wv, 1);
-          if (rr1 < nr) a1 = dot_exact<N, 1>(s1 + (first_w - c_lo), wv, 1);
+          a0 = dot_exact<N, 1, P>(s0 + (first_w - c_lo), wv, 1, init_w);
+          if (rr1 < nr) a1 = dot_exact<N, 1, P>(s1 + (first_w - c_lo), wv, 1, init_w);
         } else {
-          a0 = w_out<NT, TC>(s0, first_w, c_lo, p.W, nw, inner_w, wv, ww + c);
-          if (rr1 < nr) a1 = w_out<NT, TC>(s1, first_w, c_lo, p.W, nw, inner_w, wv, ww + c);
+          a0 = w_out<NT, TC, P>(s0, first_w, c_lo, p.W, nw, inner_w, wv, ww + c, init_w);
+          if (rr1 < nr) {
+            a1 = w_out<NT, TC, P>(s1, first_w, c_lo, p.W, nw, inner_w, wv, ww + c, init_w);
+          }
         }
-        inter[(cr0 + rr) * TC + c] = p.quant ? quant_u8(a0) : a0;
-        if (rr1 < nr) inter[(cr0 + rr1) * TC + c] = p.quant ? quant_u8(a1) : a1;
+        inter[(cr0 + rr) * TC + c] = P::mid(a0, taps_w, p.quant);
+        if (rr1 < nr) inter[(cr0 + rr1) * TC + c] = P::mid(a1, taps_w, p.quant);
       }
     };
     if (c < tw) {
@@ -388,6 +457,44 @@ resample2d_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
   }
 
   // 5. H pass: shared memory -> output rows [oy0, oy0 + th), two per step
+  // (Pillow's: four columns per thread, a row per step)
+  if constexpr (kPil) {
+    constexpr int kQ = TC / 4;  // threads per row
+    const int cq = (tid % kQ) * 4;
+    if (cq >= tw) return;
+    uint8_t* ob = (uint8_t*)out + (long long)b * p.OH * p.OW + ox0 + cq;
+    const int nv = min(4, tw - cq);
+    const bool whole = nv == 4 && (p.OW & 3) == 0 && ((uintptr_t)out & 3) == 0;
+    auto h_rows4 = [&](auto taps) {
+      constexpr int N = decltype(taps)::value;
+      for (int i = tid / kQ; i < th; i += kThreads / kQ) {
+        const int f = fh[i];
+        int a[4] = {init_h, init_h, init_h, init_h};
+        if (N > 0 && f >= 0 && f + N <= p.H) {
+          pil_h4<N, TC>((const uint8_t*)inter, (const int*)wh, p.tile_r, i, f, N, p.H, r0, cq, a);
+        } else {
+          pil_h4_edge<TC>((const uint8_t*)inter, (const int*)wh, p.tile_r, i, f, nh, p.H, r0,
+                          cq, a);
+        }
+        uint8_t v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = P::template put<uint8_t>(a[u], taps_h);
+        uint8_t* o = ob + (long long)(oy0 + i) * p.OW;
+        if (whole) {
+          *(uint32_t*)o = (uint32_t)v[0] | ((uint32_t)v[1] << 8) | ((uint32_t)v[2] << 16) |
+                          ((uint32_t)v[3] << 24);
+        } else {
+          for (int u = 0; u < nv; ++u) o[u] = v[u];
+        }
+      }
+    };
+    if (NT > 0) {
+      with_taps<NT == 16 ? 9 : 1, NT>(nh, h_rows4);
+    } else {
+      h_rows4(Int<0>{});
+    }
+    return;
+  }
   if (c >= tw) return;
   Tout* ob = out + (long long)b * p.OH * p.OW + ox0 + c;
   auto h_rows = [&](auto taps) {
@@ -398,18 +505,18 @@ resample2d_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
       const int f = fh[i];
       if constexpr (N > 0) {
         if (f >= 0 && f + N <= p.H) {
-          return dot_exact<N, TC>(inter + (f - r0) * TC + c, wh + i, p.tile_r);
+          return dot_exact<N, TC, P>(inter + (f - r0) * TC + c, wh + i, p.tile_r, init_h);
         }
-        return h_edge<NT, TC>(inter, wh, p.tile_r, i, f, nh, p.H, r0, c);
+        return h_edge<NT, TC, P>(inter, wh, p.tile_r, i, f, nh, p.H, r0, c, init_h);
       }
-      return h_out<NT, TC>(inter, wh, p.tile_r, i, f, nh, p.H, r0, c);
+      return h_out<NT, TC, P>(inter, wh, p.tile_r, i, f, nh, p.H, r0, c, init_h);
     };
     for (int i = row0; i < th; i += 2 * kRowStep) {
       const int i1 = i + kRowStep;
-      const float a0 = one(i);
-      const float a1 = i1 < th ? one(i1) : 0.0f;
-      store_f32(ob + (long long)(oy0 + i) * p.OW, a0);
-      if (i1 < th) store_f32(ob + (long long)(oy0 + i1) * p.OW, a1);
+      const typename P::A a0 = one(i);
+      const typename P::A a1 = i1 < th ? one(i1) : init_h;
+      ob[(long long)(oy0 + i) * p.OW] = P::template put<Tout>(a0, taps_h);
+      if (i1 < th) ob[(long long)(oy0 + i1) * p.OW] = P::template put<Tout>(a1, taps_h);
     }
   };
   if (NT > 0) {
@@ -452,10 +559,11 @@ int run_tc(const Args2d<Taps>& a) {
 }
 
 // The kernel for one TC, its tap bucket (NT) from the larger ntaps, over
-// the dtype pair.  resample2d_tc<TC>.cu (tables) and resample2d_fused_tc<TC>.cu
-// (synthesised weights) instantiate it, one source each, so nvcc compiles
-// them in parallel; the entry points (resample2d.cu, resample2d_fused.cu)
-// only declare it.
+// the dtype pair (Pillow's: uint8 -> uint8 only).  resample2d_tc<TC>.cu
+// (tables), resample2d_fused_tc<TC>.cu (synthesised weights) and
+// pil_resample_tc<TC>.cu (Pillow's tables) instantiate it, one source each,
+// so nvcc compiles them in parallel; the entry points (resample2d.cu,
+// resample2d_fused.cu, pil_resample.cu) only declare it.
 template <typename Taps, int TC>
 struct LaunchTc {
   template <typename Tin, typename Tout>
@@ -471,7 +579,12 @@ struct LaunchTc {
 
 template <typename Taps, int TC>
 int launch_tc(const Args2d<Taps>& a, int in_dt, int out_dt) {
-  return dispatch_dtypes<LaunchTc<Taps, TC>::template Op>(in_dt, out_dt, a);
+  if constexpr (std::is_same_v<Taps, PilTaps>) {
+    if (in_dt != kU8 || out_dt != kU8) return (int)cudaErrorInvalidValue;
+    return LaunchTc<Taps, TC>::template Op<uint8_t, uint8_t>::run(a);
+  } else {
+    return dispatch_dtypes<LaunchTc<Taps, TC>::template Op>(in_dt, out_dt, a);
+  }
 }
 
 #ifndef IA_R2D_TC  // the entry points: instantiated in resample2d*_tc<TC>.cu
@@ -481,6 +594,8 @@ IA_R2D_EXTERN(TableTaps, 16) IA_R2D_EXTERN(TableTaps, 32)
 IA_R2D_EXTERN(TableTaps, 64) IA_R2D_EXTERN(TableTaps, 128)
 IA_R2D_EXTERN(SynthTaps, 16) IA_R2D_EXTERN(SynthTaps, 32)
 IA_R2D_EXTERN(SynthTaps, 64) IA_R2D_EXTERN(SynthTaps, 128)
+IA_R2D_EXTERN(PilTaps, 16) IA_R2D_EXTERN(PilTaps, 32)
+IA_R2D_EXTERN(PilTaps, 64) IA_R2D_EXTERN(PilTaps, 128)
 #undef IA_R2D_EXTERN
 #endif
 
@@ -500,8 +615,8 @@ int launch_2d(const void* x, void* out, int in_dt, int out_dt, int B, int H,
   if (isz == 0 || tile_r < 1 || rows_cap < 1 || cols_cap < 1 || chunk < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const Layout L = layout(tile_r, tile_c, rows_cap, cols_cap, chunk,
-                          taps_w.ntaps, taps_h.ntaps, isz);
+  const Layout L = layout(tile_r, tile_c, rows_cap, cols_cap, chunk, taps_w.ntaps,
+                          taps_h.ntaps, isz, (int)sizeof(typename Acc<Taps>::I));
   if (L.total != smem || smem + 64 > kSmemLimit) return (int)cudaErrorInvalidValue;
   const Plan2d p{H, W, OH, OW, quant, tile_r, (OH + tile_r - 1) / tile_r,
                  (OW + tile_c - 1) / tile_c, rows_cap, cols_cap, chunk,

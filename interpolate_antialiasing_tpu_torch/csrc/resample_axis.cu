@@ -14,15 +14,6 @@ using namespace ia;
 using namespace ia::rax;
 
 template <typename Taps>
-int dispatch_bucket(const Args<Taps>& a, int in_dt, int out_dt, int vec) {
-  switch (tap_bucket(a.taps.ntaps)) {
-    case 8: return launch_nt<Taps, 8>(a, in_dt, out_dt, vec);
-    case 16: return launch_nt<Taps, 16>(a, in_dt, out_dt, vec);
-  }
-  return launch_nt<Taps, 0>(a, in_dt, out_dt, vec);
-}
-
-template <typename Taps>
 int launch(const Taps& taps, const void* x, void* out, int in_dt, int out_dt,
            long long outer, int n_in, long long inner, int n_out,
            const void* win0, int tile_j, int tile_o, int tile_i, int win, int vec,
@@ -52,7 +43,7 @@ int ia_resample_axis(const void* x, void* out, int in_dt, int out_dt,
                      const void* xmin, const void* w, int ntaps,
                      const void* win0, int tile_j, int tile_o, int tile_i,
                      int win, int vec, int smem, void* stream) {
-  const TableTaps taps{(const int*)xmin, (const float*)w, ntaps};
+  const TableTaps taps{(const int*)xmin, (const float*)w, ntaps, 0};
   return launch(taps, x, out, in_dt, out_dt, outer, n_in, inner, n_out, win0,
                 tile_j, tile_o, tile_i, win, vec, smem, stream);
 }
@@ -88,7 +79,7 @@ int ia_resample_axis_occupancy(int fused, int in_dt, int out_dt, int ntaps,
     return dispatch_bucket(a, in_dt, out_dt, vec);
   }
   Args<TableTaps> a{};
-  a.taps = TableTaps{nullptr, nullptr, ntaps};
+  a.taps = TableTaps{nullptr, nullptr, ntaps, 0};
   a.smem = smem;
   a.occupancy = blocks;
   return dispatch_bucket(a, in_dt, out_dt, vec);

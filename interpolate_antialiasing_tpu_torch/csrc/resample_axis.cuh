@@ -1,8 +1,8 @@
-// Kernel B and pil_resample_axis: one separable resample pass over one axis,
-// x viewed as [outer, n_in, inner] -> out [outer, n_out, inner].  inner == 1
-// is a pass over the last axis; NCHW and NHWC both run through the view,
-// with no moves.  The kernel is templated on the weight source (ia_taps.cuh)
-// and its accumulation (Acc below):
+// Kernel B, pil_resample_axis and the crop passes: one separable resample
+// pass over one axis, x viewed as [outer, n_in, inner] -> out [outer, n_out,
+// inner].  inner == 1 is a pass over the last axis; NCHW and NHWC both run
+// through the view, with no moves.  The kernel is templated on the weight
+// source and its accumulation (Acc, ia_taps.cuh):
 //
 //   * TableTaps / SynthTaps, float32: uint8, float32 or bfloat16 in and out,
 //
@@ -26,7 +26,13 @@
 //     interpolate_antialiasing_tpu/ops/pil_exact.py::_kernel_mid_digit
 //     (digit_pass_mid_dynamic), the sharded byte-exact route's H pass, and
 //     runs that route's W pass.  The host checks that the int32 sum cannot
-//     overflow.
+//     overflow;
+//   * either source with one table per image (crop_resample.cu, the
+//     windowed crop's two passes over per-image boxes): outer is images
+//     of per_img planes each, and a block's planes lie in one image
+//     (tiles along outer are cut at image edges), whose table it stages.
+//     The crop's own instantiation (C = true) finds each tile's window in
+//     the block, and a tile whose taps pass it reads device memory.
 //
 // Taps past a window carry zero weight, so the clamp never adds signal.
 //
@@ -38,7 +44,9 @@
 //
 //   1. reads its output tile's first input row from the host's table
 //      (win0, cuda_resize._win0) and stages the plan's window of `win` rows
-//      from there, so no copy waits for the first taps;
+//      from there, so no copy waits for the first taps (the crop's
+//      instantiation, whose first taps the boxes set on the device, stages
+//      its weights and first taps first and reduces them in one warp);
 //   2. stages its outputs' first taps and weights in shared memory,
 //      tap-major: host tables by 4-byte cp.async in the same round trip as
 //      the window (stage_async()); synthesised weights are evaluated once
@@ -115,50 +123,6 @@ constexpr long long kMaxDirectBlocks = 1LL << 22;
 // Commit groups a block stages its window in (cp_async_wait_n takes up to 3).
 constexpr int kGroups = 4;
 
-// ---------------------------------------------------------------------------
-// Accumulation: a float32 multiply-add chain, or Pillow's int32 sum
-// ---------------------------------------------------------------------------
-
-template <typename Taps>
-struct Acc {
-  using W = float;
-  using A = float;
-  __device__ __forceinline__ static A init(const Taps&) { return 0.0f; }
-  template <typename T>
-  __device__ __forceinline__ static A step(A acc, W w, T v) {
-    return mac(acc, w, load_f32(&v));
-  }
-  __device__ __forceinline__ static A step_byte(A acc, W w, unsigned b) {
-    return mac(acc, w, (float)b);
-  }
-  template <typename T>
-  __device__ __forceinline__ static T put(A acc, const Taps&) {
-    T v;
-    store_f32(&v, acc);
-    return v;
-  }
-};
-
-template <>
-struct Acc<PilTaps> {
-  using W = int;
-  using A = int;
-  __device__ __forceinline__ static A init(const PilTaps& t) {
-    return 1 << (t.pb - 1);
-  }
-  __device__ __forceinline__ static A step(A acc, W w, uint8_t v) {
-    return acc + w * (int)v;
-  }
-  __device__ __forceinline__ static A step_byte(A acc, W w, unsigned b) {
-    return acc + w * (int)b;
-  }
-  // signed shift: bicubic / lanczos sums can be negative
-  template <typename T>
-  __device__ __forceinline__ static T put(A acc, const PilTaps& t) {
-    return (T)clampi(acc >> t.pb, 0, 255);
-  }
-};
-
 // Weight sources read from tables in device memory (staged by 4-byte
 // copies); SynthTaps evaluates its weights in the block.
 template <typename Taps>
@@ -169,12 +133,13 @@ constexpr bool kTables = !std::is_same_v<Taps, SynthTaps>;
 // ---------------------------------------------------------------------------
 
 struct PlanAxis {
-  const int* win0;  // [n_to] each output tile's first input row (device)
+  const int* win0;  // [n_to] each output tile's first input row (device; not the crop's)
   long long outer, inner;
+  long long per_img;  // planes (along outer) per image: outer, or a crop's C * rows
   int n_in, n_out, ntaps;
   int tile_j, tile_o, tile_i;  // tile_o == 0: the unstaged body
   int win;                     // widest input window of an output tile
-  int n_tj, n_to, n_ti;        // tiles along outer, n_out and inner
+  int n_tj, n_to, n_ti;        // tiles along an image's planes, n_out and inner
   int contig;                  // tile_i == inner
   int lanes;                   // G: lanes per output row
 };
@@ -325,7 +290,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const __nv_bfloat16 (&v
 // __global__, so that its few registers, and not the tiled body's 52-80,
 // set how many of its threads an SM holds (a gather through the cache
 // wants them all).
-template <typename Tin, typename Tout, typename Taps>
+template <typename Tin, typename Tout, typename Taps, bool C = false>
 __global__ void __launch_bounds__(kThreads)
 resample_axis_kernel_unstaged(const Tin* __restrict__ x, Tout* __restrict__ out,
                               Taps taps, PlanAxis p) {
@@ -339,18 +304,21 @@ resample_axis_kernel_unstaged(const Tin* __restrict__ x, Tout* __restrict__ out,
     const int o = (int)(jo % p.n_out);
     const long long j = jo / p.n_out;
     const Tin* xp = x + j * p.n_in * p.inner + i;
-    const auto row = taps.row(o);
-    typename P::A acc = P::init(taps);
+    Taps t = taps;
+    if constexpr (C) t = taps.image(j / p.per_img);
+    const auto row = t.row(o);
+    typename P::A acc = P::init(t);
     for (int k = 0; k < p.ntaps; ++k) {
       acc = P::step(acc, row(k), xp[clampi(row.first + k, 0, p.n_in - 1) * p.inner]);
     }
-    out[idx] = P::template put<Tout>(acc, taps);
+    out[idx] = P::template put<Tout>(acc, t);
   }
 }
 
 // NT: the tap bucket (8 or 16 unrolled, 0 for a loop); V: inner columns per
-// thread (4 only for uint8 input).
-template <typename Tin, typename Tout, typename Taps, int NT, int V>
+// thread (4 only for uint8 input); C: the crop passes' instantiation, whose
+// blocks find their windows and may read device memory instead.
+template <typename Tin, typename Tout, typename Taps, int NT, int V, bool C = false>
 __global__ void __launch_bounds__(kThreads, NT == 16 ? 3 : 4)
 resample_axis_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
                      Taps taps, PlanAxis p) {
@@ -369,9 +337,17 @@ resample_axis_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
   const int ti = blk % p.n_ti;
   blk /= p.n_ti;
   const int to = blk % p.n_to;
-  const int tj = blk / p.n_to;
-  const long long j0 = (long long)tj * p.tile_j;
-  const int nj = (int)min((long long)p.tile_j, p.outer - j0);
+  blk /= p.n_to;
+  // the crop's per-image tables: blocks along an image's planes, then images
+  int img = 0, tj = blk;
+  if constexpr (C) {
+    tj = blk % p.n_tj;
+    img = blk / p.n_tj;
+  }
+  const long long jt = (long long)tj * p.tile_j;  // first plane within the image
+  const long long j0 = img * p.per_img + jt;
+  const int nj = (int)min((long long)p.tile_j, p.per_img - jt);
+  const Taps tp = C ? taps.image(img) : taps;
   const int o0 = to * p.tile_o;
   const int no = min(p.tile_o, p.n_out - o0);
   const long long i0 = (long long)ti * p.tile_i;
@@ -379,7 +355,48 @@ resample_axis_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
 
   // 1. the tile's input window along the axis: from the host's first row
   // of each output tile, as wide as the plan's widest (clamped to the axis)
-  const int r0 = p.win0[to];
+  int r0;
+  if constexpr (C) {
+    // the crop's window starts at its outputs' least first tap, which the
+    // boxes set: the weights and first taps land first, one warp reduces
+    // them, and a tile whose taps pass `win` rows reads device memory
+    __shared__ int s_r0;
+    tp.stage_async(o0, no, p.tile_o, ws, fs);
+    cp_async_commit();
+    cp_async_wait_n(0);
+    __syncthreads();
+    if (tid < 32) {
+      int lo = INT_MAX, hi = INT_MIN;
+      for (int t = tid; t < no; t += 32) {
+        lo = min(lo, clampi(fs[t], 0, p.n_in - 1));
+        hi = max(hi, clampi(fs[t] + p.ntaps - 1, 0, p.n_in - 1));
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+      }
+      if (tid == 0) s_r0 = hi - lo < p.win ? lo : -1;
+    }
+    __syncthreads();
+    r0 = s_r0;
+    if (r0 < 0) {  // a tile whose taps pass the window: each output from device memory
+      const A init0 = P::init(taps);
+      for (int e = tid; e < nj * no * ni; e += kThreads) {
+        const int i = e % ni, t = (e / ni) % no, jj = e / (ni * no);
+        const Tin* xp = x + (j0 + jj) * p.n_in * p.inner + i0 + i;
+        A acc = init0;
+        for (int k = 0; k < p.ntaps; ++k) {
+          acc = P::step(acc, ws[k * p.tile_o + t],
+                        xp[clampi(fs[t] + k, 0, p.n_in - 1) * p.inner]);
+        }
+        out[((j0 + jj) * p.n_out + o0 + t) * p.inner + i0 + i] =
+            P::template put<Tout>(acc, taps);
+      }
+      return;
+    }
+  } else {
+    r0 = p.win0[to];
+  }
   const int rows = min(p.win, p.n_in - r0);
 
   // 2. where the window lands in shared memory, and how the threads cover
@@ -418,7 +435,7 @@ resample_axis_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
   }
   // 3. host tables' weights and first taps by 4-byte copies in the first
   // group, then the window's groups: one round trip for all of them
-  if constexpr (kTables<Taps>) taps.stage_async(o0, no, p.tile_o, ws, fs);
+  if constexpr (kTables<Taps> && !C) tp.stage_async(o0, no, p.tile_o, ws, fs);
   for (int g = 0; g < ng; ++g) {
     if (p.contig) {
       stage_part(g0, p.n_in * p.inner * isz, g * per, min(nj, (g + 1) * per), 0,
@@ -430,10 +447,12 @@ resample_axis_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
     cp_async_commit();
   }
   // synthesised weights: evaluated while the copies are in flight
-  if constexpr (!kTables<Taps>) taps.stage(o0, no, p.tile_o, ws, fs, (float*)(smem + L.tot));
+  if constexpr (!kTables<Taps>) tp.stage(o0, no, p.tile_o, ws, fs, (float*)(smem + L.tot));
 
   // 4. each group as it lands: rows over the slots, a body compiled for
   // the exact tap count (where the row's window lies inside the axis)
+  // the sums' constants are every image's (Pillow's pb): the kernel's
+  // parameter, not the image's copy
   const A init = P::init(taps);
   Tout* const obase = out + (j0 * p.n_out + o0) * p.inner + i0;
   auto body = [&](auto taps_n) {
@@ -541,14 +560,14 @@ struct Args {
   int* occupancy;  // non-null: report resident blocks per SM, launch nothing
 };
 
-template <typename Tin, typename Tout, typename Taps, int NT, int V>
+template <typename Tin, typename Tout, typename Taps, int NT, int V, bool C = false>
 int run(const Args<Taps>& a) {
   if (a.p.tile_o == 0 && a.occupancy == nullptr) {
-    resample_axis_kernel_unstaged<Tin, Tout, Taps><<<a.blocks, kThreads, 0, a.stream>>>(
+    resample_axis_kernel_unstaged<Tin, Tout, Taps, C><<<a.blocks, kThreads, 0, a.stream>>>(
         (const Tin*)a.x, (Tout*)a.out, a.taps, a.p);
     return (int)cudaGetLastError();
   }
-  auto* kernel = resample_axis_kernel<Tin, Tout, Taps, NT, V>;
+  auto* kernel = resample_axis_kernel<Tin, Tout, Taps, NT, V, C>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (err != cudaSuccess) return (int)err;
@@ -582,6 +601,7 @@ int launch_nt(const Args<Taps>& a, int in_dt, int out_dt, int vec) {
 }
 
 // The Pillow kernel for one tap bucket (uint8 -> uint8).
+// pil_resample_axis.cu instantiates it.
 template <int NT>
 int launch_pil_nt(const Args<PilTaps>& a, int vec) {
   return vec == 4 ? run<uint8_t, uint8_t, PilTaps, NT, 4>(a)
@@ -595,6 +615,19 @@ IA_RAX_EXTERN(TableTaps, 8) IA_RAX_EXTERN(TableTaps, 16) IA_RAX_EXTERN(TableTaps
 IA_RAX_EXTERN(SynthTaps, 8) IA_RAX_EXTERN(SynthTaps, 16) IA_RAX_EXTERN(SynthTaps, 0)
 #undef IA_RAX_EXTERN
 #endif
+// The crop passes' kernel for one weight source and tap bucket (uint8 ->
+// uint8; crop_resample.cu instantiates it).
+template <typename Taps, int NT>
+int launch_crop_nt(const Args<Taps>& a, int vec) {
+  return vec == 4 ? run<uint8_t, uint8_t, Taps, NT, 4, true>(a)
+                  : run<uint8_t, uint8_t, Taps, NT, 1, true>(a);
+}
+
+#ifndef IA_RAX_PIL_INSTANTIATE  // instantiated in pil_resample_axis.cu
+extern template int launch_pil_nt<8>(const Args<PilTaps>&, int);
+extern template int launch_pil_nt<16>(const Args<PilTaps>&, int);
+extern template int launch_pil_nt<0>(const Args<PilTaps>&, int);
+#endif
 
 __host__ inline int itemsize(int dt) {
   return dt == kU8 ? 1 : dt == kF32 ? 4 : dt == kBF16 ? 2 : 0;
@@ -604,22 +637,47 @@ __host__ inline int tap_bucket(int ntaps) {
   return ntaps <= 8 ? 8 : ntaps <= 16 ? 16 : 0;
 }
 
+// The instantiation of a pass's tap bucket: the float kernels over the
+// dtype pair, and the Pillow kernel (uint8 -> uint8).
+template <typename Taps>
+int dispatch_bucket(const Args<Taps>& a, int in_dt, int out_dt, int vec) {
+  switch (tap_bucket(a.taps.ntaps)) {
+    case 8: return launch_nt<Taps, 8>(a, in_dt, out_dt, vec);
+    case 16: return launch_nt<Taps, 16>(a, in_dt, out_dt, vec);
+  }
+  return launch_nt<Taps, 0>(a, in_dt, out_dt, vec);
+}
+
+inline int dispatch_bucket(const Args<PilTaps>& a, int vec) {
+  switch (tap_bucket(a.taps.ntaps)) {
+    case 8: return launch_pil_nt<8>(a, vec);
+    case 16: return launch_pil_nt<16>(a, vec);
+  }
+  return launch_pil_nt<0>(a, vec);
+}
+
 // Checks the plan against the kernel's layout (`smem` must equal it and fit
 // a block) and fills `a`; tile_o == 0 asks for the unstaged body (smem 0).
-// Returns 0 or a cudaError_t.
+// per_img: planes per image of per-image tables (outer, or 0 for outer:
+// one table); crop: the crop passes' instantiation (no win0: the block
+// finds its window).  Returns 0 or a cudaError_t.
 template <typename Taps>
 int make_args(Args<Taps>& a, const void* x, void* out, int in_dt,
               long long outer, int n_in, long long inner, int n_out,
               const void* win0, int tile_j, int tile_o, int tile_i, int win,
-              int vec, int smem, void* stream) {
+              int vec, int smem, void* stream, long long per_img = 0,
+              bool crop = false) {
   const int isz = itemsize(in_dt);
   const int ntaps = a.taps.ntaps;
-  if (isz == 0 || outer < 1 || n_in < 1 || inner < 1 || n_out < 1 || ntaps < 1) {
+  if (per_img == 0) per_img = outer;
+  if (isz == 0 || outer < 1 || n_in < 1 || inner < 1 || n_out < 1 || ntaps < 1 ||
+      per_img < 1 || outer % per_img != 0 || outer / per_img > INT_MAX) {
     return (int)cudaErrorInvalidValue;
   }
   PlanAxis p{};
   p.outer = outer;
   p.inner = inner;
+  p.per_img = per_img;
   p.n_in = n_in;
   p.n_out = n_out;
   p.ntaps = ntaps;
@@ -631,7 +689,7 @@ int make_args(Args<Taps>& a, const void* x, void* out, int in_dt,
     if (blocks > kMaxDirectBlocks) blocks = kMaxDirectBlocks;
   } else {
     if (tile_j < 1 || tile_o < 1 || tile_i < 1 || tile_i > inner || win < 1 ||
-        win0 == nullptr) {
+        (win0 == nullptr && !crop)) {
       return (int)cudaErrorInvalidValue;
     }
     p.contig = tile_i == inner;
@@ -651,7 +709,7 @@ int make_args(Args<Taps>& a, const void* x, void* out, int in_dt,
     p.tile_o = tile_o;
     p.tile_i = tile_i;
     p.win = win;
-    p.n_tj = (int)min((outer + tile_j - 1) / tile_j, (long long)INT_MAX);
+    p.n_tj = (int)min((per_img + tile_j - 1) / tile_j, (long long)INT_MAX);
     p.n_to = (n_out + tile_o - 1) / tile_o;
     p.n_ti = (int)((inner + tile_i - 1) / tile_i);
     // lanes per output row (cuda_resize._lanes): a row of at most 3
@@ -659,7 +717,7 @@ int make_args(Args<Taps>& a, const void* x, void* out, int in_dt,
     const int cols = (tile_i + vec - 1) / vec;
     p.lanes = 1;
     while (cols > 3 && p.lanes < 32 && p.lanes < cols) p.lanes *= 2;
-    blocks = (long long)p.n_tj * p.n_to * p.n_ti;
+    blocks = outer / per_img * p.n_tj * p.n_to * p.n_ti;
     if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   }
   a.x = x;

@@ -40,12 +40,13 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # name -> (restype, argtypes) of every C entry point the wrappers call
 _SIGNATURES = {
-    "ia_pil_resample_tile_w": (_I, []),
     # x, out, B, H, W, OH, OW, xmin_w, wb_w, ntaps_w, ymin_h, wb_h, ntaps_h,
-    # pb, tile_h, rows_cap, stream
+    # pb, tile_r, tile_c, rows_cap, cols_cap, chunk, smem, stream
     "ia_pil_resample_2pass": (
-        _I, [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-             _P]),
+        _I, [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I]
+        + [_I] * 6 + [_P]),
+    # ntaps_w, ntaps_h, tile_r, tile_c, rows_cap, cols_cap, chunk, smem, &blocks
+    "ia_pil_resample_2pass_occupancy": (_I, [_I] * 8 + [_P]),
     # x, out, in_dt, out_dt, B, H, W, OH, OW, xmin_w, w_w, ntaps_w, ymin_h,
     # w_h, ntaps_h, quant, tile_r, tile_c, rows_cap, cols_cap, chunk, smem,
     # stream
@@ -72,9 +73,10 @@ _SIGNATURES = {
     # stream
     "ia_resample_axis_fused": (
         _I, [_P, _P, _I, _I, _L, _I, _L, _I, _P, _P] + [_I] * 6 + [_P]),
-    # x, out, N, R, n_in, inner, n_out, first, cnt, w, k, pb, stream
+    # x, out, N, R, n_in, inner, n_out, first, w, T, pb, then the plan
+    # (tile_j, tile_o, tile_i, win, vec, smem), stream
     "ia_crop_pass": (
-        _I, [_P, _P, _I, _L, _I, _L, _I, _P, _P, _P, _I, _I, _P]),
+        _I, [_P, _P, _I, _L, _I, _L, _I, _P, _P, _I, _I] + [_I] * 6 + [_P]),
     # x, out, outer, n_in, inner, n_out, xmin, wb, ntaps, pb, win0, the plan,
     # stream
     "ia_pil_resample_axis": (

@@ -27,21 +27,35 @@ package's ``crop_and_resize_windowed``:
     floor(v + 0.5)`` clamped (row 11); the TPU's split-bf16 matrix products
     are a matrix-unit precision trick and are not reproduced.
 
-The kernel reads, per output row, its first input index, its tap count and
-its weights from that index on (:func:`_compact`: each band column's
-nonzero range, which is contiguous), so it does ``ntaps``, not ``K``,
-multiply-adds per output.  A CUDA tensor launches the kernel (both passes;
-``launches_crop`` counts each pass's launch); a CPU tensor runs the plain
+The kernel reads, per output row, its first input index and ``T`` weights
+from that index on (:func:`_compact`: each band column's nonzero range,
+which is contiguous, padded with zero weights to ``T``, a static bound on
+every row's count: :func:`_tap_bound`), so it does ``T``, not ``K``,
+multiply-adds per output.  Each pass is kernel B
+(``csrc/resample_axis.cuh``) with one table per image (entry
+``csrc/crop_resample.cu``): a block stages its window of input rows and
+its weights in shared memory; the window of a tile of outputs starts at
+their least first tap, which the block finds on the device, and is as wide
+as the static geometry bounds it (:func:`_crop_windows`; a tile of boxes
+wider than ``max_box_frac`` that needs more reads device memory instead);
+the tile is kernel B's plan over those windows (:func:`_crop_plan`).  A
+CUDA tensor launches the kernel (both passes; ``launches_crop`` counts
+each pass's launch); a CPU tensor runs the plain
 version (:func:`_crop_pass_plain`), which sums the same taps in the same
 order, so the two agree bit for bit.  Any other device raises.
 """
 
 from __future__ import annotations
 
+import math
+from functools import lru_cache
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from ..config import debug_enabled
+from . import cuda_resize as cr
 from .filters import CUBIC_NAMES, filter_is_nonnegative, get_filter
 
 __all__ = ["crop_windowed_supported", "crop_and_resize_windowed"]
@@ -102,6 +116,24 @@ def _geom(H, W, oh, ow, support, antialias, max_box_frac):
     W2 = _round_up(W, _LANE)
     k_w = _window_k(W2, ow, support, antialias, fw, _LANE, k_mult=_LANE)
     return _ALIGN_H, Hp, k_h, W2, k_w
+
+
+def _tap_bound(in_size: int, out_size: int, support: float, antialias: bool,
+               k: int) -> int:
+    """``T``: at least as many taps as any output row's nonzero range holds,
+    for every box whose span is at most the image's (a normalised span of
+    at most 1, wherever the box lies: the boxes of ``max_box_frac``, and
+    the larger ones that renormalise over a truncated window).
+
+    A row's nonzero taps ``p`` satisfy ``|p - c + 0.5| <= support *
+    max(scale, 1)`` with ``scale <= in_size / out_size``: at most
+    ``floor(2 support widen) + 1`` integers, one more for float32 rounding
+    of the positions; the one-hot fallback of a sub-pixel box has one; and
+    no row has more than the window's ``k``.  :func:`_compact` checks every
+    row against it (a box wider than the image can exceed it)."""
+    scale = in_size / out_size
+    widen = max(scale, 1.0) if antialias else 1.0
+    return min(k, int(2.0 * support * widen + 1e-3) + 2)
 
 
 def _digit_plan(in_size, out_size, support, antialias, frac) -> tuple[int, int]:
@@ -175,20 +207,41 @@ def _digitize_band(band: torch.Tensor, pb: int) -> torch.Tensor:
     return torch.where(scaled < 0, scaled - 0.5, scaled + 0.5).to(torch.int32)
 
 
-def _compact(starts: torch.Tensor, band: torch.Tensor, out_size: int):
+class _Table(NamedTuple):
+    """One pass's compact per-image tables (:func:`_compact`) and the
+    ``(tile_o, win)`` windows the kernel may stage for them
+    (:func:`_crop_windows`)."""
+
+    first: torch.Tensor  # [N, out] int32
+    cnt: torch.Tensor  # [N, out] int32
+    w: torch.Tensor  # [N, out, T] int32 or float32
+    wins: tuple
+
+
+def _compact(starts: torch.Tensor, band: torch.Tensor, out_size: int, T: int):
     """Per output row: ``(first [N, out] int32, cnt [N, out] int32, w [N,
-    out, K])``.  Row ``u`` reads inputs ``first + j`` for ``j < cnt`` with
-    weight ``w[.., j]`` (zero for ``j >= cnt``): its band column from the
-    first to the last nonzero weight.  Taps outside that range carry zero
-    weight, so skipping them changes no sum."""
+    out, T])``.  Row ``u`` reads inputs ``first + j`` for ``j < cnt`` with
+    weight ``w[.., j]`` (zero for ``cnt <= j < T``): its band column from
+    the first to the last nonzero weight, padded to ``T`` (the first ``T``
+    columns of the band column's range).  Taps outside that range carry
+    zero weight, so skipping them changes no sum.  Every row's count must
+    be at most ``T`` (:func:`_tap_bound`): on the CPU a larger one raises
+    ValueError, on the card a device-side assertion fails."""
     N, nt, k, L = band.shape
     rows = band.permute(0, 1, 3, 2).reshape(N, nt * L, k)[:, :out_size]
     nz = rows != 0
     any_nz = nz.any(dim=2)
-    ar = torch.arange(k, device=band.device)
+    ar = torch.arange(T, device=band.device)
     j0 = torch.where(any_nz, nz.int().argmax(dim=2), 0)
     j1 = torch.where(any_nz, k - nz.flip(2).int().argmax(dim=2), 0)
     cnt = (j1 - j0).to(torch.int32)
+    fits = (cnt <= T).all()
+    if cnt.device.type == "cpu":
+        if not bool(fits):
+            raise ValueError(f"crop_resample: a row has {int(cnt.max())} taps, more than "
+                             f"the bound T={T} of boxes no wider than the image")
+    else:
+        torch._assert_async(fits)
     idx = (j0[..., None] + ar).clamp_(max=k - 1)
     w = torch.where(ar < cnt[..., None], rows.gather(2, idx), 0)
     tile_start = starts.repeat_interleave(L, dim=1)[:, :out_size]
@@ -229,25 +282,69 @@ def _crop_pass_plain(x4: torch.Tensor, first, cnt, w, pb: int | None) -> torch.T
     return _store_u8(acc, pb)
 
 
-def _check_int32(name: str, k: int, pb: int | None) -> None:
+def _check_int32(name: str, T: int, pb: int | None) -> None:
     """The int32 accumulator's bound, on the host before a launch: rows of
     non-negative renormalised weights (sums within 2^-20 of 1 in float32)
-    sum to at most ``2^pb (1 + 2^-20) + k/2`` after rounding, so a row's
-    sum stays below 255 times that, plus ``2^(pb-1)``."""
+    sum to at most ``2^pb (1 + 2^-20) + T/2`` after rounding (at most ``T``
+    nonzero taps), so a row's sum stays below 255 times that, plus
+    ``2^(pb-1)``."""
     if pb is None:
         return
-    worst = 255 * ((1 << pb) + (1 << pb >> 20) + k // 2 + 1) + (1 << (pb - 1))
+    worst = 255 * ((1 << pb) + (1 << pb >> 20) + T // 2 + 1) + (1 << (pb - 1))
     if worst >= 1 << 31:
-        raise ValueError(f"crop {name} pass: a {k}-tap window at pb={pb} can "
+        raise ValueError(f"crop {name} pass: {T} taps at pb={pb} can "
                          f"overflow the int32 accumulator ({worst} >= 2^31)")
 
 
-def _launch(lib, x, out, first, cnt, w, N, R, n_in, inner, n_out, pb, dev):
+def _crop_windows(n_in: int, n_out: int, T: int, frac: float, support: float,
+                  antialias: bool) -> tuple[tuple[int, int], ...]:
+    """``(tile_o, win)``: the output tiles a crop pass may take and each
+    one's staged window, from the static geometry (the boxes are device
+    data).  The nonzero taps of output ``o`` lie within ``support *
+    max(scale, 1)`` of its centre, and the centres of ``tile_o``
+    consecutive outputs span ``(tile_o - 1) * scale``, ``scale <= frac *
+    n_in / n_out`` for a box within the bound; the window holds that span,
+    both supports, the ``T`` taps from the last first tap and two rows of
+    float32 rounding, clamped to the axis.  The window starts at the
+    tile's least first tap, which the kernel's block finds on the device.
+    A box wider than the bound (it renormalises over its truncated window)
+    may need more rows: the block then reads its taps from device memory
+    instead of staging them.  Tiles of every ``cuda_resize._AXIS_TILE_O``
+    size, and one of every output."""
+    scale = frac * n_in / n_out
+    sup = support * (max(scale, 1.0) if antialias else 1.0)
+    tiles = [t for t in cr._AXIS_TILE_O if t < n_out] + [n_out]
+    return tuple((t, min(n_in, math.ceil((t - 1) * scale + 2.0 * sup) + T + 2))
+                 for t in tiles)
+
+
+@lru_cache(maxsize=256)
+def _crop_plan(wins: tuple, n_in: int, n_out: int, T: int, N: int, R: int, inner: int,
+               n_sm: int, vec4: bool) -> cr.PlanAxis | None:
+    """A crop pass's plan over uint8 ``x[N, R, n_in, inner]``: kernel B's
+    (``cuda_resize._axis_tiles``, its model of a launch) over the windows
+    ``wins`` (:func:`_crop_windows`), tiles along ``N * R`` cut at each
+    image's ``R`` planes; None (kernel B's unstaged body) for a pass that
+    moves at most ``cuda_resize._AXIS_UNSTAGED_BYTES`` or where no tile
+    fits, as kernel B's plan decides."""
+    outer = N * R
+    if outer * inner * (n_in + n_out) <= cr._AXIS_UNSTAGED_BYTES:
+        return None
+    best = max(cr._axis_tiles(wins, n_out, T, n_in, outer, inner, 1, n_sm, vec4, per_img=R),
+               default=None)
+    return None if best is None else best[1]
+
+
+def _launch(lib, x, out, tab: _Table, N, R, n_in, inner, n_out, pb, dev):
     global launches_crop
+    T = tab.w.shape[-1]
+    plan = _crop_plan(tab.wins, n_in, n_out, T, N, R, inner, cr._n_sm(dev),
+                      x.data_ptr() % 4 == 0)
     err = lib.ia_crop_pass(
-        x.data_ptr(), out.data_ptr(), N, R, n_in, inner, n_out,
-        first.data_ptr(), cnt.data_ptr(), w.data_ptr(), w.shape[-1],
-        -1 if pb is None else pb, torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), out.data_ptr(), N, R, n_in, inner, n_out, tab.first.data_ptr(),
+        tab.w.data_ptr(), T, -1 if pb is None else pb,
+        *((0, 0, 0, 0, 1, 0) if plan is None else plan[:6]),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"crop_resample launch failed: cudaError {err}")
     launches_crop += 1
@@ -257,9 +354,10 @@ def _crop_resample_plain(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Ten
     """The kernel's plain version, on any device: both passes of
     :func:`_crop_pass_plain`."""
     N, C, H, W = x.shape
-    OH, OW = tab_h[0].shape[1], tab_w[0].shape[1]
-    inter = _crop_pass_plain(x, *tab_h, pb_h)
-    y = _crop_pass_plain(inter.reshape(N, C * OH, W, 1), *tab_w, pb_w)
+    OH, OW = tab_h.first.shape[1], tab_w.first.shape[1]
+    inter = _crop_pass_plain(x, tab_h.first, tab_h.cnt, tab_h.w, pb_h)
+    y = _crop_pass_plain(inter.reshape(N, C * OH, W, 1), tab_w.first, tab_w.cnt, tab_w.w,
+                         pb_w)
     return y.reshape(N, C, OH, OW)
 
 
@@ -267,9 +365,9 @@ def _crop_resample_cuda(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Tens
     from .. import native
 
     N, C, H, W = x.shape
-    OH, OW = tab_h[0].shape[1], tab_w[0].shape[1]
-    _check_int32("H", tab_h[2].shape[-1], pb_h)
-    _check_int32("W", tab_w[2].shape[-1], pb_w)
+    OH, OW = tab_h.first.shape[1], tab_w.first.shape[1]
+    _check_int32("H", tab_h.w.shape[-1], pb_h)
+    _check_int32("W", tab_w.w.shape[-1], pb_w)
     lib = native.build()
     dev = x.device
     x = x.contiguous()
@@ -278,14 +376,14 @@ def _crop_resample_cuda(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Tens
     if out.numel() == 0:
         return out
     with torch.cuda.device(dev):
-        _launch(lib, x, inter, *tab_h, N, C, H, W, OH, pb_h, dev)
-        _launch(lib, inter, out, *tab_w, N, C * OH, W, 1, OW, pb_w, dev)
+        _launch(lib, x, inter, tab_h, N, C, H, W, OH, pb_h, dev)
+        _launch(lib, inter, out, tab_w, N, C * OH, W, 1, OW, pb_w, dev)
     return out
 
 
 def _crop_resample(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Tensor:
     """Both passes: uint8 ``x[N, C, H, W]`` -> uint8 ``[N, C, OH, OW]`` over
-    the compact row tables ``tab_* = (first, cnt, w)`` (float32 ``w`` and
+    the compact row tables ``tab_*`` (:class:`_Table`: float32 ``w`` and
     ``pb None``, or int32 ``w`` and ``pb``): the kernel on a CUDA tensor,
     the plain version on a CPU tensor."""
     if x.device.type == "cuda":
@@ -317,9 +415,10 @@ def crop_windowed_supported(x, out_hw, method: str, antialias: bool,
     The JAX package also turns the route down when windowing saves less
     than 30% of the dense route's multiply-adds, and when its bands and
     blocks overflow a VMEM budget; both were measured for or sized by the
-    TPU and are dropped.  The kernel stages nothing in shared memory (each
-    thread reads its taps through the caches), so no window is too large
-    for it; :func:`_check_int32` bounds the accumulator before a launch."""
+    TPU and are dropped.  No window is too large for the kernel: where no
+    tile's window fits a block's shared memory, kernel B's unstaged body
+    reads the taps through the caches (:func:`_crop_plan`);
+    :func:`_check_int32` bounds the accumulator before a launch."""
     if x.ndim != 4 or x.dtype != torch.uint8:
         return False
     fh, fw = _fracs(max_box_frac)
@@ -356,7 +455,8 @@ def crop_and_resize_windowed(
 def _windowed_tables(x, boxes, out_hw, method, antialias, max_box_frac,
                      precision):
     """``(tab_h, tab_w, pb_h, pb_w)`` for :func:`_crop_resample`: the
-    per-image bands on ``x``'s device, compacted per output row."""
+    per-image bands on ``x``'s device, compacted per output row to the
+    static tap bound (:class:`_Table`)."""
     if precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {_PRECISIONS}, got {precision!r}")
     N, C, H, W = x.shape
@@ -383,5 +483,9 @@ def _windowed_tables(x, boxes, out_hw, method, antialias, max_box_frac,
         band_h, band_w = _digitize_band(band_h, pb_h), _digitize_band(band_w, pb_w)
     else:
         pb_h = pb_w = None
-    return (_compact(starts_h, band_h, oh), _compact(starts_w, band_w, ow),
-            pb_h, pb_w)
+    T_h = _tap_bound(H, oh, support, antialias, k_h)
+    T_w = _tap_bound(W, ow, support, antialias, k_w)
+    return (_Table(*_compact(starts_h, band_h, oh, T_h),
+                   _crop_windows(H, oh, T_h, fh, support, antialias)),
+            _Table(*_compact(starts_w, band_w, ow, T_w),
+                   _crop_windows(W, ow, T_w, fw, support, antialias)), pb_h, pb_w)

@@ -153,16 +153,17 @@ def _align16(v: int) -> int:
 
 
 def _smem_bytes(tile_r: int, tile_c: int, rows_cap: int, cols_cap: int,
-                chunk: int, ntaps_w: int, ntaps_h: int, itemsize: int) -> int:
+                chunk: int, ntaps_w: int, ntaps_h: int, itemsize: int,
+                inter_size: int = 4) -> int:
     """Dynamic shared memory of one resample2d block, as the kernel lays it
     out (csrc/resample2d.cuh::layout; the C entry point refuses a plan whose
     bytes differ): the ring's stages of ``chunk`` input rows (one where a
-    chunk is the whole window, else two), the float32 intermediate
-    ``[rows_cap, tile_c]``, and each pass's weights (``[ntaps, tile]``),
-    first taps and synthesis sums."""
+    chunk is the whole window, else two), the intermediate ``[rows_cap,
+    tile_c]`` (float32; Pillow's kernel: ``inter_size`` 1, bytes), and each
+    pass's weights (``[ntaps, tile]``), first taps and synthesis sums."""
     stride = _align16(cols_cap * itemsize) + 32
     stages = 2 if chunk < rows_cap else 1
-    return (stages * chunk * stride + _align16(rows_cap * tile_c * 4)
+    return (stages * chunk * stride + _align16(rows_cap * tile_c * inter_size)
             + _align16(ntaps_w * tile_c * 4) + 2 * _align16(tile_c * 4)
             + _align16(ntaps_h * tile_r * 4) + 2 * _align16(tile_r * 4))
 
@@ -184,11 +185,12 @@ def _window(first: np.ndarray, ntaps: int, n_in: int, tile: int) -> int:
 
 def _plan_rows(first_h: np.ndarray, ntaps_h: int, H: int, first_w: np.ndarray,
                ntaps_w: int, W: int, itemsize: int, planes: int,
-               n_sm: int) -> Plan2d | None:
+               n_sm: int, inter_size: int = 4) -> Plan2d | None:
     """resample2d's plan for ``planes`` planes of ``[H, W]`` with
     ``itemsize``-byte elements on a card of ``n_sm`` SMs, or None where no
     tile fits a block's shared memory (the caller then runs two
-    resample_axis passes).
+    resample_axis passes).  ``inter_size``: bytes of an intermediate
+    element (1 for the Pillow two-pass kernel, which plans with it too).
 
     For each tile (``tile_r`` output rows from ``_TILE_R`` by ``tile_c``
     output columns from :data:`TILE_C`), the widest input row window and
@@ -215,20 +217,29 @@ def _plan_rows(first_h: np.ndarray, ntaps_h: int, H: int, first_w: np.ndarray,
 
     Every tap of every output lies in its tile's window and span, which the
     kernel checks (it traps where host and kernel disagree)."""
+    best = max(_rows_candidates(first_h, ntaps_h, H, first_w, ntaps_w, W, itemsize, planes,
+                                n_sm, inter_size), default=None, key=lambda kp: kp[0])
+    return None if best is None else best[1]
+
+
+def _rows_candidates(first_h: np.ndarray, ntaps_h: int, H: int, first_w: np.ndarray,
+                     ntaps_w: int, W: int, itemsize: int, planes: int, n_sm: int,
+                     inter_size: int = 4):
+    """``(key, plan)`` for every tile :func:`_plan_rows` considers that fits
+    a block; the plan is the one with the largest key."""
     OH, OW = len(first_h), len(first_w)
     target = 2 * n_sm
-    best, best_key = None, None
     for tile_c in TILE_C:
         cols_cap = _window(first_w, ntaps_w, W, tile_c)
         stride = _align16(cols_cap * itemsize) + 32
         for tile_r in _TILE_R:
             rows_cap = _window(first_h, ntaps_h, H, tile_r)
             chunk = _chunk(tile_r, tile_c, rows_cap, cols_cap, ntaps_w, ntaps_h,
-                           itemsize)
+                           itemsize, inter_size)
             if chunk is None:
                 continue
             smem = _smem_bytes(tile_r, tile_c, rows_cap, cols_cap, chunk,
-                               ntaps_w, ntaps_h, itemsize)
+                               ntaps_w, ntaps_h, itemsize, inter_size)
             blocks = planes * -(-OH // tile_r) * -(-OW // tile_c)
             resident = min(_SM_THREADS // _BLOCK_THREADS,
                            _SM_SMEM // (smem + _SM_SMEM_PER_BLOCK))
@@ -238,22 +249,19 @@ def _plan_rows(first_h: np.ndarray, ntaps_h: int, H: int, first_w: np.ndarray,
             chunks = -(-rows_cap // chunk)
             key = (min(blocks, target), min(resident, _RESIDENT), -chunks,
                    tile_c >= 32, -cost, -smem, tile_c)
-            if best_key is None or key > best_key:
-                best_key = key
-                best = Plan2d(tile_r, tile_c, rows_cap, cols_cap, chunk, smem,
-                              blocks, resident)
-    return best
+            yield key, Plan2d(tile_r, tile_c, rows_cap, cols_cap, chunk, smem, blocks,
+                              resident)
 
 
 def _chunk(tile_r: int, tile_c: int, rows_cap: int, cols_cap: int, ntaps_w: int,
-           ntaps_h: int, itemsize: int) -> int | None:
+           ntaps_h: int, itemsize: int, inter_size: int = 4) -> int | None:
     """Input rows per chunk of the ring: the whole window (one stage) where
     the block then still fits ``_RESIDENT`` blocks in an SM's shared memory,
     else the most rows of two stages that do, else the same within the
     per-block budget; None where not even one row does."""
     def smem(chunk):
         return _smem_bytes(tile_r, tile_c, rows_cap, cols_cap, chunk, ntaps_w,
-                           ntaps_h, itemsize)
+                           ntaps_h, itemsize, inter_size)
 
     for budget in (_SM_SMEM // _RESIDENT - _SM_SMEM_PER_BLOCK, _SMEM_BUDGET):
         if smem(rows_cap) <= budget:
@@ -410,12 +418,23 @@ def _axis_candidates(first: np.ndarray, ntaps: int, n_in: int, outer: int, inner
                      itemsize: int, n_sm: int, vec4: bool = False):
     """``(key, plan)`` for every tile :func:`_plan_axis` considers that fits
     a block; the plan is the one with the largest key."""
-    n_out = len(first)
-    shapes = [(tj, inner) for tj in _AXIS_TILE_J]
+    wins = ((t, _window(first, ntaps, n_in, t)) for t in _AXIS_TILE_O)
+    return _axis_tiles(wins, len(first), ntaps, n_in, outer, inner, itemsize, n_sm, vec4)
+
+
+def _axis_tiles(wins, n_out: int, ntaps: int, n_in: int, outer: int, inner: int,
+                itemsize: int, n_sm: int, vec4: bool = False, per_img: int | None = None):
+    """``(key, plan)`` of every tile for the ``(tile_o, win)`` pairs
+    ``wins``, by the model above.  ``per_img``: planes per image of
+    per-image tables (the crop passes; None: one table), whose tiles along
+    ``outer`` the kernel cuts at image edges (so no tile takes more planes
+    than an image has: they would only hold shared memory)."""
+    per_img = outer if per_img is None else per_img
+    n_img = outer // per_img
+    shapes = [(tj, inner) for tj in _AXIS_TILE_J if n_img == 1 or tj <= per_img]
     shapes += [(1, ti) for ti in _AXIS_TILE_I if ti < inner]
     per_sm = 3 if ntaps > 8 else 4  # resident blocks the registers allow
-    for tile_o in _AXIS_TILE_O:
-        win = _window(first, ntaps, n_in, tile_o)
+    for tile_o, win in wins:
         eff_o = min(tile_o, n_out)
         for tile_j, tile_i in shapes:
             vec = 4 if (vec4 and itemsize == 1 and inner % 4 == 0 and tile_i % 4 == 0) else 1
@@ -424,11 +443,11 @@ def _axis_candidates(first: np.ndarray, ntaps: int, n_in: int, outer: int, inner
             smem = _axis_smem_bytes(tile_j, tile_o, tile_i, win, ntaps, itemsize, n_in, inner)
             if smem > _SMEM_BUDGET:
                 continue
-            blocks = -(-outer // tile_j) * -(-n_out // tile_o) * -(-inner // tile_i)
+            blocks = n_img * -(-per_img // tile_j) * -(-n_out // tile_o) * -(-inner // tile_i)
             if blocks > _INT_MAX:
                 continue
             resident = min(_SM_THREADS // _BLOCK_THREADS, _SM_SMEM // (smem + _SM_SMEM_PER_BLOCK))
-            eff_j, eff_i = min(tile_j, outer), min(tile_i, inner)
+            eff_j, eff_i = min(tile_j, per_img), min(tile_i, inner)
             rows = eff_j * eff_o
             split = 1
             while split * 2 * rows <= step:

@@ -11,9 +11,14 @@ Pillow's integer pipeline exactly (Pillow ``src/libImaging/Resample.c``,
   * horizontal pass first, producing a *uint8 intermediate image*, then the
     vertical pass on that.
 
-Both passes run in one hand-written CUDA kernel (``csrc/pil_resample.cu``,
-the counterpart of the JAX package's ``_kernel_2pass_pil``) through the
-wrapper :func:`_resample_2pass`.  Its plain PyTorch version,
+Both passes run in one hand-written CUDA kernel, the Pillow two-pass kernel
+(kernel A, ``csrc/resample2d.cuh``, over Pillow's int32 tables; entry
+``csrc/pil_resample.cu``, the counterpart of the JAX package's
+``_kernel_2pass_pil``) through the wrapper :func:`_resample_2pass`, with
+kernel A's tile plan (``cuda_resize._plan_rows``, one-byte elements and
+intermediate; :func:`_plan_2pass`).  Where no tile fits a block's shared
+memory, the wrapper runs two ``pil_resample_axis`` passes instead
+(:func:`_resample_2pass_axes`).  Its plain PyTorch version,
 :func:`_resample_2pass_plain`, computes the same bytes with tensor ops; the
 wrapper takes it for tensors on the CPU.  One pass over one axis runs the
 ``pil_resample_axis`` kernel (``csrc/resample_axis.cuh`` over Pillow's
@@ -54,12 +59,6 @@ launches_axis = 0
 
 _PIL_AUTO_METHODS = ("bilinear", "bicubic", "box", "nearest", "lanczos3",
                      "hamming")
-
-# Largest dynamic shared memory one block may use on Hopper (227 KB).
-_SMEM_LIMIT = 232448
-# Output-row tiles tried, largest first, until the row window fits.
-_TILE_H_CANDIDATES = (32, 16, 8, 4, 2, 1)
-_GRID_LIMIT = 65535  # gridDim.y / gridDim.z
 
 
 @cache
@@ -224,54 +223,65 @@ def _check_tables(name: str, tables, in_size: int, pb: int) -> None:
             f"{worst + (1 << (pb - 1))} >= 2^31)")
 
 
-def _row_plan(ymin: np.ndarray, ntaps: int, H: int, OH: int,
-              tile_w: int) -> tuple[int, int]:
-    """``(tile_h, rows_cap)``: the largest output-row tile whose input row
-    window (the kernel's shared-memory W-pass buffer, ``rows_cap x tile_w``
-    bytes) fits in a block's shared memory, and that window's height.  The
-    window of a tile is computed exactly as the kernel computes it."""
-    lo = np.clip(ymin.astype(np.int64), 0, H - 1)
-    hi = np.clip(ymin.astype(np.int64) + ntaps - 1, 0, H - 1) + 1
-    for tile_h in _TILE_H_CANDIDATES:
-        n = -(-OH // tile_h)
-        pad = n * tile_h - OH  # edge padding repeats a member of the tile
-        lo_t = np.pad(lo, (0, pad), mode="edge").reshape(n, tile_h).min(1)
-        hi_t = np.pad(hi, (0, pad), mode="edge").reshape(n, tile_h).max(1)
-        rows = int((hi_t - lo_t).max())
-        if rows * tile_w <= _SMEM_LIMIT and n <= _GRID_LIMIT:
-            return tile_h, rows
-    raise ValueError(
-        f"pil_resample_2pass: the H pass reads {ntaps} input rows per output "
-        f"row, more than one block's shared memory holds at {tile_w} columns")
+@lru_cache(maxsize=1024)
+def _plan_2pass_keyed(first_h: bytes, ntaps_h: int, H: int, first_w: bytes, ntaps_w: int,
+                      W: int, planes: int, n_sm: int) -> cr.Plan2d | None:
+    return cr._plan_rows(np.frombuffer(first_h, np.int64), ntaps_h, H,
+                         np.frombuffer(first_w, np.int64), ntaps_w, W, 1, planes, n_sm,
+                         inter_size=1)
+
+
+def _plan_2pass(tw, th, planes: int, H: int, W: int,
+                n_sm: int = cr._H100_SMS) -> cr.Plan2d | None:
+    """The Pillow two-pass kernel's plan (kernel A's, ``cuda_resize.
+    _plan_rows``, for one-byte elements and a one-byte intermediate) over
+    the ``(xmin, Wb)`` tables of the W and H passes, for ``planes`` planes
+    of ``[H, W]`` on a card of ``n_sm`` SMs; None where no tile fits a
+    block's shared memory (the wrapper then runs two pil_resample_axis
+    passes).  Cached per table, shape and card."""
+    return _plan_2pass_keyed(cr._first_taps_key(th[0]), th[1].shape[1], H,
+                             cr._first_taps_key(tw[0]), tw[1].shape[1], W, planes, n_sm)
+
+
+def _resample_2pass_axes(x3: torch.Tensor, tw, th, pb: int) -> torch.Tensor:
+    """Both Pillow passes as two pil_resample_axis passes (W, then H on the
+    uint8 intermediate): the same int32 sums, so the same bytes as the
+    two-pass kernel.  Its route where no tile fits."""
+    return _resample_axis(_resample_axis(x3, tw, 2, pb), th, 1, pb)
 
 
 def _resample_2pass_cuda(x3: torch.Tensor, tw, th, pb: int) -> torch.Tensor:
     global launches
     from .. import native
 
-    lib = native.build()
     B, H, W = x3.shape
     OW, ntaps_w = tw[1].shape
     OH, ntaps_h = th[1].shape
-    out = torch.empty((B, OH, OW), dtype=torch.uint8, device=x3.device)
+    dev = x3.device
+    out = torch.empty((B, OH, OW), dtype=torch.uint8, device=dev)
     if B == 0:
         return out
-    tile_h, rows_cap = _row_plan(th[0], ntaps_h, H, OH,
-                                 lib.ia_pil_resample_tile_w())
-    dev = x3.device
+    plan = _plan_2pass(tw, th, B, H, W, cr._n_sm(dev))
+    if plan is None:
+        if debug_enabled():
+            print("[ia-tpu] pil_resample_2pass: no tile fits, two "
+                  "pil_resample_axis passes")
+        return _resample_2pass_axes(x3, tw, th, pb)
+    lib = native.build()
     xmin_w, wb_w = _on(tw[0], dev), _on(tw[1], dev)
     ymin_h, wb_h = _on(th[0], dev), _on(th[1], dev)
-    # the kernel's planes ride gridDim.z: a larger batch takes several
-    # launches of at most _GRID_LIMIT planes each
+    # every block is on gridDim.x: a batch whose block count would pass
+    # its 2^31 - 1 limit takes several launches
+    per_plane = -(-OH // plan.tile_r) * -(-OW // plan.tile_c)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for b0, n in native.plane_chunks(B, _GRID_LIMIT):
+        for b0, n in native.plane_chunks(B, cr._INT_MAX // per_plane):
             err = lib.ia_pil_resample_2pass(
                 x3.data_ptr() + b0 * H * W, out.data_ptr() + b0 * OH * OW,
                 n, H, W, OH, OW,
                 xmin_w.data_ptr(), wb_w.data_ptr(), ntaps_w,
                 ymin_h.data_ptr(), wb_h.data_ptr(), ntaps_h,
-                pb, tile_h, rows_cap, stream,
+                pb, *plan[:6], stream,
             )
             if err != 0:
                 raise RuntimeError(
@@ -286,8 +296,9 @@ def _resample_2pass(x3: torch.Tensor, tw, th,
 
     ``tw``/``th`` are the ``(xmin, Wb)`` int32 host tables of the W and H
     axes (:func:`_int_tables`).  A CUDA tensor goes through the
-    ``pil_resample_2pass`` kernel; a CPU tensor through the plain version;
-    any other device raises.
+    ``pil_resample_2pass`` kernel (two ``pil_resample_axis`` launches where
+    no tile of it fits: :func:`_plan_2pass`); a CPU tensor through the
+    plain version; any other device raises.
     """
     if not isinstance(x3, torch.Tensor) or x3.dtype != torch.uint8 or x3.ndim != 3:
         raise ValueError("pil_resample_2pass takes a uint8 [B, H, W] tensor")

@@ -155,16 +155,18 @@ def test_windowed_plain_matches_jax_interpret(name, precision):
 
 
 def test_windowed_tables_are_compact_rows():
-    """The kernel reads each output row's nonzero range only: the compact
-    tables expand back to the windowed band."""
+    """The kernel reads each output row's nonzero range, padded to the
+    static tap bound T: the compact tables expand back to the windowed
+    band."""
     x, boxes, ohw, method, frac = _case("rrc")
     b = torch.from_numpy(boxes)
     H = x.shape[2]
     _, Hp, k_h, _, _ = tcc._geom(H, x.shape[3], *ohw, 1.0, True, frac)
     starts, band = tcc._windowed_band(b[:, 0] * H, b[:, 2] * H, H, ohw[0], k_h, Hp,
                                       32, method, True)
-    first, cnt, w = tcc._compact(starts, band, ohw[0])
-    assert int(cnt.max()) < k_h  # far fewer taps than the window
+    T = tcc._tap_bound(H, ohw[0], get_filter(method).support, True, k_h)
+    first, cnt, w = tcc._compact(starts, band, ohw[0], T)
+    assert w.shape[-1] == T and int(cnt.max()) <= T < k_h  # far fewer taps than the window
     dense = torch.zeros((x.shape[0], ohw[0], H + k_h))
     for j in range(w.shape[-1]):
         idx = (first + j).long()

@@ -21,7 +21,8 @@ import interpolate_antialiasing_tpu_torch as iat
 from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
-from interpolate_antialiasing_tpu_torch.ops.crop import sample_boxes
+from interpolate_antialiasing_tpu_torch import native
+from interpolate_antialiasing_tpu_torch.ops.crop import box_fracs, sample_boxes
 from interpolate_antialiasing_tpu_torch.ops.resize_xla import resize_axis_dense
 from interpolate_antialiasing_tpu_torch.ops.weights import adjoint_tables, make_axis_spec
 
@@ -528,3 +529,170 @@ def test_axis_staged_offset_matches_plain(dev, kind):
     got = cr.resize_axis(x, spec, axis, dt, fused=fused)
     plain = cr._resample_axis_fused_plain if fused else cr._resample_axis_plain
     _assert_equal(got, plain(x3, spec, dt).reshape(got.shape))
+
+
+# The Pillow two-pass kernel (kernel A over Pillow's tables) and the crop
+# passes (kernel B with per-image tables) at their edges: each case through
+# the production plan, then with every tile the plan considers forced, byte
+# for byte against the plain version.
+
+# (name, x3 shape, (oh, ow), mode, pb, offset): the bench batch and the
+# 4K -> HD frame, 70,000 planes, lanczos3 past 16 taps (the loop bucket),
+# pb 14 (digits=2), an upsample, a one-row and a one-column output, an
+# input off 16 bytes, and a heavy downscale where no tile fits (two
+# pil_resample_axis passes)
+PIL_2PASS_EDGES = [
+    ("bench", (192, 438, 906), (196, 320), "bilinear", 22, False),
+    ("4k_hd", (3, 2160, 3840), (1080, 1920), "bilinear", 22, False),
+    ("70000_planes", (70000, 8, 8), (4, 5), "bilinear", 22, False),
+    ("lanczos3_gt16", (2, 300, 400), (40, 50), "lanczos3", 22, False),
+    ("pb14", (3, 57, 83), (24, 31), "bicubic", 14, False),
+    ("upsample", (2, 31, 72), (90, 150), "bicubic", 22, False),
+    ("one_row", (2, 40, 60), (1, 30), "hamming", 22, False),
+    ("one_col", (2, 40, 60), (20, 1), "box", 22, False),
+    ("offset", (2, 57, 83), (24, 31), "bicubic", 22, True),
+    ("no_tile_fits", (1, 20000, 64), (10, 32), "lanczos3", 22, False),
+]
+
+
+def _pil_case(dev, shape, ohw, mode, pb, offset, box=None):
+    x3 = (_offset_input(shape, torch.uint8, dev, 30) if offset
+          else _input(shape, torch.uint8, dev, 30))
+    span_w = span_h = None
+    if box is not None:
+        span_w, span_h = (box[0], box[2]), (box[1], box[3])
+    tw = pe._int_tables(shape[2], ohw[1], mode, span_w, pb)
+    th = pe._int_tables(shape[1], ohw[0], mode, span_h, pb)
+    return x3, tw, th, pe._resample_2pass_plain(x3, tw, th, pb)
+
+
+@pytest.mark.parametrize("name,shape,ohw,mode,pb,offset", PIL_2PASS_EDGES,
+                         ids=[c[0] for c in PIL_2PASS_EDGES])
+def test_pil_2pass_edges_match_plain(dev, name, shape, ohw, mode, pb, offset):
+    x3, tw, th, want = _pil_case(dev, shape, ohw, mode, pb, offset)
+    before, before_axis = pe.launches, pe.launches_axis
+    got = pe._resample_2pass(x3, tw, th, pb)
+    torch.cuda.synchronize()
+    if name == "no_tile_fits":
+        assert pe._plan_2pass(tw, th, shape[0], shape[1], shape[2]) is None
+        assert (pe.launches, pe.launches_axis) == (before, before_axis + 2)
+    else:
+        assert (pe.launches, pe.launches_axis) == (before + 1, before_axis)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,shape,ohw,mode,pb,offset",
+                         [c for c in PIL_2PASS_EDGES if c[0] != "no_tile_fits"],
+                         ids=[c[0] for c in PIL_2PASS_EDGES if c[0] != "no_tile_fits"])
+def test_pil_2pass_edges_every_tile(dev, monkeypatch, name, shape, ohw, mode, pb, offset):
+    x3, tw, th, want = _pil_case(dev, shape, ohw, mode, pb, offset)
+    plans = [p for _, p in cr._rows_candidates(
+        th[0], th[1].shape[1], shape[1], tw[0], tw[1].shape[1], shape[2], 1, shape[0],
+        cr._n_sm(dev), inter_size=1)]
+    assert plans
+    for plan in plans:
+        monkeypatch.setattr(pe, "_plan_2pass", lambda *a, p=plan: p)
+        got = pe._resample_2pass(x3, tw, th, pb)
+        assert torch.equal(got, want), plan
+
+
+def test_pil_2pass_box_route_every_tile(dev, monkeypatch):
+    box = (3.3, 4.25, 61.7, 45.5)
+    x3, tw, th, want = _pil_case(dev, (3, 50, 70), (20, 31), "lanczos3", 22, False, box)
+    assert torch.equal(pe._resample_2pass(x3, tw, th), want)
+    assert torch.equal(pe.resize_pil_exact(x3, (20, 31), method="lanczos3", box=box), want)
+    for _, plan in cr._rows_candidates(th[0], th[1].shape[1], 50, tw[0], tw[1].shape[1], 70,
+                                       1, 3, cr._n_sm(dev), inter_size=1):
+        monkeypatch.setattr(pe, "_plan_2pass", lambda *a, p=plan: p)
+        assert torch.equal(pe._resample_2pass(x3, tw, th), want), plan
+
+
+def test_pil_2pass_plan_occupancy(dev):
+    """The bench batch's and the 4K frame's plans launch at least a block
+    per SM, and the card holds at least two of them per SM."""
+    import ctypes
+
+    lib = native.build()
+    for planes, H, W, OH, OW in ((192, 438, 906, 196, 320), (3, 2160, 3840, 1080, 1920)):
+        tw, th = pe._int_tables(W, OW, "bilinear"), pe._int_tables(H, OH, "bilinear")
+        plan = pe._plan_2pass(tw, th, planes, H, W, cr._n_sm(dev))
+        assert plan.blocks >= cr._n_sm(dev)
+        blocks = ctypes.c_int(0)
+        assert lib.ia_pil_resample_2pass_occupancy(tw[1].shape[1], th[1].shape[1],
+                                                   *plan[:6], ctypes.byref(blocks)) == 0
+        assert blocks.value >= 2
+
+
+def _crop_boxes(name):
+    if name == "subpixel":
+        return torch.tensor([[0.47, 0.55, 0.4701, 0.5502], [0.0, 0.0, 1e-4, 1e-4],
+                             [0.9999, 0.9999, 1.0, 1.0], [0.2, 0.3, 0.2 + 1 / 256, 0.31]])
+    if name == "edges":
+        return torch.tensor([[0.0, 0.0, 1.0, 1.0], [0.0, 0.3, 0.5, 0.7], [0.5, 0.3, 1.0, 0.7],
+                             [0.3, 0.0, 0.7, 0.5], [0.3, 0.5, 0.7, 1.0], [0.6, 0.0, 1.0, 1.0]])
+    return sample_boxes(torch.Generator().manual_seed(5), 6, 300, 520)
+
+
+# (name, x shape, (oh, ow), boxes, max_box_frac)
+CROP_EDGES = [
+    ("subpixel frac1", (4, 3, 300, 520), (96, 112), "subpixel", 1.0),
+    ("edges frac1", (6, 3, 300, 520), (96, 112), "edges", 1.0),
+    ("edges frac045", (6, 3, 300, 520), (96, 112), "edges", 0.45),
+    ("rrc frac045", (6, 3, 300, 520), (160, 200), "rrc", 0.45),
+    ("wide out", (6, 1, 300, 520), (150, 300), "rrc", 1.0),
+]
+
+
+def _forced_crop(monkeypatch, which, plan, real):
+    """The crop pass ``which`` ("h": inner > 1, "w": inner == 1) launches
+    ``plan``; the other pass keeps the production plan ``real``."""
+
+    def pick(wins, n_in, n_out, T, N, R, inner, n_sm, vec4):
+        if (inner > 1) == (which == "h"):
+            return plan
+        return real(wins, n_in, n_out, T, N, R, inner, n_sm, vec4)
+
+    monkeypatch.setattr(cc, "_crop_plan", pick)
+
+
+def _crop_every_tile(dev, monkeypatch, x, tables, want):
+    N, C, H, W = x.shape
+    tab_h, tab_w = tables[0], tables[1]
+    OH, OW = tab_h.first.shape[1], tab_w.first.shape[1]
+    real, n = cc._crop_plan, 0
+    for which, tab, n_in, n_out, R, inner in (("h", tab_h, H, OH, C, W),
+                                              ("w", tab_w, W, OW, C * OH, 1)):
+        T = tab.w.shape[-1]
+        plans = [p for _, p in cr._axis_tiles(
+            tab.wins, n_out, T, n_in, N * R, inner, 1, cr._n_sm(dev), x.data_ptr() % 4 == 0,
+            per_img=R)]
+        for plan in list(dict.fromkeys(plans)) + [None]:
+            _forced_crop(monkeypatch, which, plan, real)
+            got = cc._crop_resample(x, *tables)
+            assert torch.equal(got, want), (which, plan)
+            n += 1
+    return n
+
+
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+@pytest.mark.parametrize("name,shape,ohw,boxes,frac", CROP_EDGES, ids=[c[0] for c in CROP_EDGES])
+def test_crop_edges_every_tile(dev, monkeypatch, name, shape, ohw, boxes, frac, precision):
+    x = _input(shape, torch.uint8, dev, seed=31)
+    tables = cc._windowed_tables(x, _crop_boxes(boxes).to(dev), ohw, "bilinear", True, frac,
+                                 precision)
+    want = cc._crop_resample_plain(x, *tables)
+    before = cc.launches_crop
+    assert torch.equal(cc._crop_resample(x, *tables), want)
+    assert cc.launches_crop == before + 2
+    assert _crop_every_tile(dev, monkeypatch, x, tables, want) > 4
+
+
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+def test_crop_4k_random_resized_crop_every_tile(dev, monkeypatch, precision):
+    x = _input((8, 3, 2160, 3840), torch.uint8, dev, seed=32)
+    boxes = sample_boxes(torch.Generator().manual_seed(1), 8, 2160, 3840).to(dev)
+    tables = cc._windowed_tables(x, boxes, (224, 224), "bilinear", True,
+                                 box_fracs(2160, 3840), precision)
+    want = cc._crop_resample_plain(x, *tables)
+    assert torch.equal(cc._crop_resample(x, *tables), want)
+    _crop_every_tile(dev, monkeypatch, x, tables, want)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from interpolate_antialiasing_tpu.ops import pil_exact as jpe
+from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 from interpolate_antialiasing_tpu_torch.ops import pil_exact as tpe
 
 PIL = pytest.importorskip("PIL.Image")
@@ -149,21 +150,33 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_row_plan_fits_shared_memory():
-    """The kernel's row window per output-row tile, planned on the host."""
+    """The kernel's tile (kernel A's plan over Pillow's tables, one-byte
+    elements and intermediate), planned on the host: the layout fits a
+    block, and every tap of every output lies in its tile's row window and
+    column span.  Where no tile fits (a 20000-row lanczos3 window), the plan
+    is None and the wrapper's two pil_resample_axis passes give the same
+    bytes."""
     for n_in, n_out, mode in [(438, 196, "bilinear"), (2160, 1080, "bilinear"),
                               (3840, 24, "lanczos3"), (33, 65, "bicubic")]:
-        ymin, Wb = tpe._int_tables(n_in, n_out, mode)
-        tile_h, rows = tpe._row_plan(ymin, Wb.shape[1], n_in, n_out, 64)
-        assert rows * 64 <= tpe._SMEM_LIMIT and 1 <= rows <= n_in
-        # every tap of every output row lies inside its tile's window
-        lo = np.clip(ymin.astype(np.int64)[:, None] + np.arange(Wb.shape[1]),
+        tab = tpe._int_tables(n_in, n_out, mode)
+        plan = tpe._plan_2pass(tab, tab, 3, n_in, n_in)
+        assert plan is not None and plan.smem <= cr._SMEM_BUDGET
+        assert plan.smem == cr._smem_bytes(plan.tile_r, plan.tile_c, plan.rows_cap,
+                                           plan.cols_cap, plan.chunk, tab[1].shape[1],
+                                           tab[1].shape[1], 1, 1)
+        lo = np.clip(tab[0].astype(np.int64)[:, None] + np.arange(tab[1].shape[1]),
                      0, n_in - 1)
-        for t in range(-(-n_out // tile_h)):
-            rows_t = lo[t * tile_h:(t + 1) * tile_h]
-            assert rows_t.max() - rows_t.min() + 1 <= rows
-    ymin, Wb = tpe._int_tables(20000, 10, "lanczos3")
-    with pytest.raises(ValueError, match="shared memory"):
-        tpe._row_plan(ymin, Wb.shape[1], 20000, 10, 64)
+        for tile, cap in ((plan.tile_r, plan.rows_cap), (plan.tile_c, plan.cols_cap)):
+            assert 1 <= cap <= n_in
+            for t in range(-(-n_out // tile)):
+                rows_t = lo[t * tile:(t + 1) * tile]
+                assert rows_t.max() - rows_t.min() + 1 <= cap
+    tab = tpe._int_tables(20000, 10, "lanczos3")
+    small = tpe._int_tables(64, 32, "bilinear")
+    assert tpe._plan_2pass(small, tab, 1, 20000, 64) is None
+    x3 = torch.from_numpy(_img((1, 20000, 64)))
+    np.testing.assert_array_equal(tpe._resample_2pass_axes(x3, small, tab, 22).numpy(),
+                                  tpe._resample_2pass_plain(x3, small, tab).numpy())
 
 
 def test_digits2_declined_for_wide_windows():
