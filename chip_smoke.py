@@ -80,7 +80,18 @@ then:
    kernels the same way; and kernel B at config 5's frames in NHWC (bf16
    [64, 2160, 3840, 3] -> 1080x1920 through ``resize``, tables and fused,
    beside ``F.interpolate`` on the same channels-last tensor,
-   ``time_nhwc_config5``).
+   ``time_nhwc_config5``);
+4. drives the command line in-process (``cli.main``, the ``cli`` phase):
+   ``--inspect`` at the bench batch and ``kernel_report`` at configs 1-2
+   (NCHW and NHWC), config 5 and two calls where no kernel-A tile fits,
+   each against the launch counters of the same call through ``resize``
+   (route and launches equal, the bounds of the bench batch and config 5
+   those of the timing phase); ``--bench`` (device times, named with the
+   card, through kernel A and the Pillow kernel); ``--backward`` (forward
+   and adjoint launches of resample2d); ``--profile`` (a trace with a
+   resample2d kernel record); lanczos5 accuracy against the dense float64
+   route; ``--dump-hlo`` (the launched kernel's SASS); and ``lower_text``
+   of one b64 ``crop_and_resize`` call (its aten operators and launches).
 
 Every phase prints one JSON line (each kernel-vs-plain case goes to
 ``smoke_out/chip_smoke_cases.jsonl``); any failure raises and exits
@@ -98,6 +109,7 @@ import contextlib
 import datetime
 import json
 import math
+import os
 import re
 import subprocess
 import time
@@ -127,7 +139,8 @@ from interpolate_antialiasing_tpu_torch.ops.crop import box_fracs, sample_boxes
 from interpolate_antialiasing_tpu_torch.ops.resize_xla import resize_axis_dense
 from interpolate_antialiasing_tpu_torch.ops.weights import adjoint_tables, make_axis_spec
 from interpolate_antialiasing_tpu_torch.parallel import halo
-from interpolate_antialiasing_tpu_torch.utils.timing import time_cuda
+from interpolate_antialiasing_tpu_torch.utils.inspect import bound_of, launch_counts
+from interpolate_antialiasing_tpu_torch.utils.timing import device_time_per_call, host_us, time_cuda
 
 MODES = ("bilinear", "bicubic", "lanczos3", "box", "hamming")
 # the four shapes of the JAX package's digit-kernel test
@@ -160,12 +173,6 @@ REDUCE_4K = ((3, 2160, 3840), (224, 224))  # reducing_gap on a 4K frame
 # scale_and_translate on config 1's image: (out H, W), scale, translation
 AFFINE_CASES = (("zoom and shift", (188, 317), (0.43, 0.35), (3.0, -2.5)),
                 ("negative scale", (188, 317), (-0.43, 0.35), (188.0, -2.5)))
-
-# the card's peaks (H100 SXM datasheet, at 700 W): device
-# memory, and float32 outside the tensor cores, the rate at which the int32
-# multiply-adds of the integer kernels are counted too
-HBM_BYTES_PER_S = 3.35e12
-CUDA_CORE_OPS_PER_S = 67e12
 
 U8, F32, BF16 = torch.uint8, torch.float32, torch.bfloat16
 DTYPES = (U8, F32, BF16)
@@ -239,18 +246,6 @@ def _card() -> str:
     ).stdout.strip()
 
 
-def _bound(nbytes: int, macs: int) -> dict:
-    """The least time the card could take: the bytes the function must move
-    (each input, tables included, read once; each output written once) over
-    the memory rate, or its operations (two per multiply-add, counting the
-    taps these tables weight) over the peak rate, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * macs / CUDA_CORE_OPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": int(nbytes), "ops": int(2 * macs)}
-
-
 def _nz(w) -> int:
     """Taps with nonzero weight over all outputs of a pass's table."""
     return int(np.count_nonzero(np.asarray(w)))
@@ -274,52 +269,9 @@ def _library(fn, want: torch.Tensor | None = None):
     return time_cuda(fn, iters=10, warmup=2), "same function"
 
 
-def _device_ms(fn, iters: int, match: str | None = None) -> float:
-    """Device time of ``fn()`` from torch.profiler's kernel records over
-    ``iters`` calls after one untimed call: per launch of the kernels whose
-    name contains ``match``, or, with ``match`` None, every kernel of the
-    call summed per call (a library call).  The host's pace does not enter
-    it (CUDA events around back-to-back calls measure the host where it is
-    slower than the card).  The profiler now and then returns a profile
-    with no device record at all (seen on an H100, after many profiles in
-    one process): such a profile is taken again, up to three times.  Raises
-    where the profiler saw no such device time: there is no fallback to
-    events."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if kernels:
-            break
-    hit = [e for e in kernels if match is None or match in e.name]
-    total_us = sum(e.time_range.elapsed_us() for e in hit)
-    if not hit or total_us <= 0:
-        raise RuntimeError(f"the profiler saw no device time of {match or 'the call'} "
-                           f"({len(kernels)} device records)")
-    return total_us / 1e3 / (len(hit) if match else iters)
-
-
-def _host_us(fn, iters: int) -> float:
-    """Host microseconds per call of ``fn()``: the wrapper's own time to
-    check, plan and enqueue (the card may still be running)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / iters * 1e6
-
-
 def _kernel_times(fn, iters: int, match: str) -> dict:
-    return {"device_ms": _device_ms(fn, iters, match), "host_us": _host_us(fn, iters)}
+    return {"device_ms": device_time_per_call(fn, iters=iters, match=match),
+            "host_us": host_us(fn, iters=iters)}
 
 
 def _plan_of(x: torch.Tensor, sh, sw, fused: bool = False) -> list | None:
@@ -925,10 +877,10 @@ def check_fused_kernels(dev) -> tuple[float, float]:
             x = x[1:]
         sh = make_axis_spec(shape[-2], ohw[0], mode, **kw)
         sw = make_axis_spec(shape[-1], ohw[1], mode, **kw)
-        before = _counts()
+        before = launch_counts()
         got = cr.resize2d(x, sh, sw, odt, fused=True)
         torch.cuda.synchronize()
-        if _counts() != dict(before, resample2d_fused=before["resample2d_fused"] + 1):
+        if launch_counts() != dict(before, resample2d_fused=before["resample2d_fused"] + 1):
             raise RuntimeError(f"resample2d_fused {name}: not launched once, alone")
         want = cr._resample2d_fused_plain(_view3(x, -2), sh, sw, odt).reshape(got.shape)
         t2d.add(name, _compare(f"resample2d_fused {name}", got, want), shape=list(x.shape),
@@ -939,10 +891,10 @@ def check_fused_kernels(dev) -> tuple[float, float]:
     sh, sw = make_axis_spec(58200, 1, "bilinear"), make_axis_spec(4, 4, "bilinear")
     if _plan_of(x, sh, sw, fused=True) is not None:
         raise RuntimeError("the fused fallback case fits a tile")
-    before = _counts()
+    before = launch_counts()
     got = cr.resize2d(x, sh, sw, F32, fused=True)
     torch.cuda.synchronize()
-    if _counts() != dict(before, resample_axis_fused=before["resample_axis_fused"] + 2):
+    if launch_counts() != dict(before, resample_axis_fused=before["resample_axis_fused"] + 2):
         raise RuntimeError("the fused fallback did not run two fused resample_axis passes")
     y = cr._resample_axis_fused_plain(_view3(x, 2), sw, F32).reshape(x.shape)
     want = cr._resample_axis_fused_plain(_view3(y, 1), sh, F32).reshape(got.shape)
@@ -952,10 +904,10 @@ def check_fused_kernels(dev) -> tuple[float, float]:
         seed += 1
         x = _axis_input(name, shape, idt, dev, seed)
         spec = make_axis_spec(shape[axis], n_out, mode, **kw)
-        before = _counts()
+        before = launch_counts()
         got = cr.resize_axis(x, spec, axis, odt, fused=True)
         torch.cuda.synchronize()
-        if _counts() != dict(before, resample_axis_fused=before["resample_axis_fused"] + 1):
+        if launch_counts() != dict(before, resample_axis_fused=before["resample_axis_fused"] + 1):
             raise RuntimeError(f"resample_axis_fused {name}: not launched once, alone")
         want = cr._resample_axis_fused_plain(_view3(x, axis), spec, odt).reshape(got.shape)
         tax.add(name, _compare(f"resample_axis_fused {name}", got, want),
@@ -1049,7 +1001,7 @@ def check_axis_tiles(dev) -> tuple[float, float, float]:
     seed = 1500
 
     def launch(kind, x, spec, axis, odt, plan):
-        before = _counts()
+        before = launch_counts()
         with _forced(cr, "_plan_axis_first", lambda *args, p=plan: p):
             if kind == "pil":
                 got = pe._resample_axis(x, spec, axis)
@@ -1057,7 +1009,7 @@ def check_axis_tiles(dev) -> tuple[float, float, float]:
                 got = cr.resize_axis(x, spec, axis, odt, fused=kind == "fused")
         torch.cuda.synchronize()
         c = counters[kind]
-        if _counts() != dict(before, **{c: before[c] + 1}):
+        if launch_counts() != dict(before, **{c: before[c] + 1}):
             raise RuntimeError(f"{c}: not launched once, alone")
         return got
 
@@ -1106,14 +1058,14 @@ def check_axis_tiles(dev) -> tuple[float, float, float]:
                                    cr._n_sm(dev), x3.data_ptr() % 4 == 0, kind == "fused")
         if plan is None:
             raise RuntimeError(f"{name}: the plan ran the unstaged body above the cut")
-        before = _counts()
+        before = launch_counts()
         if kind == "pil":
             got = pe._resample_axis(x, spec, axis)
         else:
             got = cr.resize_axis(x, spec, axis, dt, fused=kind == "fused")
         torch.cuda.synchronize()
         c = counters[kind]
-        if _counts() != dict(before, **{c: before[c] + 1}):
+        if launch_counts() != dict(before, **{c: before[c] + 1}):
             raise RuntimeError(f"{c} {name}: not launched once, alone")
         tallies[kind].add(name, _compare(f"{c} {name}", got, want.reshape(got.shape)),
                           plan=plan._asdict(), shape=list(shape), axis=axis,
@@ -1179,10 +1131,10 @@ def check_u8_tiles(dev) -> tuple[float, float]:
         th = pe._int_tables(shape[1], ohw[0], mode, pb=pb)
         want = pe._resample_2pass_plain(x3, tw, th, pb)
         plan = pe._plan_2pass(tw, th, shape[0], shape[1], shape[2], cr._n_sm(dev))
-        before = _counts()
+        before = launch_counts()
         res = _compare(f"pil_resample_2pass {name}", pe._resample_2pass(x3, tw, th, pb), want)
         c = ("pil_resample_2pass", 1) if plan is not None else ("pil_resample_axis", 2)
-        if _counts() != dict(before, **{c[0]: before[c[0]] + c[1]}):
+        if launch_counts() != dict(before, **{c[0]: before[c[0]] + c[1]}):
             raise RuntimeError(f"pil_resample_2pass {name}: not {c[1]} {c[0]} launch(es)")
         tiles = [p for _, p in cr._rows_candidates(
             th[0], th[1].shape[1], shape[1], tw[0], tw[1].shape[1], shape[2], 1, shape[0],
@@ -1237,14 +1189,6 @@ def check_u8_tiles(dev) -> tuple[float, float]:
 # ---------------------------------------------------------------------------
 
 
-def _counts() -> dict:
-    return {"pil_resample_2pass": pe.launches, "resample2d": cr.launches_2d,
-            "resample_axis": cr.launches_axis, "crop_resample": cc.launches_crop,
-            "pil_resample_axis": pe.launches_axis,
-            "resample2d_fused": cr.launches_2d_fused,
-            "resample_axis_fused": cr.launches_axis_fused}
-
-
 def _reset() -> None:
     pe.launches = cr.launches_2d = cr.launches_axis = cc.launches_crop = 0
     pe.launches_axis = cr.launches_2d_fused = cr.launches_axis_fused = 0
@@ -1253,7 +1197,7 @@ def _reset() -> None:
 def _expect(phase: str, want: dict) -> dict:
     """The launch counts since :func:`_reset` against ``want`` (kernels it
     does not name: 0)."""
-    got = _counts()
+    got = launch_counts()
     want = {k: want.get(k, 0) for k in got}
     if got != want:
         raise RuntimeError(f"{phase}: kernel launches {got}, expected {want}")
@@ -2032,8 +1976,8 @@ def time_pil_kernel(dev, rng, card) -> dict:
         ms.update(_kernel_times(lambda: pe._resample_2pass(x3, tw, th), iters,
                                 "resample2d_kernel"))
         P, (H, W), (OH, OW) = x3.shape[0], shape[-2:], size
-        bound = _bound(P * (H * W + OH * OW) + _nbytes(*tw, *th),
-                       P * (H * _nz(tw[1]) + OW * _nz(th[1])))
+        bound = bound_of(P * (H * W + OH * OW) + _nbytes(*tw, *th),
+                         P * (H * _nz(tw[1]) + OW * _nz(th[1])))
         x4 = x3.reshape(P, 1, H, W)
         lib_ms, lib_note = _library(
             lambda: torch.nn.functional.interpolate(x4, size, mode="bilinear",
@@ -2078,12 +2022,13 @@ def time_float_kernels(dev, card) -> tuple[dict, dict]:
                     lambda: cr._resample2d_plain(x3, sh, sw, BF16), 5, 1)
         k5 = sum(c5["kernel"]) / 2
         P = x3.shape[0]
-        bound = _bound(2 * P * (shape[-2] * shape[-1] + ohw[0] * ohw[1])
-                       + _nbytes(*cr._tables(sh), *cr._tables(sw)),
-                       P * (shape[-2] * _nz(cr._tables(sw)[1]) + ohw[1] * _nz(cr._tables(sh)[1])))
+        bound = bound_of(2 * P * (shape[-2] * shape[-1] + ohw[0] * ohw[1])
+                         + _nbytes(*cr._tables(sh), *cr._tables(sw)),
+                         P * (shape[-2] * _nz(cr._tables(sw)[1]) + ohw[1] * _nz(cr._tables(sh)[1])))
         lib5, note5 = _library(lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True))
         d5 = _kernel_times(lambda: cr.resize2d(x3, sh, sw, BF16), 5, "resample2d_kernel")
-        lib5_dev = _device_ms(lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True), 5)
+        lib5_dev = device_time_per_call(
+            lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True), iters=5)
         _line("time_config5", card=card, kernel="resample2d", shape=list(shape),
               size=list(ohw), kernel_ms=c5["kernel"], plain_ms=c5["plain"],
               kernel_device_ms=d5["device_ms"], kernel_host_us=d5["host_us"],
@@ -2099,9 +2044,9 @@ def time_float_kernels(dev, card) -> tuple[dict, dict]:
         hd = _turns(lambda: cr.resize2d(x3, sh, sw, F32),
                     lambda: cr._resample2d_plain(x3, sh, sw, F32), 50, 3)
         P, H, W = x3.shape
-        hb = _bound(4 * P * (H * W + ohw[0] * ohw[1])
-                    + _nbytes(*cr._tables(sh), *cr._tables(sw)),
-                    P * (H * _nz(cr._tables(sw)[1]) + ohw[1] * _nz(cr._tables(sh)[1])))
+        hb = bound_of(4 * P * (H * W + ohw[0] * ohw[1])
+                      + _nbytes(*cr._tables(sh), *cr._tables(sw)),
+                      P * (H * _nz(cr._tables(sw)[1]) + ohw[1] * _nz(cr._tables(sh)[1])))
         x4 = x3.reshape(shape)
         libh, noteh = _library(lambda: F.interpolate(x4, ohw, mode="bilinear", antialias=True))
         dh = _kernel_times(lambda: cr.resize2d(x3, sh, sw, F32), 50, "resample2d_kernel")
@@ -2109,8 +2054,8 @@ def time_float_kernels(dev, card) -> tuple[dict, dict]:
               shape=list(shape), size=list(ohw), kernel_ms=hd["kernel"],
               plain_ms=hd["plain"], kernel_device_ms=dh["device_ms"],
               kernel_host_us=dh["host_us"], **hb, library_ms=libh,
-              library_device_ms=_device_ms(
-                  lambda: F.interpolate(x4, ohw, mode="bilinear", antialias=True), 50),
+              library_device_ms=device_time_per_call(
+                  lambda: F.interpolate(x4, ohw, mode="bilinear", antialias=True), iters=50),
               library=noteh)
         # resample_axis on the f32 headline, NHWC: the W pass, then the H pass
         xn = _rand(shape, F32, dev, 13).permute(0, 2, 3, 1).contiguous()
@@ -2120,16 +2065,17 @@ def time_float_kernels(dev, card) -> tuple[dict, dict]:
         hp = _turns(lambda: cr.resize_axis(t, sh, 1),
                     lambda: cr._resample_axis_plain(_view3(t, 1), sh, F32), 50, 3)
         H, W, C = shape[-2], shape[-1], shape[1]
-        bw = _bound(4 * C * H * (W + ohw[1]) + _nbytes(*cr._tables(sw)),
-                    C * H * _nz(cr._tables(sw)[1]))
-        bh = _bound(4 * C * ohw[1] * (H + ohw[0]) + _nbytes(*cr._tables(sh)),
-                    C * ohw[1] * _nz(cr._tables(sh)[1]))
+        bw = bound_of(4 * C * H * (W + ohw[1]) + _nbytes(*cr._tables(sw)),
+                      C * H * _nz(cr._tables(sw)[1]))
+        bh = bound_of(4 * C * ohw[1] * (H + ohw[0]) + _nbytes(*cr._tables(sh)),
+                      C * ohw[1] * _nz(cr._tables(sh)[1]))
         libn, noten = _library(lambda: F.interpolate(xn.permute(0, 3, 1, 2), ohw,
                                                      mode="bilinear", antialias=True))
         dw = _kernel_times(lambda: cr.resize_axis(xn, sw, 2), 50, "resample_axis")
         dhp = _kernel_times(lambda: cr.resize_axis(t, sh, 1), 50, "resample_axis")
-        libn_dev = _device_ms(lambda: F.interpolate(xn.permute(0, 3, 1, 2), ohw,
-                                                    mode="bilinear", antialias=True), 50)
+        libn_dev = device_time_per_call(
+            lambda: F.interpolate(xn.permute(0, 3, 1, 2), ohw, mode="bilinear",
+                                  antialias=True), iters=50)
         _line("time_headline_nhwc", card=card, kernel="resample_axis",
               shape=list(xn.shape), size=list(ohw),
               w_pass_kernel_ms=wp["kernel"], w_pass_plain_ms=wp["plain"],
@@ -2177,14 +2123,16 @@ def time_fused_kernels(dev, card) -> tuple[dict, dict]:
                     lambda: cr._resample2d_fused_plain(x3, sh, sw, BF16), 5, 1)
         table.append(time_cuda(lambda: cr.resize2d(x3, sh, sw, BF16), iters=5, warmup=1))
         P = x3.shape[0]
-        bound = _bound(2 * P * (shape[-2] * shape[-1] + ohw[0] * ohw[1]),
-                       P * (shape[-2] * _synth_nz(sw) + ohw[1] * _synth_nz(sh)))
+        bound = bound_of(2 * P * (shape[-2] * shape[-1] + ohw[0] * ohw[1]),
+                         P * (shape[-2] * _synth_nz(sw) + ohw[1] * _synth_nz(sh)))
         lib5, note5 = _library(lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True))
         k5 = sum(c5["kernel"]) / 2
         d5 = _kernel_times(lambda: cr.resize2d(x3, sh, sw, BF16, fused=True), 5,
                            "resample2d_kernel")
-        t5 = _device_ms(lambda: cr.resize2d(x3, sh, sw, BF16), 5, "resample2d_kernel")
-        lib5_dev = _device_ms(lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True), 5)
+        t5 = device_time_per_call(lambda: cr.resize2d(x3, sh, sw, BF16), iters=5,
+                                  match="resample2d_kernel")
+        lib5_dev = device_time_per_call(
+            lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True), iters=5)
         _line("time_fused_config5", card=card, kernel="resample2d_fused", shape=list(shape),
               size=list(ohw), kernel_ms=c5["kernel"], plain_ms=c5["plain"],
               table_kernel_ms=table, kernel_device_ms=d5["device_ms"],
@@ -2206,14 +2154,15 @@ def time_fused_kernels(dev, card) -> tuple[dict, dict]:
                         lambda: cr._resample2d_fused_plain(x3, sh, sw, F32), 50, 3)
             table.append(time_cuda(lambda: cr.resize2d(x3, sh, sw, F32), iters=50, warmup=3))
             P, H, W = x3.shape
-            hb = _bound(4 * P * (H * W + ohw[0] * ohw[1]),
-                        P * (H * _synth_nz(sw) + ohw[1] * _synth_nz(sh)))
+            hb = bound_of(4 * P * (H * W + ohw[0] * ohw[1]),
+                          P * (H * _synth_nz(sw) + ohw[1] * _synth_nz(sh)))
             x4 = x3.reshape(shape)
             libh, noteh = _library(lambda: F.interpolate(x4, ohw, mode=mode, antialias=True))
             dh = _kernel_times(lambda: cr.resize2d(x3, sh, sw, F32, fused=True), 50,
                                "resample2d_kernel")
             th = _kernel_times(lambda: cr.resize2d(x3, sh, sw, F32), 50, "resample2d_kernel")
-            lib_dev = _device_ms(lambda: F.interpolate(x4, ohw, mode=mode, antialias=True), 50)
+            lib_dev = device_time_per_call(
+                lambda: F.interpolate(x4, ohw, mode=mode, antialias=True), iters=50)
             _line("time_fused_headline_nchw", card=card, kernel="resample2d_fused", mode=mode,
                   shape=list(shape), size=list(ohw), kernel_ms=hd["kernel"],
                   plain_ms=hd["plain"], table_kernel_ms=table,
@@ -2235,14 +2184,15 @@ def time_fused_kernels(dev, card) -> tuple[dict, dict]:
         tables["w"].append(time_cuda(lambda: cr.resize_axis(xn, sw, 2), iters=50, warmup=3))
         tables["h"].append(time_cuda(lambda: cr.resize_axis(t, sh, 1), iters=50, warmup=3))
         H, W, C = shape[-2], shape[-1], shape[1]
-        bw = _bound(4 * C * H * (W + ohw[1]), C * H * _synth_nz(sw))
-        bh = _bound(4 * C * ohw[1] * (H + ohw[0]), C * ohw[1] * _synth_nz(sh))
+        bw = bound_of(4 * C * H * (W + ohw[1]), C * H * _synth_nz(sw))
+        bh = bound_of(4 * C * ohw[1] * (H + ohw[0]), C * ohw[1] * _synth_nz(sh))
         libn, noten = _library(lambda: F.interpolate(xn.permute(0, 3, 1, 2), ohw,
                                                      mode="bilinear", antialias=True))
         dw = _kernel_times(lambda: cr.resize_axis(xn, sw, 2, fused=True), 50, "resample_axis")
         dhp = _kernel_times(lambda: cr.resize_axis(t, sh, 1, fused=True), 50, "resample_axis")
-        libn_dev = _device_ms(lambda: F.interpolate(xn.permute(0, 3, 1, 2), ohw,
-                                                    mode="bilinear", antialias=True), 50)
+        libn_dev = device_time_per_call(
+            lambda: F.interpolate(xn.permute(0, 3, 1, 2), ohw, mode="bilinear",
+                                  antialias=True), iters=50)
         _line("time_fused_headline_nhwc", card=card, kernel="resample_axis_fused",
               shape=list(xn.shape), size=list(ohw),
               w_pass_kernel_ms=wp["kernel"], w_pass_plain_ms=wp["plain"],
@@ -2274,9 +2224,9 @@ def time_train_kernels(dev, card) -> dict:
         adj = _turns(lambda: cr.resize2d(g3, th, tw, F32),
                      lambda: cr._resample2d_plain(g3, th, tw, F32), 20, 3)
         P = g3.shape[0]
-        ab = _bound(4 * P * (ohw[0] * ohw[1] + shape[2] * shape[3])
-                    + _nbytes(th.xmin, tw.xmin) + 4 * (th.w.size + tw.w.size),
-                    P * (ohw[0] * _nz(tw.w) + shape[3] * _nz(th.w)))
+        ab = bound_of(4 * P * (ohw[0] * ohw[1] + shape[2] * shape[3])
+                      + _nbytes(th.xmin, tw.xmin) + 4 * (th.w.size + tw.w.size),
+                      P * (ohw[0] * _nz(tw.w) + shape[3] * _nz(th.w)))
         g4 = g3.reshape(*shape[:2], *ohw)
         liba, notea = _library(lambda: torch.ops.aten._upsample_bilinear2d_aa_backward(
             g4, list(ohw), list(shape), False, None, None))
@@ -2291,9 +2241,9 @@ def time_train_kernels(dev, card) -> dict:
               shape=list(shape), size=list(ohw), adjoint_kernel_ms=adj["kernel"],
               adjoint_plain_ms=adj["plain"], adjoint_device_ms=da["device_ms"],
               adjoint_host_us=da["host_us"], vjp_call_ms=time_cuda(vjp, iters=10),
-              **ab, library_ms=liba, library_device_ms=_device_ms(
+              **ab, library_ms=liba, library_device_ms=device_time_per_call(
                   lambda: torch.ops.aten._upsample_bilinear2d_aa_backward(
-                      g4, list(ohw), list(shape), False, None, None), 20),
+                      g4, list(ohw), list(shape), False, None, None), iters=20),
               library=notea)
         del x
         out = {}
@@ -2318,8 +2268,8 @@ def time_train_kernels(dev, card) -> dict:
                 # the tables' bytes this run's boxes need: first, count and
                 # the weights of the counted taps
                 tab = 8 * (fh.numel() + fw.numel()) + 4 * int(ch.sum() + cw.sum())
-                bound = _bound(N * C * (H * W + size[0] * size[1]) + tab,
-                               C * W * int(ch.sum()) + C * size[0] * int(cw.sum()))
+                bound = bound_of(N * C * (H * W + size[0] * size[1]) + tab,
+                                 C * W * int(ch.sum()) + C * size[0] * int(cw.sum()))
                 out[(name, precision)] = (ms, bound)
                 _line("time_crop", card=card, kernel="crop_resample", case=name,
                       precision=precision, shape=list(shape), size=list(size),
@@ -2361,8 +2311,8 @@ def time_sharded_kernels(dev, card) -> tuple[dict, dict]:
     hp = _turns(lambda: pe._resample_axis(ext, th, 1),
                 lambda: pe._resample_axis_plain(ext, th), 5, 1)
     hd = _kernel_times(lambda: pe._resample_axis(ext, th, 1), 5, "resample_axis_kernel")
-    hb = _bound(shape[0] * size[1] * (plan.ext + plan.ol) + _nbytes(*th),
-                shape[0] * size[1] * _nz(th[1]))
+    hb = bound_of(shape[0] * size[1] * (plan.ext + plan.ol) + _nbytes(*th),
+                  shape[0] * size[1] * _nz(th[1]))
     del ext
     tw = pe._int_tables(shape[2], size[1], mode)
     blk = _rand((shape[0], plan.hl, shape[2]), U8, dev, 52)
@@ -2371,8 +2321,8 @@ def time_sharded_kernels(dev, card) -> tuple[dict, dict]:
     wp = _turns(lambda: pe._resample_axis(blk, tw, 2),
                 lambda: pe._resample_axis_plain(_view3(blk, 2), tw), 5, 1)
     wd = _kernel_times(lambda: pe._resample_axis(blk, tw, 2), 5, "resample_axis_kernel")
-    wb = _bound(shape[0] * plan.hl * (shape[2] + size[1]) + _nbytes(*tw),
-                shape[0] * plan.hl * _nz(tw[1]))
+    wb = bound_of(shape[0] * plan.hl * (shape[2] + size[1]) + _nbytes(*tw),
+                  shape[0] * plan.hl * _nz(tw[1]))
     del blk
     torch.cuda.empty_cache()
     _line("time_sharded_pil", card=card, kernel="pil_resample_axis", image=list(shape),
@@ -2411,10 +2361,12 @@ def time_sharded_kernels(dev, card) -> tuple[dict, dict]:
         wdt = wd.t().contiguous()
         libf, notef = _library(lambda: torch.matmul(wd, ext))
         liba, notea = _library(lambda: torch.matmul(wdt, g))
-    fb = _bound(4 * C * W * (plan.ext_pad + plan.ol) + _nbytes(fwd.xmin, fwd.w.astype(np.float32)),
-                C * W * _nz(fwd.w))
-    ab = _bound(4 * C * W * (plan.ol + plan.ext_pad) + _nbytes(adj.xmin, adj.w.astype(np.float32)),
-                C * W * _nz(adj.w))
+    fb = bound_of(4 * C * W * (plan.ext_pad + plan.ol)
+                  + _nbytes(fwd.xmin, fwd.w.astype(np.float32)),
+                  C * W * _nz(fwd.w))
+    ab = bound_of(4 * C * W * (plan.ol + plan.ext_pad)
+                  + _nbytes(adj.xmin, adj.w.astype(np.float32)),
+                  C * W * _nz(adj.w))
     del ext, g, wd, wdt
     torch.cuda.empty_cache()
     _line("time_sharded_float", card=card, kernel="resample_axis over shard tables",
@@ -2444,10 +2396,10 @@ def time_nhwc_config5(dev, card) -> None:
     sh, sw = make_axis_spec(H, ohw[0]), make_axis_spec(W, ohw[1])
     with full_f32():
         x = _rand((N, H, W, C), BF16, dev, 21)
-        before = _counts()
+        before = launch_counts()
         y = resize(x, ohw, method="bilinear", data_format="NHWC")
         torch.cuda.synchronize()
-        if _counts() != dict(before, resample_axis=before["resample_axis"] + 2):
+        if launch_counts() != dict(before, resample_axis=before["resample_axis"] + 2):
             raise RuntimeError("nhwc config 5: expected two resample_axis launches")
         x1 = x[:1]
         t1 = cr._resample_axis_plain(_view3(x1, 2), sw, BF16).reshape(1, H, ohw[1], C)
@@ -2467,13 +2419,14 @@ def time_nhwc_config5(dev, card) -> None:
             times[f"{k}_h"] = _kernel_times(lambda: cr.resize_axis(t, sh, 1, fused=fused), 5,
                                             "resample_axis_kernel")
         xc = x.permute(0, 3, 1, 2)  # NCHW view of the channels-last frames
-        lib_dev = _device_ms(lambda: F.interpolate(xc, ohw, mode="bilinear", antialias=True), 3)
+        lib_dev = device_time_per_call(
+            lambda: F.interpolate(xc, ohw, mode="bilinear", antialias=True), iters=3)
         del x, t, xc
         torch.cuda.empty_cache()
-    bw = _bound(2 * N * H * C * (W + ohw[1]) + _nbytes(*cr._tables(sw)),
-                N * H * C * _nz(cr._tables(sw)[1]))
-    bh = _bound(2 * N * ohw[1] * C * (H + ohw[0]) + _nbytes(*cr._tables(sh)),
-                N * ohw[1] * C * _nz(cr._tables(sh)[1]))
+    bw = bound_of(2 * N * H * C * (W + ohw[1]) + _nbytes(*cr._tables(sw)),
+                  N * H * C * _nz(cr._tables(sw)[1]))
+    bh = bound_of(2 * N * ohw[1] * C * (H + ohw[0]) + _nbytes(*cr._tables(sh)),
+                  N * ohw[1] * C * _nz(cr._tables(sh)[1]))
     fields = {}
     for k, v in times.items():
         b = bw if k.endswith("_w") else bh
@@ -2494,6 +2447,134 @@ def time_nhwc_config5(dev, card) -> None:
 # ---------------------------------------------------------------------------
 # 5. with --ranks N: the group phases across N cards, one rank per card
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# 4. the command line and the inspection tools
+# ---------------------------------------------------------------------------
+
+# kernel_report's cases beside the CLI's bench batch: (name, shape, size,
+# mode, dtype, data_format); the last two fit no kernel-A tile
+REPORT_CASES = (
+    ("configs 1-2 NCHW", HEADLINE[0], HEADLINE[1], "bilinear", F32, None),
+    ("configs 1-2 NHWC", (1, 438, 906, 3), HEADLINE[1], "bilinear", F32, "NHWC"),
+    ("config 5", CONFIG5[0], CONFIG5[1], "bilinear", BF16, None),
+    ("no tile fits, float", (2, 58200, 4), (1, 4), "box", F32, None),
+    ("no tile fits, uint8", (1, 20000, 64), (10, 32), "lanczos3", U8, None),
+)
+# PERF.md section 6's bounds of rows 1 (the bench batch) and 5 (config 5), ms
+PERF_BOUNDS = {"bench batch": 0.0263, "config 5": 1.1885}
+
+
+def _report_matches_run(name: str, rep, x: torch.Tensor, size, mode: str,
+                        data_format=None) -> dict:
+    """Run ``resize`` on ``x`` with the counts at 0 and hold what it launched
+    to the report's route and launch counts."""
+    _reset()
+    resize(x, size, method=mode, data_format=data_format)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    if got != rep.launches or rep.n_sm_assumed or rep.n_sm != cr._n_sm(x.device):
+        raise RuntimeError(f"kernel_report {name}: route {rep.route!r} launches "
+                           f"{rep.launches} on {rep.n_sm} SMs (assumed "
+                           f"{rep.n_sm_assumed}); the call launched {got}")
+    fields = dict(case=name, shape=list(x.shape), size=list(size), dtype=str(x.dtype),
+                  route=rep.route, launches=got, bound_ms=rep.bound_ms,
+                  bound_by=rep.bound_by, plan=rep.plan)
+    if name in PERF_BOUNDS:
+        want = PERF_BOUNDS[name]
+        if abs(rep.bound_ms - want) > 0.005 * want:
+            raise RuntimeError(f"kernel_report {name}: bound {rep.bound_ms} ms, "
+                               f"PERF.md gives {want}")
+        fields["perf_md_bound_ms"] = want
+    _line("cli", step="inspect", **fields)
+    return got
+
+
+def cli_phase(dev, card) -> None:
+    """The CLI and the inspection tools on the card, each step checked
+    against the launch counters (see the module docstring, item 4)."""
+    from interpolate_antialiasing_tpu_torch import cli
+    from interpolate_antialiasing_tpu_torch.utils.imageio import synthetic_image
+    from interpolate_antialiasing_tpu_torch.utils.inspect import kernel_report, lower_text
+
+    t0 = last = time.perf_counter()
+
+    def lap() -> float:  # seconds since the last step ended
+        nonlocal last
+        now = time.perf_counter()
+        dt, last = now - last, now
+        return round(dt, 3)
+
+    img = synthetic_image()
+    size = ("320", "196")
+    rep = cli.main(["--inspect", "--size", *size, "--batch", "64"])
+    bench = torch.from_numpy(np.stack([img] * 64)).to(dev)
+    _report_matches_run("bench batch", rep, bench, BENCH[1], "bilinear")
+    for i, (name, shape, ohw, mode, dt, fmt) in enumerate(REPORT_CASES):
+        rep = kernel_report(shape, ohw, mode=mode, dtype=dt, data_format=fmt)
+        x = _rand(shape, dt, dev, 900 + i)
+        _report_matches_run(name, rep, x, ohw, mode, fmt)
+        del x
+    torch.cuda.empty_cache()
+    _line("cli", step="inspect: every report equals its run", cases=1 + len(REPORT_CASES),
+          seconds=lap())
+
+    _reset()
+    (row,) = cli.main(["--bench", "--size", *size, "--batch", "64"])
+    counts = launch_counts()
+    if row["device"] != card or counts["resample2d"] < 1 or counts["pil_resample_2pass"] < 1:
+        raise RuntimeError(f"cli --bench: row on {row['device']!r} (card {card!r}), "
+                           f"launches {counts}")
+    _line("cli", step="bench", row=row, launches={k: v for k, v in counts.items() if v},
+          seconds=lap())
+
+    res = cli.main(["--backward", "--size", "64", "48"])
+    if res["forward_launches"].get("resample2d", 0) < 1 or \
+            res["adjoint_launches"].get("resample2d", 0) < 1:
+        raise RuntimeError(f"cli --backward: launches {res}")
+    _line("cli", step="backward", **res, seconds=lap())
+
+    trace_dir = Path("smoke_out") / "trace"
+    os.environ["IA_TPU_TRACE_DIR"] = str(trace_dir)
+    path = cli.main(["--profile", "--size", *size])
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    hits = [e for e in events if e.get("cat") == "kernel" and "resample2d" in e.get("name", "")]
+    if not hits:
+        raise RuntimeError(f"cli --profile: no resample2d kernel record in {path}")
+    _line("cli", step="profile", trace=str(path), resample2d_records=len(hits),
+          seconds=lap())
+
+    (acc,) = cli.main(["--mode", "lanczos5", "--size", *size])
+    if acc["oracle"] != "dense-f64" or acc["max_abs_err"] > 1:
+        raise RuntimeError(f"cli lanczos5 accuracy: {acc}")
+    _line("cli", step="accuracy", **acc, seconds=lap())
+
+    dump = Path("smoke_out") / "bench_compiled.txt"
+    cli.main(["--dump-hlo", str(dump), "--size", *size, "--batch", "64"])
+    txt = dump.read_text()
+    sass = re.findall(r"Function : (\S*resample2d_kernel\S*)", txt)
+    if not sass or "[hand-written]" not in txt:
+        raise RuntimeError(f"cli --dump-hlo: no resample2d_kernel SASS in {dump}")
+    _line("cli", step="dump-hlo", file=str(dump), chars=len(txt), sass_functions=sass,
+          seconds=lap())
+
+    (shape, ohw) = TRAIN_B64
+    x = torch.from_numpy((np.random.default_rng(0).random(shape) * 255).astype(np.uint8))
+    x = x.to(dev)
+    boxes = torch.from_numpy(_run_all_boxes(shape[0])).to(dev)
+    text = lower_text(lambda: crop_and_resize(x, boxes, ohw))
+    n_ops, n_launches = (int(v) for v in re.match(r"# (\d+) aten ops, (\d+) kernel", text).groups())
+    if n_launches != 2:
+        raise RuntimeError(f"lower_text crop_and_resize: {n_launches} launches, expected 2")
+    tables = lower_text(lambda: cc._windowed_tables(x, boxes.float(), ohw, "bilinear", True,
+                                                    1.0, "pil_int8"))
+    n_table_ops = int(re.match(r"# (\d+) aten ops", tables).group(1))
+    lowered = Path("smoke_out") / "crop_lower.txt"
+    lowered.write_text(text)
+    _line("cli", step="lower_text crop_and_resize b64", shape=list(shape), size=list(ohw),
+          aten_ops=n_ops, table_build_aten_ops=n_table_ops, kernel_launches=n_launches,
+          file=str(lowered), seconds=lap(), phase_seconds=time.perf_counter() - t0)
 
 
 def _rank_child(rank: int, n: int, tmp: str) -> None:
@@ -2608,6 +2689,8 @@ def main() -> None:
     t_pil_axis, t_shard = time_sharded_kernels(dev, card)
     torch.cuda.empty_cache()
     time_nhwc_config5(dev, card)
+    torch.cuda.empty_cache()
+    cli_phase(dev, card)
 
     print(card, flush=True)  # again, near the end of a long output
     print(json.dumps({"kernels": [

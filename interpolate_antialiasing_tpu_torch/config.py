@@ -13,7 +13,8 @@ import os
 import torch
 
 __all__ = ["ResizeOptions", "debug_enabled", "default_backend",
-           "default_pil_digits", "default_precision", "full_f32"]
+           "default_pil_digits", "default_precision", "enable_compilation_cache",
+           "full_f32"]
 
 
 def debug_enabled() -> bool:
@@ -96,3 +97,22 @@ class ResizeOptions:
     backend: str | None = None
     data_format: str | None = None  # NCHW | NHWC | ... (None = infer)
     output_dtype: object = None
+
+
+def enable_compilation_cache(path: str | None = None) -> str | None:
+    """Keep the built libraries (the CUDA kernels of ``native.build`` and the
+    host table builder) in ``path``, else in ``IA_TPU_COMPILE_CACHE``: the
+    port's counterpart of the JAX package's persistent compilation cache.
+    A later call, or a later process that calls this with the same
+    directory, reuses what was built there for the same sources.  With
+    neither set nothing changes: the libraries stay in the package's
+    ``_build/``.  Only this call moves the build; the environment variable
+    alone does not.  Returns the directory in use, or None."""
+    cache_dir = path or os.environ.get("IA_TPU_COMPILE_CACHE")
+    if not cache_dir:
+        return None
+    from . import native
+
+    os.makedirs(cache_dir, exist_ok=True)
+    native._use_build_dir(cache_dir)
+    return cache_dir

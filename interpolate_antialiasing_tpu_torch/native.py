@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels, and its host weight-table builder.
 
 ``csrc/*.cu`` hold the kernels behind a plain C interface (no PyTorch
 headers, so ``nvcc`` compiles them in seconds).  :func:`build` compiles them
@@ -9,6 +9,14 @@ same checkout, reuses the library.  What ``ptxas -v`` reports for every
 kernel (registers, shared memory, spills) is kept beside the library in
 ``nvcc.log`` (:func:`ptxas_log`).  Nothing is fetched: the sources are the
 package's own and the compiler is the local CUDA toolkit's.
+
+:func:`compute_tables_native` is the JAX package's ``native`` module: the
+float64 weight tables of ``ops.weights.compute_tables`` built by
+``csrc/aa_tables.cpp`` (the port's copy) with the host C++ compiler, at
+first use, into ``_build/`` beside the kernels.  It is a host tool, so it
+runs wherever a C++ compiler does, and returns None where none does (or
+under ``IA_TPU_NO_NATIVE``).  ``config.enable_compilation_cache`` moves
+``_build/`` for both libraries.
 """
 
 from __future__ import annotations
@@ -24,7 +32,10 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["build", "plane_chunks", "ptxas_log", "NVCC_FLAGS"]
+import numpy as np
+
+__all__ = ["build", "plane_chunks", "ptxas_log", "NVCC_FLAGS", "FILTER_IDS",
+           "native_available", "compute_tables_native"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -95,16 +106,22 @@ def plane_chunks(n: int, max_per_launch: int) -> list[tuple[int, int]]:
     return [(s, min(max_per_launch, n - s)) for s in range(0, n, max_per_launch)]
 
 
-def _nvcc() -> str | None:
-    """The CUDA toolkit's compiler: on PATH, else under CUDA_HOME."""
-    found = shutil.which("nvcc")
+def _cuda_tool(name: str) -> str | None:
+    """A program of the CUDA toolkit (or the host's): on PATH, else under
+    CUDA_HOME/bin."""
+    found = shutil.which(name)
     if found:
         return found
     from torch.utils.cpp_extension import CUDA_HOME
 
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / name).exists():
+        return str(Path(CUDA_HOME) / "bin" / name)
     return None
+
+
+def _nvcc() -> str | None:
+    """The CUDA toolkit's compiler: on PATH, else under CUDA_HOME."""
+    return _cuda_tool("nvcc")
 
 
 def _sources() -> list[Path]:
@@ -189,3 +206,120 @@ def ptxas_log() -> str:
     this checkout has not built them."""
     log = _lib_path().parent / _LOG_NAME
     return log.read_text() if log.exists() else ""
+
+
+def _use_build_dir(path: Path) -> None:
+    """Build and look for both libraries under ``path`` from now on (the
+    next :func:`build` or table call loads from there)."""
+    global _BUILD_DIR
+    _BUILD_DIR = Path(path)
+    build.cache_clear()
+    _tables_lib.cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# The host weight-table builder (csrc/aa_tables.cpp)
+# ---------------------------------------------------------------------------
+
+FILTER_IDS = {
+    "bilinear": 0,
+    "linear": 0,
+    "triangle": 0,
+    "box": 1,
+    "nearest": 1,
+    "bicubic": 2,
+    "cubic": 2,
+    "lanczos3": 3,
+    "bicubic075": 4,
+    "hamming": 5,
+}
+
+_TABLES_SRC = _CSRC / "aa_tables.cpp"
+_TABLES_LIB_NAME = "libaa_tables.so"
+_HOST_FLAGS = ("-O3", "-shared", "-fPIC")
+
+
+def _tables_lib_path() -> Path:
+    h = hashlib.sha256(" ".join(_HOST_FLAGS).encode())
+    h.update(_TABLES_SRC.read_bytes())
+    return _BUILD_DIR / f"aa_tables-{h.hexdigest()[:16]}" / _TABLES_LIB_NAME
+
+
+def _build_tables(lib: Path) -> bool:
+    """Compile the table builder with the first host C++ compiler that
+    succeeds, into a temporary name beside ``lib``, then rename it into
+    place: processes that build at once each load a whole library.  False
+    where no compiler builds it."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    for cc in ("c++", "g++", "clang++"):
+        if shutil.which(cc) is None:
+            continue
+        fd, tmp = tempfile.mkstemp(dir=lib.parent, suffix=".so.tmp")
+        os.close(fd)
+        try:
+            proc = subprocess.run([cc, *_HOST_FLAGS, str(_TABLES_SRC), "-o", tmp],
+                                  capture_output=True, timeout=120)
+            if proc.returncode == 0:
+                os.replace(tmp, lib)
+                return True
+        except (OSError, subprocess.SubprocessError):
+            continue
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return False
+
+
+@functools.cache
+def _tables_lib() -> ctypes.CDLL | None:
+    lib_path = _tables_lib_path()
+    if not lib_path.exists() and not _build_tables(lib_path):
+        return None
+    try:
+        lib = ctypes.CDLL(str(lib_path))
+    except OSError:
+        return None
+    lib.aa_ntaps.restype = ctypes.c_int32
+    lib.aa_ntaps.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+                             ctypes.c_int32, ctypes.c_int32]
+    lib.aa_compute_tables_v2.restype = None
+    lib.aa_compute_tables_v2.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, _P, _P, _P]
+    return lib
+
+
+def native_available() -> bool:
+    """Whether :func:`compute_tables_native` builds tables here: a host C++
+    compiler built (or had built) the library, and ``IA_TPU_NO_NATIVE`` is
+    not set."""
+    return not os.environ.get("IA_TPU_NO_NATIVE") and _tables_lib() is not None
+
+
+def compute_tables_native(
+    in_size: int,
+    out_size: int,
+    mode: str,
+    antialias: bool = True,
+    align_corners: bool = False,
+):
+    """Native float64 tables ``(xmin[out] int32, size[out] int32,
+    weights[out, ntaps] float64)`` of ``ops.weights.compute_tables`` for the
+    spec of these arguments, or None where :func:`native_available` is
+    false.  ``mode`` is one of :data:`FILTER_IDS`."""
+    if not native_available():
+        return None
+    lib = _tables_lib()
+    # Same mode/border mapping as ops.weights.make_axis_spec: the classic
+    # (non-AA) bicubic is Keys a=-0.75 with replicate borders.
+    if not antialias and FILTER_IDS.get(mode) == 2:
+        mode = "bicubic075"
+    border = 0 if antialias else 1
+    fid = FILTER_IDS[mode]
+    ntaps = lib.aa_ntaps(in_size, out_size, fid, int(antialias), int(align_corners))
+    xmin = np.empty(out_size, np.int32)
+    size = np.empty(out_size, np.int32)
+    w = np.empty((out_size, ntaps), np.float64)
+    lib.aa_compute_tables_v2(in_size, out_size, fid, int(antialias), int(align_corners),
+                             border, xmin.ctypes.data, size.ctypes.data, w.ctypes.data)
+    return xmin, size, w

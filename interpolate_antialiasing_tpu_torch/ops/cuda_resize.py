@@ -939,6 +939,25 @@ def _fused_gate(fused: bool, *specs: Pass) -> list[bool]:
     return gate
 
 
+def resize2d_plan(spec_h: Pass, spec_w: Pass, itemsize: int, planes: int, n_sm: int,
+                  fused_h: bool = False, fused_w: bool = False) -> Plan2d | None:
+    """:func:`resize2d`'s launch decision for ``planes`` planes of
+    ``itemsize``-byte elements on a card of ``n_sm`` SMs: kernel A's plan
+    (over the synthesised first taps where both passes are fused), or None,
+    where no tile fits or only one pass is fused: two resample_axis passes
+    (W into :func:`axes_inter_dtype`, then H)."""
+    if fused_h != fused_w:
+        return None
+    return (_plan2d_synth if fused_h else _plan2d)(spec_h, spec_w, itemsize,
+                                                   max(1, planes), n_sm)
+
+
+def axes_inter_dtype(in_dtype: torch.dtype, out_dtype: torch.dtype) -> torch.dtype:
+    """The intermediate of :func:`resize2d`'s two-pass fallback: the uint8
+    lattice for uint8 -> uint8 (as the kernel's), else float32."""
+    return torch.uint8 if in_dtype == out_dtype == torch.uint8 else torch.float32
+
+
 def resize2d(x: torch.Tensor, spec_h: Pass, spec_w: Pass,
              out_dtype: torch.dtype | None = None,
              fused: bool = False) -> torch.Tensor:
@@ -968,16 +987,13 @@ def resize2d(x: torch.Tensor, spec_h: Pass, spec_w: Pass,
             f"resize2d: trailing axes {tuple(x.shape[-2:])} != "
             f"({spec_h.in_size}, {spec_w.in_size})")
     fused_h, fused_w = _fused_gate(fused, spec_h, spec_w)
-    plan = None
-    if fused_h == fused_w:
-        args = (x.element_size(), max(1, math.prod(x.shape[:-2])), _n_sm(x.device))
-        plan = (_plan2d_synth if fused_h else _plan2d)(spec_h, spec_w, *args)
+    plan = resize2d_plan(spec_h, spec_w, x.element_size(), math.prod(x.shape[:-2]),
+                         _n_sm(x.device), fused_h, fused_w)
     if plan is None:
         if debug_enabled():
             print("[ia-tpu] resample2d: no tile fits (or one pass fused), "
                   "two resample_axis passes")
-        quant = x.dtype == torch.uint8 and out_dtype == torch.uint8
-        y = resize_axis(x, spec_w, -1, torch.uint8 if quant else torch.float32,
+        y = resize_axis(x, spec_w, -1, axes_inter_dtype(x.dtype, out_dtype),
                         fused=fused_w)
         return resize_axis(y, spec_h, -2, out_dtype, fused=fused_h)
     lead = x.shape[:-2]

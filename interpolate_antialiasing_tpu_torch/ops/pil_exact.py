@@ -338,6 +338,17 @@ def _resample_axis_plain(x3: torch.Tensor, tables,
     return (acc >> pb).clamp_(0, 255).to(torch.uint8)
 
 
+def _plan_axis(tables, outer: int, n_in: int, inner: int, n_sm: int,
+               vec4: bool) -> cr.PlanAxis | None:
+    """The pil_resample_axis launch plan of a pass over ``x3[outer, n_in,
+    inner]`` with the ``(xmin, Wb)`` tables: the float axis kernel's plan
+    (``cuda_resize._plan_axis_first``) for one-byte elements on a card of
+    ``n_sm`` SMs (``vec4``: the input's address is a multiple of 4); None:
+    the unstaged body."""
+    return cr._plan_axis_first(cr._first_taps_key(tables[0]), tables[1].shape[1], n_in,
+                               outer, inner, 1, n_sm, vec4)
+
+
 def _resample_axis_cuda(x3: torch.Tensor, tables, pb: int) -> torch.Tensor:
     global launches_axis
     from .. import native
@@ -351,8 +362,7 @@ def _resample_axis_cuda(x3: torch.Tensor, tables, pb: int) -> torch.Tensor:
     dev = x3.device
     xmin, wb = _on(tables[0], dev), _on(tables[1], dev)
     key = cr._first_taps_key(tables[0])
-    plan = cr._plan_axis_first(key, ntaps, n_in, outer, inner, 1, cr._n_sm(dev),
-                               x3.data_ptr() % 4 == 0)
+    plan = _plan_axis(tables, outer, n_in, inner, cr._n_sm(dev), x3.data_ptr() % 4 == 0)
     with torch.cuda.device(dev):
         err = lib.ia_pil_resample_axis(
             x3.data_ptr(), out.data_ptr(), outer, n_in, inner, n_out,
@@ -468,6 +478,23 @@ def reduce_pil_exact(
 # ---------------------------------------------------------------------------
 
 
+def _precision_bits(ih: int, iw: int, oh: int, ow: int, method: str,
+                    digits: int) -> int:
+    """The coefficient grid of a :func:`resize_pil_exact` call: Pillow's
+    pb=22, or pb=14 under ``digits=2`` where both axes have at most 57 taps
+    (the +-1 bound's admission, see its docstring)."""
+    if digits != 2 or method == "pil_nearest":
+        return PRECISION_BITS
+    ntaps = max(make_axis_spec(ih, oh, method, antialias=True).ntaps,
+                make_axis_spec(iw, ow, method, antialias=True).ntaps)
+    if ntaps <= 57:
+        return 14
+    if debug_enabled():
+        print(f"[ia-tpu] digits=2 declined (ntaps={ntaps} > 57): "
+              "running the exact pb=22 grid")
+    return PRECISION_BITS
+
+
 def resize_pil_exact(
     x: torch.Tensor,
     size: Sequence[int],
@@ -517,17 +544,7 @@ def resize_pil_exact(
     h_axis, w_axis = _axes_for(x, data_format)
     h_axis, w_axis = h_axis % x.ndim, w_axis % x.ndim
     ih, iw = x.shape[h_axis], x.shape[w_axis]
-    pb = PRECISION_BITS
-    if digits == 2 and method != "pil_nearest":
-        ntaps = max(
-            make_axis_spec(ih, oh, method, antialias=True).ntaps,
-            make_axis_spec(iw, ow, method, antialias=True).ntaps,
-        )
-        if ntaps <= 57:  # the +-1 bound's admission (see docstring)
-            pb = 14
-        elif debug_enabled():
-            print(f"[ia-tpu] digits=2 declined (ntaps={ntaps} > 57): "
-                  "running the exact pb=22 grid")
+    pb = _precision_bits(ih, iw, oh, ow, method, digits)
     if reducing_gap is not None:
         if reducing_gap < 1.0:
             raise ValueError("reducing_gap must be 1.0 or greater")

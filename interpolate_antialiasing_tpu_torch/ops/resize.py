@@ -110,18 +110,25 @@ def _apply_tables(x: torch.Tensor, t: Tables, axis: int, backend: str) -> torch.
     return y.movedim(-1, axis)
 
 
+def _axis_method(spec: AxisSpec, dtype: torch.dtype, backend: str) -> str:
+    """The route of one 1-D pass of ``dtype`` under ``backend``: ``'pallas'``
+    (the resample_axis kernel) or the plain ``'dense'``, ``'gather'`` or
+    ``'banded'``."""
+    if dtype == torch.float64 and backend in ("auto", "xla"):
+        return _pick_method_f64(spec)
+    method = _pick_method(spec, backend)
+    if method == "pallas" and dtype not in KERNEL_DTYPES:
+        return "dense" if spec.in_size * spec.out_size <= (1 << 22) else "gather"
+    return method
+
+
 def _apply_axis(x: torch.Tensor, spec: Pass, axis: int,
                 backend: str) -> torch.Tensor:
     if isinstance(spec, tuple):
         return _apply_tables(x, spec[0], axis, backend)
-    if x.dtype == torch.float64 and backend in ("auto", "xla"):
-        method = _pick_method_f64(spec)
-    else:
-        method = _pick_method(spec, backend)
+    method = _axis_method(spec, x.dtype, backend)
     if method == "pallas":
-        if x.dtype in KERNEL_DTYPES:
-            return resize_axis(x, spec, axis)
-        method = "dense" if spec.in_size * spec.out_size <= (1 << 22) else "gather"
+        return resize_axis(x, spec, axis)
     if debug_enabled():
         print(
             f"[ia-tpu] axis={axis} {spec.in_size}->{spec.out_size} {method} "
@@ -149,18 +156,21 @@ def _apply_axis_diff(x: torch.Tensor, spec: AxisSpec, axis: int,
 # ---------------------------------------------------------------------------
 
 
+def _plane_kernel(dtype: torch.dtype, ndim: int, h_axis: int, w_axis: int,
+                  backend: str) -> bool:
+    """Whether a plane pass runs the two-pass resample2d kernel: a trailing
+    ``[H, W]`` plane of a kernel dtype under ``auto``/``pallas`` (the JAX
+    package's whole-image and streamed kernels; resize2d covers both sizes);
+    else one pass per axis, W then H."""
+    return (backend in ("pallas", "auto") and dtype in KERNEL_DTYPES
+            and h_axis % ndim == ndim - 2 and w_axis % ndim == ndim - 1)
+
+
 def _resize_plane_impl(
     x: torch.Tensor, spec_h: AxisSpec, spec_w: AxisSpec, h_axis: int,
     w_axis: int, backend: str
 ) -> torch.Tensor:
-    # One two-pass kernel for a trailing [H, W] plane (the JAX package's
-    # whole-image and streamed kernels; resize2d covers both sizes).
-    if (
-        backend in ("pallas", "auto")
-        and x.dtype in KERNEL_DTYPES
-        and h_axis % x.ndim == x.ndim - 2
-        and w_axis % x.ndim == x.ndim - 1
-    ):
+    if _plane_kernel(x.dtype, x.ndim, h_axis, w_axis, backend):
         return resize2d(x, spec_h, spec_w, out_dtype=x.dtype)
     # Same pass order as the reference's separable driver: innermost (W) dim
     # first, then H.
@@ -352,6 +362,42 @@ def _finalize_dtype(y: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     return y.to(out_dtype)
 
 
+def _resize_route(in_dtype: torch.dtype, out_dtype: torch.dtype, method: str,
+                  antialias: bool, align_corners: bool, scale_factors, backend: str,
+                  pil_args: bool = False) -> str:
+    """The route :func:`resize` takes for these arguments (``backend``
+    resolved; ``pil_args``: a box or a reducing_gap was given), which
+    ``utils.inspect.kernel_report`` reads too:
+
+      * ``'nearest_legacy'`` — an index gather, no kernel;
+      * ``'pil_exact'`` — ``backend='pil_exact'``;
+      * ``'pil_box'`` — uint8 -> uint8 ``auto`` with a box or reducing_gap:
+        PIL semantics are the contract, so the call stays byte-exact
+        through the Pillow route on every device;
+      * ``'pil_auto'`` — uint8 -> uint8 ``auto`` with plain PIL semantics,
+        promoted to the byte-exact Pillow kernel;
+      * ``'u8_kernel'`` — the other uint8 calls under ``auto``/``pallas``
+        with a kernel output dtype: resample2d decodes and encodes inside
+        the kernel, so the image crosses device memory at 1 byte/px on
+        input (and output for u8 -> u8, whose intermediate is quantised to
+        the u8 lattice like Pillow's);
+      * ``'plane'`` — :func:`resize_plane` in the compute dtype.
+    """
+    u8_to_u8 = in_dtype == torch.uint8 and out_dtype == torch.uint8
+    if method == "nearest_legacy":
+        return "nearest_legacy"
+    if backend == "pil_exact":
+        return "pil_exact"
+    if pil_args and u8_to_u8 and backend == "auto" and antialias:
+        return "pil_box"
+    if (u8_to_u8 and backend == "auto" and antialias and not align_corners
+            and scale_factors is None and method in _PIL_AUTO_METHODS):
+        return "pil_auto"
+    if in_dtype == torch.uint8 and out_dtype in KERNEL_DTYPES and backend in ("auto", "pallas"):
+        return "u8_kernel"
+    return "plane"
+
+
 def resize(
     x: torch.Tensor,
     size: Sequence[int],
@@ -449,6 +495,9 @@ def resize(
     out_dtype = output_dtype if output_dtype is not None else in_dtype
     u8_to_u8 = in_dtype == torch.uint8 and out_dtype == torch.uint8
     backend_resolved = backend or default_backend()
+    route = _resize_route(in_dtype, out_dtype, method, antialias, align_corners,
+                          scale_factors, backend_resolved,
+                          box is not None or reducing_gap is not None)
     if reducing_gap is not None:
         pil_route = (
             backend_resolved in ("auto", "pil_exact")
@@ -465,7 +514,7 @@ def resize(
                 "backend='auto'/'pil_exact', antialias, no align_corners/"
                 "scale_factors (reduce first yourself for other routes)"
             )
-    if method == "nearest_legacy":
+    if route == "nearest_legacy":
         # Pure index gather, byte-exact vs torch mode='nearest' (always
         # non-AA; the method name implies it, so antialias is ignored).
         if align_corners:
@@ -475,7 +524,7 @@ def resize(
     if backend_resolved not in _BACKENDS:
         raise ValueError(
             f"unknown backend {backend_resolved!r}; expected one of {_BACKENDS}")
-    if backend_resolved == "pil_exact":
+    if route == "pil_exact":
         if not u8_to_u8:
             raise ValueError("backend='pil_exact' is the uint8 (8bpc) pipeline")
         if not antialias or align_corners or scale_factors is not None:
@@ -488,46 +537,24 @@ def resize(
             reducing_gap=reducing_gap,
         )
     pil_method = "box" if method == "nearest" else method
-    # u8 -> u8 with a resize box: PIL semantics are the contract, so 'auto'
-    # stays byte-exact through the Pillow route on every device.
-    if (
-        (box is not None or reducing_gap is not None)
-        and u8_to_u8
-        and backend_resolved == "auto"
-        and antialias
-    ):
+    if route == "pil_box":
         if debug_enabled():
             print("[ia-tpu] uint8 auto + box/reducing_gap -> pil_exact")
         return resize_pil_exact(
             x, (oh, ow), method=pil_method, data_format=data_format, box=box,
             reducing_gap=reducing_gap,
         )
-    # u8 -> u8 with plain PIL semantics: 'auto' promotes to the byte-exact
-    # Pillow kernel.  Every layout _axes_for yields is trailing-HW or
-    # channels-last, both of which the route takes.
-    if (
-        u8_to_u8
-        and backend_resolved == "auto"
-        and antialias
-        and not align_corners
-        and scale_factors is None
-        and method in _PIL_AUTO_METHODS
-    ):
+    # Every layout _axes_for yields is trailing-HW or channels-last, both of
+    # which the Pillow route takes.
+    if route == "pil_auto":
         if debug_enabled():
             print("[ia-tpu] uint8 auto -> pil_exact")
         return resize_pil_exact(
             x, (oh, ow), method=pil_method, data_format=data_format
         )
-    # The other uint8 calls: decode and encode inside the two-pass kernel,
-    # so the image crosses device memory at 1 byte/px on input (and output
-    # for u8 -> u8, whose intermediate is quantised to the u8 lattice like
-    # Pillow's).  Every layout _axes_for yields is trailing-HW or
-    # channels-last; channels-last moves through NCHW around the kernel.
-    if (
-        in_dtype == torch.uint8
-        and out_dtype in KERNEL_DTYPES
-        and backend_resolved in ("auto", "pallas")
-    ):
+    # Every layout _axes_for yields is trailing-HW or channels-last;
+    # channels-last moves through NCHW around the kernel.
+    if route == "u8_kernel":
         sfh, sfw = scale_factors if scale_factors is not None else (None, None)
         spec_w = make_axis_spec(
             x.shape[w_axis], ow, method, antialias, align_corners, sfw,

@@ -12,6 +12,7 @@ included, is a fault; the Pillow kernel is byte-exact as well.
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -696,3 +697,69 @@ def test_crop_4k_random_resized_crop_every_tile(dev, monkeypatch, precision):
     want = cc._crop_resample_plain(x, *tables)
     assert torch.equal(cc._crop_resample(x, *tables), want)
     _crop_every_tile(dev, monkeypatch, x, tables, want)
+
+
+# ---------------------------------------------------------------------------
+# The inspection and timing tools on the card
+# ---------------------------------------------------------------------------
+
+REPORT_CASES = [
+    ("u8_pil", (4, 3, 438, 906), (196, 320), "bilinear", torch.uint8, None),
+    ("f32_nchw", (1, 3, 438, 906), (196, 320), "bicubic", torch.float32, None),
+    ("f32_nhwc", (1, 438, 906, 3), (196, 320), "bilinear", torch.float32, "NHWC"),
+    ("bf16", (2, 3, 216, 384), (108, 192), "bilinear", torch.bfloat16, None),
+    ("f32_no_tile", (2, 58200, 4), (1, 4), "box", torch.float32, None),
+    ("u8_no_tile", (1, 20000, 64), (10, 32), "lanczos3", torch.uint8, None),
+    ("f64_plain", (1, 3, 43, 90), (19, 32), "bilinear", torch.float64, None),
+]
+
+
+@pytest.mark.parametrize("name,shape,ohw,mode,dtype,fmt", REPORT_CASES,
+                         ids=[c[0] for c in REPORT_CASES])
+def test_kernel_report_route_matches_the_launch_counters(dev, name, shape, ohw, mode, dtype,
+                                                         fmt):
+    from interpolate_antialiasing_tpu_torch.utils.inspect import kernel_report, launch_counts
+
+    rep = kernel_report(shape, ohw, mode=mode, dtype=dtype, data_format=fmt)
+    assert not rep.n_sm_assumed and rep.n_sm == cr._n_sm(dev)
+    x = _input(shape, dtype, dev)
+    before = launch_counts()
+    iat.resize(x, ohw, method=mode, data_format=fmt)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in launch_counts().items() if v > before[k]}
+    assert got == rep.launches, rep.route
+
+
+def test_compiled_text_shows_the_launched_kernels_sass(dev):
+    from interpolate_antialiasing_tpu_torch.utils.inspect import compiled_text
+
+    x = _input((2, 3, 64, 96), torch.uint8, dev)
+    txt = compiled_text(lambda t: iat.resize(t, (30, 40)), x)
+    assert "[hand-written]" in txt
+    assert re.search(r"Function : \S*resample2d_kernel", txt)
+    assert re.search(r"Used \d+ registers", txt)
+
+
+def test_device_time_per_call_times_the_kernel(dev):
+    from interpolate_antialiasing_tpu_torch.utils.timing import (
+        device_seconds_from_trace,
+        device_time_per_call,
+    )
+
+    x = _input((3, 97, 131), torch.float32, dev)
+    sh, sw = make_axis_spec(97, 40), make_axis_spec(131, 60)
+
+    def call():
+        return cr.resize2d(x, sh, sw)
+
+    per_launch = device_time_per_call(call, iters=5, match="resample2d_kernel")
+    per_call = device_time_per_call(call, iters=5)
+    assert 0 < per_launch < 10 and 0 < per_call < 10
+
+    def run_once():
+        call()
+        torch.cuda.synchronize()
+
+    assert 0 < device_seconds_from_trace(run_once, "resample2d_kernel") < 0.01
+    with pytest.raises(RuntimeError, match="no device time"):
+        device_time_per_call(call, iters=2, match="no_such_kernel")

@@ -239,6 +239,9 @@ def test_port_imports_no_jax():
         "import interpolate_antialiasing_tpu_torch.ops.scale_translate\n"
         "import interpolate_antialiasing_tpu_torch.models.batch\n"
         "import interpolate_antialiasing_tpu_torch.models.pyramid\n"
+        "import interpolate_antialiasing_tpu_torch.cli\n"
+        "import interpolate_antialiasing_tpu_torch.utils.inspect as insp\n"
+        "import interpolate_antialiasing_tpu_torch.utils.oracle as orc\n"
         "import torch\n"
         "x = torch.zeros((1, 3, 16, 16), dtype=torch.uint8)\n"
         "iat.ImageNetEvalPipeline(size=(8, 8))(x)\n"
@@ -268,6 +271,14 @@ def test_port_imports_no_jax():
         "from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr\n"
         "from interpolate_antialiasing_tpu_torch.ops.weights import make_axis_spec as m\n"
         "cr.resize2d(x, m(16, 8, 'lanczos3'), m(16, 8, 'hamming'), fused=True)\n"
+        "interpolate_antialiasing_tpu_torch.native.compute_tables_native(16, 8, 'bicubic')\n"
+        "insp.kernel_report((1, 3, 16, 16), (8, 8), device='cpu')\n"
+        "insp.sharded_report(64, 32, 'bilinear', 2, 32)\n"
+        "insp.lower_text(lambda: iat.resize(x, (8, 8)))\n"
+        "orc.pil_available()\n"
+        "import contextlib, io\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    interpolate_antialiasing_tpu_torch.cli.main(['--device', 'cpu', '--inspect'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib', 'interpolate_antialiasing_tpu.')) or m == "
         "'interpolate_antialiasing_tpu')\n"
