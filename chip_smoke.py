@@ -20,7 +20,10 @@ then:
    the plain version's tap order, so any difference is a fault), the same
    two kernels over transposed tables (the resize's adjoint, f32 and bf16),
    the crop kernel's integer and float variants on the JAX package's
-   crop-test windows and at full size, the sharded byte-exact route's
+   crop-test windows and at full size, the crop's table kernel
+   (``crop_tables``) against the plain table build on the same cases and
+   edges, table by table (``first`` and ``cnt`` equal, ``w`` bit for bit),
+   the sharded byte-exact route's
    kernel (pil_resample_axis) over every shard's tables of 2, 4 and 8
    shards, each filter, divisible and ceil-padded sizes, middle axis, last
    axis and NHWC, and the per-axis float kernel over every shard's tables
@@ -46,7 +49,8 @@ then:
    adjoint kernels); the train path (``ImageNetTrainPipeline`` on a uint8
    [64, 3, 438, 906] batch, ``Trainer`` steps on its output,
    ``crop_and_resize`` on the batch and ``random_resized_crop`` on 4K
-   frames through the crop kernel).  Each is checked bit for bit against
+   frames through the table kernel and the crop kernel: one ``crop_tables``
+   and two ``crop_resample`` launches each).  Each is checked bit for bit against
    the same call with every kernel replaced by its plain version on the
    card, with TF32 off and cuDNN deterministic.  Then the sharded path at
    the size it exists for, through the shard bodies on 4 shards (each
@@ -76,7 +80,9 @@ then:
    (``*_host_us``), since CUDA events around back-to-back calls measure the
    host where it is the slower (batch 1), and the uint8 kernels the same way
    (the Pillow kernel at the bench batch and 4K -> HD, the crop's two
-   passes per call); the shard passes of both per-axis
+   passes per call, the crop's table kernel per launch); the whole crop
+   calls with the table kernel and with the plain table build, in turns,
+   by events and by device time (``time_crop_call``); the shard passes of both per-axis
    kernels the same way; and kernel B at config 5's frames in NHWC (bf16
    [64, 2160, 3840, 3] -> 1080x1920 through ``resize``, tables and fused,
    beside ``F.interpolate`` on the same channels-last tensor,
@@ -91,7 +97,9 @@ then:
    and adjoint launches of resample2d); ``--profile`` (a trace with a
    resample2d kernel record); lanczos5 accuracy against the dense float64
    route; ``--dump-hlo`` (the launched kernel's SASS); and ``lower_text``
-   of one b64 ``crop_and_resize`` call (its aten operators and launches).
+   of one b64 ``crop_and_resize`` call (its aten operators, at most 16, and
+   its launches: ``crop_tables`` and two ``crop_resample``; with the plain
+   table build forced, for comparison).
 
 Every phase prints one JSON line (each kernel-vs-plain case goes to
 ``smoke_out/chip_smoke_cases.jsonl``); any failure raises and exits
@@ -535,9 +543,9 @@ class _Tally:
         self.worst = max(self.worst, res["max_abs_err"])
         _case(kernel=self.kernel, case=case, **fields, **res)
 
-    def summary(self) -> float:
+    def summary(self, **fields) -> float:
         _line("kernel_vs_plain_summary", kernel=self.kernel, cases=self.cases,
-              max_abs_err=self.worst)
+              max_abs_err=self.worst, **fields)
         return self.worst
 
 
@@ -721,17 +729,45 @@ def _crop_cases():
            box_fracs(*shape[2:]))
 
 
-def check_crop_kernel(dev) -> float:
+def _crop_tables_vs_plain(tally: _Tally, name: str, x, b, ohw, method: str, frac,
+                          precision: str):
+    """The crop's per-image tables from the table kernel (one launch) against
+    the plain build on the card, table by table: ``first`` and ``cnt``
+    equal, ``w`` equal bit for bit.  Returns the kernel's tables."""
+    before = cc.launches_crop_tables
+    got = cc._windowed_tables(x, b, ohw, method, True, frac, precision)
+    torch.cuda.synchronize()
+    if cc.launches_crop_tables != before + 1:
+        raise RuntimeError(f"crop_tables {name}: not launched once")
+    with _forced(cc, "_windowed_tables_cuda", cc._windowed_tables_plain):
+        want = cc._windowed_tables(x, b, ohw, method, True, frac, precision)
+    if got[2:] != want[2:] or [t.wins for t in got[:2]] != [t.wins for t in want[:2]]:
+        raise RuntimeError(f"crop_tables {name} {precision}: pb or windows differ")
+    err = 0.0
+    for axis, g, w in zip("hw", got[:2], want[:2]):
+        for f in ("first", "cnt", "w"):
+            bits = _compare(f"crop_tables {name} {precision} {axis} {f}",
+                            getattr(g, f).view(torch.int32), getattr(w, f).view(torch.int32))
+            err = max(err, bits["max_abs_err"])
+    tally.add(f"{name} {precision}", {"max_abs_err": err}, shape=list(x.shape), out=list(ohw),
+              method=method, max_box_frac=frac, tables=2,
+              taps=[int(got[0].cnt.max()), int(got[1].cnt.max())],
+              tap_bound=[got[0].w.shape[-1], got[1].w.shape[-1]])
+    return got
+
+
+def check_crop_kernel(dev) -> tuple[float, float]:
     """Both variants of crop_resample against their plain version on the
-    card, over the same device-built tables."""
-    tally = _Tally("crop_resample")
+    card, over the same device-built tables; and those tables, from the
+    table kernel, against the plain build."""
+    tally, tt = _Tally("crop_resample"), _Tally("crop_tables")
     seed = 500
     for name, shape, boxes, ohw, method, frac in _crop_cases():
         seed += 1
         x = _rand(shape, U8, dev, seed)
         b = torch.as_tensor(np.asarray(boxes, np.float32)).to(dev)
         for precision in ("pil_int8", "split"):
-            tables = cc._windowed_tables(x, b, ohw, method, True, frac, precision)
+            tables = _crop_tables_vs_plain(tt, name, x, b, ohw, method, frac, precision)
             before = cc.launches_crop
             got = cc._crop_resample(x, *tables)
             torch.cuda.synchronize()
@@ -745,7 +781,7 @@ def check_crop_kernel(dev) -> float:
                       tap_bound=[tables[0].w.shape[-1], tables[1].w.shape[-1]],
                       taps=[int(tables[0].cnt.max()), int(tables[1].cnt.max())])
             del tables, got, want
-    return tally.summary()
+    return tally.summary(), tt.summary(tables_compared=2 * tt.cases)
 
 
 def _pil_axis_cases():
@@ -1118,13 +1154,15 @@ def _crop_edge_cases():
                                          *shape[2:]).numpy(), ohw, box_fracs(*shape[2:]))
 
 
-def check_u8_tiles(dev) -> tuple[float, float]:
+def check_u8_tiles(dev) -> tuple[float, float, float]:
     """The Pillow two-pass kernel (kernel A over Pillow's tables) and the
     crop passes (kernel B with per-image tables) at their edges: each case
     through the production plan, then with every tile the plan considers
     forced (both crop passes in turn, the other on its plan, and kernel B's
-    unstaged body), byte for byte against the plain version."""
+    unstaged body), byte for byte against the plain version; the crop's
+    tables from the table kernel against the plain build at each edge."""
     tp, tc = _Tally("pil_resample_2pass every tile"), _Tally("crop_resample every tile")
+    tt = _Tally("crop_tables edges")
     for name, shape, ohw, mode, pb, offset in _pil_2pass_edges():
         x3 = (_offset_input(shape, U8, dev, 41) if offset else _rand(shape, U8, dev, 41))
         tw = pe._int_tables(shape[2], ohw[1], mode, pb=pb)
@@ -1152,7 +1190,7 @@ def check_u8_tiles(dev) -> tuple[float, float]:
         b = torch.as_tensor(np.asarray(boxes, np.float32)).to(dev)
         N, C, H, W = shape
         for precision in ("pil_int8", "split"):
-            tables = cc._windowed_tables(x, b, ohw, "bilinear", True, frac, precision)
+            tables = _crop_tables_vs_plain(tt, name, x, b, ohw, "bilinear", frac, precision)
             want = cc._crop_resample_plain(x, *tables)
             res = _compare(f"crop_resample {name} {precision}", cc._crop_resample(x, *tables),
                            want)
@@ -1181,7 +1219,7 @@ def check_u8_tiles(dev) -> tuple[float, float]:
             del tables, want
         del x
         torch.cuda.empty_cache()
-    return tp.summary(), tc.summary()
+    return tp.summary(), tc.summary(), tt.summary(tables_compared=2 * tt.cases)
 
 
 # ---------------------------------------------------------------------------
@@ -1191,6 +1229,7 @@ def check_u8_tiles(dev) -> tuple[float, float]:
 
 def _reset() -> None:
     pe.launches = cr.launches_2d = cr.launches_axis = cc.launches_crop = 0
+    cc.launches_crop_tables = 0
     pe.launches_axis = cr.launches_2d_fused = cr.launches_axis_fused = 0
 
 
@@ -1210,7 +1249,7 @@ def _plain_kernels():
     launching (no count moves): the reference run of a main path."""
     saved = (cr._resample2d_cuda, cr._resample_axis_cuda,
              pe._resample_2pass_cuda, cc._crop_resample_cuda, pe._resample_axis_cuda,
-             cr._resample2d_fused_cuda, cr._resample_axis_fused_cuda)
+             cr._resample2d_fused_cuda, cr._resample_axis_fused_cuda, cc._windowed_tables_cuda)
     cr._resample2d_cuda = lambda x3, sh, sw, odt, plan: cr._resample2d_plain(x3, sh, sw, odt)
     cr._resample_axis_cuda = cr._resample_axis_plain
     pe._resample_2pass_cuda = pe._resample_2pass_plain
@@ -1219,12 +1258,14 @@ def _plain_kernels():
     cr._resample2d_fused_cuda = (
         lambda x3, sh, sw, odt, plan: cr._resample2d_fused_plain(x3, sh, sw, odt))
     cr._resample_axis_fused_cuda = cr._resample_axis_fused_plain
+    cc._windowed_tables_cuda = cc._windowed_tables_plain
     try:
         yield
     finally:
         (cr._resample2d_cuda, cr._resample_axis_cuda,
          pe._resample_2pass_cuda, cc._crop_resample_cuda, pe._resample_axis_cuda,
-         cr._resample2d_fused_cuda, cr._resample_axis_fused_cuda) = saved
+         cr._resample2d_fused_cuda, cr._resample_axis_fused_cuda,
+         cc._windowed_tables_cuda) = saved
 
 
 def main_path_u8_pipeline(dev) -> int:
@@ -1576,12 +1617,13 @@ def main_path_reducing_gap(dev) -> int:
     return total
 
 
-def main_path_train(dev) -> tuple[int, int]:
+def main_path_train(dev) -> tuple[int, int, int]:
     """The train path on one uint8 batch: ``ImageNetTrainPipeline`` (flip
     folded in: the dense route, no kernel), ``Trainer`` steps on its output
     (one resample2d launch per step, no adjoint: the images do not require
     grad), ``crop_and_resize`` with run_all's boxes and
-    ``random_resized_crop`` of 4K frames (no flip: the crop kernel)."""
+    ``random_resized_crop`` of 4K frames (no flip: the table kernel, then
+    the two crop passes)."""
     (shape, size) = TRAIN_B64
     erng = np.random.default_rng(0)
     batch = torch.from_numpy((erng.random(shape) * 255).astype(np.uint8))
@@ -1625,7 +1667,7 @@ def main_path_train(dev) -> tuple[int, int]:
           losses=losses, params_equal_to_plain_run=True)
     del imgs, tr, ref
 
-    n_crop = 0
+    n_crop = n_tables = 0
     boxes = torch.from_numpy(_run_all_boxes(shape[0])).to(dev)
     x4k = _rand(CROP_4K[0], U8, dev, 61)
     for name, fn, xin in [
@@ -1636,14 +1678,15 @@ def main_path_train(dev) -> tuple[int, int]:
         _reset()
         y = fn()
         torch.cuda.synchronize()
-        counts = _expect(name, {"crop_resample": 2})
+        counts = _expect(name, {"crop_tables": 1, "crop_resample": 2})
         n_crop += counts["crop_resample"]
+        n_tables += counts["crop_tables"]
         with _plain_kernels():
             ref = fn()
         res = _compare(name, y, ref)
         _line("main_path", path=name, shape=list(xin.shape), out=list(y.shape),
               launches=counts, **res)
-    return n_crop, TRAIN_STEPS
+    return n_crop, n_tables, TRAIN_STEPS
 
 
 def _sharded_pil(x: torch.Tensor, size, mode: str) -> torch.Tensor:
@@ -2213,9 +2256,10 @@ def time_fused_kernels(dev, card) -> tuple[dict, dict]:
     return out["2d"], out["axis"]
 
 
-def time_train_kernels(dev, card) -> dict:
-    """The adjoint of config 4 and the crop kernel, beside their plain
-    versions; and the whole calls the main path makes."""
+def time_train_kernels(dev, card) -> tuple[dict, dict]:
+    """The adjoint of config 4, the crop kernel and the crop's table kernel,
+    beside their plain versions; and the whole crop calls the main path
+    makes, with the table kernel and with the plain table build."""
     with full_f32():
         (shape, ohw) = CONFIG4
         sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
@@ -2246,7 +2290,7 @@ def time_train_kernels(dev, card) -> dict:
                       g4, list(ohw), list(shape), False, None, None), iters=20),
               library=notea)
         del x
-        out = {}
+        out, tables = {}, {}
         for name, (shape, size), boxes in [
             ("b64", TRAIN_B64, _run_all_boxes(TRAIN_B64[0][0])),
             ("4k", CROP_4K, sample_boxes(torch.Generator().manual_seed(1),
@@ -2278,21 +2322,61 @@ def time_train_kernels(dev, card) -> dict:
                       taps=[t[0].w.shape[-1], t[1].w.shape[-1]], **bound,
                       library_ms=None, library="no PyTorch call crops per-image boxes "
                       "with antialiasing")
-            calls = {
-                "windowed": lambda: crop_and_resize(x, b, size, max_box_frac=frac),
-                "dense": lambda: crop_and_resize(x, b, size, use_windowed=False),
-            }
+            def win():
+                return crop_and_resize(x, b, size, max_box_frac=frac)
+
+            def win_plain():
+                with _forced(cc, "_windowed_tables_cuda", cc._windowed_tables_plain):
+                    return win()
+
+            def table_kernel():
+                return cc._windowed_tables(x, b, size, "bilinear", True, frac, "pil_int8")
+
+            def table_plain():
+                with _forced(cc, "_windowed_tables_cuda", cc._windowed_tables_plain):
+                    return table_kernel()
+
+            # the tables alone: the kernel beside the plain build, in turns
+            tms = _turns(table_kernel, table_plain, 10, 2)
+            tdt = _kernel_times(table_kernel, 20, "crop_tables_kernel")
+            t = table_kernel()
+            # what the kernel must move: the boxes in, the tables out
+            tb = bound_of(16 * shape[0] + sum(8 * tab.first.numel() + tab.w.nbytes
+                                              for tab in t[:2]),
+                          int(t[0].cnt.sum() + t[1].cnt.sum()))
+            tables[name] = (tms, tdt, tb)
+            _line("time_crop_tables", card=card, kernel="crop_tables", case=name,
+                  precision="pil_int8", shape=list(shape), size=list(size),
+                  kernel_ms=tms["kernel"], plain_ms=tms["plain"],
+                  kernel_device_ms=tdt["device_ms"], kernel_host_us=tdt["host_us"],
+                  plain_device_ms=device_time_per_call(table_plain, iters=5), **tb,
+                  library_ms=None, library="no PyTorch call builds per-image "
+                  "antialiasing tables")
+            # the whole call: plain build, kernel, kernel, plain build
+            turns = _turns(win, win_plain, 5, 1)
             _line("time_crop_call", card=card, case=name, shape=list(shape),
-                  size=list(size), **{f"{k}_ms": time_cuda(f, iters=5, warmup=1)
-                                      for k, f in calls.items()})
-            del x
+                  size=list(size), windowed_ms=turns["kernel"],
+                  windowed_plain_tables_ms=turns["plain"],
+                  windowed_device_ms=device_time_per_call(win, iters=10),
+                  windowed_plain_tables_device_ms=device_time_per_call(win_plain, iters=5),
+                  windowed_host_us=host_us(win, iters=10),
+                  crop_tables_device_ms=tdt["device_ms"],
+                  dense_ms=time_cuda(lambda: crop_and_resize(x, b, size, use_windowed=False),
+                                     iters=5, warmup=1))
+            del x, t
             torch.cuda.empty_cache()
     b64, bound = out[("b64", "pil_int8")]
-    return {"ms": b64["device_ms"], "device_ms": b64["device_ms"],
-            "call_ms": sum(b64["kernel"]) / 2, "host_us": b64["host_us"],
-            "split_device_ms": out[("b64", "split")][0]["device_ms"],
-            "plain_ms": sum(b64["plain"]) / 2, "bound_ms": bound["bound_ms"],
-            "bound_by": bound["bound_by"], "library_ms": None}
+    tms, tdt, tb = tables["b64"]
+    return ({"ms": b64["device_ms"], "device_ms": b64["device_ms"],
+             "call_ms": sum(b64["kernel"]) / 2, "host_us": b64["host_us"],
+             "split_device_ms": out[("b64", "split")][0]["device_ms"],
+             "plain_ms": sum(b64["plain"]) / 2, "bound_ms": bound["bound_ms"],
+             "bound_by": bound["bound_by"], "library_ms": None},
+            {"ms": tdt["device_ms"], "device_ms": tdt["device_ms"],
+             "call_ms": sum(tms["kernel"]) / 2, "host_us": tdt["host_us"],
+             "4k_device_ms": tables["4k"][1]["device_ms"],
+             "plain_ms": sum(tms["plain"]) / 2, "bound_ms": tb["bound_ms"],
+             "bound_by": tb["bound_by"], "library_ms": None})
 
 
 def time_sharded_kernels(dev, card) -> tuple[dict, dict]:
@@ -2563,17 +2647,26 @@ def cli_phase(dev, card) -> None:
     x = torch.from_numpy((np.random.default_rng(0).random(shape) * 255).astype(np.uint8))
     x = x.to(dev)
     boxes = torch.from_numpy(_run_all_boxes(shape[0])).to(dev)
+    def counts(text):
+        return [int(v) for v in re.match(r"# (\d+) aten ops, (\d+) kernel", text).groups()]
+
     text = lower_text(lambda: crop_and_resize(x, boxes, ohw))
-    n_ops, n_launches = (int(v) for v in re.match(r"# (\d+) aten ops, (\d+) kernel", text).groups())
-    if n_launches != 2:
-        raise RuntimeError(f"lower_text crop_and_resize: {n_launches} launches, expected 2")
-    tables = lower_text(lambda: cc._windowed_tables(x, boxes.float(), ohw, "bilinear", True,
-                                                    1.0, "pil_int8"))
-    n_table_ops = int(re.match(r"# (\d+) aten ops", tables).group(1))
+    n_ops, n_launches = counts(text)
+    launched = sorted(ln for ln in text.splitlines() if ln.startswith("launch "))
+    if launched != ["launch crop_resample"] * 2 + ["launch crop_tables"] or n_ops > 16:
+        raise RuntimeError(f"lower_text crop_and_resize: {n_ops} aten ops (at most 16), "
+                           f"launches {launched}, expected crop_tables + 2 crop_resample")
+    n_table_ops, _ = counts(lower_text(lambda: cc._windowed_tables(
+        x, boxes.float(), ohw, "bilinear", True, 1.0, "pil_int8")))
+    with _forced(cc, "_windowed_tables_cuda", cc._windowed_tables_plain):
+        plain_ops, _ = counts(lower_text(lambda: crop_and_resize(x, boxes, ohw)))
+        plain_table_ops, _ = counts(lower_text(lambda: cc._windowed_tables(
+            x, boxes.float(), ohw, "bilinear", True, 1.0, "pil_int8")))
     lowered = Path("smoke_out") / "crop_lower.txt"
     lowered.write_text(text)
     _line("cli", step="lower_text crop_and_resize b64", shape=list(shape), size=list(ohw),
           aten_ops=n_ops, table_build_aten_ops=n_table_ops, kernel_launches=n_launches,
+          plain_tables_aten_ops=plain_ops, plain_table_build_aten_ops=plain_table_ops,
           file=str(lowered), seconds=lap(), phase_seconds=time.perf_counter() - t0)
 
 
@@ -2646,12 +2739,12 @@ def main() -> None:
             pil_err = check_pil_kernel(dev, rng)
             err_2d, err_axis = check_float_kernels(dev)
             adj_2d, adj_axis = check_adjoint_kernels(dev)
-            crop_err = check_crop_kernel(dev)
+            crop_err, tables_err = check_crop_kernel(dev)
             pil_axis_err = check_pil_axis_kernel(dev)
             shard_err = check_shard_tables_kernel(dev)
             fused_2d_err, fused_axis_err = check_fused_kernels(dev)
             tile_err, tile_fused_err, tile_pil_err = check_axis_tiles(dev)
-            u8_pil_err, u8_crop_err = check_u8_tiles(dev)
+            u8_pil_err, u8_crop_err, u8_tables_err = check_u8_tiles(dev)
         finally:
             CASES_LOG.parent.mkdir(exist_ok=True)
             CASES_LOG.write_text("".join(c + "\n" for c in _cases))
@@ -2670,7 +2763,7 @@ def main() -> None:
         st_2d = main_path_scale_translate(dev)
         gap_launches = main_path_reducing_gap(dev)
         torch.cuda.empty_cache()
-        crop_launches, train_2d = main_path_train(dev)
+        crop_launches, table_launches, train_2d = main_path_train(dev)
         torch.cuda.empty_cache()
         check_crop_against_dense(dev)
         torch.cuda.empty_cache()
@@ -2684,7 +2777,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     t_2d_fused, t_axis_fused = time_fused_kernels(dev, card)
     torch.cuda.empty_cache()
-    t_crop = time_train_kernels(dev, card)
+    t_crop, t_tables = time_train_kernels(dev, card)
     torch.cuda.empty_cache()
     t_pil_axis, t_shard = time_sharded_kernels(dev, card)
     torch.cuda.empty_cache()
@@ -2727,6 +2820,12 @@ def main() -> None:
          "replaces": "interpolate_antialiasing_tpu/ops/crop_pallas.py:250, :280",
          "also_serves": "interpolate_antialiasing_tpu/ops/crop_pallas.py:303, :318",
          "launches": crop_launches, "max_abs_err": max(crop_err, u8_crop_err), **t_crop},
+        {"name": "crop_tables", "route": "cuda",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/crop_tables.cu",
+         "replaces": "interpolate_antialiasing_tpu/ops/crop_pallas.py:117, :190 (the band "
+                     "build XLA fuses ahead of :541 and :617)",
+         "launches": table_launches, "max_abs_err": max(tables_err, u8_tables_err),
+         **t_tables},
         {"name": "pil_resample_axis", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cuh",
          "entry": "interpolate_antialiasing_tpu_torch/csrc/pil_resample_axis.cu",

@@ -88,6 +88,10 @@ _SIGNATURES = {
     # (tile_j, tile_o, tile_i, win, vec, smem), stream
     "ia_crop_pass": (
         _I, [_P, _P, _I, _L, _I, _L, _I, _P, _P, _I, _I] + [_I] * 6 + [_P]),
+    # boxes, N, filter, support, antialias, then per axis (H, W) in_size,
+    # out_size, k, align, hi_start, T, pb, first, cnt, w; stream
+    "ia_crop_tables": (
+        _I, [_P, _I, _I, ctypes.c_float, _I] + ([_I] * 7 + [_P] * 3) * 2 + [_P]),
     # x, out, outer, n_in, inner, n_out, xmin, wb, ntaps, pb, win0, the plan,
     # stream
     "ia_pil_resample_axis": (

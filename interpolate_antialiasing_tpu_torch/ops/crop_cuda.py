@@ -1,5 +1,6 @@
 """Windowed crop-and-resize of uint8 batches with per-image boxes: the host
-side, plain version and wrapper of ``csrc/crop_resample.cu`` (the port of
+side, plain versions and wrappers of ``csrc/crop_tables.cu`` and
+``csrc/crop_resample.cu`` (the port of
 ``interpolate_antialiasing_tpu.ops.crop_pallas``).
 
 The crop box's *position* is data (a tensor), but its *size* is bounded by
@@ -8,7 +9,13 @@ read a static ``K`` input rows (:func:`_window_k`).  Per image and tile the
 band of weights over that window is built on the device from the boxes
 (:func:`_windowed_band`: the PIL algorithm on the box interval, renormalised
 over the window, with the one-hot nearest fallback of a sub-pixel box and
-zero rows past the output), exactly as the JAX package builds it.  Then two
+zero rows past the output), as the JAX package builds it inside its traced
+call, where XLA fuses the chain into the programs that feed its two
+kernels.  On a CUDA tensor one launch of the table kernel
+(:func:`_windowed_tables_cuda`, ``launches_crop_tables``) computes each
+output row's weights in the same float32 steps and writes its compact
+taps (:func:`_compact`) directly; a CPU tensor runs the plain build
+(:func:`_windowed_tables_plain`), and the two agree bit for bit.  Then two
 passes, **H first, then W** (the reverse of ``resize``):
 
   pass 1 (H):  ``inter[n, c, o, w] = q(sum_k band_h[n, o, k] * x[n, c, s + k, w])``
@@ -56,17 +63,25 @@ import torch
 
 from ..config import debug_enabled
 from . import cuda_resize as cr
-from .filters import CUBIC_NAMES, filter_is_nonnegative, get_filter
+from .filters import (CUBIC_NAMES, box_filter, filter_is_nonnegative, get_filter,
+                      hamming_filter, triangle_filter)
 
 __all__ = ["crop_windowed_supported", "crop_and_resize_windowed"]
 
 # Launches of the crop kernel (one per pass): the wrapper adds one per
 # launch and nowhere else.
 launches_crop = 0
+# Launches of the table kernel (one per call on the card, both axes): its
+# wrapper adds one per launch and nowhere else.
+launches_crop_tables = 0
 
 _LANE = 128  # output rows per window tile, and the W pass's start alignment
 _ALIGN_H = 32  # the H pass's start alignment (the TPU's uint8 sublane tile)
 _PRECISIONS = ("pil_int8", "split")
+_SUM_WINDOW = 32  # the window of XLA's CPU tree reductions (:func:`_tree_sum`)
+# the filters admission lets onto this route (the non-negative ones) and
+# their codes in csrc/crop_tables.cu (ia_taps.cuh's SynthFilter, and box)
+_TABLE_FILTERS = {triangle_filter: 0, hamming_filter: 2, box_filter: 4}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -152,6 +167,30 @@ def _digit_plan(in_size, out_size, support, antialias, frac) -> tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
+def _tree_sum(w: torch.Tensor) -> torch.Tensor:
+    """``w.sum(dim=2, keepdim=True)`` in the order the JAX package's
+    ``_windowed_band`` sums on the CPU, one float32 rounding per add, which
+    the table kernel repeats.  XLA's CPU compiler rewrites a sum of more
+    than 32 elements into a tree: it pads them to a multiple of 32 with
+    half of the padding in front, sums each window of 32 in order, and
+    repeats on the window sums while there are more than 32; the last (at
+    most 32) are summed in order.  Any other order (``torch.sum``'s, or
+    plain tap order) moves a column's sum by an ulp now and then, which
+    flips an integer weight that lies on a rounding tie."""
+    while w.shape[2] > _SUM_WINDOW:
+        pad = -w.shape[2] % _SUM_WINDOW
+        w = torch.nn.functional.pad(w, (0, 0, pad // 2, pad - pad // 2))
+        w = w.reshape(*w.shape[:2], -1, _SUM_WINDOW, w.shape[-1])
+        acc = torch.zeros_like(w[:, :, :, 0])
+        for i in range(_SUM_WINDOW):
+            acc = acc + w[:, :, :, i]
+        w = acc
+    total = torch.zeros_like(w[:, :, :1])
+    for i in range(w.shape[2]):
+        total = total + w[:, :, i:i + 1]
+    return total
+
+
 def _windowed_band(lo, hi, in_size: int, out_size: int, k: int, in_limit: int,
                    start_align: int, mode: str, antialias: bool):
     """Per-image windowed weights: ``(starts [N, nt] int32, band [N, nt, k,
@@ -159,13 +198,16 @@ def _windowed_band(lo, hi, in_size: int, out_size: int, k: int, in_limit: int,
     tensors).  ``band[n, t, j, u]`` weighs input ``starts[n, t] + j`` for
     output ``t * 128 + u``.  The math of :func:`.crop._axis_matrix` (the PIL
     algorithm on the box interval) on the window only, float32 op for op as
-    the JAX package's ``_windowed_band``."""
+    the JAX package's ``_windowed_band``, each column's sum in its order on
+    the CPU (:func:`_tree_sum`), which the table kernel repeats."""
     filt = get_filter(mode)
     dev = lo.device
     nt = -(-out_size // _LANE)
     lo = lo.float()
     hi = hi.float()
-    scale = (hi - lo) / out_size
+    # a tensor divisor: on the card torch multiplies by the reciprocal of a
+    # Python scalar divisor, and the table kernel divides
+    scale = (hi - lo) / torch.full_like(lo, float(out_size))
     widen = torch.clamp(scale, min=1.0) if antialias else torch.ones_like(scale)
     support = filt.support * widen  # [N]
 
@@ -192,7 +234,7 @@ def _windowed_band(lo, hi, in_size: int, out_size: int, k: int, in_limit: int,
         & live
     )
     w = torch.where(valid, w, 0.0)
-    total = w.sum(dim=2, keepdim=True)
+    total = _tree_sum(w)
     # degenerate sub-pixel boxes: nearest-pixel fallback
     nearest = torch.clamp(torch.round(c4 - 0.5), 0.0, float(in_size - 1))
     onehot = ((pos == nearest) & live).to(w.dtype)
@@ -452,40 +494,120 @@ def crop_and_resize_windowed(
                                                max_box_frac, precision))
 
 
-def _windowed_tables(x, boxes, out_hw, method, antialias, max_box_frac,
-                     precision):
-    """``(tab_h, tab_w, pb_h, pb_w)`` for :func:`_crop_resample`: the
-    per-image bands on ``x``'s device, compacted per output row to the
-    static tap bound (:class:`_Table`)."""
-    if precision not in _PRECISIONS:
-        raise ValueError(f"precision must be one of {_PRECISIONS}, got {precision!r}")
-    N, C, H, W = x.shape
-    oh, ow = int(out_hw[0]), int(out_hw[1])
-    mode = _mode(method, antialias)
+class _Axis(NamedTuple):
+    """One pass's static table geometry (host): the axis, its window ``k``
+    and alignment over the padded extent ``in_limit``, the tap bound ``T``
+    and ``pb`` (None: float weights)."""
+
+    in_size: int
+    out_size: int
+    k: int
+    in_limit: int
+    align: int
+    T: int
+    pb: int | None
+
+
+@lru_cache(maxsize=256)
+def _table_geometry(H: int, W: int, oh: int, ow: int, mode: str, antialias: bool,
+                    fracs: tuple[float, float], precision: str):
+    """The static host side of a call's tables, from the shapes alone:
+    ``((_Axis, windows) for H, (_Axis, windows) for W)``, the windows those
+    :func:`_crop_windows` gives the crop passes."""
     support = get_filter(mode).support
-    align_h, Hp, k_h, W2, k_w = _geom(H, W, oh, ow, support, antialias,
-                                      max_box_frac)
-    digit = precision == "pil_int8"
-    fh, fw = _fracs(max_box_frac)
-    pb_h, _ = _digit_plan(Hp, oh, support, antialias, fh)
-    pb_w, _ = _digit_plan(W2, ow, support, antialias, fw)
-    b = boxes.to(device=x.device, dtype=torch.float32)
-    starts_h, band_h = _windowed_band(b[:, 0] * H, b[:, 2] * H, H, oh, k_h, Hp,
-                                      align_h, mode, antialias)
+    align_h, Hp, k_h, W2, k_w = _geom(H, W, oh, ow, support, antialias, fracs)
+    fh, fw = fracs
+    pb_h = pb_w = None
+    if precision == "pil_int8":
+        pb_h, _ = _digit_plan(Hp, oh, support, antialias, fh)
+        pb_w, _ = _digit_plan(W2, ow, support, antialias, fw)
+    T_h = _tap_bound(H, oh, support, antialias, k_h)
+    T_w = _tap_bound(W, ow, support, antialias, k_w)
     # The TPU clips pass 2's starts into its pass-1 intermediate, whose width
     # (a multiple of its VMEM-sized column chunk) may exceed W2.  Clipping
     # into W2 gives the same taps: a start clipped to W2 - k_w (a multiple of
     # 128) belongs to a tile whose taps all lie in [W2 - k_w, W), inside
     # either window.
-    starts_w, band_w = _windowed_band(b[:, 1] * W, b[:, 3] * W, W, ow, k_w,
-                                      W2, _LANE, mode, antialias)
-    if digit:
-        band_h, band_w = _digitize_band(band_h, pb_h), _digitize_band(band_w, pb_w)
+    return ((_Axis(H, oh, k_h, Hp, align_h, T_h, pb_h),
+             _crop_windows(H, oh, T_h, fh, support, antialias)),
+            (_Axis(W, ow, k_w, W2, _LANE, T_w, pb_w),
+             _crop_windows(W, ow, T_w, fw, support, antialias)))
+
+
+def _windowed_tables(x, boxes, out_hw, method, antialias, max_box_frac,
+                     precision):
+    """``(tab_h, tab_w, pb_h, pb_w)`` for :func:`_crop_resample`: the
+    per-image tables on ``x``'s device, compacted per output row to the
+    static tap bound (:class:`_Table`): the table kernel on a CUDA tensor
+    (:func:`_windowed_tables_cuda`), the plain build on a CPU tensor
+    (:func:`_windowed_tables_plain`); both give the same bits."""
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be one of {_PRECISIONS}, got {precision!r}")
+    N, C, H, W = x.shape
+    if tuple(boxes.shape) != (N, 4):
+        raise ValueError(f"boxes must be [N, 4] = [{N}, 4], got {tuple(boxes.shape)}")
+    mode = _mode(method, antialias)
+    (ax_h, wins_h), (ax_w, wins_w) = _table_geometry(
+        H, W, int(out_hw[0]), int(out_hw[1]), mode, antialias, _fracs(max_box_frac),
+        precision)
+    b = boxes.to(device=x.device, dtype=torch.float32)
+    if x.device.type == "cuda":
+        tab_h, tab_w = _windowed_tables_cuda(b, mode, antialias, (ax_h, ax_w))
+    elif x.device.type == "cpu":
+        tab_h, tab_w = _windowed_tables_plain(b, mode, antialias, (ax_h, ax_w))
     else:
-        pb_h = pb_w = None
-    T_h = _tap_bound(H, oh, support, antialias, k_h)
-    T_w = _tap_bound(W, ow, support, antialias, k_w)
-    return (_Table(*_compact(starts_h, band_h, oh, T_h),
-                   _crop_windows(H, oh, T_h, fh, support, antialias)),
-            _Table(*_compact(starts_w, band_w, ow, T_w),
-                   _crop_windows(W, ow, T_w, fw, support, antialias)), pb_h, pb_w)
+        raise ValueError(f"crop_tables runs on CUDA (kernel) or CPU (plain "
+                         f"version), not on {x.device}")
+    return _Table(*tab_h, wins_h), _Table(*tab_w, wins_w), ax_h.pb, ax_w.pb
+
+
+def _windowed_tables_plain(b: torch.Tensor, mode: str, antialias: bool, axes):
+    """The table kernel's plain version, on any device: per axis (H from
+    box columns 0 and 2, W from 1 and 3) :func:`_windowed_band`,
+    :func:`_digitize_band` where ``pb`` is set, then :func:`_compact`;
+    ``[(first, cnt, w)] * 2``."""
+    out = []
+    for a, ax in enumerate(axes):
+        starts, band = _windowed_band(b[:, a] * ax.in_size, b[:, a + 2] * ax.in_size,
+                                      ax.in_size, ax.out_size, ax.k, ax.in_limit, ax.align,
+                                      mode, antialias)
+        if ax.pb is not None:
+            band = _digitize_band(band, ax.pb)
+        out.append(_compact(starts, band, ax.out_size, ax.T))
+    return out
+
+
+def _windowed_tables_cuda(b: torch.Tensor, mode: str, antialias: bool, axes):
+    """Both axes' tables in one launch of ``csrc/crop_tables.cu`` (the plain
+    version's arithmetic, each row's compact taps written directly); a row
+    with more than ``T`` taps fails a device-side assertion."""
+    global launches_crop_tables
+    from .. import native
+
+    filt = get_filter(mode)
+    if filt.fn not in _TABLE_FILTERS:
+        raise ValueError(f"crop_tables: no device filter for {mode!r}")
+    lib = native.build()
+    N, dev = b.shape[0], b.device
+    b = b.contiguous()
+    tabs, args = [], []
+    for ax in axes:
+        first = torch.empty((N, ax.out_size), dtype=torch.int32, device=dev)
+        cnt = torch.empty((N, ax.out_size), dtype=torch.int32, device=dev)
+        w = torch.empty((N, ax.out_size, ax.T), device=dev,
+                        dtype=torch.float32 if ax.pb is None else torch.int32)
+        tabs.append((first, cnt, w))
+        args += [ax.in_size, ax.out_size, ax.k, ax.align,
+                 (ax.in_limit - ax.k) // ax.align * ax.align, ax.T,
+                 -1 if ax.pb is None else ax.pb, first.data_ptr(), cnt.data_ptr(),
+                 w.data_ptr()]
+    if N * max(ax.out_size for ax in axes) == 0:
+        return tabs
+    with torch.cuda.device(dev):
+        err = lib.ia_crop_tables(b.data_ptr(), N, _TABLE_FILTERS[filt.fn], filt.support,
+                                 int(antialias), *args,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"crop_tables launch failed: cudaError {err}")
+    launches_crop_tables += 1
+    return tabs

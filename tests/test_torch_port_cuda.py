@@ -699,6 +699,83 @@ def test_crop_4k_random_resized_crop_every_tile(dev, monkeypatch, precision):
     _crop_every_tile(dev, monkeypatch, x, tables, want)
 
 
+def _tables_equal(got, want):
+    """Two ``_windowed_tables`` results table by table: ``first`` and
+    ``cnt`` equal, ``w`` equal bit for bit, the same pb and windows."""
+    assert got[2:] == want[2:]
+    for g, w in zip(got[:2], want[:2]):
+        assert g.wins == w.wins
+        for f in ("first", "cnt", "w"):
+            a, b = getattr(g, f), getattr(w, f)
+            assert a.dtype == b.dtype and a.shape == b.shape, f
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f
+
+
+def _plain_tables(monkeypatch):
+    """From here on the table kernel's wrapper runs its plain version on
+    the card (no count moves)."""
+    monkeypatch.setattr(cc, "_windowed_tables_cuda", cc._windowed_tables_plain)
+
+
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+@pytest.mark.parametrize("mode", ["bilinear", "box", "hamming"])
+@pytest.mark.parametrize("name,shape,ohw,boxes,frac", CROP_EDGES, ids=[c[0] for c in CROP_EDGES])
+def test_crop_tables_kernel_matches_plain(dev, monkeypatch, name, shape, ohw, boxes, frac, mode,
+                                          precision):
+    x = torch.empty(shape, dtype=torch.uint8, device=dev)
+    args = (x, _crop_boxes(boxes).to(dev), ohw, mode, True, frac, precision)
+    before = cc.launches_crop_tables
+    got = cc._windowed_tables(*args)
+    torch.cuda.synchronize()
+    assert cc.launches_crop_tables == before + 1
+    _plain_tables(monkeypatch)
+    _tables_equal(got, cc._windowed_tables(*args))
+    assert cc.launches_crop_tables == before + 1
+
+
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+def test_crop_tables_kernel_matches_plain_4k(dev, monkeypatch, precision):
+    x = torch.empty((8, 3, 2160, 3840), dtype=torch.uint8, device=dev)
+    boxes = sample_boxes(torch.Generator().manual_seed(1), 8, 2160, 3840).to(dev)
+    args = (x, boxes, (224, 224), "bilinear", True, box_fracs(2160, 3840), precision)
+    got = cc._windowed_tables(*args)
+    _plain_tables(monkeypatch)
+    _tables_equal(got, cc._windowed_tables(*args))
+
+
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+def test_crop_and_resize_equals_the_plain_table_build(dev, monkeypatch, precision):
+    """The b64 call of the main path, byte for byte against the same call
+    with the plain table build; one table launch and two crop launches."""
+    x = _input((64, 3, 438, 906), torch.uint8, dev, seed=33)
+    rng = np.random.default_rng(0)
+    boxes = torch.from_numpy(np.concatenate(
+        [rng.uniform(0.0, 0.35, (64, 2)), rng.uniform(0.65, 1.0, (64, 2))], 1
+    ).astype(np.float32)).to(dev)
+    if precision == "pil_int8":  # the default: crop_and_resize's route
+        def call():
+            return iat.crop_and_resize(x, boxes, (224, 224))
+    else:
+        def call():
+            return cc.crop_and_resize_windowed(x, boxes, (224, 224), precision=precision)
+    before = (cc.launches_crop_tables, cc.launches_crop)
+    got = call()
+    torch.cuda.synchronize()
+    assert (cc.launches_crop_tables, cc.launches_crop) == (before[0] + 1, before[1] + 2)
+    _plain_tables(monkeypatch)
+    want = call()
+    assert (cc.launches_crop_tables, cc.launches_crop) == (before[0] + 1, before[1] + 4)
+    _assert_equal(got, want)
+
+
+def test_random_resized_crop_launches_the_table_kernel_once(dev):
+    x = _input((4, 3, 300, 520), torch.uint8, dev, seed=34)
+    before = cc.launches_crop_tables
+    for i in range(3):
+        iat.random_resized_crop(torch.Generator().manual_seed(i), x, (96, 112))
+        assert cc.launches_crop_tables == before + i + 1
+
+
 # ---------------------------------------------------------------------------
 # The inspection and timing tools on the card
 # ---------------------------------------------------------------------------
