@@ -20,7 +20,11 @@ then:
    the plain version's tap order, so any difference is a fault), the same
    two kernels over transposed tables (the resize's adjoint, f32 and bf16),
    the crop kernel's integer and float variants on the JAX package's
-   crop-test windows and at full size, the crop's table kernel
+   crop-test windows, at full size and on zoom-out boxes wider than the
+   image (rows past the tables' tap bound, whose weights the kernel
+   computes again from the box; once as a strided view of ``[N, 5]``
+   detections), then one more call within the image, the
+   crop's table kernel
    (``crop_tables``) against the plain table build on the same cases and
    edges, table by table (``first`` and ``cnt`` equal, ``w`` bit for bit),
    the sharded byte-exact route's
@@ -36,7 +40,7 @@ then:
    and one-column outputs, an input off 16 bytes, the route where no tile
    fits; the crop passes, kernel B with per-image tables: sub-pixel boxes,
    boxes at each edge, max_box_frac 1.0 and 0.45, more than 128 outputs,
-   the 4K RandomResizedCrop, both precisions), each through the plan and
+   zoom-out boxes, the 4K RandomResizedCrop, both precisions), each through the plan and
    with every tile the plan considers forced, byte for byte;
 2. drives the port's main paths through their public entry points, each
    with every launch count set to 0 just before it and read just after:
@@ -82,7 +86,8 @@ then:
    (the Pillow kernel at the bench batch and 4K -> HD, the crop's two
    passes per call, the crop's table kernel per launch); the whole crop
    calls with the table kernel and with the plain table build, in turns,
-   by events and by device time (``time_crop_call``); the shard passes of both per-axis
+   by events and by device time (``time_crop_call``), at b64 for boxes
+   within the image and for zoom-out boxes; the shard passes of both per-axis
    kernels the same way; and kernel B at config 5's frames in NHWC (bf16
    [64, 2160, 3840, 3] -> 1080x1920 through ``resize``, tables and fused,
    beside ``F.interpolate`` on the same channels-last tensor,
@@ -704,6 +709,23 @@ def _run_all_boxes(n: int) -> np.ndarray:
     return np.concatenate([b01, b23], axis=1)
 
 
+# boxes wider than the image (a row can count more taps than the tables'
+# bound T, and the crop kernel computes its weights again from the box)
+# beside boxes within it: past every edge, a 40% and two one-axis 30%
+# zoom-outs, one inside, one wider than a 0.5 bound on one axis
+ZOOM_OUT = [[-1.0, -1.5, 2.0, 2.5], [-0.2, -0.2, 1.2, 1.2], [0.0, 0.0, 1.3, 1.0],
+            [0.0, 0.0, 1.0, 1.3], [0.1, 0.2, 0.8, 0.9], [0.0, 0.2, 1.0, 0.6]]
+
+
+def _zoom_out_boxes(n: int) -> np.ndarray:
+    """``n`` zoom-out boxes: each axis spans 1.2 to 1.5 times the image,
+    reaching past both edges (every image's rows count more taps than T)."""
+    rng = np.random.default_rng(1)
+    span = rng.uniform(1.2, 1.5, (n, 2))
+    lo = -rng.uniform(0.0, 1.0, (n, 2)) * (span - 1.0)
+    return np.concatenate([lo, lo + span], axis=1).astype(np.float32)
+
+
 def _crop_cases():
     """(name, x shape, boxes, (oh, ow), method, max_box_frac)"""
     rng = np.random.default_rng(7)
@@ -727,13 +749,21 @@ def _crop_cases():
     (shape, ohw) = CROP_4K
     yield ("4k rrc boxes", shape, sample_boxes(gen, shape[0], *shape[2:]), ohw, "bilinear",
            box_fracs(*shape[2:]))
+    for m in ("bilinear", "box", "hamming"):
+        yield (f"zoom-out {m}", (6, 3, 300, 520), ZOOM_OUT, (96, 112), m, 1.0)
+    yield ("zoom-out frac 0.5", (6, 3, 300, 520), ZOOM_OUT, (160, 200), "bilinear", 0.5)
+    # the boxes as a strided view: the first four columns of [N, 5] detections
+    yield ("zoom-out strided boxes", (6, 3, 300, 520), ZOOM_OUT, (96, 112), "bilinear", 1.0)
+    (shape, ohw) = TRAIN_B64
+    yield ("b64 zoom-out boxes", shape, _zoom_out_boxes(shape[0]), ohw, "bilinear", 1.0)
 
 
 def _crop_tables_vs_plain(tally: _Tally, name: str, x, b, ohw, method: str, frac,
                           precision: str):
     """The crop's per-image tables from the table kernel (one launch) against
     the plain build on the card, table by table: ``first`` and ``cnt``
-    equal, ``w`` equal bit for bit.  Returns the kernel's tables."""
+    (each row's true count, past ``T`` for a zoom-out box) equal, ``w``
+    equal bit for bit.  Returns the kernel's tables."""
     before = cc.launches_crop_tables
     got = cc._windowed_tables(x, b, ohw, method, True, frac, precision)
     torch.cuda.synchronize()
@@ -759,13 +789,22 @@ def _crop_tables_vs_plain(tally: _Tally, name: str, x, b, ohw, method: str, frac
 def check_crop_kernel(dev) -> tuple[float, float]:
     """Both variants of crop_resample against their plain version on the
     card, over the same device-built tables; and those tables, from the
-    table kernel, against the plain build."""
+    table kernel, against the plain build.  The zoom-out cases come last
+    (rows past the tables' bound, served whole); then one more call of
+    boxes within the image in the same process, held to the plain version
+    too: the context is still usable."""
     tally, tt = _Tally("crop_resample"), _Tally("crop_tables")
     seed = 500
-    for name, shape, boxes, ohw, method, frac in _crop_cases():
+    (b64, ohw64) = TRAIN_B64
+    after = ("b64 after zoom-out", b64, _run_all_boxes(b64[0]), ohw64, "bilinear", 1.0)
+    for name, shape, boxes, ohw, method, frac in [*_crop_cases(), after]:
         seed += 1
         x = _rand(shape, U8, dev, seed)
         b = torch.as_tensor(np.asarray(boxes, np.float32)).to(dev)
+        if "strided" in name:
+            b = torch.cat([b, torch.ones_like(b[:, :1])], 1)[:, :4]
+            if b.is_contiguous():
+                raise RuntimeError(f"crop_resample {name}: the boxes are not strided")
         for precision in ("pil_int8", "split"):
             tables = _crop_tables_vs_plain(tt, name, x, b, ohw, method, frac, precision)
             before = cc.launches_crop
@@ -779,7 +818,8 @@ def check_crop_kernel(dev) -> tuple[float, float]:
                       shape=list(shape), out=list(got.shape), method=method,
                       max_box_frac=frac, pb=[tables[2], tables[3]],
                       tap_bound=[tables[0].w.shape[-1], tables[1].w.shape[-1]],
-                      taps=[int(tables[0].cnt.max()), int(tables[1].cnt.max())])
+                      taps=[int(tables[0].cnt.max()), int(tables[1].cnt.max())],
+                      rows_past_bound=[int((t.cnt > t.w.shape[-1]).sum()) for t in tables[:2]])
             del tables, got, want
     return tally.summary(), tt.summary(tables_compared=2 * tt.cases)
 
@@ -1149,6 +1189,8 @@ def _crop_edge_cases():
         yield (f"edges frac {frac}", (6, 3, 300, 520), edges, (96, 112), frac)
     yield ("rrc frac 0.45", (6, 3, 300, 520), rrc, (160, 200), 0.45)
     yield ("wide out", (6, 1, 300, 520), rrc, (150, 300), 1.0)
+    for frac in (1.0, 0.5):
+        yield (f"zoom-out frac {frac}", (6, 3, 300, 520), ZOOM_OUT, (96, 112), frac)
     (shape, ohw) = CROP_4K
     yield ("4k rrc", shape, sample_boxes(torch.Generator().manual_seed(1), shape[0],
                                          *shape[2:]).numpy(), ohw, box_fracs(*shape[2:]))
@@ -2259,7 +2301,9 @@ def time_fused_kernels(dev, card) -> tuple[dict, dict]:
 def time_train_kernels(dev, card) -> tuple[dict, dict]:
     """The adjoint of config 4, the crop kernel and the crop's table kernel,
     beside their plain versions; and the whole crop calls the main path
-    makes, with the table kernel and with the plain table build."""
+    makes, with the table kernel and with the plain table build; and the
+    same at b64 for zoom-out boxes (every image's rows past the tables'
+    bound, their weights computed again in the crop kernel)."""
     with full_f32():
         (shape, ohw) = CONFIG4
         sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
@@ -2295,10 +2339,11 @@ def time_train_kernels(dev, card) -> tuple[dict, dict]:
             ("b64", TRAIN_B64, _run_all_boxes(TRAIN_B64[0][0])),
             ("4k", CROP_4K, sample_boxes(torch.Generator().manual_seed(1),
                                          CROP_4K[0][0], *CROP_4K[0][2:])),
+            ("b64 zoom-out", TRAIN_B64, _zoom_out_boxes(TRAIN_B64[0][0])),
         ]:
             x = _rand(shape, U8, dev, 83)
             b = torch.as_tensor(np.asarray(boxes, np.float32)).to(dev)
-            frac = 1.0 if name == "b64" else box_fracs(*shape[2:])
+            frac = box_fracs(*shape[2:]) if name == "4k" else 1.0
             for precision in ("pil_int8", "split"):
                 t = cc._windowed_tables(x, b, size, "bilinear", True, frac, precision)
                 ms = _turns(lambda: cc._crop_resample_cuda(x, *t),
@@ -2310,8 +2355,10 @@ def time_train_kernels(dev, card) -> tuple[dict, dict]:
                 fh, ch, fw, cw = t[0].first, t[0].cnt, t[1].first, t[1].cnt
                 N, C, H, W = shape
                 # the tables' bytes this run's boxes need: first, count and
-                # the weights of the counted taps
-                tab = 8 * (fh.numel() + fw.numel()) + 4 * int(ch.sum() + cw.sum())
+                # the weights of the counted taps the tables hold (a row
+                # past the bound T computes the rest)
+                tab = 8 * (fh.numel() + fw.numel()) + 4 * int(
+                    ch.clamp(max=t[0].w.shape[-1]).sum() + cw.clamp(max=t[1].w.shape[-1]).sum())
                 bound = bound_of(N * C * (H * W + size[0] * size[1]) + tab,
                                  C * W * int(ch.sum()) + C * size[0] * int(cw.sum()))
                 out[(name, precision)] = (ms, bound)
@@ -2319,7 +2366,9 @@ def time_train_kernels(dev, card) -> tuple[dict, dict]:
                       precision=precision, shape=list(shape), size=list(size),
                       kernel_ms=ms["kernel"], plain_ms=ms["plain"],
                       kernel_device_ms=ms["device_ms"], kernel_host_us=ms["host_us"],
-                      taps=[t[0].w.shape[-1], t[1].w.shape[-1]], **bound,
+                      taps=[t[0].w.shape[-1], t[1].w.shape[-1]],
+                      rows_past_bound=[int((ch > t[0].w.shape[-1]).sum()),
+                                       int((cw > t[1].w.shape[-1]).sum())], **bound,
                       library_ms=None, library="no PyTorch call crops per-image boxes "
                       "with antialiasing")
             def win():
@@ -2370,11 +2419,14 @@ def time_train_kernels(dev, card) -> tuple[dict, dict]:
     return ({"ms": b64["device_ms"], "device_ms": b64["device_ms"],
              "call_ms": sum(b64["kernel"]) / 2, "host_us": b64["host_us"],
              "split_device_ms": out[("b64", "split")][0]["device_ms"],
+             "zoom_out_device_ms": out[("b64 zoom-out", "pil_int8")][0]["device_ms"],
+             "zoom_out_split_device_ms": out[("b64 zoom-out", "split")][0]["device_ms"],
              "plain_ms": sum(b64["plain"]) / 2, "bound_ms": bound["bound_ms"],
              "bound_by": bound["bound_by"], "library_ms": None},
             {"ms": tdt["device_ms"], "device_ms": tdt["device_ms"],
              "call_ms": sum(tms["kernel"]) / 2, "host_us": tdt["host_us"],
              "4k_device_ms": tables["4k"][1]["device_ms"],
+             "zoom_out_device_ms": tables["b64 zoom-out"][1]["device_ms"],
              "plain_ms": sum(tms["plain"]) / 2, "bound_ms": tb["bound_ms"],
              "bound_by": tb["bound_by"], "library_ms": None})
 
@@ -2817,11 +2869,13 @@ def main() -> None:
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cuh",
          "entry": "interpolate_antialiasing_tpu_torch/csrc/crop_resample.cu",
          "weights": "interpolate_antialiasing_tpu_torch/csrc/ia_taps.cuh",
+         "rows": "interpolate_antialiasing_tpu_torch/csrc/crop_row.cuh",
          "replaces": "interpolate_antialiasing_tpu/ops/crop_pallas.py:250, :280",
          "also_serves": "interpolate_antialiasing_tpu/ops/crop_pallas.py:303, :318",
          "launches": crop_launches, "max_abs_err": max(crop_err, u8_crop_err), **t_crop},
         {"name": "crop_tables", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/crop_tables.cu",
+         "rows": "interpolate_antialiasing_tpu_torch/csrc/crop_row.cuh",
          "replaces": "interpolate_antialiasing_tpu/ops/crop_pallas.py:117, :190 (the band "
                      "build XLA fuses ahead of :541 and :617)",
          "launches": table_launches, "max_abs_err": max(tables_err, u8_tables_err),

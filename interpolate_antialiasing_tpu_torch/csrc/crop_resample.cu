@@ -16,9 +16,10 @@
 // weight, with int8 digit planes and pixels re-centred by -128 for its int8
 // unit.  Here each output runs a direct multiply-add over T taps from the
 // first nonzero one (the host compacts each band column to first / w,
-// T >= every row's nonzero count: crop_cuda._tap_bound), so the work is T,
-// not K, per output; the digit split and the -128 bias cancel exactly, so
-// the int32 sum gives the TPU kernels' bytes:
+// T >= the nonzero count of every row of a box no wider than the image:
+// crop_cuda._tap_bound), so the work is T, not K, per output; the digit
+// split and the -128 bias cancel exactly, so the int32 sum gives the TPU
+// kernels' bytes:
 //
 //   integer (pb >= 0): int32 weights, S = sum w * x exact in int32 (the
 //     host bounds 255 * row sum + 2^(pb-1) below 2^31 before the launch),
@@ -31,6 +32,15 @@
 // Taps past a row's count weigh 0: the int32 sum is exact, and the float
 // chain adds +0 to a non-negative sum (admission keeps only non-negative
 // filters), so summing T taps equals the plain version's.
+//
+// A box wider than the image (a zoom-out) can give a row more than T taps.
+// The tables keep its true count cnt and its first T weights; the pass
+// computes all cnt weights of such a row again from its box and output
+// index (crop_row.cuh, the table kernel's own code, so the same bits) and
+// sums them in tap order from device memory, in a tile that stages
+// nothing (resample_axis.cuh's wide_dot).  Rows within the bound run as
+// before; a wide row costs about cnt filter evaluations and cnt divisions
+// per output element, and its total once per thread and row.
 //
 // Design: each pass is kernel B (resample_axis.cuh) with one table per
 // image (TableTaps / PilTaps image(n)), in its own instantiation (C = true)
@@ -77,26 +87,39 @@ extern "C" {
 
 // x[N, R, n_in, inner] -> out[N, R, n_out, inner] (uint8, device pointers)
 // on `stream`; first int32 [N, n_out], w [N, n_out, T]: int32 when pb >= 0,
-// float32 when pb < 0.  The plan (tile_j, tile_o, tile_i, win, vec, smem)
+// float32 when pb < 0; cnt int32 [N, n_out], each row's true tap count (more
+// than T for a box wider than the image), and what its weights need: the
+// boxes [N, 4] (float32), the axis (0: H, 1: W), the filter code, support
+// and antialias, and the axis's window k, alignment and largest start
+// (crop_tables.cu's arguments).  The plan (tile_j, tile_o, tile_i, win, vec, smem)
 // is crop_cuda._crop_plan's (cuda_resize._plan_axis' tiles with the crop's
 // windows); each block finds its tile's first input row from the first
 // taps; tile_o = 0 (smem 0, vec 1) runs the unstaged body.  Returns the
 // cudaError_t of the launch (0 on success).
 int ia_crop_pass(const void* x, void* out, int N, long long R, int n_in,
                  long long inner, int n_out, const void* first, const void* w,
-                 int T, int pb, int tile_j, int tile_o, int tile_i, int win,
-                 int vec, int smem, void* stream) {
-  if (N < 1 || R < 1 || pb > 30 || pb == 0) return (int)cudaErrorInvalidValue;
+                 int T, int pb, const void* cnt, const void* boxes, int axis, int filter,
+                 float support, int antialias, int k, int align, int hi_start,
+                 int tile_j, int tile_o, int tile_i, int win, int vec, int smem,
+                 void* stream) {
+  if (N < 1 || R < 1 || pb > 30 || pb == 0 || cnt == nullptr || boxes == nullptr ||
+      (axis != 0 && axis != 1) || k < 1 || align < 1 || hi_start < 0)
+    return (int)cudaErrorInvalidValue;
   const long long outer = (long long)N * R;
+  const crop::Pass cp{crop::Geom{(const float*)boxes, axis, n_in, n_out, k, align, hi_start,
+                                 pb > 0 ? pb : -1, filter, antialias, support},
+                      (const int*)cnt};
   if (pb > 0) {
     Args<PilTaps> a{};
     a.taps = PilTaps{(const int*)first, (const int*)w, T, pb, n_out};
+    a.crop = cp;
     const int err = make_args(a, x, out, kU8, outer, n_in, inner, n_out, nullptr, tile_j,
                               tile_o, tile_i, win, vec, smem, stream, R, true);
     return err != 0 ? err : dispatch_crop(a, vec);
   }
   Args<TableTaps> a{};
   a.taps = TableTaps{(const int*)first, (const float*)w, T, n_out};
+  a.crop = cp;
   const int err = make_args(a, x, out, kU8, outer, n_in, inner, n_out, nullptr, tile_j,
                             tile_o, tile_i, win, vec, smem, stream, R, true);
   return err != 0 ? err : dispatch_crop(a, vec);

@@ -1,0 +1,184 @@
+// One output row of the windowed crop's tables, from its box alone: the
+// per-row weight code that the table kernel (crop_tables.cu) and the crop
+// passes (resample_axis.cuh's crop instantiation, for a row with more taps
+// than the tables hold) share, so that both compute each weight from the
+// same source and the bits agree by construction.
+//
+// Every float step is float32, rounded once (the intrinsics are never
+// contracted into a fused multiply-add), in the plain version's order
+// (ops/crop_cuda.py::_windowed_band):
+//
+//   lo, hi  = box * in_size;  scale = (hi - lo) / out_size
+//   widen   = antialias ? max(scale, 1) : 1;  sup = support * widen
+//   start   = clamp(floor(raw / align) * align, 0, hi_start), raw =
+//             floor(c0 - sup - 0.5) - 1, c0 the centre of the row's tile's
+//             first output (o / 128 * 128)
+//   center  = lo + scale * (o + 0.5);  pos_j = start + j, j < k
+//   w_j     = filter((pos_j - center + 0.5) / widen) where |pos_j - center
+//             + 0.5| <= sup, lo <= pos_j + 0.5 <= hi, pos_j <= in_size - 1;
+//             else 0
+//   total   = the sum of w_j in XLA's CPU order (crop_cuda._tree_sum: for
+//             k > 32, windows of 32 taps after (-k mod 32) / 2 zeros, each
+//             summed in order, then the window sums the same way while
+//             there are more than 32; the last in order)
+//   band_j  = w_j / total where total > 0 (else the table kernel's one-hot)
+//   K_j     = (int)(band_j * 2^pb +- 0.5) for pb >= 0 (integer weights)
+//
+// The sum runs over the row's support range widened by two taps and clipped
+// to the window (row_sum): the valid test above still decides each tap, and
+// the taps outside weigh +0, which adds exactly, so the sums are the plain
+// version's.  The tree sum streams (TreeSum): a level's running window sum
+// joins the level above when the next tap starts a new window there;
+// windows the loop never reaches would add +0.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "ia_taps.cuh"
+
+namespace ia {
+namespace crop {
+
+constexpr int kLane = 128;  // output rows per window tile (crop_cuda._LANE)
+constexpr int kBox = 4;     // beside ia::SynthFilter's codes
+constexpr int kSumWindow = 32;  // crop_cuda._SUM_WINDOW
+constexpr int kSumLevels = 4;   // window levels: k up to 32^5 taps
+
+// One pass's geometry and filter: what a row's weights need beside its box
+// and its output index.
+struct Geom {
+  const float* boxes;  // [N, 4] normalised (y0, x0, y1, x1), device
+  int axis;            // 0: H from box columns 0 and 2, 1: W from 1 and 3
+  int in_size, out_size, k, align, hi_start, pb;  // pb -1: float32 weights
+  int filter, antialias;  // filter: 0 triangle, 2 Hamming, 4 box
+  float support;          // the filter's unwidened support
+};
+
+// ops/filters.py's non-negative filters: triangle and Hamming as the fused
+// kernels evaluate them, and the box (x > -0.5 and x <= 0.5)
+__device__ __forceinline__ float table_filter(int f, float x) {
+  if (f == kBox) return (x > -0.5f && x <= 0.5f) ? 1.0f : 0.0f;
+  Synth s{};
+  s.filter = f;
+  return synth_filter(s, x);
+}
+
+struct Row {
+  float lo, hi, widen, sup, center, in_last;
+  int start, filter;
+
+  // w_j, 0 where the valid test fails
+  __device__ __forceinline__ float weight(int j) const {
+    const float pos = (float)(start + j);
+    const float d = __fadd_rn(__fsub_rn(pos, center), 0.5f);
+    const float ph = __fadd_rn(pos, 0.5f);
+    if (!(fabsf(d) <= sup && ph >= lo && ph <= hi && pos <= in_last)) return 0.0f;
+    return table_filter(filter, __fdiv_rn(d, widen));
+  }
+};
+
+// A sum in crop_cuda._tree_sum's order over taps added in increasing j
+// (taps not added weigh +0).  Level 0 holds the taps, level l + 1 the sums
+// of level l's windows of kSumWindow elements (after front[l] zeros), and
+// the top level m is summed in order.  acc[l] (l < m) runs over the level-l
+// elements of level l + 1's element win[l]; acc[m] over the top level.
+// Closing a window adds its sum to the level above, whose window then
+// still holds it.
+struct TreeSum {
+  int m = 0;
+  int front[kSumLevels];  // zeros in front of each window level
+  int win[kSumLevels];
+  float acc[kSumLevels + 1];
+
+  __device__ explicit TreeSum(int k) {
+    for (int s = k; s > kSumWindow && m < kSumLevels; ++m) {
+      const int pad = (kSumWindow - s % kSumWindow) % kSumWindow;
+      front[m] = pad / 2;
+      win[m] = -1;
+      s = (s + pad) / kSumWindow;
+    }
+    for (int l = 0; l <= kSumLevels; ++l) acc[l] = 0.0f;
+  }
+
+  __device__ void add(int j, float v) {
+    int idx = j;
+    for (int l = 0; l < m; ++l) {  // close the windows tap j leaves, bottom up
+      idx = (idx + front[l]) / kSumWindow;
+      if (idx == win[l]) break;
+      acc[l + 1] = __fadd_rn(acc[l + 1], acc[l]);
+      acc[l] = 0.0f;
+      win[l] = idx;
+    }
+    acc[0] = __fadd_rn(acc[0], v);
+  }
+
+  __device__ float total() {
+    for (int l = 0; l < m; ++l) acc[l + 1] = __fadd_rn(acc[l + 1], acc[l]);
+    return acc[m];
+  }
+};
+
+// band_j as the pass stores it: K_j (integer weights) or band_j, as bits
+__device__ __forceinline__ int32_t stored(float band, int pb) {
+  if (pb < 0) return __float_as_int(band);
+  const float s = __fmul_rn(band, (float)(1 << pb));
+  return (int32_t)(s < 0.0f ? __fsub_rn(s, 0.5f) : __fadd_rn(s, 0.5f));
+}
+
+__device__ __forceinline__ bool nonzero(int32_t v, int pb) {
+  return pb < 0 ? __int_as_float(v) != 0.0f : v != 0;
+}
+
+// Row o of image n: its geometry, the taps [j_lo, j_hi) whose weight may
+// be nonzero (the support range with a guard of two, clipped to the
+// window) and the total of their weights.
+struct RowSum {
+  Row r;
+  int j_lo, j_hi;
+  float total;
+};
+
+__device__ __forceinline__ RowSum row_sum(const Geom& g, long long n, int o) {
+  RowSum s;
+  Row& r = s.r;
+  r.filter = g.filter;
+  const float size = (float)g.in_size;
+  r.lo = __fmul_rn(g.boxes[4 * n + g.axis], size);
+  r.hi = __fmul_rn(g.boxes[4 * n + g.axis + 2], size);
+  const float scale = __fdiv_rn(__fsub_rn(r.hi, r.lo), (float)g.out_size);
+  r.widen = g.antialias ? fmaxf(scale, 1.0f) : 1.0f;
+  r.sup = __fmul_rn(g.support, r.widen);
+  r.in_last = (float)(g.in_size - 1);
+
+  // the window start of the row's tile, from the centre of its first output
+  const float c0 = __fadd_rn(r.lo, __fmul_rn(scale, __fadd_rn((float)(o / kLane * kLane), 0.5f)));
+  const float raw = __fsub_rn(floorf(__fsub_rn(__fsub_rn(c0, r.sup), 0.5f)), 1.0f);
+  const float al = (float)g.align;
+  r.start = (int)fminf(fmaxf(__fmul_rn(floorf(__fdiv_rn(raw, al)), al), 0.0f),
+                       (float)g.hi_start);
+  r.center = __fadd_rn(r.lo, __fmul_rn(scale, __fadd_rn((float)o, 0.5f)));
+
+  // the taps whose |pos - center + 0.5| may pass sup, with a guard of two
+  const float cm = __fsub_rn(r.center, 0.5f);
+  const float k = (float)g.k, s0 = (float)r.start;
+  s.j_lo = (int)fminf(fmaxf(floorf(cm - r.sup) - 2.0f - s0, 0.0f), k);
+  s.j_hi = (int)fminf(fmaxf(ceilf(cm + r.sup) + 3.0f - s0, 0.0f), k);
+
+  TreeSum sum(g.k);
+  for (int j = s.j_lo; j < s.j_hi; ++j) sum.add(j, r.weight(j));
+  s.total = sum.total();
+  return s;
+}
+
+// A pass's row source for the crop passes: its geometry and each row's
+// true tap count (cnt [N, out_size], device), which may pass the tables'
+// bound T.
+struct Pass {
+  Geom g;
+  const int* cnt;
+};
+
+}  // namespace crop
+}  // namespace ia

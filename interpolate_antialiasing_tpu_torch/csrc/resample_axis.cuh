@@ -32,7 +32,11 @@
 //     of per_img planes each, and a block's planes lie in one image
 //     (tiles along outer are cut at image edges), whose table it stages.
 //     The crop's own instantiation (C = true) finds each tile's window in
-//     the block, and a tile whose taps pass it reads device memory.
+//     the block, and a tile whose taps pass it reads device memory.  It
+//     also takes each row's true tap count (crop_row.cuh's Pass): a row
+//     with more taps than the tables hold (a box wider than the image)
+//     computes its weights again from its box (wide_dot), in a tile that
+//     reads device memory.
 //
 // Taps past a window carry zero weight, so the clamp never adds signal.
 //
@@ -110,6 +114,7 @@
 #include <climits>
 #include <type_traits>
 
+#include "crop_row.cuh"
 #include "ia_dtypes.cuh"
 #include "ia_taps.cuh"
 
@@ -283,20 +288,94 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const __nv_bfloat16 (&v
 }
 
 // ---------------------------------------------------------------------------
+// A crop row past the tables' bound
+// ---------------------------------------------------------------------------
+
+// A crop row's weight as the weight source holds it: K_j, or band_j's bits.
+template <typename W>
+__device__ __forceinline__ W as_weight(int32_t v) {
+  if constexpr (std::is_same_v<W, float>) {
+    return __int_as_float(v);
+  } else {
+    return (W)v;
+  }
+}
+
+// Output o of image n over its cnt taps from `first` (xp: its column at
+// input row 0, rows `inner` apart), a row with more taps than the tables
+// hold: each weight again from the box, as the table kernel computes it
+// (crop_row.cuh), in tap order.  `rs` caches the row's geometry and total
+// while the caller stays on the same row (rs_key: n * n_out + o).  Out of
+// line, as crop_tile_direct, and given values rather than references to
+// kernel parameters (whose address would move them to local memory): the
+// rows within the bound keep their registers.
+template <typename P, typename Tin>
+__device__ __noinline__ typename P::A wide_dot(const crop::Pass cp, long long n, int o,
+                                               int first, int cnt, const Tin* xp,
+                                               long long inner, int n_in, typename P::A acc,
+                                               crop::RowSum& rs, long long& rs_key) {
+  const long long key = n * cp.g.out_size + o;
+  if (key != rs_key) {
+    rs = crop::row_sum(cp.g, n, o);
+    rs_key = key;
+  }
+  const int j0 = first - rs.r.start;
+  for (int i = 0; i < cnt; ++i) {
+    const int32_t v = crop::stored(__fdiv_rn(rs.r.weight(j0 + i), rs.total), cp.g.pb);
+    acc = P::step(acc, as_weight<typename P::W>(v), xp[clampi(first + i, 0, n_in - 1) * inner]);
+  }
+  return acc;
+}
+
+// A crop tile that stages nothing (its taps pass the window, or one of its
+// rows counts more taps than the tables hold): outputs [o0, o0 + no) of
+// planes [j0, j0 + nj) and columns [i0, i0 + ni), each from device memory,
+// over the staged first taps fs, weights ws and true counts cs of its
+// block.  Out of line, so that the staged body's registers are its own.
+template <typename Tin, typename Tout, typename Taps>
+__device__ __noinline__ void crop_tile_direct(const Tin* __restrict__ x, Tout* __restrict__ out,
+                                              const Taps taps, const PlanAxis p,
+                                              const typename Acc<Taps>::W* ws, const int* fs,
+                                              const int* cs, const crop::Pass cp, int img,
+                                              long long j0, int nj, int o0, int no,
+                                              long long i0, int ni) {
+  using P = Acc<Taps>;
+  const typename P::A init = P::init(taps);
+  crop::RowSum rs;
+  long long rs_key = -1;
+  for (int e = threadIdx.x; e < nj * no * ni; e += kThreads) {
+    const int i = e % ni, t = (e / ni) % no, jj = e / (ni * no);
+    const Tin* xp = x + (j0 + jj) * p.n_in * p.inner + i0 + i;
+    typename P::A acc = init;
+    if (cs[t] > p.ntaps) {  // past the tables' bound: from the box
+      acc = wide_dot<P>(cp, img, o0 + t, fs[t], cs[t], xp, p.inner, p.n_in, acc, rs, rs_key);
+    } else {
+      for (int k = 0; k < p.ntaps; ++k) {
+        acc = P::step(acc, ws[k * p.tile_o + t], xp[clampi(fs[t] + k, 0, p.n_in - 1) * p.inner]);
+      }
+    }
+    out[((j0 + jj) * p.n_out + o0 + t) * p.inner + i0 + i] = P::template put<Tout>(acc, taps);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
 
 // The unstaged body (tile_o == 0): one thread per output element.  Its own
 // __global__, so that its few registers, and not the tiled body's 52-80,
 // set how many of its threads an SM holds (a gather through the cache
-// wants them all).
+// wants them all).  cp: the crop instantiation's row source (read only
+// where C).
 template <typename Tin, typename Tout, typename Taps, bool C = false>
 __global__ void __launch_bounds__(kThreads)
 resample_axis_kernel_unstaged(const Tin* __restrict__ x, Tout* __restrict__ out,
-                              Taps taps, PlanAxis p) {
+                              Taps taps, PlanAxis p, const crop::Pass cp) {
   using P = Acc<Taps>;
   const long long total = p.outer * p.n_out * p.inner;
   const long long stride = (long long)gridDim.x * kThreads;
+  [[maybe_unused]] crop::RowSum rs;
+  [[maybe_unused]] long long rs_key = -1;
   for (long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
        idx < total; idx += stride) {
     const long long i = idx % p.inner;
@@ -308,6 +387,15 @@ resample_axis_kernel_unstaged(const Tin* __restrict__ x, Tout* __restrict__ out,
     if constexpr (C) t = taps.image(j / p.per_img);
     const auto row = t.row(o);
     typename P::A acc = P::init(t);
+    if constexpr (C) {  // a row past the tables' bound: from its box
+      const long long n = j / p.per_img;
+      const int cnt = cp.cnt[n * p.n_out + o];
+      if (cnt > p.ntaps) {
+        acc = wide_dot<P>(cp, n, o, row.first, cnt, xp, p.inner, p.n_in, acc, rs, rs_key);
+        out[idx] = P::template put<Tout>(acc, t);
+        continue;
+      }
+    }
     for (int k = 0; k < p.ntaps; ++k) {
       acc = P::step(acc, row(k), xp[clampi(row.first + k, 0, p.n_in - 1) * p.inner]);
     }
@@ -317,11 +405,12 @@ resample_axis_kernel_unstaged(const Tin* __restrict__ x, Tout* __restrict__ out,
 
 // NT: the tap bucket (8 or 16 unrolled, 0 for a loop); V: inner columns per
 // thread (4 only for uint8 input); C: the crop passes' instantiation, whose
-// blocks find their windows and may read device memory instead.
+// blocks find their windows and may read device memory instead, with its
+// row source `cp` (read only where C).
 template <typename Tin, typename Tout, typename Taps, int NT, int V, bool C = false>
 __global__ void __launch_bounds__(kThreads, NT == 16 ? 3 : 4)
 resample_axis_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
-                     Taps taps, PlanAxis p) {
+                     Taps taps, PlanAxis p, const crop::Pass cp) {
   using P = Acc<Taps>;
   using W = typename P::W;
   using A = typename P::A;
@@ -358,40 +447,38 @@ resample_axis_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
   int r0;
   if constexpr (C) {
     // the crop's window starts at its outputs' least first tap, which the
-    // boxes set: the weights and first taps land first, one warp reduces
-    // them, and a tile whose taps pass `win` rows reads device memory
+    // boxes set: the weights, first taps and true tap counts land first
+    // (the counts in the weight sources' scratch, which tables leave
+    // unused), one warp reduces them, and a tile whose taps pass `win` rows,
+    // or that holds a row with more taps than the tables (a box wider than
+    // the image), reads device memory
+    int* cs = (int*)(smem + L.tot);  // [tile_o] true tap counts
     __shared__ int s_r0;
     tp.stage_async(o0, no, p.tile_o, ws, fs);
+    for (int t = tid; t < no; t += kThreads) {
+      cp_async4(cs + t, cp.cnt + (long long)img * p.n_out + o0 + t);
+    }
     cp_async_commit();
     cp_async_wait_n(0);
     __syncthreads();
     if (tid < 32) {
-      int lo = INT_MAX, hi = INT_MIN;
+      int lo = INT_MAX, hi = INT_MIN, wide = 0;
       for (int t = tid; t < no; t += 32) {
         lo = min(lo, clampi(fs[t], 0, p.n_in - 1));
         hi = max(hi, clampi(fs[t] + p.ntaps - 1, 0, p.n_in - 1));
+        wide |= cs[t] > p.ntaps;
       }
       for (int o = 16; o > 0; o >>= 1) {
         lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
         hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
       }
-      if (tid == 0) s_r0 = hi - lo < p.win ? lo : -1;
+      wide = __any_sync(0xffffffffu, wide);
+      if (tid == 0) s_r0 = !wide && hi - lo < p.win ? lo : -1;
     }
     __syncthreads();
     r0 = s_r0;
-    if (r0 < 0) {  // a tile whose taps pass the window: each output from device memory
-      const A init0 = P::init(taps);
-      for (int e = tid; e < nj * no * ni; e += kThreads) {
-        const int i = e % ni, t = (e / ni) % no, jj = e / (ni * no);
-        const Tin* xp = x + (j0 + jj) * p.n_in * p.inner + i0 + i;
-        A acc = init0;
-        for (int k = 0; k < p.ntaps; ++k) {
-          acc = P::step(acc, ws[k * p.tile_o + t],
-                        xp[clampi(fs[t] + k, 0, p.n_in - 1) * p.inner]);
-        }
-        out[((j0 + jj) * p.n_out + o0 + t) * p.inner + i0 + i] =
-            P::template put<Tout>(acc, taps);
-      }
+    if (r0 < 0) {  // no staging: each output from device memory
+      crop_tile_direct<Tin, Tout>(x, out, taps, p, ws, fs, cs, cp, img, j0, nj, o0, no, i0, ni);
       return;
     }
   } else {
@@ -558,13 +645,14 @@ struct Args {
   unsigned blocks;
   cudaStream_t stream;
   int* occupancy;  // non-null: report resident blocks per SM, launch nothing
+  crop::Pass crop;  // the crop passes' row source (every kernel takes it; C reads it)
 };
 
 template <typename Tin, typename Tout, typename Taps, int NT, int V, bool C = false>
 int run(const Args<Taps>& a) {
   if (a.p.tile_o == 0 && a.occupancy == nullptr) {
     resample_axis_kernel_unstaged<Tin, Tout, Taps, C><<<a.blocks, kThreads, 0, a.stream>>>(
-        (const Tin*)a.x, (Tout*)a.out, a.taps, a.p);
+        (const Tin*)a.x, (Tout*)a.out, a.taps, a.p, a.crop);
     return (int)cudaGetLastError();
   }
   auto* kernel = resample_axis_kernel<Tin, Tout, Taps, NT, V, C>;
@@ -576,7 +664,7 @@ int run(const Args<Taps>& a) {
         a.occupancy, kernel, kThreads, a.smem);
   }
   kernel<<<a.blocks, kThreads, a.smem, a.stream>>>((const Tin*)a.x, (Tout*)a.out,
-                                                   a.taps, a.p);
+                                                   a.taps, a.p, a.crop);
   return (int)cudaGetLastError();
 }
 

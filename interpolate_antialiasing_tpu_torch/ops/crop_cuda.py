@@ -37,15 +37,20 @@ package's ``crop_and_resize_windowed``:
 The kernel reads, per output row, its first input index and ``T`` weights
 from that index on (:func:`_compact`: each band column's nonzero range,
 which is contiguous, padded with zero weights to ``T``, a static bound on
-every row's count: :func:`_tap_bound`), so it does ``T``, not ``K``,
-multiply-adds per output.  Each pass is kernel B
+the count of every row of a box no wider than the image: :func:`_tap_bound`),
+so it does ``T``, not ``K``, multiply-adds per output.  A box wider than the
+image (a zoom-out) can give a row more taps: the tables keep its true count
+and its first ``T`` weights, and the kernel computes all its weights again
+from its box (the table kernel's own code), as the plain version takes them
+from the band (:func:`_crop_pass_plain`).  Each pass is kernel B
 (``csrc/resample_axis.cuh``) with one table per image (entry
 ``csrc/crop_resample.cu``): a block stages its window of input rows and
 its weights in shared memory; the window of a tile of outputs starts at
 their least first tap, which the block finds on the device, and is as wide
 as the static geometry bounds it (:func:`_crop_windows`; a tile of boxes
 wider than ``max_box_frac`` that needs more reads device memory instead);
-the tile is kernel B's plan over those windows (:func:`_crop_plan`).  A
+the tile is kernel B's plan over those windows (:func:`_crop_plan`); a tile
+that holds a row past ``T`` reads device memory too.  A
 CUDA tensor launches the kernel (both passes; ``launches_crop`` counts
 each pass's launch); a CPU tensor runs the plain
 version (:func:`_crop_pass_plain`), which sums the same taps in the same
@@ -144,8 +149,9 @@ def _tap_bound(in_size: int, out_size: int, support: float, antialias: bool,
     max(scale, 1)`` with ``scale <= in_size / out_size``: at most
     ``floor(2 support widen) + 1`` integers, one more for float32 rounding
     of the positions; the one-hot fallback of a sub-pixel box has one; and
-    no row has more than the window's ``k``.  :func:`_compact` checks every
-    row against it (a box wider than the image can exceed it)."""
+    no row has more than the window's ``k``.  A box wider than the image can
+    exceed it: :func:`_compact` keeps such a row's true count, and the crop
+    passes serve it whole."""
     scale = in_size / out_size
     widen = max(scale, 1.0) if antialias else 1.0
     return min(k, int(2.0 * support * widen + 1e-3) + 2)
@@ -249,15 +255,30 @@ def _digitize_band(band: torch.Tensor, pb: int) -> torch.Tensor:
     return torch.where(scaled < 0, scaled - 0.5, scaled + 0.5).to(torch.int32)
 
 
+class _Rows(NamedTuple):
+    """What one pass's rows need beside their tables, to compute the
+    weights of a row past the tap bound again: the boxes ``[N, 4]``
+    (float32, on the tables' device), the axis (0: H from box columns 0 and
+    2, 1: W from 1 and 3), its geometry and the filter."""
+
+    boxes: torch.Tensor
+    axis: int
+    ax: _Axis
+    mode: str
+    antialias: bool
+
+
 class _Table(NamedTuple):
-    """One pass's compact per-image tables (:func:`_compact`) and the
-    ``(tile_o, win)`` windows the kernel may stage for them
-    (:func:`_crop_windows`)."""
+    """One pass's compact per-image tables (:func:`_compact`), the ``(tile_o,
+    win)`` windows the kernel may stage for them (:func:`_crop_windows`)
+    and the source of their rows (:class:`_Rows`: what a row with more taps
+    than ``T`` is computed from; the kernel needs it)."""
 
     first: torch.Tensor  # [N, out] int32
-    cnt: torch.Tensor  # [N, out] int32
+    cnt: torch.Tensor  # [N, out] int32, each row's true count (may pass T)
     w: torch.Tensor  # [N, out, T] int32 or float32
     wins: tuple
+    rows: _Rows
 
 
 def _compact(starts: torch.Tensor, band: torch.Tensor, out_size: int, T: int):
@@ -266,9 +287,10 @@ def _compact(starts: torch.Tensor, band: torch.Tensor, out_size: int, T: int):
     weight ``w[.., j]`` (zero for ``cnt <= j < T``): its band column from
     the first to the last nonzero weight, padded to ``T`` (the first ``T``
     columns of the band column's range).  Taps outside that range carry
-    zero weight, so skipping them changes no sum.  Every row's count must
-    be at most ``T`` (:func:`_tap_bound`): on the CPU a larger one raises
-    ValueError, on the card a device-side assertion fails."""
+    zero weight, so skipping them changes no sum.  ``cnt`` is the row's
+    true count: a box wider than the image can give a row more than ``T``
+    taps (:func:`_tap_bound`), of which ``w`` holds the first ``T``; the
+    band holds them all (:func:`_crop_pass_plain`)."""
     N, nt, k, L = band.shape
     rows = band.permute(0, 1, 3, 2).reshape(N, nt * L, k)[:, :out_size]
     nz = rows != 0
@@ -277,13 +299,6 @@ def _compact(starts: torch.Tensor, band: torch.Tensor, out_size: int, T: int):
     j0 = torch.where(any_nz, nz.int().argmax(dim=2), 0)
     j1 = torch.where(any_nz, k - nz.flip(2).int().argmax(dim=2), 0)
     cnt = (j1 - j0).to(torch.int32)
-    fits = (cnt <= T).all()
-    if cnt.device.type == "cpu":
-        if not bool(fits):
-            raise ValueError(f"crop_resample: a row has {int(cnt.max())} taps, more than "
-                             f"the bound T={T} of boxes no wider than the image")
-    else:
-        torch._assert_async(fits)
     idx = (j0[..., None] + ar).clamp_(max=k - 1)
     w = torch.where(ar < cnt[..., None], rows.gather(2, idx), 0)
     tile_start = starts.repeat_interleave(L, dim=1)[:, :out_size]
@@ -307,16 +322,25 @@ def _store_u8(acc: torch.Tensor, pb: int | None) -> torch.Tensor:
     return v.clamp_(0, 255).to(torch.uint8)
 
 
-def _crop_pass_plain(x4: torch.Tensor, first, cnt, w, pb: int | None) -> torch.Tensor:
+def _crop_pass_plain(x4: torch.Tensor, tab, pb: int | None) -> torch.Tensor:
     """One pass's plain version: ``x4[N, R, n_in, inner]`` uint8 ->
-    ``[N, R, n_out, inner]`` uint8 with per-image row tables; taps summed
-    in order from ``j = 0``, each product and sum rounded (float) or exact
-    (int32)."""
+    ``[N, R, n_out, inner]`` uint8 with per-image row tables (:class:`_Table`);
+    each row's ``cnt`` taps summed in order from ``j = 0``, each product and
+    sum rounded (float) or exact (int32).  A row with more taps than the
+    tables hold (a box wider than the image) takes all its weights from the
+    band of its box (:func:`_row_weights`), the bits the kernel computes
+    again from the box."""
+    first, cnt, w = tab.first, tab.cnt, tab.w
     N, R, n_in, inner = x4.shape
     n_out = first.shape[1]
     adt = torch.int32 if pb is not None else torch.float32
     acc = torch.zeros((N, R, n_out, inner), dtype=adt, device=x4.device)
     taps = int(cnt.max()) if cnt.numel() else 0
+    T = w.shape[-1]
+    if taps > T:
+        wide = (cnt > T)[..., None]
+        w = torch.where(wide, _row_weights(tab.rows, taps),
+                        torch.nn.functional.pad(w, (0, taps - T)))
     for j in range(taps):
         idx = (first + j).clamp(max=n_in - 1).long()
         xv = x4.gather(2, idx[:, None, :, None].expand(N, R, n_out, inner))
@@ -324,17 +348,17 @@ def _crop_pass_plain(x4: torch.Tensor, first, cnt, w, pb: int | None) -> torch.T
     return _store_u8(acc, pb)
 
 
-def _check_int32(name: str, T: int, pb: int | None) -> None:
+def _check_int32(name: str, k: int, pb: int | None) -> None:
     """The int32 accumulator's bound, on the host before a launch: rows of
     non-negative renormalised weights (sums within 2^-20 of 1 in float32)
-    sum to at most ``2^pb (1 + 2^-20) + T/2`` after rounding (at most ``T``
-    nonzero taps), so a row's sum stays below 255 times that, plus
-    ``2^(pb-1)``."""
+    sum to at most ``2^pb (1 + 2^-20) + k/2`` after rounding (at most the
+    window's ``k`` nonzero taps, the most any row of any box counts), so a
+    row's sum stays below 255 times that, plus ``2^(pb-1)``."""
     if pb is None:
         return
-    worst = 255 * ((1 << pb) + (1 << pb >> 20) + T // 2 + 1) + (1 << (pb - 1))
+    worst = 255 * ((1 << pb) + (1 << pb >> 20) + k // 2 + 1) + (1 << (pb - 1))
     if worst >= 1 << 31:
-        raise ValueError(f"crop {name} pass: {T} taps at pb={pb} can "
+        raise ValueError(f"crop {name} pass: {k} taps at pb={pb} can "
                          f"overflow the int32 accumulator ({worst} >= 2^31)")
 
 
@@ -382,9 +406,13 @@ def _launch(lib, x, out, tab: _Table, N, R, n_in, inner, n_out, pb, dev):
     T = tab.w.shape[-1]
     plan = _crop_plan(tab.wins, n_in, n_out, T, N, R, inner, cr._n_sm(dev),
                       x.data_ptr() % 4 == 0)
+    rows, ax = tab.rows, tab.rows.ax
+    filt = get_filter(rows.mode)
     err = lib.ia_crop_pass(
         x.data_ptr(), out.data_ptr(), N, R, n_in, inner, n_out, tab.first.data_ptr(),
-        tab.w.data_ptr(), T, -1 if pb is None else pb,
+        tab.w.data_ptr(), T, -1 if pb is None else pb, tab.cnt.data_ptr(),
+        rows.boxes.data_ptr(), rows.axis, _TABLE_FILTERS[filt.fn], filt.support,
+        int(rows.antialias), ax.k, ax.align, _hi_start(ax),
         *((0, 0, 0, 0, 1, 0) if plan is None else plan[:6]),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -397,9 +425,8 @@ def _crop_resample_plain(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Ten
     :func:`_crop_pass_plain`."""
     N, C, H, W = x.shape
     OH, OW = tab_h.first.shape[1], tab_w.first.shape[1]
-    inter = _crop_pass_plain(x, tab_h.first, tab_h.cnt, tab_h.w, pb_h)
-    y = _crop_pass_plain(inter.reshape(N, C * OH, W, 1), tab_w.first, tab_w.cnt, tab_w.w,
-                         pb_w)
+    inter = _crop_pass_plain(x, tab_h, pb_h)
+    y = _crop_pass_plain(inter.reshape(N, C * OH, W, 1), tab_w, pb_w)
     return y.reshape(N, C, OH, OW)
 
 
@@ -408,8 +435,8 @@ def _crop_resample_cuda(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Tens
 
     N, C, H, W = x.shape
     OH, OW = tab_h.first.shape[1], tab_w.first.shape[1]
-    _check_int32("H", tab_h.w.shape[-1], pb_h)
-    _check_int32("W", tab_w.w.shape[-1], pb_w)
+    _check_int32("H", tab_h.rows.ax.k, pb_h)
+    _check_int32("W", tab_w.rows.ax.k, pb_w)
     lib = native.build()
     dev = x.device
     x = x.contiguous()
@@ -538,7 +565,8 @@ def _windowed_tables(x, boxes, out_hw, method, antialias, max_box_frac,
                      precision):
     """``(tab_h, tab_w, pb_h, pb_w)`` for :func:`_crop_resample`: the
     per-image tables on ``x``'s device, compacted per output row to the
-    static tap bound (:class:`_Table`): the table kernel on a CUDA tensor
+    static tap bound (:class:`_Table`, with each row's true count and the
+    boxes its weights come from): the table kernel on a CUDA tensor
     (:func:`_windowed_tables_cuda`), the plain build on a CPU tensor
     (:func:`_windowed_tables_plain`); both give the same bits."""
     if precision not in _PRECISIONS:
@@ -550,7 +578,8 @@ def _windowed_tables(x, boxes, out_hw, method, antialias, max_box_frac,
     (ax_h, wins_h), (ax_w, wins_w) = _table_geometry(
         H, W, int(out_hw[0]), int(out_hw[1]), mode, antialias, _fracs(max_box_frac),
         precision)
-    b = boxes.to(device=x.device, dtype=torch.float32)
+    # dense [N, 4]: the table kernel and both crop passes index the boxes so
+    b = boxes.to(device=x.device, dtype=torch.float32).contiguous()
     if x.device.type == "cuda":
         tab_h, tab_w = _windowed_tables_cuda(b, mode, antialias, (ax_h, ax_w))
     elif x.device.type == "cpu":
@@ -558,7 +587,33 @@ def _windowed_tables(x, boxes, out_hw, method, antialias, max_box_frac,
     else:
         raise ValueError(f"crop_tables runs on CUDA (kernel) or CPU (plain "
                          f"version), not on {x.device}")
-    return _Table(*tab_h, wins_h), _Table(*tab_w, wins_w), ax_h.pb, ax_w.pb
+    return (_Table(*tab_h, wins_h, _Rows(b, 0, ax_h, mode, antialias)),
+            _Table(*tab_w, wins_w, _Rows(b, 1, ax_w, mode, antialias)), ax_h.pb, ax_w.pb)
+
+
+def _hi_start(ax: _Axis) -> int:
+    """The largest window start of an axis."""
+    return (ax.in_limit - ax.k) // ax.align * ax.align
+
+
+def _axis_band(rows: _Rows):
+    """``(starts, band)`` of one pass: :func:`_windowed_band` of its boxes,
+    :func:`_digitize_band` where ``pb`` is set."""
+    b, a, ax = rows.boxes, rows.axis, rows.ax
+    starts, band = _windowed_band(b[:, a] * ax.in_size, b[:, a + 2] * ax.in_size, ax.in_size,
+                                  ax.out_size, ax.k, ax.in_limit, ax.align, rows.mode,
+                                  rows.antialias)
+    if ax.pb is not None:
+        band = _digitize_band(band, ax.pb)
+    return starts, band
+
+
+def _row_weights(rows: _Rows, width: int) -> torch.Tensor:
+    """Every row's compact weights ``[N, out, width]`` (:func:`_compact` of
+    the band of its box): all taps of a row past the tap bound, for
+    ``width`` at least its count."""
+    starts, band = _axis_band(rows)
+    return _compact(starts, band, rows.ax.out_size, width)[2]
 
 
 def _windowed_tables_plain(b: torch.Tensor, mode: str, antialias: bool, axes):
@@ -566,21 +621,14 @@ def _windowed_tables_plain(b: torch.Tensor, mode: str, antialias: bool, axes):
     box columns 0 and 2, W from 1 and 3) :func:`_windowed_band`,
     :func:`_digitize_band` where ``pb`` is set, then :func:`_compact`;
     ``[(first, cnt, w)] * 2``."""
-    out = []
-    for a, ax in enumerate(axes):
-        starts, band = _windowed_band(b[:, a] * ax.in_size, b[:, a + 2] * ax.in_size,
-                                      ax.in_size, ax.out_size, ax.k, ax.in_limit, ax.align,
-                                      mode, antialias)
-        if ax.pb is not None:
-            band = _digitize_band(band, ax.pb)
-        out.append(_compact(starts, band, ax.out_size, ax.T))
-    return out
+    return [_compact(*_axis_band(_Rows(b, a, ax, mode, antialias)), ax.out_size, ax.T)
+            for a, ax in enumerate(axes)]
 
 
 def _windowed_tables_cuda(b: torch.Tensor, mode: str, antialias: bool, axes):
     """Both axes' tables in one launch of ``csrc/crop_tables.cu`` (the plain
-    version's arithmetic, each row's compact taps written directly); a row
-    with more than ``T`` taps fails a device-side assertion."""
+    version's arithmetic, each row's compact taps written directly; a row
+    past ``T`` keeps its true count and its first ``T`` weights)."""
     global launches_crop_tables
     from .. import native
 
@@ -589,7 +637,6 @@ def _windowed_tables_cuda(b: torch.Tensor, mode: str, antialias: bool, axes):
         raise ValueError(f"crop_tables: no device filter for {mode!r}")
     lib = native.build()
     N, dev = b.shape[0], b.device
-    b = b.contiguous()
     tabs, args = [], []
     for ax in axes:
         first = torch.empty((N, ax.out_size), dtype=torch.int32, device=dev)
@@ -597,8 +644,7 @@ def _windowed_tables_cuda(b: torch.Tensor, mode: str, antialias: bool, axes):
         w = torch.empty((N, ax.out_size, ax.T), device=dev,
                         dtype=torch.float32 if ax.pb is None else torch.int32)
         tabs.append((first, cnt, w))
-        args += [ax.in_size, ax.out_size, ax.k, ax.align,
-                 (ax.in_limit - ax.k) // ax.align * ax.align, ax.T,
+        args += [ax.in_size, ax.out_size, ax.k, ax.align, _hi_start(ax), ax.T,
                  -1 if ax.pb is None else ax.pb, first.data_ptr(), cnt.data_ptr(),
                  w.data_ptr()]
     if N * max(ax.out_size for ax in axes) == 0:

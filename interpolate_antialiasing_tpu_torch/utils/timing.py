@@ -102,36 +102,71 @@ def time_calls(fn: Callable, x: torch.Tensor, iters: int = 20,
                        device=device)
 
 
-def _kernel_records(run_once: Callable[[], None]) -> list:
-    """The CUDA kernel records of torch.profiler over ``run_once()`` (which
-    synchronises at its end).  The profiler now and then returns a profile
-    with no device record at all (seen on an H100, after many profiles in one
-    process): such a profile is taken again, up to three times; raises where
-    none of them has a device record."""
+def _profile(run_once: Callable[[], None], match: str | None) -> list:
+    """The CUDA kernel records of one torch.profiler profile over
+    ``run_once()`` whose name contains ``match`` (every one with None)."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_once()
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and (match is None or match in e.name)]
+
+
+def _kernel_records(run_once: Callable[[], None], match: str | None = None,
+                    expect: int | None = None) -> list:
+    """The CUDA kernel records of torch.profiler over ``run_once()`` (which
+    synchronises at its end) whose name contains ``match`` (every kernel
+    with None).  The profiler now and then loses records: it returned
+    profiles with no device record at all on an H100, after many profiles
+    in one process.  A profile with no such record, or with another count
+    than ``expect`` where that is given, is taken again, up to three times;
+    raises where none of them has it."""
+    seen = []
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run_once()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if kernels:
-            return kernels
-    raise RuntimeError("the profiler saw no device record in three profiles")
+        hit = _profile(run_once, match)
+        seen.append(len(hit))
+        if hit and (expect is None or len(hit) == expect):
+            return hit
+    what = match or "the call"
+    if not any(seen):
+        raise RuntimeError(f"the profiler saw no device time of {what} in three profiles")
+    raise RuntimeError(f"the profiler saw {seen} device records of {what} in three "
+                       f"profiles, not the {expect} expected")
 
 
-def device_seconds_from_trace(run_once: Callable[[], None],
-                              match: str | None = None) -> float:
+def device_seconds_from_trace(run_once: Callable[[], None], match: str | None = None,
+                              expect: int | None = None) -> float:
     """Seconds of device time that ``run_once()`` launched: the summed
     torch.profiler kernel records whose name contains ``match`` (every
-    kernel with None).  ``run_once`` should end in a synchronise.  Raises
-    without CUDA and where the profiler saw no such device time."""
+    kernel with None).  ``run_once`` should end in a synchronise.  Where
+    ``expect`` is given, the profile must hold exactly that many such
+    records (it is taken again, at most three times, where it falls short).
+    Raises without CUDA and where the profiler saw no such device time."""
     _need_cuda("device_seconds_from_trace")
-    hit = [e for e in _kernel_records(run_once) if match is None or match in e.name]
+    hit = _kernel_records(run_once, match, expect)
     total_us = sum(e.time_range.elapsed_us() for e in hit)
     if total_us <= 0:
         raise RuntimeError(f"the profiler saw no device time of {match or 'the call'}")
     return total_us / 1e6
+
+
+def _records_per_call(fn: Callable, args: tuple, match: str | None) -> int:
+    """The kernel records (of ``match``) that one call of ``fn(*args)``
+    makes, from one profiled call; 0 where that profile lost some: with
+    ``match`` None, fewer records than the hand-written kernels the call
+    launched (``utils/inspect.launch_counts``, whose counters each wrapper
+    moves where it launches)."""
+    from .inspect import launch_counts
+
+    def once():
+        fn(*args)
+        torch.cuda.synchronize()
+
+    before = launch_counts()
+    n = len(_profile(once, match))
+    launched = sum(launch_counts().values()) - sum(before.values())
+    return 0 if match is None and n < launched else n
 
 
 def device_time_per_call(fn: Callable, *args, iters: int = 50,
@@ -140,8 +175,14 @@ def device_time_per_call(fn: Callable, *args, iters: int = 50,
     records over ``iters`` calls after one untimed call: per launch of the
     kernels whose name contains ``match``, or, with ``match`` None, every
     kernel of the call summed per call (a library call).  The host's pace
-    does not enter it.  Raises without CUDA and where the profiler saw no
-    such device time: there is no fallback to events."""
+    does not enter it.
+
+    The profiler can lose records, and a time from a short count reads
+    low.  So one call is profiled first and its records counted
+    (:func:`_records_per_call`), and the profile of ``iters`` calls must
+    hold ``iters`` times as many; where either falls short, both are taken
+    again, up to three times.  Raises without CUDA and where no profile
+    held them all: there is no fallback to events."""
     _need_cuda("device_time_per_call")
     fn(*args)
     torch.cuda.synchronize()
@@ -151,13 +192,19 @@ def device_time_per_call(fn: Callable, *args, iters: int = 50,
             fn(*args)
         torch.cuda.synchronize()
 
-    kernels = _kernel_records(run_once)
-    hit = [e for e in kernels if match is None or match in e.name]
-    total_us = sum(e.time_range.elapsed_us() for e in hit)
-    if not hit or total_us <= 0:
-        raise RuntimeError(f"the profiler saw no device time of {match or 'the call'} "
-                           f"({len(kernels)} device records)")
-    return total_us / 1e3 / (len(hit) if match else iters)
+    what, seen = match or "the call", []
+    for _ in range(3):
+        per_call = _records_per_call(fn, args, match)
+        hit = _profile(run_once, match)
+        seen.append((per_call, len(hit)))
+        if per_call and len(hit) == iters * per_call:
+            total_us = sum(e.time_range.elapsed_us() for e in hit)
+            if total_us > 0:
+                return total_us / 1e3 / (len(hit) if match else iters)
+    if not any(n for pair in seen for n in pair):
+        raise RuntimeError(f"the profiler saw no device time of {what} in three profiles")
+    raise RuntimeError(f"the profiler's device records of {what} fell short in three "
+                       f"profiles: (one call, {iters} calls) = {seen}")
 
 
 def host_us(fn: Callable, *args, iters: int = 20) -> float:

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import ZOOM_OUT
 import interpolate_antialiasing_tpu_torch as iat
 from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
@@ -631,6 +632,8 @@ def _crop_boxes(name):
     if name == "edges":
         return torch.tensor([[0.0, 0.0, 1.0, 1.0], [0.0, 0.3, 0.5, 0.7], [0.5, 0.3, 1.0, 0.7],
                              [0.3, 0.0, 0.7, 0.5], [0.3, 0.5, 0.7, 1.0], [0.6, 0.0, 1.0, 1.0]])
+    if name == "wide":  # boxes wider than the image (rows past T) beside ones within it
+        return torch.tensor(ZOOM_OUT)
     return sample_boxes(torch.Generator().manual_seed(5), 6, 300, 520)
 
 
@@ -641,6 +644,8 @@ CROP_EDGES = [
     ("edges frac045", (6, 3, 300, 520), (96, 112), "edges", 0.45),
     ("rrc frac045", (6, 3, 300, 520), (160, 200), "rrc", 0.45),
     ("wide out", (6, 1, 300, 520), (150, 300), "rrc", 1.0),
+    ("wide boxes frac1", (6, 3, 300, 520), (96, 112), "wide", 1.0),
+    ("wide boxes frac05", (6, 3, 300, 520), (160, 200), "wide", 0.5),
 ]
 
 
@@ -768,6 +773,40 @@ def test_crop_and_resize_equals_the_plain_table_build(dev, monkeypatch, precisio
     _assert_equal(got, want)
 
 
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+def test_crop_wide_boxes_then_an_in_bound_call(dev, precision):
+    """Boxes wider than the image at the train shape (rows past the tables'
+    bound T, served whole by the kernel) byte for byte against the plain
+    version; then a call within the image in the same process, as it was:
+    the context is still usable."""
+    x = _input((8, 3, 438, 906), torch.uint8, dev, seed=35)
+    wide = torch.tensor(ZOOM_OUT[1:3] * 4, device=dev)
+    tables = cc._windowed_tables(x, wide, (224, 224), "bilinear", True, 1.0, precision)
+    assert all(int(t.cnt.max()) > t.w.shape[-1] for t in tables[:2])
+    _assert_equal(cc._crop_resample(x, *tables), cc._crop_resample_plain(x, *tables))
+    inside = torch.tensor(ZOOM_OUT[4:5] * 8, device=dev)
+    tables = cc._windowed_tables(x, inside, (224, 224), "bilinear", True, 1.0, precision)
+    _assert_equal(cc._crop_resample(x, *tables), cc._crop_resample_plain(x, *tables))
+
+
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+def test_crop_strided_zoom_out_boxes_match_plain(dev, precision, monkeypatch):
+    """Zoom-out boxes as a strided view (the first four columns of ``[N,
+    5]`` detections): the windowed call, whose crop passes read the boxes
+    of rows past the tables' bound, gives the plain version's bytes over
+    the same boxes made dense."""
+    x = _input((6, 3, 300, 520), torch.uint8, dev, seed=36)
+    dense = torch.tensor(ZOOM_OUT, device=dev)
+    dets = torch.cat([dense, torch.ones_like(dense[:, :1])], 1)
+    strided = dets[:, :4]
+    assert not strided.is_contiguous()
+    got = cc.crop_and_resize_windowed(x, strided, (96, 112), precision=precision)
+    _plain_tables(monkeypatch)
+    tables = cc._windowed_tables(x, dense, (96, 112), "bilinear", True, 1.0, precision)
+    assert all(int(t.cnt.max()) > t.w.shape[-1] for t in tables[:2])
+    _assert_equal(got, cc._crop_resample_plain(x, *tables))
+
+
 def test_random_resized_crop_launches_the_table_kernel_once(dev):
     x = _input((4, 3, 300, 520), torch.uint8, dev, seed=34)
     before = cc.launches_crop_tables
@@ -840,3 +879,41 @@ def test_device_time_per_call_times_the_kernel(dev):
     assert 0 < device_seconds_from_trace(run_once, "resample2d_kernel") < 0.01
     with pytest.raises(RuntimeError, match="no device time"):
         device_time_per_call(call, iters=2, match="no_such_kernel")
+
+
+def test_a_hand_written_call_makes_its_launches_in_kernel_records(dev):
+    """One crop call's profile holds one record per hand-written launch (the
+    launch counters' delta: the table kernel once, the crop kernel twice),
+    and the timer requires ``iters`` times that many."""
+    from interpolate_antialiasing_tpu_torch.utils.inspect import launch_counts
+    from interpolate_antialiasing_tpu_torch.utils.timing import (
+        _records_per_call,
+        device_seconds_from_trace,
+        device_time_per_call,
+    )
+
+    x = _input((4, 3, 300, 520), torch.uint8, dev, seed=36)
+    boxes = sample_boxes(torch.Generator().manual_seed(2), 4, 300, 520).to(dev)
+
+    def call():
+        return iat.crop_and_resize(x, boxes, (96, 112))
+
+    call()
+    before = launch_counts()
+    call()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in launch_counts().items() if v > before[k]}
+    assert launched == {"crop_tables": 1, "crop_resample": 2}
+    assert _records_per_call(call, (), "crop_tables_kernel") == 1
+    assert _records_per_call(call, (), "resample_axis_kernel") == 2
+    assert _records_per_call(call, (), None) >= 3
+
+    def three():
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+
+    assert 0 < device_seconds_from_trace(three, "resample_axis_kernel", expect=6) < 0.01
+    with pytest.raises(RuntimeError, match="not the 5 expected"):
+        device_seconds_from_trace(three, "resample_axis_kernel", expect=5)
+    assert 0 < device_time_per_call(call, iters=4, match="resample_axis_kernel") < 10

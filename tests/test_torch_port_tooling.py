@@ -404,6 +404,81 @@ def test_card_timers_raise_without_cuda(no_card):
         timing.host_us(f)
 
 
+class _Record:
+    """A kernel record as torch.profiler gives it: a name and a time range."""
+
+    def __init__(self, name: str, us: float):
+        self.name = name
+        self.time_range = type("Range", (), {"elapsed_us": lambda _self: us})()
+
+
+@pytest.fixture()
+def fake_profiles(monkeypatch):
+    """A card that is not there and a profiler that hands back, profile by
+    profile, the next of ``state["counts"]`` records of 2 us each, named
+    "k"; ``state["taken"]`` lists the profiles taken."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    state = {"counts": [], "taken": []}
+
+    def profile(run_once, match):
+        run_once()
+        n = state["counts"][len(state["taken"])]
+        state["taken"].append(n)
+        return [_Record("k", 2.0) for _ in range(n)]
+
+    monkeypatch.setattr(timing, "_profile", profile)
+    return state
+
+
+def test_device_time_per_call_profiles_again_where_records_fall_short(fake_profiles):
+    """A call makes 2 kernel records; the profile of 5 calls loses one, so
+    both profiles are taken again, and the time is the full count's."""
+    fake_profiles["counts"] = [2, 9, 2, 10]
+    ms = timing.device_time_per_call(lambda: None, iters=5)
+    assert fake_profiles["taken"] == [2, 9, 2, 10]
+    assert ms == pytest.approx(10 * 2.0 / 1e3 / 5)
+    fake_profiles["counts"], fake_profiles["taken"] = [2, 9, 2, 10], []
+    assert timing.device_time_per_call(lambda: None, iters=5, match="k") == pytest.approx(
+        2.0 / 1e3)
+
+
+def test_device_time_per_call_raises_after_three_short_profiles(fake_profiles):
+    """Three short profiles (the last: the one-call profile itself lost a
+    record, so 5 calls' full count disagrees with it): no time from a short
+    count, an error instead."""
+    fake_profiles["counts"] = [2, 9, 2, 8, 1, 10]
+    with pytest.raises(RuntimeError, match="fell short"):
+        timing.device_time_per_call(lambda: None, iters=5)
+    assert len(fake_profiles["taken"]) == 6
+    fake_profiles["counts"], fake_profiles["taken"] = [0] * 6, []
+    with pytest.raises(RuntimeError, match="no device time"):
+        timing.device_time_per_call(lambda: None, iters=5, match="k")
+
+
+def test_device_time_per_call_holds_one_call_to_its_launches(fake_profiles, monkeypatch):
+    """A call that launches two hand-written kernels (its wrappers' counters
+    move by 2) but whose one-call profile holds one record has lost one:
+    profiled again, although 5 calls' records are 5 times that one."""
+    def call():
+        cc.launches_crop += 2
+
+    monkeypatch.setattr(cc, "launches_crop", 0)
+    fake_profiles["counts"] = [1, 5, 2, 10]
+    assert timing.device_time_per_call(call, iters=5) == pytest.approx(10 * 2.0 / 1e3 / 5)
+    assert fake_profiles["taken"] == [1, 5, 2, 10]
+
+
+def test_device_seconds_from_trace_requires_what_it_expects(fake_profiles):
+    fake_profiles["counts"] = [3, 4]
+    assert timing.device_seconds_from_trace(lambda: None, "k", expect=4) == pytest.approx(8e-6)
+    fake_profiles["counts"], fake_profiles["taken"] = [3, 3, 5], []
+    with pytest.raises(RuntimeError, match="not the 4 expected"):
+        timing.device_seconds_from_trace(lambda: None, "k", expect=4)
+    fake_profiles["counts"], fake_profiles["taken"] = [3], []
+    assert timing.device_seconds_from_trace(lambda: None) == pytest.approx(6e-6)
+
+
 def test_time_calls_on_the_cpu_names_the_cpu():
     x = torch.zeros((1, 3, 20, 30))
     r = timing.time_calls(lambda t: iat.resize(t, (10, 15)), x, iters=2, repeats=2)

@@ -223,46 +223,68 @@ def test_crop_trimmed_tables_are_the_first_T_columns(name, precision):
     fh, fw = cc._fracs(frac)
     b = torch.from_numpy(boxes)
     wide = []
-    for lo, hi, n_in, n_out, k, limit, align, f in (
+    for axis, (lo, hi, n_in, n_out, k, limit, align, f) in enumerate((
             (b[:, 0] * H, b[:, 2] * H, H, ohw[0], k_h, Hp, 32, fh),
-            (b[:, 1] * W, b[:, 3] * W, W, ohw[1], k_w, W2, 128, fw)):
+            (b[:, 1] * W, b[:, 3] * W, W, ohw[1], k_w, W2, 128, fw))):
         starts, band = cc._windowed_band(lo, hi, n_in, n_out, k, limit, align, method, True)
         pb = cc._digit_plan(limit, n_out, support, True, f)[0]
         if precision == "pil_int8":
             band = cc._digitize_band(band, pb)
+        else:
+            pb = None
         T = cc._tap_bound(n_in, n_out, support, True, k)
         full = cc._compact(starts, band, n_out, k)
         trim = cc._compact(starts, band, n_out, T)
         assert torch.equal(trim[0], full[0]) and torch.equal(trim[1], full[1])
         assert torch.equal(trim[2], full[2][..., :T])
         assert not full[2][..., T:].any()
-        wide.append((cc._Table(*full, ()), pb if precision == "pil_int8" else None))
+        rows = cc._Rows(b, axis, cc._Axis(n_in, n_out, k, limit, align, k, pb), method, True)
+        wide.append((cc._Table(*full, (), rows), pb))
     (tab_h, pb_h), (tab_w, pb_w) = wide
     got = cc.crop_and_resize_windowed(x, b, ohw, method=method, max_box_frac=frac,
                                       precision=precision)
     assert torch.equal(got, cc._crop_resample_plain(x, tab_h, tab_w, pb_h, pb_w))
 
 
-def test_crop_box_wider_than_the_image_raises():
-    """A box wider than the image can need more than T taps per row: the
-    tables refuse it (on the card, a device-side assertion)."""
-    x = torch.zeros((1, 1, 128, 256), dtype=torch.uint8)
-    boxes = torch.tensor([[-1.0, -1.5, 2.0, 2.5]])
-    with pytest.raises(ValueError, match="taps"):
-        cc._windowed_tables(x, boxes, (16, 16), "bilinear", True, 0.5, "pil_int8")
+def test_crop_box_wider_than_the_image_matches_jax():
+    """A box wider than the image needs more than T taps per row: the
+    tables keep each row's true count, and the crop gives the JAX package's
+    windowed bytes."""
+    import jax.numpy as jnp
+
+    from interpolate_antialiasing_tpu.ops import crop_pallas as jcp
+
+    x = _u8((1, 1, 128, 256), 13)
+    boxes = np.array([[-1.0, -1.5, 2.0, 2.5]], np.float32)
+    tab_h, tab_w, _, _ = cc._windowed_tables(torch.from_numpy(x), torch.from_numpy(boxes),
+                                             (16, 16), "bilinear", True, 0.5, "pil_int8")
+    for tab in (tab_h, tab_w):
+        assert int(tab.cnt.max()) > tab.w.shape[-1]
+    want = np.asarray(jcp.crop_and_resize_windowed(jnp.asarray(x), jnp.asarray(boxes),
+                                                   (16, 16), max_box_frac=0.5))
+    got = cc.crop_and_resize_windowed(torch.from_numpy(x), torch.from_numpy(boxes), (16, 16),
+                                      max_box_frac=0.5)
+    assert np.array_equal(got.numpy(), want)
 
 
-def _tile_windows(first, n_in, tile_o, win, T):
+def _tile_windows(first, cnt, n_in, tile_o, win, T):
     """Each tile's first staged row as the crop kernel's block finds it:
     the least first tap of its outputs, clamped to the axis, or -1 (the
     block reads device memory) where its taps, T from each first tap, span
-    more than ``win`` rows."""
+    more than ``win`` rows, or where one of its rows counts more than T
+    taps (a box wider than the image)."""
     N, n_out = first.shape
     n_to = -(-n_out // tile_o)
-    f = torch.cat([first, first[:, -1:].expand(N, n_to * tile_o - n_out)], dim=1).long()
-    lo = f.clamp(0, n_in - 1).view(N, n_to, tile_o).amin(2)
-    hi = (f + T - 1).clamp(0, n_in - 1).view(N, n_to, tile_o).amax(2)
-    return torch.where(hi - lo < win, lo, -1)
+
+    def tiles(t):
+        return torch.cat([t, t[:, -1:].expand(N, n_to * tile_o - n_out)], dim=1).long().view(
+            N, n_to, tile_o)
+
+    f = tiles(first)
+    lo = f.clamp(0, n_in - 1).amin(2)
+    hi = (f + T - 1).clamp(0, n_in - 1).amax(2)
+    wide = (tiles(cnt) > T).any(2)
+    return torch.where((hi - lo < win) & ~wide, lo, -1)
 
 
 @pytest.mark.parametrize("name", [c[0] for c in CROP_CASES])
@@ -288,7 +310,7 @@ def test_crop_windows_hold_every_tap(name):
         taps = (tab.first.long()[..., None] + torch.arange(T)).clamp(0, n_in - 1)
         lo, hi = taps.amin(-1), taps.amax(-1)
         for tile_o, win in tab.wins:
-            r0 = _tile_windows(tab.first, n_in, tile_o, win, T)
+            r0 = _tile_windows(tab.first, tab.cnt, n_in, tile_o, win, T)
             n_to = -(-n_out // tile_o)
             assert r0.shape == (N, n_to)
             r0 = r0.repeat_interleave(tile_o, dim=1)[:, :n_out]
@@ -311,9 +333,44 @@ def test_crop_boxes_past_the_bound_read_device_memory():
     for tab, n_in in ((tab_h, 128), (tab_w, 256)):
         for tile_o, win in tab.wins:
             if win < n_in:
-                marked += int((_tile_windows(tab.first, n_in, tile_o, win, tab.w.shape[-1])
-                               < 0).sum())
+                marked += int((_tile_windows(tab.first, tab.cnt, n_in, tile_o, win,
+                                             tab.w.shape[-1]) < 0).sum())
     assert marked > 0
+
+
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+def test_crop_tiles_with_wide_rows_read_device_memory(precision):
+    """Boxes wider than the image beside boxes within it, at the train
+    crop's shape: for every (tile_o, win) the crop plan considers, a tile
+    that holds a row with more than T taps reads device memory (so no
+    staged window can miss a tap of it), every tap of every staged tile's
+    outputs lies in its window, and the images of boxes within the image
+    stage every tile."""
+    boxes = torch.tensor([[-0.2, -0.2, 1.2, 1.2], [0.1, 0.2, 0.8, 0.9], [0.0, 0.0, 1.3, 1.0],
+                          [0.0, 0.0, 1.0, 1.3], [0.05, 0.1, 0.7, 0.95]])
+    N, C, H, W = 5, 1, 438, 906
+    x = torch.zeros((N, C, H, W), dtype=torch.uint8)
+    tab_h, tab_w, _, _ = cc._windowed_tables(x, boxes, (224, 224), "bilinear", True, 1.0,
+                                             precision)
+    inside = torch.tensor([False, True, False, False, True])
+    for tab, n_in, n_out in ((tab_h, H, 224), (tab_w, W, 224)):
+        T = tab.w.shape[-1]
+        wide = tab.cnt > T
+        assert bool(wide.any()) and not bool(wide[inside].any())
+        taps = (tab.first.long()[..., None] + torch.arange(T)).clamp(0, n_in - 1)
+        lo, hi = taps.amin(-1), taps.amax(-1)
+        for tile_o, win in tab.wins:
+            r0 = _tile_windows(tab.first, tab.cnt, n_in, tile_o, win, T)
+            r0 = r0.repeat_interleave(tile_o, dim=1)[:, :n_out]
+            staged = r0 >= 0
+            tile_wide = wide.float()
+            tile_wide = torch.nn.functional.pad(tile_wide, (0, -n_out % tile_o))
+            tile_wide = tile_wide.view(N, -1, tile_o).amax(2).bool()
+            tile_wide = tile_wide.repeat_interleave(tile_o, dim=1)[:, :n_out]
+            assert not bool((staged & tile_wide).any())
+            rows = torch.clamp(n_in - r0, max=win)
+            assert bool((lo >= r0)[staged].all()) and bool((hi < r0 + rows)[staged].all())
+            assert bool(staged[inside].all())
 
 
 def test_crop_plan_cuts_tiles_at_image_edges():
