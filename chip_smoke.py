@@ -22,8 +22,10 @@ then:
    the crop kernel's integer and float variants on the JAX package's
    crop-test windows, at full size and on zoom-out boxes wider than the
    image (rows past the tables' tap bound, whose weights the kernel
-   computes again from the box; once as a strided view of ``[N, 5]``
-   detections), then one more call within the image, the
+   computes again from the box and stages with their tile's window in
+   chunks; once as a strided view of ``[N, 5]`` detections; at b64 and on
+   4K frames; boxes half past the image, whose edge tiles mix rows past
+   the bound with rows within it), then one more call within the image, the
    crop's table kernel
    (``crop_tables``) against the plain table build on the same cases and
    edges, table by table (``first`` and ``cnt`` equal, ``w`` bit for bit),
@@ -40,7 +42,9 @@ then:
    and one-column outputs, an input off 16 bytes, the route where no tile
    fits; the crop passes, kernel B with per-image tables: sub-pixel boxes,
    boxes at each edge, max_box_frac 1.0 and 0.45, more than 128 outputs,
-   zoom-out boxes, the 4K RandomResizedCrop, both precisions), each through the plan and
+   zoom-out boxes, tiles mixing rows past and within the tap bound, a row
+   past every chunk (it reads device memory), the 4K RandomResizedCrop,
+   both precisions), each through the plan and
    with every tile the plan considers forced, byte for byte;
 2. drives the port's main paths through their public entry points, each
    with every launch count set to 0 just before it and read just after:
@@ -717,9 +721,22 @@ ZOOM_OUT = [[-1.0, -1.5, 2.0, 2.5], [-0.2, -0.2, 1.2, 1.2], [0.0, 0.0, 1.3, 1.0]
             [0.0, 0.0, 1.0, 1.3], [0.1, 0.2, 0.8, 0.9], [0.0, 0.2, 1.0, 0.6]]
 
 
+# boxes half past one edge or two (rows within the box's part of the image
+# count more taps than T, the rows near its edge fewer, and one-hot rows
+# past it one): tiles at the image's edge mix rows past T with rows within
+# it; one box inside
+MIXED_TILE = [[0.5, 0.0, 2.0, 1.0], [0.0, 0.6, 1.0, 2.2], [-0.8, -0.2, 0.9, 1.0],
+              [-0.3, -0.9, 1.3, 0.7], [0.1, 0.2, 0.8, 0.9], [0.3, 0.3, 1.9, 1.9]]
+# a box ten times the image beside a 40% zoom-out, on a quarter bound: a
+# row counts more taps than a tile's window holds, so even a chunk of that
+# one output cannot be staged and it reads device memory
+ROW_PAST_EVERY_CHUNK = [[-4.5, -4.5, 5.5, 5.5], [-0.2, -0.2, 1.2, 1.2]]
+
+
 def _zoom_out_boxes(n: int) -> np.ndarray:
     """``n`` zoom-out boxes: each axis spans 1.2 to 1.5 times the image,
-    reaching past both edges (every image's rows count more taps than T)."""
+    reaching past both edges (rows count more taps than T on W in every
+    image, on H in most)."""
     rng = np.random.default_rng(1)
     span = rng.uniform(1.2, 1.5, (n, 2))
     lo = -rng.uniform(0.0, 1.0, (n, 2)) * (span - 1.0)
@@ -756,6 +773,9 @@ def _crop_cases():
     yield ("zoom-out strided boxes", (6, 3, 300, 520), ZOOM_OUT, (96, 112), "bilinear", 1.0)
     (shape, ohw) = TRAIN_B64
     yield ("b64 zoom-out boxes", shape, _zoom_out_boxes(shape[0]), ohw, "bilinear", 1.0)
+    yield ("b64 mixed tiles", shape, (MIXED_TILE * 11)[:shape[0]], ohw, "bilinear", 1.0)
+    (shape, ohw) = CROP_4K
+    yield ("4k zoom-out boxes", shape, _zoom_out_boxes(shape[0]), ohw, "bilinear", 1.0)
 
 
 def _crop_tables_vs_plain(tally: _Tally, name: str, x, b, ohw, method: str, frac,
@@ -1178,7 +1198,9 @@ def _pil_2pass_edges():
 def _crop_edge_cases():
     """(name, x shape, boxes, (oh, ow), max_box_frac): sub-pixel boxes,
     boxes touching each edge, RandomResizedCrop draws past a 0.45 bound,
-    more than 128 outputs, the 4K random_resized_crop."""
+    more than 128 outputs, zoom-out boxes, tiles that mix rows past the tap
+    bound with rows within it, a row too wide for a chunk of one output,
+    the 4K random_resized_crop."""
     sub = [[0.47, 0.55, 0.4701, 0.5502], [0.0, 0.0, 1e-4, 1e-4], [0.9999, 0.9999, 1.0, 1.0],
            [0.2, 0.3, 0.2 + 1 / 256, 0.31]]
     edges = [[0.0, 0.0, 1.0, 1.0], [0.0, 0.3, 0.5, 0.7], [0.5, 0.3, 1.0, 0.7],
@@ -1191,6 +1213,8 @@ def _crop_edge_cases():
     yield ("wide out", (6, 1, 300, 520), rrc, (150, 300), 1.0)
     for frac in (1.0, 0.5):
         yield (f"zoom-out frac {frac}", (6, 3, 300, 520), ZOOM_OUT, (96, 112), frac)
+    yield ("mixed tiles", (6, 3, 300, 520), MIXED_TILE, (96, 112), 1.0)
+    yield ("row past every chunk", (2, 3, 150, 260), ROW_PAST_EVERY_CHUNK, (16, 16), 0.25)
     (shape, ohw) = CROP_4K
     yield ("4k rrc", shape, sample_boxes(torch.Generator().manual_seed(1), shape[0],
                                          *shape[2:]).numpy(), ohw, box_fracs(*shape[2:]))
@@ -2302,8 +2326,9 @@ def time_train_kernels(dev, card) -> tuple[dict, dict]:
     """The adjoint of config 4, the crop kernel and the crop's table kernel,
     beside their plain versions; and the whole crop calls the main path
     makes, with the table kernel and with the plain table build; and the
-    same at b64 for zoom-out boxes (every image's rows past the tables'
-    bound, their weights computed again in the crop kernel)."""
+    same at b64 for zoom-out boxes (rows past the tables' bound, their
+    weights computed again in the crop kernel once per block), printed
+    beside the call within the image (``time_crop_zoom_out``)."""
     with full_f32():
         (shape, ohw) = CONFIG4
         sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
@@ -2334,7 +2359,7 @@ def time_train_kernels(dev, card) -> tuple[dict, dict]:
                       g4, list(ohw), list(shape), False, None, None), iters=20),
               library=notea)
         del x
-        out, tables = {}, {}
+        out, tables, calls = {}, {}, {}
         for name, (shape, size), boxes in [
             ("b64", TRAIN_B64, _run_all_boxes(TRAIN_B64[0][0])),
             ("4k", CROP_4K, sample_boxes(torch.Generator().manual_seed(1),
@@ -2403,10 +2428,11 @@ def time_train_kernels(dev, card) -> tuple[dict, dict]:
                   "antialiasing tables")
             # the whole call: plain build, kernel, kernel, plain build
             turns = _turns(win, win_plain, 5, 1)
+            calls[name] = device_time_per_call(win, iters=10)
             _line("time_crop_call", card=card, case=name, shape=list(shape),
                   size=list(size), windowed_ms=turns["kernel"],
                   windowed_plain_tables_ms=turns["plain"],
-                  windowed_device_ms=device_time_per_call(win, iters=10),
+                  windowed_device_ms=calls[name],
                   windowed_plain_tables_device_ms=device_time_per_call(win_plain, iters=5),
                   windowed_host_us=host_us(win, iters=10),
                   crop_tables_device_ms=tdt["device_ms"],
@@ -2415,6 +2441,14 @@ def time_train_kernels(dev, card) -> tuple[dict, dict]:
             del x, t
             torch.cuda.empty_cache()
     b64, bound = out[("b64", "pil_int8")]
+    # the zoom-out call beside the call within the image: the same bytes
+    # moved (the bound is the in-bound call's), more taps per row
+    _line("time_crop_zoom_out", card=card, shape=list(TRAIN_B64[0]), size=list(TRAIN_B64[1]),
+          in_bound_device_ms=calls["b64"], zoom_out_device_ms=calls["b64 zoom-out"],
+          ratio=calls["b64 zoom-out"] / calls["b64"],
+          zoom_out_passes_device_ms=out[("b64 zoom-out", "pil_int8")][0]["device_ms"],
+          zoom_out_split_passes_device_ms=out[("b64 zoom-out", "split")][0]["device_ms"],
+          in_bound_passes_device_ms=b64["device_ms"], bound_ms=bound["bound_ms"])
     tms, tdt, tb = tables["b64"]
     return ({"ms": b64["device_ms"], "device_ms": b64["device_ms"],
              "call_ms": sum(b64["kernel"]) / 2, "host_us": b64["host_us"],

@@ -36,11 +36,13 @@
 // A box wider than the image (a zoom-out) can give a row more than T taps.
 // The tables keep its true count cnt and its first T weights; the pass
 // computes all cnt weights of such a row again from its box and output
-// index (crop_row.cuh, the table kernel's own code, so the same bits) and
-// sums them in tap order from device memory, in a tile that stages
-// nothing (resample_axis.cuh's wide_dot).  Rows within the bound run as
-// before; a wide row costs about cnt filter evaluations and cnt divisions
-// per output element, and its total once per thread and row.
+// index (crop_row.cuh, the table kernel's own code, so the same bits) once
+// per block into shared memory, and stages the tile in chunks of its
+// outputs whose window and weights fit the plan's (resample_axis.cuh's
+// crop_tile_chunked): one row_sum per wide row and cnt divisions per row
+// and block, not per output element.  Rows within the bound run as before.
+// The kernel B unstaged body, which only small passes run, still computes
+// a wide row's weights per element (wide_dot).
 //
 // Design: each pass is kernel B (resample_axis.cuh) with one table per
 // image (TableTaps / PilTaps image(n)), in its own instantiation (C = true)
@@ -53,8 +55,10 @@
 // geometry (crop_cuda._crop_windows: the tile's outputs' centres at the
 // bound's scale, both supports and T).  A box wider than max_box_frac
 // renormalises over its truncated window and may need more rows: such a
-// tile reads its taps from device memory instead of staging them.  Small
-// passes run kernel B's unstaged body, as the plan decides for kernel B.
+// tile is staged in chunks too.  Small passes run kernel B's unstaged
+// body, as the plan decides for kernel B.  T >= 2 (the host's bound is at
+// least 3): a chunk's weights take T - 1 slots per output, the tile's
+// totals the last one.
 //
 // Bounds: at the train shape (u8 [64, 3, 438, 906] -> 224x224) the two
 // passes read the image (76 MB) and write the output (9.6 MB) once, 0.0258
@@ -102,7 +106,7 @@ int ia_crop_pass(const void* x, void* out, int N, long long R, int n_in,
                  float support, int antialias, int k, int align, int hi_start,
                  int tile_j, int tile_o, int tile_i, int win, int vec, int smem,
                  void* stream) {
-  if (N < 1 || R < 1 || pb > 30 || pb == 0 || cnt == nullptr || boxes == nullptr ||
+  if (N < 1 || R < 1 || T < 2 || pb > 30 || pb == 0 || cnt == nullptr || boxes == nullptr ||
       (axis != 0 && axis != 1) || k < 1 || align < 1 || hi_start < 0)
     return (int)cudaErrorInvalidValue;
   const long long outer = (long long)N * R;

@@ -2,7 +2,10 @@
 // per-row weight code that the table kernel (crop_tables.cu) and the crop
 // passes (resample_axis.cuh's crop instantiation, for a row with more taps
 // than the tables hold) share, so that both compute each weight from the
-// same source and the bits agree by construction.
+// same source and the bits agree by construction.  The passes take a
+// row's total from row_sum once per block and each weight from the
+// image's box_row with the row's center (weight_at(first + i): position
+// start + j for j = first - start + i, the same float).
 //
 // Every float step is float32, rounded once (the intrinsics are never
 // contracted into a fused multiply-add), in the plain version's order
@@ -66,16 +69,22 @@ __device__ __forceinline__ float table_filter(int f, float x) {
 }
 
 struct Row {
-  float lo, hi, widen, sup, center, in_last;
+  float lo, hi, scale, widen, sup, center, in_last;
   int start, filter;
 
-  // w_j, 0 where the valid test fails
-  __device__ __forceinline__ float weight(int j) const {
-    const float pos = (float)(start + j);
+  // the weight of input position p (start + j): 0 where the valid test fails
+  __device__ __forceinline__ float weight_at(int p) const {
+    const float pos = (float)p;
     const float d = __fadd_rn(__fsub_rn(pos, center), 0.5f);
     const float ph = __fadd_rn(pos, 0.5f);
     if (!(fabsf(d) <= sup && ph >= lo && ph <= hi && pos <= in_last)) return 0.0f;
     return table_filter(filter, __fdiv_rn(d, widen));
+  }
+  // w_j
+  __device__ __forceinline__ float weight(int j) const { return weight_at(start + j); }
+  // the centre of output o
+  __device__ __forceinline__ float center_of(int o) const {
+    return __fadd_rn(lo, __fmul_rn(scale, __fadd_rn((float)o, 0.5f)));
   }
 };
 
@@ -140,25 +149,36 @@ struct RowSum {
   float total;
 };
 
-__device__ __forceinline__ RowSum row_sum(const Geom& g, long long n, int o) {
-  RowSum s;
-  Row& r = s.r;
+// Image n's part of its rows' geometry (lo, hi, scale, widen, sup,
+// in_last, filter), which every row of the image shares; center and start
+// are left to the row.
+__device__ __forceinline__ Row box_row(const Geom& g, long long n) {
+  Row r;
   r.filter = g.filter;
   const float size = (float)g.in_size;
   r.lo = __fmul_rn(g.boxes[4 * n + g.axis], size);
   r.hi = __fmul_rn(g.boxes[4 * n + g.axis + 2], size);
-  const float scale = __fdiv_rn(__fsub_rn(r.hi, r.lo), (float)g.out_size);
-  r.widen = g.antialias ? fmaxf(scale, 1.0f) : 1.0f;
+  r.scale = __fdiv_rn(__fsub_rn(r.hi, r.lo), (float)g.out_size);
+  r.widen = g.antialias ? fmaxf(r.scale, 1.0f) : 1.0f;
   r.sup = __fmul_rn(g.support, r.widen);
   r.in_last = (float)(g.in_size - 1);
+  r.center = 0.0f;
+  r.start = 0;
+  return r;
+}
+
+__device__ __forceinline__ RowSum row_sum(const Geom& g, long long n, int o) {
+  RowSum s;
+  Row& r = s.r;
+  r = box_row(g, n);
 
   // the window start of the row's tile, from the centre of its first output
-  const float c0 = __fadd_rn(r.lo, __fmul_rn(scale, __fadd_rn((float)(o / kLane * kLane), 0.5f)));
+  const float c0 = r.center_of(o / kLane * kLane);
   const float raw = __fsub_rn(floorf(__fsub_rn(__fsub_rn(c0, r.sup), 0.5f)), 1.0f);
   const float al = (float)g.align;
   r.start = (int)fminf(fmaxf(__fmul_rn(floorf(__fdiv_rn(raw, al)), al), 0.0f),
                        (float)g.hi_start);
-  r.center = __fadd_rn(r.lo, __fmul_rn(scale, __fadd_rn((float)o, 0.5f)));
+  r.center = r.center_of(o);
 
   // the taps whose |pos - center + 0.5| may pass sup, with a guard of two
   const float cm = __fsub_rn(r.center, 0.5f);

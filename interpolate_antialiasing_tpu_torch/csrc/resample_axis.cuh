@@ -32,11 +32,14 @@
 //     of per_img planes each, and a block's planes lie in one image
 //     (tiles along outer are cut at image edges), whose table it stages.
 //     The crop's own instantiation (C = true) finds each tile's window in
-//     the block, and a tile whose taps pass it reads device memory.  It
-//     also takes each row's true tap count (crop_row.cuh's Pass): a row
-//     with more taps than the tables hold (a box wider than the image)
-//     computes its weights again from its box (wide_dot), in a tile that
-//     reads device memory.
+//     the block.  It also takes each row's true tap count (crop_row.cuh's
+//     Pass): a row with more taps than the tables hold (a box wider than
+//     the image) computes its weights again from its box.  A tile that
+//     holds such a row, or whose taps pass its window, is staged in chunks
+//     of its outputs (crop_tile_chunked): each wide row's weights once per
+//     block into shared memory, each chunk's window and weights within the
+//     plan's; only a row too wide for a chunk of one output reads device
+//     memory.
 //
 // Taps past a window carry zero weight, so the clamp never adds signal.
 //
@@ -288,7 +291,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const __nv_bfloat16 (&v
 }
 
 // ---------------------------------------------------------------------------
-// A crop row past the tables' bound
+// Crop tiles past the one-window path
 // ---------------------------------------------------------------------------
 
 // A crop row's weight as the weight source holds it: K_j, or band_j's bits.
@@ -303,12 +306,11 @@ __device__ __forceinline__ W as_weight(int32_t v) {
 
 // Output o of image n over its cnt taps from `first` (xp: its column at
 // input row 0, rows `inner` apart), a row with more taps than the tables
-// hold: each weight again from the box, as the table kernel computes it
-// (crop_row.cuh), in tap order.  `rs` caches the row's geometry and total
-// while the caller stays on the same row (rs_key: n * n_out + o).  Out of
-// line, as crop_tile_direct, and given values rather than references to
-// kernel parameters (whose address would move them to local memory): the
-// rows within the bound keep their registers.
+// hold, for the unstaged body: each weight again from the box, as the
+// table kernel computes it (crop_row.cuh), in tap order.  `rs` caches the
+// row's geometry and total while the caller stays on the same row (rs_key:
+// n * n_out + o).  Out of line, and given values rather than references to
+// kernel parameters (whose address would move them to local memory).
 template <typename P, typename Tin>
 __device__ __noinline__ typename P::A wide_dot(const crop::Pass cp, long long n, int o,
                                                int first, int cnt, const Tin* xp,
@@ -327,34 +329,231 @@ __device__ __noinline__ typename P::A wide_dot(const crop::Pass cp, long long n,
   return acc;
 }
 
-// A crop tile that stages nothing (its taps pass the window, or one of its
-// rows counts more taps than the tables hold): outputs [o0, o0 + no) of
-// planes [j0, j0 + nj) and columns [i0, i0 + ni), each from device memory,
-// over the staged first taps fs, weights ws and true counts cs of its
-// block.  Out of line, so that the staged body's registers are its own.
-template <typename Tin, typename Tout, typename Taps>
-__device__ __noinline__ void crop_tile_direct(const Tin* __restrict__ x, Tout* __restrict__ out,
-                                              const Taps taps, const PlanAxis p,
-                                              const typename Acc<Taps>::W* ws, const int* fs,
-                                              const int* cs, const crop::Pass cp, int img,
-                                              long long j0, int nj, int o0, int no,
-                                              long long i0, int ni) {
+// A crop tile that the one-window path cannot stage: one of its rows counts
+// more taps than the tables hold (a box wider than the image), or its taps
+// span more than `win` rows (a box wider than max_box_frac).  Outputs [o0,
+// o0 + no) of planes [j0, j0 + nj) and columns [i0, i0 + ni), over the
+// staged first taps fs and true counts cs of its block (ws, the tables'
+// weights, is free for this path's own).  The block walks its outputs in
+// chunks and stages each like a tile of its own:
+//
+//   1. each wide row's total, once: one crop::row_sum per row, a thread
+//      each, into the last tile_o slots of ws;
+//   2. a chunk of n outputs from o0 + c0, halved from the last chunk's size
+//      until its window (least clamped first tap to greatest clamped
+//      first + cnt - 1) spans at most `win` rows and its weights, n x cm
+//      (cm the chunk's greatest count), fit the other tile_o * (T - 1)
+//      slots of ws; every warp finds the same chunk from fs and cs;
+//   3. the chunk's window by 16-byte copies into the data region, and
+//      meanwhile its weights into ws, tap-major [cm][n], spread over the
+//      block: a wide row's cnt weights from its box (crop::stored of
+//      weight_at / total, the table kernel's code, so its bits), a row
+//      within the bound its own from the tables, zeros past each count;
+//   4. each output of the chunk over cm taps, tap k at clamp(first + k, 0,
+//      last) for last its row's clamped first + cnt - 1: the taps past a
+//      row's count weigh +0, which adds exactly in int32 and in float32, so
+//      the sum in tap order is the plain version's.
+//
+// A row alone whose window or weights still do not fit (a box many times
+// wider than the image, or tile_o = 1) reads its taps from device memory,
+// its weights computed once per block in groups of the slots, its partial
+// sums between groups in the data region (4 bytes per element; the region
+// holds about `win` >= 4 bytes per element wherever a row's taps pass the
+// window, and elements beyond its room go in further batches).  Out of
+// line, and given values rather than references, as wide_dot: the staged
+// body's registers are its own.
+template <typename Tin, typename Tout, typename Taps, int NT, int V>
+__device__ __noinline__ void crop_tile_chunked(const Tin* __restrict__ x,
+                                               Tout* __restrict__ out, const Taps taps,
+                                               const PlanAxis p, const crop::Pass cp,
+                                               int img, long long j0, int nj, int o0, int no,
+                                               long long i0, int ni) {
   using P = Acc<Taps>;
-  const typename P::A init = P::init(taps);
-  crop::RowSum rs;
-  long long rs_key = -1;
-  for (int e = threadIdx.x; e < nj * no * ni; e += kThreads) {
-    const int i = e % ni, t = (e / ni) % no, jj = e / (ni * no);
-    const Tin* xp = x + (j0 + jj) * p.n_in * p.inner + i0 + i;
-    typename P::A acc = init;
-    if (cs[t] > p.ntaps) {  // past the tables' bound: from the box
-      acc = wide_dot<P>(cp, img, o0 + t, fs[t], cs[t], xp, p.inner, p.n_in, acc, rs, rs_key);
+  using W = typename P::W;
+  using A = typename P::A;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int isz = (int)sizeof(Tin);
+  const Layout L = layout(p.tile_j, p.tile_o, p.tile_i, p.win, p.ntaps, isz, p.n_in, p.inner);
+  unsigned char* D = smem + L.data;
+  W* ws = (W*)(smem + L.ws);
+  const int* fs = (const int*)(smem + L.fs);
+  const int* cs = (const int*)(smem + L.tot);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int T = p.ntaps, S = p.tile_o * (T - 1);  // weight slots of a chunk
+  float* tot = (float*)(ws + S);                  // [tile_o] wide rows' totals
+  const Taps tp = taps.image(img);
+  const A init = P::init(taps);
+
+  // 1. each wide row's total
+  for (int t = tid; t < no; t += kThreads) {
+    if (cs[t] > T) tot[t] = crop::row_sum(cp.g, img, o0 + t).total;
+  }
+  const crop::Row box = crop::box_row(cp.g, img);
+  // row t's weight j (j < its count; 0 past it)
+  auto weight = [&](int t, int j) -> W {
+    const int cnt = cs[t];
+    if (j >= cnt) return W(0);
+    if (cnt <= T) return tp.row(o0 + t)(j);
+    crop::Row r = box;
+    r.center = box.center_of(o0 + t);
+    return as_weight<W>(crop::stored(__fdiv_rn(r.weight_at(fs[t] + j), tot[t]), cp.g.pb));
+  };
+  const int sj = p.contig ? L.stride : 0;
+  const int sr = p.contig ? (int)p.inner * isz : L.stride;
+
+  int ch = no;
+  for (int c0 = 0; c0 < no;) {
+    // 2. the chunk
+    int n, lo, hi, cm;
+    bool fits;
+    for (;;) {
+      n = min(ch, no - c0);
+      lo = INT_MAX, hi = INT_MIN, cm = 1;
+      for (int t = c0 + lane; t < c0 + n; t += 32) {
+        const int f = fs[t], c = cs[t];
+        lo = min(lo, clampi(f, 0, p.n_in - 1));
+        hi = max(hi, clampi(f + max(c, 1) - 1, 0, p.n_in - 1));
+        cm = max(cm, c);
+      }
+      for (int s = 16; s > 0; s >>= 1) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, s));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, s));
+        cm = max(cm, __shfl_xor_sync(0xffffffffu, cm, s));
+      }
+      fits = hi - lo < p.win && n * cm <= S;
+      if (fits || n == 1) break;
+      ch = n / 2;
+    }
+    __syncthreads();  // the last chunk's reads of ws and D are done; the totals landed
+
+    if (!fits) {  // row c0 alone, from device memory
+      const int t = c0, f = fs[t], cnt = cs[t], ne = nj * ni;
+      // its elements in batches whose partial sums fit the data region
+      // (all of them at once wherever the row's taps pass the window)
+      const int cap = cnt <= S ? ne : max(1, (L.ws - L.data) / (int)sizeof(A));
+      A* part = (A*)D;
+      for (int e0 = 0; e0 < ne; e0 += cap) {
+        const int e1 = min(ne, e0 + cap);
+        for (int g = 0; g < cnt; g += S) {
+          const int gn = min(S, cnt - g);
+          if (g > 0 || e0 > 0) __syncthreads();
+          for (int k = tid; k < gn; k += kThreads) ws[k] = weight(t, g + k);
+          __syncthreads();
+          for (int e = e0 + tid; e < e1; e += kThreads) {
+            const int i = e % ni, jj = e / ni;
+            const Tin* xp = x + (j0 + jj) * p.n_in * p.inner + i0 + i;
+            A acc = g == 0 ? init : part[e - e0];
+            for (int k = 0; k < gn; ++k) {
+              acc = P::step(acc, ws[k], xp[clampi(f + g + k, 0, p.n_in - 1) * p.inner]);
+            }
+            if (g + gn < cnt) {
+              part[e - e0] = acc;
+            } else {
+              out[((j0 + jj) * p.n_out + o0 + t) * p.inner + i0 + i] =
+                  P::template put<Tout>(acc, taps);
+            }
+          }
+        }
+      }
+      c0 += 1;
+      continue;
+    }
+
+    // 3. the window by 16-byte copies, the weights meanwhile
+    const int rows = hi - lo + 1;
+    const char* g0 = (const char*)x + ((j0 * p.n_in + lo) * p.inner + i0) * isz;
+    if (p.contig) {
+      stage_part(g0, p.n_in * p.inner * isz, 0, nj, 0, rows * (int)p.inner * isz, D, sj);
     } else {
-      for (int k = 0; k < p.ntaps; ++k) {
-        acc = P::step(acc, ws[k * p.tile_o + t], xp[clampi(fs[t] + k, 0, p.n_in - 1) * p.inner]);
+      stage_part(g0, p.inner * isz, 0, rows, 0, ni * isz, D, sr);
+    }
+    cp_async_commit();
+    for (int k = tid; k < n * cm; k += kThreads) {
+      const int j = k / n, t = k - j * n;
+      ws[k] = weight(c0 + t, j);
+    }
+    cp_async_wait_n(0);
+    __syncthreads();
+
+    // 4. the chunk's outputs: rows (plane jj, output t) over the slots, G
+    // lanes per row over its columns, V columns per lane, as the one-window
+    // path maps them; a thread keeps its row's weights and tap offsets
+    // (window row clamp(first + k, 0, last) - lo, times sr) in registers
+    // while it walks the row's columns and, where the slots step by whole
+    // chunks (dt == 0), the planes
+    const unsigned char* base = D + ((unsigned)(uintptr_t)g0 & 15u);
+    const int G = p.lanes, R = 32 / G, step = (kThreads / 32) * R;
+    const int nrows = nj * n;
+    int split = 1;
+    while (split * 2 * nrows <= step) split *= 2;
+    const int rstep = step / split;
+    const int slot = (tid >> 5) * R + (tid & 31) / G;
+    const int cw = G * V * split;
+    const int cb = ((tid & (G - 1)) + (slot / rstep) * G) * V;
+    const int dj = rstep / n, dt = rstep - dj * n;
+    constexpr int K = NT > 0 ? NT : 1;
+    const bool regs = NT > 0 && cm <= NT;  // else the weights from ws
+    W wv[K];
+    int off[K];
+    int t_cur = -1, f = 0, last = 0;
+    int q = slot % rstep;
+    int jj = q / n, t = q - jj * n;
+    auto tap = [&](Vals<A, V>& r, W w, const unsigned char* qk) {
+      if constexpr (V == 1) {
+        r.a[0] = P::step(r.a[0], w, *(const Tin*)qk);
+      } else {
+        const uint32_t xv = *(const uint32_t*)qk;
+#pragma unroll
+        for (int v = 0; v < V; ++v) r.a[v] = P::step_byte(r.a[v], w, (xv >> (8 * v)) & 255u);
+      }
+    };
+    for (; q < nrows; q += rstep) {
+      if (t != t_cur) {
+        t_cur = t;
+        f = fs[c0 + t] - lo;
+        last = clampi(fs[c0 + t] + max(cs[c0 + t], 1) - 1, 0, p.n_in - 1) - lo;
+        if (regs) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            if (k < cm) {
+              wv[k] = ws[k * n + t];
+              off[k] = clampi(f + k, -lo, last) * sr;
+            }
+          }
+        }
+      }
+      const unsigned char* plane = base + jj * sj;
+      Tout* op = out + ((j0 + jj) * p.n_out + o0 + c0 + t) * p.inner + i0;
+      for (int c = cb; c < ni; c += cw) {
+        const unsigned char* qc = plane + c * isz;
+        Vals<A, V> r;
+#pragma unroll
+        for (int v = 0; v < V; ++v) r.a[v] = init;
+        if (regs) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            if (k < cm) tap(r, wv[k], qc + off[k]);
+          }
+        } else {
+          for (int k = 0; k < cm; ++k) tap(r, ws[k * n + t], qc + clampi(f + k, -lo, last) * sr);
+        }
+        if constexpr (V == 1) {
+          op[c] = P::template put<Tout>(r.a[0], taps);
+        } else {
+          Tout v4[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) v4[u] = P::template put<Tout>(r.a[u], taps);
+          store4(op + c, v4);
+        }
+      }
+      jj += dj;
+      t += dt;
+      if (t >= n) {
+        t -= n;
+        ++jj;
       }
     }
-    out[((j0 + jj) * p.n_out + o0 + t) * p.inner + i0 + i] = P::template put<Tout>(acc, taps);
+    c0 += n;
   }
 }
 
@@ -451,7 +650,7 @@ resample_axis_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
     // (the counts in the weight sources' scratch, which tables leave
     // unused), one warp reduces them, and a tile whose taps pass `win` rows,
     // or that holds a row with more taps than the tables (a box wider than
-    // the image), reads device memory
+    // the image), is staged in chunks
     int* cs = (int*)(smem + L.tot);  // [tile_o] true tap counts
     __shared__ int s_r0;
     tp.stage_async(o0, no, p.tile_o, ws, fs);
@@ -477,8 +676,9 @@ resample_axis_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
     }
     __syncthreads();
     r0 = s_r0;
-    if (r0 < 0) {  // no staging: each output from device memory
-      crop_tile_direct<Tin, Tout>(x, out, taps, p, ws, fs, cs, cp, img, j0, nj, o0, no, i0, ni);
+    if (r0 < 0) {  // past the one-window path: staged in chunks
+      crop_tile_chunked<Tin, Tout, Taps, NT, V>(x, out, taps, p, cp, img, j0, nj, o0, no, i0,
+                                                ni);
       return;
     }
   } else {

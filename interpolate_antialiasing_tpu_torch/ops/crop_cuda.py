@@ -47,14 +47,18 @@ from the band (:func:`_crop_pass_plain`).  Each pass is kernel B
 ``csrc/crop_resample.cu``): a block stages its window of input rows and
 its weights in shared memory; the window of a tile of outputs starts at
 their least first tap, which the block finds on the device, and is as wide
-as the static geometry bounds it (:func:`_crop_windows`; a tile of boxes
-wider than ``max_box_frac`` that needs more reads device memory instead);
-the tile is kernel B's plan over those windows (:func:`_crop_plan`); a tile
-that holds a row past ``T`` reads device memory too.  A
-CUDA tensor launches the kernel (both passes; ``launches_crop`` counts
-each pass's launch); a CPU tensor runs the plain
-version (:func:`_crop_pass_plain`), which sums the same taps in the same
-order, so the two agree bit for bit.  Any other device raises.
+as the static geometry bounds it (:func:`_crop_windows`); the tile is
+kernel B's plan over those windows (:func:`_crop_plan`).  A tile that holds
+a row past ``T``, or whose taps need more rows (a box wider than
+``max_box_frac``), is staged in chunks of its outputs instead: the block
+computes each such row's weights once into shared memory and halves a
+chunk until its window fits ``win`` rows and its weights the tile's slots;
+only a row whose own taps pass them reads device memory.  The plan, its
+shared bytes and the launches are the same either way.  A CUDA tensor
+launches the kernel (both passes; ``launches_crop`` counts each pass's
+launch); a CPU tensor runs the plain version (:func:`_crop_pass_plain`),
+which sums the same taps in the same order, so the two agree bit for bit.
+Any other device raises.
 """
 
 from __future__ import annotations
@@ -374,8 +378,11 @@ def _crop_windows(n_in: int, n_out: int, T: int, frac: float, support: float,
     float32 rounding, clamped to the axis.  The window starts at the
     tile's least first tap, which the kernel's block finds on the device.
     A box wider than the bound (it renormalises over its truncated window)
-    may need more rows: the block then reads its taps from device memory
-    instead of staging them.  Tiles of every ``cuda_resize._AXIS_TILE_O``
+    may need more rows, and a box wider than the image more than ``T``
+    taps a row: the block then stages the tile in chunks of its outputs,
+    each chunk's window within ``win`` rows and its weights within the
+    tile's ``tile_o * (T - 1)`` slots (``resample_axis.cuh::
+    crop_tile_chunked``).  Tiles of every ``cuda_resize._AXIS_TILE_O``
     size, and one of every output."""
     scale = frac * n_in / n_out
     sup = support * (max(scale, 1.0) if antialias else 1.0)

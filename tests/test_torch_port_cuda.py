@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ZOOM_OUT
+from chip_smoke import (CROP_4K, MIXED_TILE, ROW_PAST_EVERY_CHUNK, TRAIN_B64, ZOOM_OUT,
+                        _zoom_out_boxes)
 import interpolate_antialiasing_tpu_torch as iat
 from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
@@ -702,6 +703,62 @@ def test_crop_4k_random_resized_crop_every_tile(dev, monkeypatch, precision):
     want = cc._crop_resample_plain(x, *tables)
     assert torch.equal(cc._crop_resample(x, *tables), want)
     _crop_every_tile(dev, monkeypatch, x, tables, want)
+
+
+def _zoom_out_every_tile(dev, monkeypatch, shape, ohw, boxes, frac, precision, seed):
+    """A crop whose tables hold rows past T, through the plan and with
+    every tile the plan considers forced on each pass, byte for byte
+    against the plain version; returns the tables."""
+    x = _input(shape, torch.uint8, dev, seed=seed)
+    tables = cc._windowed_tables(x, torch.as_tensor(boxes, dtype=torch.float32).to(dev), ohw,
+                                 "bilinear", True, frac, precision)
+    assert all(bool((t.cnt > t.w.shape[-1]).any()) for t in tables[:2])
+    want = cc._crop_resample_plain(x, *tables)
+    _assert_equal(cc._crop_resample(x, *tables), want)
+    assert _crop_every_tile(dev, monkeypatch, x, tables, want) > 4
+    return tables
+
+
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+def test_crop_b64_zoom_out_every_tile(dev, monkeypatch, precision):
+    """The b64 zoom-out boxes at the train shape: the tiles holding rows
+    past T are staged in chunks, at every tile size the plan considers."""
+    (shape, ohw) = TRAIN_B64
+    _zoom_out_every_tile(dev, monkeypatch, shape, ohw, _zoom_out_boxes(shape[0]), 1.0,
+                         precision, 37)
+
+
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+def test_crop_tiles_mixing_wide_and_in_bound_rows_every_tile(dev, monkeypatch, precision):
+    """Boxes half past the image: a tile at its edge holds rows past T
+    beside rows within it (and one-hot rows past the image), which one
+    chunk stages together, each row over its own count."""
+    tables = _zoom_out_every_tile(dev, monkeypatch, (6, 3, 300, 520), (96, 112), MIXED_TILE,
+                                  1.0, precision, 38)
+    for tab in tables[:2]:
+        T, n_out = tab.w.shape[-1], tab.cnt.shape[1]
+        cnt = torch.nn.functional.pad(tab.cnt, (0, -n_out % 32), value=1).view(
+            tab.cnt.shape[0], -1, 32)
+        assert bool(((cnt > T).any(2) & ((cnt <= T) & (cnt > 1)).any(2)).any())
+
+
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+def test_crop_row_past_every_chunk_reads_device_memory(dev, monkeypatch, precision):
+    """A box ten times the image on a quarter bound: a row counts more taps
+    than a tile's window holds and reads device memory, its weights
+    computed once per block (in groups of the tile's slots where they pass
+    them), the rows beside it still staged in chunks."""
+    tables = _zoom_out_every_tile(dev, monkeypatch, (2, 3, 150, 260), (16, 16),
+                                  ROW_PAST_EVERY_CHUNK, 0.25, precision, 39)
+    assert all(int(t.cnt.max()) > min(w for _, w in t.wins) for t in tables[:2])
+
+
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+def test_crop_4k_zoom_out_every_tile(dev, monkeypatch, precision):
+    """Zoom-out boxes on 4K frames (the RandomResizedCrop call's shape)."""
+    (shape, ohw) = CROP_4K
+    _zoom_out_every_tile(dev, monkeypatch, shape, ohw, _zoom_out_boxes(shape[0]), 1.0,
+                         precision, 40)
 
 
 def _tables_equal(got, want):

@@ -268,11 +268,12 @@ def test_crop_box_wider_than_the_image_matches_jax():
 
 
 def _tile_windows(first, cnt, n_in, tile_o, win, T):
-    """Each tile's first staged row as the crop kernel's block finds it:
-    the least first tap of its outputs, clamped to the axis, or -1 (the
-    block reads device memory) where its taps, T from each first tap, span
-    more than ``win`` rows, or where one of its rows counts more than T
-    taps (a box wider than the image)."""
+    """Each tile's first staged row as the crop kernel's block finds it for
+    its one-window path: the least first tap of its outputs, clamped to the
+    axis, or -1 (the block walks the tile in chunks: :func:`_tile_chunks`)
+    where its taps, T from each first tap, span more than ``win`` rows, or
+    where one of its rows counts more than T taps (a box wider than the
+    image)."""
     N, n_out = first.shape
     n_to = -(-n_out // tile_o)
 
@@ -285,6 +286,82 @@ def _tile_windows(first, cnt, n_in, tile_o, win, T):
     hi = (f + T - 1).clamp(0, n_in - 1).amax(2)
     wide = (tiles(cnt) > T).any(2)
     return torch.where((hi - lo < win) & ~wide, lo, -1)
+
+
+def _chunks(first, cnt, n_in, tile_o, win, T):
+    """The chunks of one tile past the one-window path, as the crop
+    kernel's block walks them (resample_axis.cuh::crop_tile_chunked), for
+    its outputs' first taps and true counts: ``[(c0, n, lo, hi, cm)]``, a
+    chunk of ``n`` outputs from ``c0`` staging rows ``[lo, hi]`` and
+    ``cm`` weights per output, or ``(c0, 1, None, None, cnt)`` for a row
+    alone that reads device memory.  From the tile's size, each chunk is
+    halved from the last one's until its window (least clamped first tap
+    to greatest clamped ``first + max(cnt, 1) - 1``) spans at most ``win``
+    rows and its ``n * cm`` weights fit the ``tile_o * (T - 1)`` slots that
+    the tile's totals leave."""
+    no, slots = len(first), tile_o * (T - 1)
+    f, c = np.asarray(first, np.int64), np.asarray(cnt, np.int64)
+    lo_t = np.clip(f, 0, n_in - 1)
+    hi_t = np.clip(f + np.maximum(c, 1) - 1, 0, n_in - 1)
+    out, c0, ch = [], 0, no
+    while c0 < no:
+        while True:
+            n = min(ch, no - c0)
+            lo, hi = int(lo_t[c0:c0 + n].min()), int(hi_t[c0:c0 + n].max())
+            cm = max(1, int(c[c0:c0 + n].max()))
+            fits = hi - lo < win and n * cm <= slots
+            if fits or n == 1:
+                break
+            ch = n // 2
+        out.append((c0, n, lo, hi, cm) if fits else (c0, 1, None, None, int(c[c0])))
+        c0 += n
+    return out
+
+
+def _tile_chunks(first, cnt, n_in, tile_o, win, T):
+    """Every tile of every image as the crop kernel's block serves it:
+    ``{(image, tile): chunks}`` (:func:`_chunks`) for the tiles that leave
+    the one-window path (:func:`_tile_windows` -1); those that stay are not
+    listed."""
+    r0 = _tile_windows(first, cnt, n_in, tile_o, win, T)
+    out = {}
+    for n, t in (r0 < 0).nonzero().tolist():
+        o0 = t * tile_o
+        out[(n, t)] = _chunks(first[n, o0:o0 + tile_o], cnt[n, o0:o0 + tile_o], n_in, tile_o,
+                              win, T)
+    return out
+
+
+def _check_chunks(tab, n_in, tile_o, win):
+    """Every staged chunk of every tile that leaves the one-window path
+    holds its taps: each output's taps ``clamp(first + k, 0, last)`` for ``k
+    < cm`` (``last`` its clamped ``first + max(cnt, 1) - 1``; they equal
+    ``clamp(first + k, 0, n_in - 1)`` for ``k < cnt``) lie in the chunk's
+    ``hi - lo + 1 <= win`` rows from ``lo``, and its weights fit the
+    slots.  Returns the chunked tiles and the rows that read device
+    memory."""
+    T = tab.w.shape[-1]
+    tiles = _tile_chunks(tab.first, tab.cnt, n_in, tile_o, win, T)
+    direct = 0
+    for (n, t), chunks in tiles.items():
+        assert sum(ch[1] for ch in chunks) == min(tile_o, tab.first.shape[1] - t * tile_o)
+        for c0, m, lo, hi, cm in chunks:
+            o = t * tile_o + c0
+            if lo is None:
+                direct += 1
+                continue
+            assert hi - lo < win and m * cm <= tile_o * (T - 1)
+            f = tab.first[n, o:o + m].long()
+            c = tab.cnt[n, o:o + m].long()
+            assert int(c.max()) <= cm
+            last = (f + c.clamp(min=1) - 1).clamp(0, n_in - 1)
+            k = torch.arange(cm)
+            taps = torch.minimum((f[:, None] + k).clamp(min=0), last[:, None])
+            assert int(taps.min()) >= lo and int(taps.max()) <= hi
+            true = (f[:, None] + k).clamp(0, n_in - 1)
+            counted = k < c[:, None]
+            assert torch.equal(taps[counted], true[counted])
+    return tiles, direct
 
 
 @pytest.mark.parametrize("name", [c[0] for c in CROP_CASES])
@@ -326,8 +403,10 @@ def test_crop_windows_hold_every_tap(name):
 
 def test_crop_boxes_past_the_bound_read_device_memory():
     """A box wider than max_box_frac (it renormalises over its truncated
-    window) can need more rows than a tile's window: such tiles read device
-    memory (the card tests hold their bytes to the plain version)."""
+    window) can need more rows than a tile's window: such tiles leave the
+    one-window path (they read device memory until the kernel staged them
+    in chunks) and are walked in chunks, each of which stages every tap of
+    its outputs; none of their rows reads device memory."""
     _, (tab_h, tab_w, _, _) = _tables("edges frac 0.45", "pil_int8")
     marked = 0
     for tab, n_in in ((tab_h, 128), (tab_w, 256)):
@@ -335,19 +414,28 @@ def test_crop_boxes_past_the_bound_read_device_memory():
             if win < n_in:
                 marked += int((_tile_windows(tab.first, tab.cnt, n_in, tile_o, win,
                                              tab.w.shape[-1]) < 0).sum())
+                tiles, direct = _check_chunks(tab, n_in, tile_o, win)
+                assert direct == 0 or tile_o == 1, (tile_o, win)
     assert marked > 0
 
 
+# boxes wider than the image beside boxes within it (images 1 and 4), at
+# the train crop's shape
+WIDE_BOXES = [[-0.2, -0.2, 1.2, 1.2], [0.1, 0.2, 0.8, 0.9], [0.0, 0.0, 1.3, 1.0],
+              [0.0, 0.0, 1.0, 1.3], [0.05, 0.1, 0.7, 0.95]]
+
+
 @pytest.mark.parametrize("precision", ["pil_int8", "split"])
-def test_crop_tiles_with_wide_rows_read_device_memory(precision):
+def test_crop_tiles_with_wide_rows_stage_in_chunks(precision):
     """Boxes wider than the image beside boxes within it, at the train
     crop's shape: for every (tile_o, win) the crop plan considers, a tile
-    that holds a row with more than T taps reads device memory (so no
-    staged window can miss a tap of it), every tap of every staged tile's
-    outputs lies in its window, and the images of boxes within the image
-    stage every tile."""
-    boxes = torch.tensor([[-0.2, -0.2, 1.2, 1.2], [0.1, 0.2, 0.8, 0.9], [0.0, 0.0, 1.3, 1.0],
-                          [0.0, 0.0, 1.0, 1.3], [0.05, 0.1, 0.7, 0.95]])
+    that holds a row with more than T taps leaves the one-window path and
+    is staged in chunks, each of which holds every tap of its outputs in
+    its window and its weights in the tile's slots; the images of boxes
+    within the image keep one window per tile; no tile of two outputs or
+    more reads device memory (a tile of one output has T - 1 slots, fewer
+    than a wide row's taps)."""
+    boxes = torch.tensor(WIDE_BOXES)
     N, C, H, W = 5, 1, 438, 906
     x = torch.zeros((N, C, H, W), dtype=torch.uint8)
     tab_h, tab_w, _, _ = cc._windowed_tables(x, boxes, (224, 224), "bilinear", True, 1.0,
@@ -357,20 +445,57 @@ def test_crop_tiles_with_wide_rows_read_device_memory(precision):
         T = tab.w.shape[-1]
         wide = tab.cnt > T
         assert bool(wide.any()) and not bool(wide[inside].any())
-        taps = (tab.first.long()[..., None] + torch.arange(T)).clamp(0, n_in - 1)
-        lo, hi = taps.amin(-1), taps.amax(-1)
         for tile_o, win in tab.wins:
             r0 = _tile_windows(tab.first, tab.cnt, n_in, tile_o, win, T)
-            r0 = r0.repeat_interleave(tile_o, dim=1)[:, :n_out]
-            staged = r0 >= 0
-            tile_wide = wide.float()
-            tile_wide = torch.nn.functional.pad(tile_wide, (0, -n_out % tile_o))
+            tile_wide = torch.nn.functional.pad(wide.float(), (0, -n_out % tile_o))
             tile_wide = tile_wide.view(N, -1, tile_o).amax(2).bool()
-            tile_wide = tile_wide.repeat_interleave(tile_o, dim=1)[:, :n_out]
-            assert not bool((staged & tile_wide).any())
-            rows = torch.clamp(n_in - r0, max=win)
-            assert bool((lo >= r0)[staged].all()) and bool((hi < r0 + rows)[staged].all())
-            assert bool(staged[inside].all())
+            assert bool((r0[tile_wide] < 0).all())
+            assert bool((r0[inside] >= 0).all())
+            tiles, direct = _check_chunks(tab, n_in, tile_o, win)
+            assert set(tiles) == {tuple(i) for i in (r0 < 0).nonzero().tolist()}
+            assert direct == 0 or tile_o == 1, (tile_o, win, direct)
+
+
+def test_crop_b64_zoom_out_reads_no_device_memory():
+    """chip_smoke's b64 zoom-out boxes (every image's rows past T on both
+    axes) at the train shape: with the plan's tile and with every tile of
+    two outputs or more the plan considers, every tile that leaves the
+    one-window path is staged in chunks that hold their taps; none of its
+    rows reads device memory."""
+    from chip_smoke import TRAIN_B64, _zoom_out_boxes
+
+    (N, C, H, W), ohw = TRAIN_B64
+    x = torch.zeros((N, 1, H, W), dtype=torch.uint8)
+    boxes = torch.from_numpy(_zoom_out_boxes(N))
+    tab_h, tab_w, _, _ = cc._windowed_tables(x, boxes, ohw, "bilinear", True, 1.0, "pil_int8")
+    for tab, n_in, n_out, R, inner in ((tab_h, H, ohw[0], C, W), (tab_w, W, ohw[1], C * ohw[0],
+                                                                  1)):
+        T = tab.w.shape[-1]
+        assert bool((tab.cnt > T).any())
+        plan = cc._crop_plan(tab.wins, n_in, n_out, T, N, R, inner, cr._H100_SMS, True)
+        tiles, direct = _check_chunks(tab, n_in, plan.tile_o, plan.win)
+        assert tiles and direct == 0
+        for tile_o, win in tab.wins:
+            if tile_o > 1:
+                assert _check_chunks(tab, n_in, tile_o, win)[1] == 0, (tile_o, win)
+
+
+def test_crop_row_past_every_chunk_reads_device_memory():
+    """A box ten times the image on a quarter bound: a row counts more
+    taps than a tile's window holds, so even a chunk of that one output
+    cannot be staged, and it alone reads device memory; the other rows of
+    its tile are still staged in chunks."""
+    x = torch.zeros((2, 1, 150, 260), dtype=torch.uint8)
+    boxes = torch.tensor([[-4.5, -4.5, 5.5, 5.5], [-0.2, -0.2, 1.2, 1.2]])
+    tab_h, tab_w, _, _ = cc._windowed_tables(x, boxes, (16, 16), "bilinear", True, 0.25,
+                                             "pil_int8")
+    for tab, n_in in ((tab_h, 150), (tab_w, 260)):
+        T = tab.w.shape[-1]
+        tile_o, win = tab.wins[-1]
+        assert int(tab.cnt.max()) > win
+        tiles, direct = _check_chunks(tab, n_in, tile_o, win)
+        assert direct > 0
+        assert any(lo is not None for chunks in tiles.values() for _, _, lo, _, _ in chunks)
 
 
 def test_crop_plan_cuts_tiles_at_image_edges():

@@ -13,14 +13,15 @@ git-ignored directory and run, in one command,
     for r in OLD . . OLD; do python3 tools/time_crop_calls.py --root $r; done
 
 Readings (ms of device time per call, every kernel of the call, and per
-call of the table kernel and of the two crop passes): ``crop_and_resize``
+call of the table kernel and of the two crop passes, and per launch of
+each pass alone, integer variant): ``crop_and_resize``
 on the whole crop calls that ``chip_smoke.time_train_kernels`` times, with
 this checkout's shapes and boxes from ``chip_smoke.py``: the train shape
 (``TRAIN_B64``, benchmarks/run_all.py's boxes, within the image), the
 RandomResizedCrop of 4K frames (``CROP_4K``, max_box_frac from
 ``box_fracs``), and, where the checkout serves boxes wider than the
-image, the train shape with zoom-out boxes (``_zoom_out_boxes``: every
-row past the tables' tap bound).  A checkout that does not serve them is
+image, the train shape with zoom-out boxes (``_zoom_out_boxes``: rows
+past the tables' tap bound).  A checkout that does not serve them is
 not asked: its table kernel traps on such a box and leaves the process
 without a card.  Prints one JSON line with the card's name and power
 limit.  Needs a CUDA card.
@@ -57,6 +58,7 @@ def main() -> None:
     import torch
 
     import interpolate_antialiasing_tpu_torch as iat
+    from interpolate_antialiasing_tpu_torch import native
     from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
     from interpolate_antialiasing_tpu_torch.ops.crop import box_fracs, sample_boxes
 
@@ -95,6 +97,20 @@ def main() -> None:
             "crop_passes_ms": 2 * timer.device_time_per_call(call, iters=args.iters,
                                                              match="resample_axis_kernel"),
         }
+        # each pass alone (default precision), launched as the call launches it
+        tab_h, tab_w, pb_h, pb_w = cc._windowed_tables(x, b, size, "bilinear", True, frac,
+                                                       "pil_int8")
+        N, C, H, W = shape
+        lib = native.build()
+        inter = torch.empty((N, C, size[0], W), dtype=torch.uint8, device=dev)
+        y = torch.empty((N, C, *size), dtype=torch.uint8, device=dev)
+        for key, run in (
+                ("h_pass_ms", lambda: cc._launch(lib, x, inter, tab_h, N, C, H, W, size[0],
+                                                 pb_h, dev)),
+                ("w_pass_ms", lambda: cc._launch(lib, inter, y, tab_w, N, C * size[0], W, 1,
+                                                 size[1], pb_w, dev))):
+            out[name][key] = timer.device_time_per_call(run, iters=args.iters,
+                                                        match="resample_axis_kernel")
         del x
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
