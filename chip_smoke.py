@@ -29,6 +29,11 @@ then:
    crop's table kernel
    (``crop_tables``) against the plain table build on the same cases and
    edges, table by table (``first`` and ``cnt`` equal, ``w`` bit for bit),
+   and at its group edges (``TABLE_EDGES``: rows over three sum windows, two
+   sum levels, rows past every segment, sub-pixel and zero-count rows, row
+   counts no block divides; each filter and precision, the boxes dense and
+   strided, at the plan's choice, at one thread per row and at 8, 16
+   and 32 lanes),
    the sharded byte-exact route's
    kernel (pil_resample_axis) over every shard's tables of 2, 4 and 8
    shards, each filter, divisible and ceil-padded sizes, middle axis, last
@@ -731,6 +736,29 @@ MIXED_TILE = [[0.5, 0.0, 2.0, 1.0], [0.0, 0.6, 1.0, 2.2], [-0.8, -0.2, 0.9, 1.0]
 # row counts more taps than a tile's window holds, so even a chunk of that
 # one output cannot be staged and it reads device memory
 ROW_PAST_EVERY_CHUNK = [[-4.5, -4.5, 5.5, 5.5], [-0.2, -0.2, 1.2, 1.2]]
+# inverted boxes (y1 < y0, x1 < x0) on a 0.3 bound: no tap is valid, and a
+# tile's rows run away from its window, so the nearest input of many lies
+# outside it and they count 0 taps
+INVERTED = [[0.9, 0.9, 0.1, 0.1], [0.6, 0.2, 0.5, 0.25], [0.3, 0.95, 0.2, 0.05]]
+# (name, x shape, (oh, ow), boxes, max_box_frac): the table kernel's group
+# edges (csrc/crop_tables.cu: G lanes per output row, segments of 4 G taps,
+# windows of 32 taps).  W rows of 44 taps that span three sum windows; a
+# window over 1024 taps on both axes (two sum levels); rows of about 300
+# taps (a box ten times the image: the long path at every G); sub-pixel
+# boxes (the one-hot) and inverted ones (counts of 0); 111 and 159 rows,
+# which no group size's rows per block (16, 8, 4) divides
+TABLE_EDGES = [
+    ("three sum windows", (6, 1, 300, 520), (96, 112), ZOOM_OUT, 1.0),
+    ("two sum levels", (2, 1, 2160, 3840), (224, 224),
+     [[0.0, 0.0, 1.0, 1.0], [0.1, 0.3, 0.7, 0.9]], 1.0),
+    ("row past every segment", (2, 1, 300, 520), (16, 16), ROW_PAST_EVERY_CHUNK, 0.25),
+    ("sub-pixel", (4, 1, 300, 520), (96, 112),
+     [[0.47, 0.55, 0.4701, 0.5502], [0.0, 0.0, 1e-4, 1e-4], [0.9999, 0.9999, 1.0, 1.0],
+      [0.2, 0.3, 0.2 + 1 / 256, 0.31]], 1.0),
+    ("zero-count rows", (3, 1, 300, 520), (96, 112), INVERTED, 0.3),
+    ("ragged rows per block", (3, 1, 300, 520), (37, 53),
+     [[0.1, 0.1, 0.9, 0.8], [0.0, 0.2, 0.5, 1.0], [0.3, 0.0, 1.0, 0.6]], 1.0),
+]
 
 
 def _zoom_out_boxes(n: int) -> np.ndarray:
@@ -804,6 +832,60 @@ def _crop_tables_vs_plain(tally: _Tally, name: str, x, b, ohw, method: str, frac
               taps=[int(got[0].cnt.max()), int(got[1].cnt.max())],
               tap_bound=[got[0].w.shape[-1], got[1].w.shape[-1]])
     return got
+
+
+def _tables_at_lanes(tally: _Tally, name: str, shape, b, ohw, method: str, frac,
+                     precision: str, lanes: int) -> None:
+    """The table kernel with the plan forced to ``lanes`` lanes per row on
+    both axes (1: one thread per row; 8, 16 or 32: a group) against the
+    plain build, table by table."""
+    N, _, H, W = shape
+    mode = cc._mode(method, True)
+    axes = [a for a, _ in cc._table_geometry(H, W, *ohw, mode, True, cc._fracs(frac),
+                                             precision)]
+    before = cc.launches_crop_tables
+    with _forced(cc, "_table_plan", lambda *_: (lanes, lanes)):
+        got = cc._windowed_tables_cuda(b, mode, True, axes)
+    torch.cuda.synchronize()
+    if cc.launches_crop_tables != before + 1:
+        raise RuntimeError(f"crop_tables {name}: not launched once")
+    want = cc._windowed_tables_plain(b, mode, True, axes)
+    err = 0.0
+    for axis, g, w in zip("hw", got, want):
+        for f, x, y in zip(("first", "cnt", "w"), g, w):
+            bits = _compare(f"crop_tables {name} {method} {precision} G={lanes} {axis} {f}",
+                            x.view(torch.int32), y.view(torch.int32))
+            err = max(err, bits["max_abs_err"])
+    tally.add(f"{name} {method} {precision} G={lanes}", {"max_abs_err": err},
+              shape=list(shape), out=list(ohw), method=method, max_box_frac=frac, lanes=lanes,
+              taps=[int(g[1].max()) for g in got], tap_bound=[a.T for a in axes],
+              window=[a.k for a in axes])
+
+
+def check_table_groups(dev) -> float:
+    """The table kernel at its group edges (:data:`TABLE_EDGES`, the boxes
+    also as a strided view) for each filter and precision: through the
+    call's own plan (:func:`_crop_tables_vs_plain`), then with one thread
+    per row and every group size forced, and the 4K RandomResizedCrop at
+    each of them: rows longer than G (chunks) and than 4 G (the long
+    path)."""
+    tt = _Tally("crop_tables group edges")
+    (shape4k, ohw4k) = CROP_4K
+    rrc4k = sample_boxes(torch.Generator().manual_seed(1), shape4k[0], *shape4k[2:])
+    cases = [(*e, m) for e in TABLE_EDGES for m in ("bilinear", "box", "hamming")]
+    cases.append(("4k rrc", shape4k, ohw4k, rrc4k, box_fracs(*shape4k[2:]), "bilinear"))
+    for name, shape, ohw, boxes, frac, method in cases:
+        x = torch.empty(shape, dtype=U8, device=dev)
+        b = torch.as_tensor(np.asarray(boxes, np.float32)).to(dev)
+        strided = torch.cat([b, torch.ones_like(b[:, :1])], 1)[:, :4]
+        for precision in ("pil_int8", "split"):
+            _crop_tables_vs_plain(tt, f"{name} {method}", x, b, ohw, method, frac, precision)
+            _crop_tables_vs_plain(tt, f"{name} {method} strided", x, strided, ohw, method,
+                                  frac, precision)
+            for lanes in (1, *cc._TABLE_LANES):
+                _tables_at_lanes(tt, name, shape, b, ohw, method, frac, precision, lanes)
+        del x
+    return tt.summary(tables_compared=2 * tt.cases)
 
 
 def check_crop_kernel(dev) -> tuple[float, float]:
@@ -2418,12 +2500,21 @@ def time_train_kernels(dev, card) -> tuple[dict, dict]:
             tb = bound_of(16 * shape[0] + sum(8 * tab.first.numel() + tab.w.nbytes
                                               for tab in t[:2]),
                           int(t[0].cnt.sum() + t[1].cnt.sum()))
+            # an empty kernel at the table kernel's grid: the launch floor
+            from interpolate_antialiasing_tpu_torch.utils.timing import launch_floor_ms
+
+            axes = tuple(tab.rows.ax for tab in t[:2])
+            plan = cc._table_plan(axes, shape[0], cr._n_sm(dev))
+            grid = sum(cc._table_blocks(shape[0], axes, plan))
+            tdt["launch_floor_ms"] = launch_floor_ms(grid, cc._TABLE_THREADS, iters=20)
             tables[name] = (tms, tdt, tb)
             _line("time_crop_tables", card=card, kernel="crop_tables", case=name,
                   precision="pil_int8", shape=list(shape), size=list(size),
                   kernel_ms=tms["kernel"], plain_ms=tms["plain"],
                   kernel_device_ms=tdt["device_ms"], kernel_host_us=tdt["host_us"],
                   plain_device_ms=device_time_per_call(table_plain, iters=5), **tb,
+                  launch_floor_ms=tdt["launch_floor_ms"],
+                  grid=[grid, cc._TABLE_THREADS], lanes=plan,
                   library_ms=None, library="no PyTorch call builds per-image "
                   "antialiasing tables")
             # the whole call: plain build, kernel, kernel, plain build
@@ -2461,6 +2552,7 @@ def time_train_kernels(dev, card) -> tuple[dict, dict]:
              "call_ms": sum(tms["kernel"]) / 2, "host_us": tdt["host_us"],
              "4k_device_ms": tables["4k"][1]["device_ms"],
              "zoom_out_device_ms": tables["b64 zoom-out"][1]["device_ms"],
+             "launch_floor_ms": tdt["launch_floor_ms"],
              "plain_ms": sum(tms["plain"]) / 2, "bound_ms": tb["bound_ms"],
              "bound_by": tb["bound_by"], "library_ms": None})
 
@@ -2831,6 +2923,7 @@ def main() -> None:
             fused_2d_err, fused_axis_err = check_fused_kernels(dev)
             tile_err, tile_fused_err, tile_pil_err = check_axis_tiles(dev)
             u8_pil_err, u8_crop_err, u8_tables_err = check_u8_tiles(dev)
+            group_tables_err = check_table_groups(dev)
         finally:
             CASES_LOG.parent.mkdir(exist_ok=True)
             CASES_LOG.write_text("".join(c + "\n" for c in _cases))
@@ -2912,7 +3005,8 @@ def main() -> None:
          "rows": "interpolate_antialiasing_tpu_torch/csrc/crop_row.cuh",
          "replaces": "interpolate_antialiasing_tpu/ops/crop_pallas.py:117, :190 (the band "
                      "build XLA fuses ahead of :541 and :617)",
-         "launches": table_launches, "max_abs_err": max(tables_err, u8_tables_err),
+         "launches": table_launches,
+         "max_abs_err": max(tables_err, u8_tables_err, group_tables_err),
          **t_tables},
         {"name": "pil_resample_axis", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cuh",

@@ -72,16 +72,19 @@ struct Row {
   float lo, hi, scale, widen, sup, center, in_last;
   int start, filter;
 
-  // the weight of input position p (start + j): 0 where the valid test fails
+  // the weight of input position p (start + j): 0 where the valid test
+  // fails; F the filter's code where the caller knows it (else `filter`)
+  template <int F = -1>
   __device__ __forceinline__ float weight_at(int p) const {
     const float pos = (float)p;
     const float d = __fadd_rn(__fsub_rn(pos, center), 0.5f);
     const float ph = __fadd_rn(pos, 0.5f);
     if (!(fabsf(d) <= sup && ph >= lo && ph <= hi && pos <= in_last)) return 0.0f;
-    return table_filter(filter, __fdiv_rn(d, widen));
+    return table_filter(F < 0 ? filter : F, __fdiv_rn(d, widen));
   }
   // w_j
-  __device__ __forceinline__ float weight(int j) const { return weight_at(start + j); }
+  template <int F = -1>
+  __device__ __forceinline__ float weight(int j) const { return weight_at<F>(start + j); }
   // the centre of output o
   __device__ __forceinline__ float center_of(int o) const {
     return __fadd_rn(lo, __fmul_rn(scale, __fadd_rn((float)o, 0.5f)));
@@ -101,19 +104,31 @@ struct TreeSum {
   int win[kSumLevels];
   float acc[kSumLevels + 1];
 
-  __device__ explicit TreeSum(int k) {
-    for (int s = k; s > kSumWindow && m < kSumLevels; ++m) {
-      const int pad = (kSumWindow - s % kSumWindow) % kSumWindow;
-      front[m] = pad / 2;
-      win[m] = -1;
-      s = (s + pad) / kSumWindow;
+  // (the loops run to the static kSumLevels, so that acc and win stay in
+  // registers; the host builds one for a kernel's parameters too)
+  TreeSum() = default;
+  __host__ __device__ explicit TreeSum(int k) {
+    int s = k;
+#pragma unroll
+    for (int l = 0; l < kSumLevels; ++l) {
+      front[l] = 0;
+      win[l] = -1;
+      if (s > kSumWindow) {
+        const int pad = (kSumWindow - s % kSumWindow) % kSumWindow;
+        front[l] = pad / 2;
+        s = (s + pad) / kSumWindow;
+        m = l + 1;
+      }
     }
+#pragma unroll
     for (int l = 0; l <= kSumLevels; ++l) acc[l] = 0.0f;
   }
 
   __device__ void add(int j, float v) {
     int idx = j;
-    for (int l = 0; l < m; ++l) {  // close the windows tap j leaves, bottom up
+#pragma unroll
+    for (int l = 0; l < kSumLevels; ++l) {  // close the windows tap j leaves, bottom up
+      if (l >= m) break;
       idx = (idx + front[l]) / kSumWindow;
       if (idx == win[l]) break;
       acc[l + 1] = __fadd_rn(acc[l + 1], acc[l]);
@@ -124,10 +139,32 @@ struct TreeSum {
   }
 
   __device__ float total() {
-    for (int l = 0; l < m; ++l) acc[l + 1] = __fadd_rn(acc[l + 1], acc[l]);
-    return acc[m];
+    float t = acc[0];
+#pragma unroll
+    for (int l = 0; l < kSumLevels; ++l) {
+      if (l < m) {
+        acc[l + 1] = __fadd_rn(acc[l + 1], acc[l]);
+        t = acc[l + 1];
+      }
+    }
+    return t;
   }
 };
+
+// The level-0 windows of a sum over k taps in TreeSum's order: tap j lies
+// in window (j + front) / kSumWindow, each window is summed in tap order
+// from +0, and the window sums in order make a sum over `count` elements,
+// TreeSum(count)'s (its levels are TreeSum(k)'s above the first).  A sum of
+// at most kSumWindow taps is one window.
+struct SumWindows {
+  int front, count;
+};
+
+__host__ __device__ __forceinline__ SumWindows sum_windows(int k) {
+  if (k <= kSumWindow) return SumWindows{0, 1};
+  const int pad = (kSumWindow - k % kSumWindow) % kSumWindow;
+  return SumWindows{pad / 2, (k + pad) / kSumWindow};
+}
 
 // band_j as the pass stores it: K_j (integer weights) or band_j, as bits
 __device__ __forceinline__ int32_t stored(float band, int pb) {
@@ -167,7 +204,8 @@ __device__ __forceinline__ Row box_row(const Geom& g, long long n) {
   return r;
 }
 
-__device__ __forceinline__ RowSum row_sum(const Geom& g, long long n, int o) {
+// Row o of image n's geometry and its taps [j_lo, j_hi), total left 0.
+__device__ __forceinline__ RowSum row_range(const Geom& g, long long n, int o) {
   RowSum s;
   Row& r = s.r;
   r = box_row(g, n);
@@ -175,9 +213,13 @@ __device__ __forceinline__ RowSum row_sum(const Geom& g, long long n, int o) {
   // the window start of the row's tile, from the centre of its first output
   const float c0 = r.center_of(o / kLane * kLane);
   const float raw = __fsub_rn(floorf(__fsub_rn(__fsub_rn(c0, r.sup), 0.5f)), 1.0f);
+  // raw / align: a product with the exact reciprocal where align is a power
+  // of two (the passes' alignments are; the same float as the quotient)
   const float al = (float)g.align;
-  r.start = (int)fminf(fmaxf(__fmul_rn(floorf(__fdiv_rn(raw, al)), al), 0.0f),
-                       (float)g.hi_start);
+  const float q = (g.align & (g.align - 1)) == 0
+                      ? __fmul_rn(raw, __int_as_float(0x7f000000 - __float_as_int(al)))
+                      : __fdiv_rn(raw, al);
+  r.start = (int)fminf(fmaxf(__fmul_rn(floorf(q), al), 0.0f), (float)g.hi_start);
   r.center = r.center_of(o);
 
   // the taps whose |pos - center + 0.5| may pass sup, with a guard of two
@@ -185,9 +227,16 @@ __device__ __forceinline__ RowSum row_sum(const Geom& g, long long n, int o) {
   const float k = (float)g.k, s0 = (float)r.start;
   s.j_lo = (int)fminf(fmaxf(floorf(cm - r.sup) - 2.0f - s0, 0.0f), k);
   s.j_hi = (int)fminf(fmaxf(ceilf(cm + r.sup) + 3.0f - s0, 0.0f), k);
+  s.total = 0.0f;
+  return s;
+}
 
+// row_range and the total, one tap after the other (the crop passes' form;
+// the table kernel sums a row with a group of lanes in the same order)
+__device__ __forceinline__ RowSum row_sum(const Geom& g, long long n, int o) {
+  RowSum s = row_range(g, n, o);
   TreeSum sum(g.k);
-  for (int j = s.j_lo; j < s.j_hi; ++j) sum.add(j, r.weight(j));
+  for (int j = s.j_lo; j < s.j_hi; ++j) sum.add(j, s.r.weight(j));
   s.total = sum.total();
   return s;
 }

@@ -91,15 +91,17 @@ _SIGNATURES = {
         _I, [_P, _P, _I, _L, _I, _L, _I, _P, _P, _I, _I, _P, _P, _I, _I, ctypes.c_float,
              _I, _I, _I, _I] + [_I] * 6 + [_P]),
     # boxes, N, filter, support, antialias, then per axis (H, W) in_size,
-    # out_size, k, align, hi_start, T, pb, first, cnt, w; stream
+    # out_size, k, align, hi_start, T, pb, lanes, blocks, first, cnt, w; stream
     "ia_crop_tables": (
-        _I, [_P, _I, _I, ctypes.c_float, _I] + ([_I] * 7 + [_P] * 3) * 2 + [_P]),
+        _I, [_P, _I, _I, ctypes.c_float, _I] + ([_I] * 9 + [_P] * 3) * 2 + [_P]),
     # x, out, outer, n_in, inner, n_out, xmin, wb, ntaps, pb, win0, the plan,
     # stream
     "ia_pil_resample_axis": (
         _I, [_P, _P, _L, _I, _L, _I, _P, _P, _I, _I, _P] + [_I] * 6 + [_P]),
     # ntaps, vec, smem, &blocks
     "ia_pil_resample_axis_occupancy": (_I, [_I] * 3 + [_P]),
+    # blocks, threads, stream (an empty kernel: utils/timing.launch_floor_ms)
+    "ia_launch_floor": (_I, [_I, _I, _P]),
 }
 
 

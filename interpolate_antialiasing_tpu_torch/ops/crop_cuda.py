@@ -88,6 +88,13 @@ _LANE = 128  # output rows per window tile, and the W pass's start alignment
 _ALIGN_H = 32  # the H pass's start alignment (the TPU's uint8 sublane tile)
 _PRECISIONS = ("pil_int8", "split")
 _SUM_WINDOW = 32  # the window of XLA's CPU tree reductions (:func:`_tree_sum`)
+# the table kernel (csrc/crop_tables.cu): its block, its group sizes (lanes
+# per output row), the chunks of a group's lanes a row's taps fill in one
+# pass, and the widest row it leaves to one thread (:func:`_table_plan`)
+_TABLE_THREADS = 128
+_TABLE_LANES = (8, 16, 32)
+_TABLE_CHUNKS = 4
+_TABLE_SERIAL_SPAN = 16
 # the filters admission lets onto this route (the non-negative ones) and
 # their codes in csrc/crop_tables.cu (ia_taps.cuh's SynthFilter, and box)
 _TABLE_FILTERS = {triangle_filter: 0, hamming_filter: 2, box_filter: 4}
@@ -530,8 +537,9 @@ def crop_and_resize_windowed(
 
 class _Axis(NamedTuple):
     """One pass's static table geometry (host): the axis, its window ``k``
-    and alignment over the padded extent ``in_limit``, the tap bound ``T``
-    and ``pb`` (None: float weights)."""
+    and alignment over the padded extent ``in_limit``, the tap bound ``T``,
+    ``pb`` (None: float weights) and the widest tap range of a row of a
+    box within the bound (:func:`_tap_span`; 0: ``k``)."""
 
     in_size: int
     out_size: int
@@ -540,6 +548,48 @@ class _Axis(NamedTuple):
     align: int
     T: int
     pb: int | None
+    span: int = 0
+
+
+def _tap_span(in_size: int, out_size: int, support: float, antialias: bool, frac: float,
+              k: int) -> int:
+    """The widest tap range a row of a box within the bound can have: the
+    table kernel walks row o's taps from ``floor(c - sup) - 2`` to ``ceil(c
+    + sup) + 3`` (``c`` its centre less 0.5, ``sup`` the widened support;
+    ``csrc/crop_row.cuh::row_range``), at most ``ceil(2 sup) + 6`` of them,
+    and at most ``k``."""
+    scale = frac * in_size / out_size
+    sup = support * (max(scale, 1.0) if antialias else 1.0)
+    return min(k, math.ceil(2.0 * sup) + 6)
+
+
+@lru_cache(maxsize=256)
+def _table_plan(axes: tuple, N: int, n_sm: int) -> tuple[int, ...]:
+    """``G`` per axis, the table kernel's lanes per output row.  One thread
+    per row (1 on both axes) where that grid puts a block on every SM and
+    no axis's widest row (:func:`_tap_span`) passes
+    ``_TABLE_SERIAL_SPAN`` taps: the train batch's tables, whose rows fill
+    the card one thread each (inside the crop call, after its large
+    passes, the group kernel takes some 4 microseconds more than alone on
+    an H100, and one thread per row does not).  Else per axis the least of
+    :data:`_TABLE_LANES` whose ``_TABLE_CHUNKS`` chunks hold the axis's
+    widest row (a longer row, from a box past the bound, takes several
+    passes).  Every plan gives the same tables."""
+    spans = [ax.span or ax.k for ax in axes]
+    if (sum(_table_blocks(N, axes, (1,) * len(axes))) >= n_sm
+            and max(spans) <= _TABLE_SERIAL_SPAN):
+        return (1,) * len(axes)
+    return tuple(next((g for g in _TABLE_LANES if span <= _TABLE_CHUNKS * g), _TABLE_LANES[-1])
+                 for span in spans)
+
+
+@lru_cache(maxsize=256)
+def _table_blocks(N: int, axes: tuple, plan: tuple) -> tuple[int, ...]:
+    """The table kernel's blocks per axis under ``plan`` (:func:`_table_plan`):
+    a block's ``_TABLE_THREADS / G`` groups (threads, for G = 1) take a row
+    each (row = image * out_size + output row), the W axis's blocks after
+    the H axis's."""
+    return tuple(-(-N * ax.out_size // (_TABLE_THREADS // G)) for ax, G in zip(axes, plan))
 
 
 @lru_cache(maxsize=256)
@@ -562,9 +612,11 @@ def _table_geometry(H: int, W: int, oh: int, ow: int, mode: str, antialias: bool
     # into W2 gives the same taps: a start clipped to W2 - k_w (a multiple of
     # 128) belongs to a tile whose taps all lie in [W2 - k_w, W), inside
     # either window.
-    return ((_Axis(H, oh, k_h, Hp, align_h, T_h, pb_h),
+    return ((_Axis(H, oh, k_h, Hp, align_h, T_h, pb_h,
+                   _tap_span(H, oh, support, antialias, fh, k_h)),
              _crop_windows(H, oh, T_h, fh, support, antialias)),
-            (_Axis(W, ow, k_w, W2, _LANE, T_w, pb_w),
+            (_Axis(W, ow, k_w, W2, _LANE, T_w, pb_w,
+                   _tap_span(W, ow, support, antialias, fw, k_w)),
              _crop_windows(W, ow, T_w, fw, support, antialias)))
 
 
@@ -634,8 +686,9 @@ def _windowed_tables_plain(b: torch.Tensor, mode: str, antialias: bool, axes):
 
 def _windowed_tables_cuda(b: torch.Tensor, mode: str, antialias: bool, axes):
     """Both axes' tables in one launch of ``csrc/crop_tables.cu`` (the plain
-    version's arithmetic, each row's compact taps written directly; a row
-    past ``T`` keeps its true count and its first ``T`` weights)."""
+    version's arithmetic, each row's compact taps written directly by one
+    thread or a group of lanes (:func:`_table_plan`); a row past ``T``
+    keeps its true count and its first ``T`` weights)."""
     global launches_crop_tables
     from .. import native
 
@@ -645,15 +698,17 @@ def _windowed_tables_cuda(b: torch.Tensor, mode: str, antialias: bool, axes):
     lib = native.build()
     N, dev = b.shape[0], b.device
     tabs, args = [], []
-    for ax in axes:
+    axes = tuple(axes)
+    plan = _table_plan(axes, N, cr._n_sm(dev))
+    for ax, G, blocks in zip(axes, plan, _table_blocks(N, axes, plan)):
         first = torch.empty((N, ax.out_size), dtype=torch.int32, device=dev)
         cnt = torch.empty((N, ax.out_size), dtype=torch.int32, device=dev)
         w = torch.empty((N, ax.out_size, ax.T), device=dev,
                         dtype=torch.float32 if ax.pb is None else torch.int32)
         tabs.append((first, cnt, w))
         args += [ax.in_size, ax.out_size, ax.k, ax.align, _hi_start(ax), ax.T,
-                 -1 if ax.pb is None else ax.pb, first.data_ptr(), cnt.data_ptr(),
-                 w.data_ptr()]
+                 -1 if ax.pb is None else ax.pb, G, blocks, first.data_ptr(),
+                 cnt.data_ptr(), w.data_ptr()]
     if N * max(ax.out_size for ax in axes) == 0:
         return tabs
     with torch.cuda.device(dev):

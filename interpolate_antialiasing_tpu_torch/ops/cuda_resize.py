@@ -296,6 +296,7 @@ def _plan2d_synth(spec_h: AxisSpec, spec_w: AxisSpec, itemsize: int = 4,
 
 
 @cache
+@lru_cache(maxsize=16)
 def _n_sm(dev: torch.device) -> int:
     """The card's SM count (the plan's ``n_sm``); :data:`_H100_SMS` for a
     CPU tensor, whose plan only decides between one plain 2-D pass and two

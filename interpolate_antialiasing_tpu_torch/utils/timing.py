@@ -12,6 +12,9 @@ Three clocks, each for one question:
     torch.profiler's kernel records: device time per launch or per call,
     which the host's pace does not enter (events measure the host where it
     is the slower, at batch 1).
+  * :func:`launch_floor_ms` — the device time of an empty kernel at a
+    given grid: what a launch costs with no work in it, a reference point
+    beside a small kernel's bytes bound;
   * :func:`host_us` — the host's own time to check, plan and enqueue a call;
     :func:`time_calls` — host clock per synchronised call, the latency a
     caller waits for, the only timer that also runs on a CPU tensor.
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 __all__ = ["BenchResult", "time_cuda", "time_calls", "device_seconds_from_trace",
-           "device_time_per_call", "host_us"]
+           "device_time_per_call", "host_us", "launch_floor_ms"]
 
 
 class BenchResult(dict):
@@ -221,3 +224,23 @@ def host_us(fn: Callable, *args, iters: int = 20) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / iters * 1e6
+
+
+def launch_floor_ms(blocks: int, threads: int, iters: int = 50) -> float:
+    """Device milliseconds of one launch of an empty kernel of ``blocks``
+    blocks of ``threads`` threads (``csrc/launch_floor.cu``), from the
+    profiler's kernel records as :func:`device_time_per_call` reads them:
+    what a launch of that grid costs the card with no work in it.  A
+    reference point beside a small kernel's bytes bound, not a bound.
+    Raises without CUDA."""
+    _need_cuda("launch_floor_ms")
+    from .. import native
+
+    lib = native.build()
+
+    def launch():
+        err = lib.ia_launch_floor(blocks, threads, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"launch_floor launch failed: cudaError {err}")
+
+    return device_time_per_call(launch, iters=iters, match="empty_kernel")

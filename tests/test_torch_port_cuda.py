@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CROP_4K, MIXED_TILE, ROW_PAST_EVERY_CHUNK, TRAIN_B64, ZOOM_OUT,
-                        _zoom_out_boxes)
+from chip_smoke import (CROP_4K, MIXED_TILE, ROW_PAST_EVERY_CHUNK, TABLE_EDGES, TRAIN_B64,
+                        ZOOM_OUT, _zoom_out_boxes)
 import interpolate_antialiasing_tpu_torch as iat
 from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
@@ -803,6 +803,55 @@ def test_crop_tables_kernel_matches_plain_4k(dev, monkeypatch, precision):
     got = cc._windowed_tables(*args)
     _plain_tables(monkeypatch)
     _tables_equal(got, cc._windowed_tables(*args))
+
+
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+@pytest.mark.parametrize("mode", ["bilinear", "box", "hamming"])
+@pytest.mark.parametrize("name,shape,ohw,boxes,frac", TABLE_EDGES, ids=[e[0] for e in TABLE_EDGES])
+def test_crop_tables_kernel_group_edges_match_plain(dev, monkeypatch, name, shape, ohw, boxes,
+                                                    frac, mode, precision):
+    """The group-per-row table kernel at its edges (chip_smoke.TABLE_EDGES:
+    rows over three sum windows, two sum levels, rows past every segment,
+    sub-pixel and zero-count rows, rows per block that do not divide the
+    rows), the boxes dense and as a strided view."""
+    x = torch.empty(shape, dtype=torch.uint8, device=dev)
+    b = torch.tensor(boxes, device=dev)
+    strided = torch.cat([b, torch.ones_like(b[:, :1])], 1)[:, :4]
+    assert not strided.is_contiguous()
+    got = [cc._windowed_tables(x, bx, ohw, mode, True, frac, precision) for bx in (b, strided)]
+    _plain_tables(monkeypatch)
+    want = cc._windowed_tables(x, b, ohw, mode, True, frac, precision)
+    for g in got:
+        _tables_equal(g, want)
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 16, 32])
+@pytest.mark.parametrize("precision", ["pil_int8", "split"])
+@pytest.mark.parametrize("name", [e[0] for e in TABLE_EDGES] + ["4k rrc", "b64 zoom-out"])
+def test_crop_tables_kernel_at_every_group_size(dev, monkeypatch, name, precision, lanes):
+    """Every group size, and one thread per row, on every edge and at the 4K
+    and b64 zoom-out calls: rows longer than G (its chunks), and than 4 G
+    (the long path, whose weights are computed again), give the plain
+    build's tables."""
+    edges = {e[0]: e[1:] for e in TABLE_EDGES}
+    (b64, ohw64), (k4, ohw4k) = TRAIN_B64, CROP_4K
+    edges["4k rrc"] = (k4, ohw4k, sample_boxes(torch.Generator().manual_seed(1), k4[0],
+                                               *k4[2:]).tolist(), box_fracs(*k4[2:]))
+    edges["b64 zoom-out"] = (b64, ohw64, _zoom_out_boxes(b64[0]).tolist(), 1.0)
+    shape, ohw, boxes, frac = edges[name]
+    axes = [a for a, _ in cc._table_geometry(shape[2], shape[3], *ohw, "bilinear", True,
+                                             cc._fracs(frac), precision)]
+    monkeypatch.setattr(cc, "_table_plan", lambda axes, N, n_sm: (lanes, lanes))
+    b = torch.tensor(boxes, dtype=torch.float32, device=dev)
+    before = cc.launches_crop_tables
+    got = cc._windowed_tables_cuda(b, "bilinear", True, axes)
+    torch.cuda.synchronize()
+    assert cc.launches_crop_tables == before + 1
+    want = cc._windowed_tables_plain(b, "bilinear", True, axes)
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 @pytest.mark.parametrize("precision", ["pil_int8", "split"])

@@ -14,17 +14,21 @@ git-ignored directory and run, in one command,
 
 Readings (ms of device time per call, every kernel of the call, and per
 call of the table kernel and of the two crop passes, and per launch of
-each pass alone, integer variant): ``crop_and_resize``
-on the whole crop calls that ``chip_smoke.time_train_kernels`` times, with
-this checkout's shapes and boxes from ``chip_smoke.py``: the train shape
-(``TRAIN_B64``, benchmarks/run_all.py's boxes, within the image), the
-RandomResizedCrop of 4K frames (``CROP_4K``, max_box_frac from
-``box_fracs``), and, where the checkout serves boxes wider than the
-image, the train shape with zoom-out boxes (``_zoom_out_boxes``: rows
-past the tables' tap bound).  A checkout that does not serve them is
-not asked: its table kernel traps on such a box and leaves the process
-without a card.  Prints one JSON line with the card's name and power
-limit.  Needs a CUDA card.
+each pass alone, integer variant; the host's microseconds to check, plan
+and enqueue a call, ``host_us``, the least of five means of 20 calls (what
+other work on the host adds only raises it); and, where the checkout has
+it, an empty kernel's launch at the table kernel's grid,
+``launch_floor_ms``, a reference point beside the table kernel's bytes
+bound): ``crop_and_resize`` on the whole crop calls that
+``chip_smoke.time_train_kernels`` times, with this checkout's shapes and
+boxes from ``chip_smoke.py``: the train shape (``TRAIN_B64``,
+benchmarks/run_all.py's boxes, within the image), the RandomResizedCrop
+of 4K frames (``CROP_4K``, max_box_frac from ``box_fracs``), and, where
+the checkout serves boxes wider than the image, the train shape with
+zoom-out boxes (``_zoom_out_boxes``: rows past the tables' tap bound).
+A checkout that does not serve them is not asked: its table kernel traps
+on such a box and leaves the process without a card.  Prints one JSON
+line with the card's name and power limit.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -96,7 +100,18 @@ def main() -> None:
                                                          match="crop_tables_kernel"),
             "crop_passes_ms": 2 * timer.device_time_per_call(call, iters=args.iters,
                                                              match="resample_axis_kernel"),
+            "host_us": min(timer.host_us(call, iters=20) for _ in range(5)),
         }
+        if hasattr(cc, "_table_plan"):  # a checkout with the group-per-row kernel
+            axes = tuple(a for a, _ in cc._table_geometry(shape[2], shape[3], *size,
+                                                          "bilinear", True, cc._fracs(frac),
+                                                          "pil_int8"))
+            plan = cc._table_plan(axes, shape[0], torch.cuda.get_device_properties(dev)
+                                  .multi_processor_count)
+            blocks = sum(cc._table_blocks(shape[0], axes, plan))
+            out[name]["table_grid"] = [blocks, cc._TABLE_THREADS, plan]
+            out[name]["launch_floor_ms"] = timer.launch_floor_ms(blocks, cc._TABLE_THREADS,
+                                                                 iters=args.iters)
         # each pass alone (default precision), launched as the call launches it
         tab_h, tab_w, pb_h, pb_w = cc._windowed_tables(x, b, size, "bilinear", True, frac,
                                                        "pil_int8")
