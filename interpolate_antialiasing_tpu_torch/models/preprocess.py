@@ -17,6 +17,7 @@ from torch import nn
 
 from ..ops.crop import box_fracs, crop_and_resize, sample_boxes
 from ..ops.resize import resize, resize_plane
+from ..utils.trace import span, spanned
 
 __all__ = ["ImageNetEvalPipeline", "ImageNetTrainPipeline", "VideoDownscaler",
            "imagenet_eval_preprocess"]
@@ -77,6 +78,7 @@ class ImageNetEvalPipeline(nn.Module):
             mode=self.method, antialias=self.antialias,
         )
 
+    @spanned("ia.models.eval")
     def forward(self, batch_u8: torch.Tensor) -> torch.Tensor:
         if self.short_side is not None:
             H, W = batch_u8.shape[-2], batch_u8.shape[-1]
@@ -102,11 +104,12 @@ class ImageNetEvalPipeline(nn.Module):
             y = y[..., top : top + oh, left : left + ow]
         else:
             y = self._resize(batch_u8, self.size)
-        # multiply by the float32 reciprocal, as the JAX pipeline does
-        y = y.to(torch.float32) * torch.tensor(1.0 / 255.0, dtype=torch.float32)
-        mean = self.mean.to(y.device)
-        std = self.std.to(y.device)
-        return ((y - mean) / std).to(self.dtype)
+        with span("ia.models.normalize"):
+            # multiply by the float32 reciprocal, as the JAX pipeline does
+            y = y.to(torch.float32) * torch.tensor(1.0 / 255.0, dtype=torch.float32)
+            mean = self.mean.to(y.device)
+            std = self.std.to(y.device)
+            return ((y - mean) / std).to(self.dtype)
 
 
 def imagenet_eval_preprocess(batch_u8: torch.Tensor, size=(224, 224)) -> torch.Tensor:
@@ -159,6 +162,7 @@ class ImageNetTrainPipeline(nn.Module):
         flip = torch.rand(N, generator=generator, device=gdev) < self.flip_prob
         return boxes, flip.to(batch_u8.device)
 
+    @spanned("ia.models.train")
     def apply(self, batch_u8: torch.Tensor, boxes: torch.Tensor,
               flip: torch.Tensor) -> torch.Tensor:
         """Crop, resize and flip with the given boxes and flips, then
@@ -168,9 +172,10 @@ class ImageNetTrainPipeline(nn.Module):
             batch_u8, boxes, self.size, method=self.method, flip=flip,
             max_box_frac=box_fracs(H, W, self.scale, self.ratio),
         )
-        # multiply by the float32 reciprocal, as the JAX pipeline does
-        y = y.to(torch.float32) * torch.tensor(1.0 / 255.0, dtype=torch.float32)
-        return ((y - self.mean.to(y.device)) / self.std.to(y.device)).to(self.dtype)
+        with span("ia.models.normalize"):
+            # multiply by the float32 reciprocal, as the JAX pipeline does
+            y = y.to(torch.float32) * torch.tensor(1.0 / 255.0, dtype=torch.float32)
+            return ((y - self.mean.to(y.device)) / self.std.to(y.device)).to(self.dtype)
 
     def forward(self, generator: torch.Generator | None,
                 batch_u8: torch.Tensor) -> torch.Tensor:
@@ -193,6 +198,7 @@ class VideoDownscaler(nn.Module):
         self.method = method
         self.backend = backend
 
+    @spanned("ia.models.video")
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
         y = resize_plane(
             frames.to(torch.bfloat16),

@@ -27,6 +27,7 @@ from functools import cache
 import torch
 
 from ..config import full_f32
+from ..utils.trace import span, spanned
 from .filters import CUBIC_NAMES, get_filter
 
 __all__ = ["crop_and_resize", "random_resized_crop", "sample_boxes",
@@ -95,6 +96,7 @@ def _axis_matrix(lo: torch.Tensor, hi: torch.Tensor, in_size: int,
                        onehot)
 
 
+@spanned("ia.ops.crop_and_resize")
 def crop_and_resize(
     x: torch.Tensor,
     boxes: torch.Tensor,
@@ -150,8 +152,10 @@ def crop_and_resize(
     oh, ow = int(out_hw[0]), int(out_hw[1])
     b = boxes.to(device=x.device, dtype=torch.float32)
     fl = None if flip is None else flip.to(device=x.device, dtype=torch.bool)
-    Wh = _axis_matrix(b[:, 0] * H, b[:, 2] * H, H, oh, method, antialias)
-    Ww = _axis_matrix(b[:, 1] * W, b[:, 3] * W, W, ow, method, antialias, flip=fl)
+    with span("ia.tables.crop_dense"):
+        Wh = _axis_matrix(b[:, 0] * H, b[:, 2] * H, H, oh, method, antialias)
+    with span("ia.tables.crop_dense"):
+        Ww = _axis_matrix(b[:, 1] * W, b[:, 3] * W, W, ow, method, antialias, flip=fl)
     with full_f32():
         t = torch.matmul(Wh[:, None], x.float())  # [N, C, oh, W]
         y = torch.matmul(t, Ww.transpose(1, 2)[:, None])  # [N, C, oh, ow]

@@ -71,6 +71,7 @@ import numpy as np
 import torch
 
 from ..config import debug_enabled
+from ..utils.trace import builds, span, spanned
 from . import cuda_resize as cr
 from .filters import (CUBIC_NAMES, box_filter, filter_is_nonnegative, get_filter,
                       hamming_filter, triangle_filter)
@@ -399,6 +400,7 @@ def _crop_windows(n_in: int, n_out: int, T: int, frac: float, support: float,
 
 
 @lru_cache(maxsize=256)
+@builds
 def _crop_plan(wins: tuple, n_in: int, n_out: int, T: int, N: int, R: int, inner: int,
                n_sm: int, vec4: bool) -> cr.PlanAxis | None:
     """A crop pass's plan over uint8 ``x[N, R, n_in, inner]``: kernel B's
@@ -422,16 +424,17 @@ def _launch(lib, x, out, tab: _Table, N, R, n_in, inner, n_out, pb, dev):
                       x.data_ptr() % 4 == 0)
     rows, ax = tab.rows, tab.rows.ax
     filt = get_filter(rows.mode)
-    err = lib.ia_crop_pass(
-        x.data_ptr(), out.data_ptr(), N, R, n_in, inner, n_out, tab.first.data_ptr(),
-        tab.w.data_ptr(), T, -1 if pb is None else pb, tab.cnt.data_ptr(),
-        rows.boxes.data_ptr(), rows.axis, _TABLE_FILTERS[filt.fn], filt.support,
-        int(rows.antialias), ax.k, ax.align, _hi_start(ax),
-        *((0, 0, 0, 0, 1, 0) if plan is None else plan[:6]),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"crop_resample launch failed: cudaError {err}")
-    launches_crop += 1
+    with span("ia.native.crop_resample"):
+        err = lib.ia_crop_pass(
+            x.data_ptr(), out.data_ptr(), N, R, n_in, inner, n_out, tab.first.data_ptr(),
+            tab.w.data_ptr(), T, -1 if pb is None else pb, tab.cnt.data_ptr(),
+            rows.boxes.data_ptr(), rows.axis, _TABLE_FILTERS[filt.fn], filt.support,
+            int(rows.antialias), ax.k, ax.align, _hi_start(ax),
+            *((0, 0, 0, 0, 1, 0) if plan is None else plan[:6]),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"crop_resample launch failed: cudaError {err}")
+        launches_crop += 1
 
 
 def _crop_resample_plain(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Tensor:
@@ -510,6 +513,7 @@ def crop_windowed_supported(x, out_hw, method: str, antialias: bool,
     return filter_is_nonnegative(_mode(method, antialias))
 
 
+@spanned("ia.ops.crop_windowed")
 def crop_and_resize_windowed(
     x: torch.Tensor,
     boxes: torch.Tensor,
@@ -564,6 +568,7 @@ def _tap_span(in_size: int, out_size: int, support: float, antialias: bool, frac
 
 
 @lru_cache(maxsize=256)
+@builds
 def _table_plan(axes: tuple, N: int, n_sm: int) -> tuple[int, ...]:
     """``G`` per axis, the table kernel's lanes per output row.  One thread
     per row (1 on both axes) where that grid puts a block on every SM and
@@ -584,6 +589,7 @@ def _table_plan(axes: tuple, N: int, n_sm: int) -> tuple[int, ...]:
 
 
 @lru_cache(maxsize=256)
+@builds
 def _table_blocks(N: int, axes: tuple, plan: tuple) -> tuple[int, ...]:
     """The table kernel's blocks per axis under ``plan`` (:func:`_table_plan`):
     a block's ``_TABLE_THREADS / G`` groups (threads, for G = 1) take a row
@@ -593,6 +599,7 @@ def _table_blocks(N: int, axes: tuple, plan: tuple) -> tuple[int, ...]:
 
 
 @lru_cache(maxsize=256)
+@builds
 def _table_geometry(H: int, W: int, oh: int, ow: int, mode: str, antialias: bool,
                     fracs: tuple[float, float], precision: str):
     """The static host side of a call's tables, from the shapes alone:
@@ -620,6 +627,7 @@ def _table_geometry(H: int, W: int, oh: int, ow: int, mode: str, antialias: bool
              _crop_windows(W, ow, T_w, fw, support, antialias)))
 
 
+@spanned("ia.tables.crop_windowed")
 def _windowed_tables(x, boxes, out_hw, method, antialias, max_box_frac,
                      precision):
     """``(tab_h, tab_w, pb_h, pb_w)`` for :func:`_crop_resample`: the
@@ -711,11 +719,11 @@ def _windowed_tables_cuda(b: torch.Tensor, mode: str, antialias: bool, axes):
                  cnt.data_ptr(), w.data_ptr()]
     if N * max(ax.out_size for ax in axes) == 0:
         return tabs
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("ia.native.crop_tables"):
         err = lib.ia_crop_tables(b.data_ptr(), N, _TABLE_FILTERS[filt.fn], filt.support,
                                  int(antialias), *args,
                                  torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"crop_tables launch failed: cudaError {err}")
-    launches_crop_tables += 1
+        if err != 0:
+            raise RuntimeError(f"crop_tables launch failed: cudaError {err}")
+        launches_crop_tables += 1
     return tabs

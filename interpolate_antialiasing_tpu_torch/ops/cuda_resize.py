@@ -62,6 +62,7 @@ import torch
 
 from .. import native
 from ..config import debug_enabled
+from ..utils.trace import span
 from .filters import (
     hamming_filter,
     keys_cubic_filter,
@@ -528,7 +529,8 @@ def _memo(a: np.ndarray, what, make):
     if hit is None or hit[0] is not a:
         if len(_SEEN) >= 1024:
             _SEEN.clear()
-        hit = _SEEN[(id(a), what)] = (a, make())
+        with span("ia.build._memo"):
+            hit = _SEEN[(id(a), what)] = (a, make())
     return hit[1]
 
 
@@ -813,16 +815,17 @@ def _resample2d_cuda(x3, spec_h, spec_w, out_dtype, plan) -> torch.Tensor:
     per_plane = -(-OH // plan.tile_r) * -(-OW // plan.tile_c)
     with torch.cuda.device(dev):
         for b0, n in native.plane_chunks(B, _INT_MAX // per_plane):
-            err = lib.ia_resample2d(
-                x3.data_ptr() + b0 * H * W * x3.element_size(),
-                out.data_ptr() + b0 * OH * OW * out.element_size(),
-                _DTYPES[x3.dtype], _DTYPES[out_dtype], n, H, W, OH, OW,
-                xmin_w.data_ptr(), w_w.data_ptr(), w_w.shape[1],
-                ymin_h.data_ptr(), w_h.data_ptr(), w_h.shape[1],
-                quant, *_plan_args(plan), _stream(dev))
-            if err != 0:
-                raise RuntimeError(f"resample2d launch failed: cudaError {err}")
-            launches_2d += 1
+            with span("ia.native.resample2d"):
+                err = lib.ia_resample2d(
+                    x3.data_ptr() + b0 * H * W * x3.element_size(),
+                    out.data_ptr() + b0 * OH * OW * out.element_size(),
+                    _DTYPES[x3.dtype], _DTYPES[out_dtype], n, H, W, OH, OW,
+                    xmin_w.data_ptr(), w_w.data_ptr(), w_w.shape[1],
+                    ymin_h.data_ptr(), w_h.data_ptr(), w_h.shape[1],
+                    quant, *_plan_args(plan), _stream(dev))
+                if err != 0:
+                    raise RuntimeError(f"resample2d launch failed: cudaError {err}")
+                launches_2d += 1
     return out
 
 
@@ -863,15 +866,15 @@ def _resample_axis_cuda(x3, spec, out_dtype) -> torch.Tensor:
     dev = x3.device
     xmin, w = _tables_on(spec, dev)
     plan = _axis_plan(x3, spec, False)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("ia.native.resample_axis"):
         err = lib.ia_resample_axis(
             x3.data_ptr(), out.data_ptr(), _DTYPES[x3.dtype], _DTYPES[out_dtype],
             outer, n_in, inner, spec.out_size, xmin.data_ptr(), w.data_ptr(),
             w.shape[1], *axis_launch_args(plan, _first_key(spec, False), n_in, dev),
             _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"resample_axis launch failed: cudaError {err}")
-    launches_axis += 1
+        if err != 0:
+            raise RuntimeError(f"resample_axis launch failed: cudaError {err}")
+        launches_axis += 1
     return out
 
 
@@ -889,15 +892,16 @@ def _resample2d_fused_cuda(x3, spec_h, spec_w, out_dtype, plan) -> torch.Tensor:
     per_plane = -(-OH // plan.tile_r) * -(-OW // plan.tile_c)
     with torch.cuda.device(dev):
         for b0, n in native.plane_chunks(B, _INT_MAX // per_plane):
-            err = lib.ia_resample2d_fused(
-                x3.data_ptr() + b0 * H * W * x3.element_size(),
-                out.data_ptr() + b0 * OH * OW * out.element_size(),
-                _DTYPES[x3.dtype], _DTYPES[out_dtype], n, H, W, OH, OW,
-                ctypes.addressof(sw), ctypes.addressof(sh), quant,
-                *_plan_args(plan), _stream(dev))
-            if err != 0:
-                raise RuntimeError(f"resample2d (fused) launch failed: cudaError {err}")
-            launches_2d_fused += 1
+            with span("ia.native.resample2d_fused"):
+                err = lib.ia_resample2d_fused(
+                    x3.data_ptr() + b0 * H * W * x3.element_size(),
+                    out.data_ptr() + b0 * OH * OW * out.element_size(),
+                    _DTYPES[x3.dtype], _DTYPES[out_dtype], n, H, W, OH, OW,
+                    ctypes.addressof(sw), ctypes.addressof(sh), quant,
+                    *_plan_args(plan), _stream(dev))
+                if err != 0:
+                    raise RuntimeError(f"resample2d (fused) launch failed: cudaError {err}")
+                launches_2d_fused += 1
     return out
 
 
@@ -911,15 +915,15 @@ def _resample_axis_fused_cuda(x3, spec, out_dtype) -> torch.Tensor:
         return out
     dev = x3.device
     plan = _axis_plan(x3, spec, True)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("ia.native.resample_axis_fused"):
         err = lib.ia_resample_axis_fused(
             x3.data_ptr(), out.data_ptr(), _DTYPES[x3.dtype], _DTYPES[out_dtype],
             outer, n_in, inner, spec.out_size,
             ctypes.addressof(_synth_struct(spec)),
             *axis_launch_args(plan, _first_key(spec, True), n_in, dev), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"resample_axis (fused) launch failed: cudaError {err}")
-    launches_axis_fused += 1
+        if err != 0:
+            raise RuntimeError(f"resample_axis (fused) launch failed: cudaError {err}")
+        launches_axis_fused += 1
     return out
 
 

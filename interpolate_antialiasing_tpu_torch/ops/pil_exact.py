@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..config import debug_enabled
+from ..utils.trace import builds, span, spanned
 from . import cuda_resize as cr
 from .weights import make_axis_spec, pil_box_f32
 
@@ -128,6 +129,7 @@ def _needs_clip(in_size: int, out_size: int, mode: str) -> bool:
 
 
 @cache
+@builds
 def _int_tables(
     in_size: int, out_size: int, mode: str,
     span: tuple[float, float] | None = None,
@@ -155,6 +157,7 @@ def _int_tables(
 
 
 @lru_cache(maxsize=256)
+@builds
 def _table_tensor(data: bytes, shape: tuple[int, ...],
                   device: torch.device) -> torch.Tensor:
     return torch.frombuffer(bytearray(data), dtype=torch.int32).reshape(
@@ -224,6 +227,7 @@ def _check_tables(name: str, tables, in_size: int, pb: int) -> None:
 
 
 @lru_cache(maxsize=1024)
+@builds
 def _plan_2pass_keyed(first_h: bytes, ntaps_h: int, H: int, first_w: bytes, ntaps_w: int,
                       W: int, planes: int, n_sm: int) -> cr.Plan2d | None:
     return cr._plan_rows(np.frombuffer(first_h, np.int64), ntaps_h, H,
@@ -261,32 +265,34 @@ def _resample_2pass_cuda(x3: torch.Tensor, tw, th, pb: int) -> torch.Tensor:
     out = torch.empty((B, OH, OW), dtype=torch.uint8, device=dev)
     if B == 0:
         return out
-    plan = _plan_2pass(tw, th, B, H, W, cr._n_sm(dev))
+    with span("ia.tables.pil"):
+        plan = _plan_2pass(tw, th, B, H, W, cr._n_sm(dev))
+        if plan is not None:
+            xmin_w, wb_w = _on(tw[0], dev), _on(tw[1], dev)
+            ymin_h, wb_h = _on(th[0], dev), _on(th[1], dev)
     if plan is None:
         if debug_enabled():
             print("[ia-tpu] pil_resample_2pass: no tile fits, two "
                   "pil_resample_axis passes")
         return _resample_2pass_axes(x3, tw, th, pb)
     lib = native.build()
-    xmin_w, wb_w = _on(tw[0], dev), _on(tw[1], dev)
-    ymin_h, wb_h = _on(th[0], dev), _on(th[1], dev)
     # every block is on gridDim.x: a batch whose block count would pass
     # its 2^31 - 1 limit takes several launches
     per_plane = -(-OH // plan.tile_r) * -(-OW // plan.tile_c)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         for b0, n in native.plane_chunks(B, cr._INT_MAX // per_plane):
-            err = lib.ia_pil_resample_2pass(
-                x3.data_ptr() + b0 * H * W, out.data_ptr() + b0 * OH * OW,
-                n, H, W, OH, OW,
-                xmin_w.data_ptr(), wb_w.data_ptr(), ntaps_w,
-                ymin_h.data_ptr(), wb_h.data_ptr(), ntaps_h,
-                pb, *plan[:6], stream,
-            )
-            if err != 0:
-                raise RuntimeError(
-                    f"pil_resample_2pass launch failed: cudaError {err}")
-            launches += 1
+            with span("ia.native.pil_resample_2pass"):
+                err = lib.ia_pil_resample_2pass(
+                    x3.data_ptr() + b0 * H * W, out.data_ptr() + b0 * OH * OW,
+                    n, H, W, OH, OW,
+                    xmin_w.data_ptr(), wb_w.data_ptr(), ntaps_w,
+                    ymin_h.data_ptr(), wb_h.data_ptr(), ntaps_h,
+                    pb, *plan[:6], torch.cuda.current_stream(dev).cuda_stream,
+                )
+                if err != 0:
+                    raise RuntimeError(
+                        f"pil_resample_2pass launch failed: cudaError {err}")
+                launches += 1
     return out
 
 
@@ -363,15 +369,15 @@ def _resample_axis_cuda(x3: torch.Tensor, tables, pb: int) -> torch.Tensor:
     xmin, wb = _on(tables[0], dev), _on(tables[1], dev)
     key = cr._first_taps_key(tables[0])
     plan = _plan_axis(tables, outer, n_in, inner, cr._n_sm(dev), x3.data_ptr() % 4 == 0)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), span("ia.native.pil_resample_axis"):
         err = lib.ia_pil_resample_axis(
             x3.data_ptr(), out.data_ptr(), outer, n_in, inner, n_out,
             xmin.data_ptr(), wb.data_ptr(), ntaps, pb,
             *cr.axis_launch_args(plan, key, n_in, dev),
             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"pil_resample_axis launch failed: cudaError {err}")
-    launches_axis += 1
+        if err != 0:
+            raise RuntimeError(f"pil_resample_axis launch failed: cudaError {err}")
+        launches_axis += 1
     return out
 
 
@@ -495,6 +501,7 @@ def _precision_bits(ih: int, iw: int, oh: int, ow: int, method: str,
     return PRECISION_BITS
 
 
+@spanned("ia.ops.pil_exact")
 def resize_pil_exact(
     x: torch.Tensor,
     size: Sequence[int],
@@ -604,10 +611,8 @@ def resize_pil_exact(
     x3 = xk.reshape(math.prod(lead), ih, iw).contiguous()
     if debug_enabled():
         print(f"[ia-tpu] pil_exact pil_resample_2pass ({x3.device.type})")
-    y = _resample_2pass(
-        x3,
-        _int_tables(iw, ow, method, span_w, pb),
-        _int_tables(ih, oh, method, span_h, pb),
-        pb,
-    ).reshape(*lead, oh, ow)
+    with span("ia.tables.pil"):
+        tw = _int_tables(iw, ow, method, span_w, pb)
+        th = _int_tables(ih, oh, method, span_h, pb)
+    y = _resample_2pass(x3, tw, th, pb).reshape(*lead, oh, ow)
     return y.movedim(-3, -1) if channels_last else y

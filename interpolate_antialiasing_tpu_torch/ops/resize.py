@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..config import debug_enabled, default_backend, full_f32
+from ..utils.trace import spanned
 from .cuda_resize import KERNEL_DTYPES, resize2d, resize_axis
 from .pil_exact import _PIL_AUTO_METHODS, resize_pil_exact
 from .resize_xla import (
@@ -398,6 +399,7 @@ def _resize_route(in_dtype: torch.dtype, out_dtype: torch.dtype, method: str,
     return "plane"
 
 
+@spanned("ia.ops.resize")
 def resize(
     x: torch.Tensor,
     size: Sequence[int],

@@ -1023,3 +1023,47 @@ def test_a_hand_written_call_makes_its_launches_in_kernel_records(dev):
     with pytest.raises(RuntimeError, match="not the 5 expected"):
         device_seconds_from_trace(three, "resample_axis_kernel", expect=5)
     assert 0 < device_time_per_call(call, iters=4, match="resample_axis_kernel") < 10
+
+
+@pytest.mark.parametrize("route", ["eval", "train", "train_noflip"])
+def test_native_spans_per_call_equal_the_launch_counters(dev, route):
+    """Under the profiler, the ``ia.native.<kernel>`` spans of two pipeline
+    calls equal the launch counters' deltas, kernel by kernel, on the eval
+    route, the dense crop (flips: no hand-written launch) and the windowed
+    crop."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from interpolate_antialiasing_tpu_torch.models import (ImageNetEvalPipeline,
+                                                           ImageNetTrainPipeline)
+    from interpolate_antialiasing_tpu_torch.utils.inspect import launch_counts
+
+    x = _input((8, 3, 438, 906), torch.uint8, dev, seed=37)
+    if route == "eval":
+        pipe = ImageNetEvalPipeline(size=(224, 224), short_side=256).to(dev)
+
+        def call():
+            return pipe(x)
+    else:
+        pipe = ImageNetTrainPipeline(size=(224, 224)).to(dev)
+        boxes, flip = pipe.sample(torch.Generator(device=dev).manual_seed(3), x)
+        flip = flip if route == "train" else None
+
+        def call():
+            return pipe.apply(x, boxes, flip)
+
+    call()
+    torch.cuda.synchronize()
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        call()
+        torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in launch_counts().items() if v > before[k]}
+    host = torch.autograd.DeviceType.CPU
+    spans = Counter(e.name.removeprefix("ia.native.") for e in prof.events()
+                    if e.name.startswith("ia.native.") and e.device_type == host)
+    assert dict(spans) == launched
+    assert launched == {"eval": {"pil_resample_2pass": 2}, "train": {},
+                        "train_noflip": {"crop_tables": 2, "crop_resample": 4}}[route]
