@@ -25,7 +25,11 @@ then:
    computes again from the box and stages with their tile's window in
    chunks; once as a strided view of ``[N, 5]`` detections; at b64 and on
    4K frames; boxes half past the image, whose edge tiles mix rows past
-   the bound with rows within it), then one more call within the image, the
+   the bound with rows within it), then one more call within the image; the
+   crop's float32-intermediate route (its tables with flips at 0.5 folded
+   in, the uint8 -> float32 and float32 -> uint8 passes, each flipped image
+   the exact mirror of the unflipped call) on RandomResizedCrop and
+   zoom-out boxes under each filter it admits, at b64 and on 4K frames; the
    crop's table kernel
    (``crop_tables``) against the plain table build on the same cases and
    edges, table by table (``first`` and ``cnt`` equal, ``w`` bit for bit),
@@ -60,7 +64,9 @@ then:
    on ``entry()``'s batch; BASELINE config 4 (``torch.autograd.grad``
    through ``resize_plane``, f32 [8, 3, 438, 906] -> 196x320: forward and
    adjoint kernels); the train path (``ImageNetTrainPipeline`` on a uint8
-   [64, 3, 438, 906] batch, ``Trainer`` steps on its output,
+   [64, 3, 438, 906] batch with its flips: one ``crop_tables`` and two
+   ``crop_f32`` launches, also within one grey level of the CPU's dense
+   route; ``Trainer`` steps on its output,
    ``crop_and_resize`` on the batch and ``random_resized_crop`` on 4K
    frames through the table kernel and the crop kernel: one ``crop_tables``
    and two ``crop_resample`` launches each).  Each is checked bit for bit against
@@ -96,7 +102,9 @@ then:
    passes per call, the crop's table kernel per launch); the whole crop
    calls with the table kernel and with the plain table build, in turns,
    by events and by device time (``time_crop_call``), at b64 for boxes
-   within the image and for zoom-out boxes; the shard passes of both per-axis
+   within the image and for zoom-out boxes; the float32-intermediate passes
+   at the train cell's call, and that whole call beside the dense route it
+   replaces (``time_crop_f32``); the shard passes of both per-axis
    kernels the same way; and kernel B at config 5's frames in NHWC (bf16
    [64, 2160, 3840, 3] -> 1080x1920 through ``resize``, tables and fused,
    beside ``F.interpolate`` on the same channels-last tensor,
@@ -926,6 +934,72 @@ def check_crop_kernel(dev) -> tuple[float, float]:
     return tally.summary(), tt.summary(tables_compared=2 * tt.cases)
 
 
+def _f32_flips(n: int, seed: int) -> torch.Tensor:
+    """Per-image flips at 0.5 (the preset's ``hflip_prob``), the first two
+    fixed to both values."""
+    flip = torch.rand(n, generator=torch.Generator().manual_seed(seed)) < 0.5
+    flip[:2] = torch.tensor([True, False])
+    return flip
+
+
+def _crop_f32_cases():
+    """(name, x shape, boxes, (oh, ow), method) of the float32-intermediate
+    route: RandomResizedCrop and zoom-out boxes (rows past T, mirrored) at
+    300x520 under each filter it admits, the train batch with both kinds
+    of boxes, and 4K frames."""
+    gen = torch.Generator().manual_seed(9)
+    rrc = sample_boxes(gen, 6, 300, 520).numpy()
+    for m in ("bilinear", "hamming", "box"):
+        yield (f"rrc {m}", (6, 3, 300, 520), rrc, (96, 112), m)
+        yield (f"zoom-out {m}", (6, 3, 300, 520), ZOOM_OUT, (96, 112), m)
+    (shape, ohw) = TRAIN_B64
+    yield ("b64 rrc", shape, sample_boxes(gen, shape[0], *shape[2:]).numpy(), ohw, "bilinear")
+    yield ("b64 zoom-out", shape, _zoom_out_boxes(shape[0]), ohw, "bilinear")
+    (shape, ohw) = CROP_4K
+    yield ("4k rrc", shape, sample_boxes(gen, shape[0], *shape[2:]).numpy(), ohw, "bilinear")
+
+
+def check_crop_f32_kernel(dev) -> float:
+    """The float32-intermediate crop route (``crop_and_resize_f32``: one
+    ``crop_tables`` launch with the flip folded into the W tables, then the
+    uint8 -> float32 and float32 -> uint8 passes) against its plain version
+    on the card: the tables against the plain build (``first``, ``cnt``
+    equal, ``w`` bit for bit), the output against
+    ``_crop_resample_plain`` over them bit for bit, and each flipped image
+    exactly the mirror of the same call unflipped."""
+    tally = _Tally("crop_f32")
+    seed = 600
+    for name, shape, boxes, ohw, method in _crop_f32_cases():
+        seed += 1
+        x = _rand(shape, U8, dev, seed)
+        b = torch.as_tensor(np.asarray(boxes, np.float32)).to(dev)
+        flip = _f32_flips(shape[0], seed).to(dev)
+        before = (cc.launches_crop_tables, cc.launches_crop_f32, cc.launches_crop)
+        got = cc.crop_and_resize_f32(x, b, ohw, method, flip=flip)
+        torch.cuda.synchronize()
+        if (cc.launches_crop_tables, cc.launches_crop_f32, cc.launches_crop) != (
+                before[0] + 1, before[1] + 2, before[2]):
+            raise RuntimeError(f"crop_f32 {name}: not one table and two f32 launches")
+        tables = cc._f32_tables(x, b, ohw, method, flip)
+        with _forced(cc, "_windowed_tables_cuda", cc._windowed_tables_plain):
+            want_tables = cc._f32_tables(x, b, ohw, method, flip)
+        for axis, g, w in zip("hw", tables[:2], want_tables[:2]):
+            for f in ("first", "cnt", "w"):
+                _compare(f"crop_f32 {name} tables {axis} {f}",
+                         getattr(g, f).view(torch.int32), getattr(w, f).view(torch.int32))
+        res = _compare(f"crop_f32 {name}", got,
+                       cc._crop_resample_plain(x, *want_tables, torch.float32))
+        unflipped = cc.crop_and_resize_f32(x, b, ohw, method)
+        _compare(f"crop_f32 {name} mirror", got,
+                 torch.where(flip[:, None, None, None], unflipped.flip(-1), unflipped))
+        tally.add(name, res, shape=list(shape), out=list(got.shape), method=method,
+                  flips=int(flip.sum()), tap_bound=[t.w.shape[-1] for t in tables[:2]],
+                  taps=[int(t.cnt.max()) for t in tables[:2]],
+                  rows_past_bound=[int((t.cnt > t.w.shape[-1]).sum()) for t in tables[:2]])
+        del x, got, tables, want_tables, unflipped
+    return tally.summary()
+
+
 def _pil_axis_cases():
     """(name, x shape, axis, (xmin, Wb)): every shard's tables of n in {2,
     4, 8} shards, each filter, divisible and ceil-padded sizes, on the
@@ -1347,16 +1421,16 @@ def check_u8_tiles(dev) -> tuple[float, float, float]:
                     ("h", tables[0], H, ohw[0], C, W), ("w", tables[1], W, ohw[1], C * ohw[0], 1)):
                 T = tab.w.shape[-1]
                 plans.append(cc._crop_plan(tab.wins, n_in, n_out, T, N, R, inner,
-                                           cr._n_sm(dev), x.data_ptr() % 4 == 0))
+                                           cr._n_sm(dev), x.data_ptr() % 4 == 0, 1))
                 cands = [p for _, p in cr._axis_tiles(
                     tab.wins, n_out, T, n_in, N * R, inner, 1, cr._n_sm(dev),
                     x.data_ptr() % 4 == 0, per_img=R)]
                 for p in list(dict.fromkeys(cands)) + [None]:
-                    def pick(wins, n_in, n_out, T, N, R, inner, n_sm, vec4, p=p, which=which,
-                             real=cc._crop_plan):
+                    def pick(wins, n_in, n_out, T, N, R, inner, n_sm, vec4, itemsize, p=p,
+                             which=which, real=cc._crop_plan):
                         if (inner > 1) == (which == "h"):
                             return p
-                        return real(wins, n_in, n_out, T, N, R, inner, n_sm, vec4)
+                        return real(wins, n_in, n_out, T, N, R, inner, n_sm, vec4, itemsize)
                     with _forced(cc, "_crop_plan", pick):
                         _compare(f"crop_resample {name} {precision} {which} {p}",
                                  cc._crop_resample(x, *tables), want)
@@ -1377,7 +1451,7 @@ def check_u8_tiles(dev) -> tuple[float, float, float]:
 
 def _reset() -> None:
     pe.launches = cr.launches_2d = cr.launches_axis = cc.launches_crop = 0
-    cc.launches_crop_tables = 0
+    cc.launches_crop_tables = cc.launches_crop_f32 = 0
     pe.launches_axis = cr.launches_2d_fused = cr.launches_axis_fused = 0
 
 
@@ -1765,9 +1839,12 @@ def main_path_reducing_gap(dev) -> int:
     return total
 
 
-def main_path_train(dev) -> tuple[int, int, int]:
+def main_path_train(dev) -> tuple[int, int, int, int]:
     """The train path on one uint8 batch: ``ImageNetTrainPipeline`` (flip
-    folded in: the dense route, no kernel), ``Trainer`` steps on its output
+    folded into the W tables: the float32-intermediate route, one
+    ``crop_tables`` and two ``crop_f32`` launches; bit for bit its plain
+    run on the card, within one grey level of the CPU's dense route),
+    ``Trainer`` steps on its output
     (one resample2d launch per step, no adjoint: the images do not require
     grad), ``crop_and_resize`` with run_all's boxes and
     ``random_resized_crop`` of 4K frames (no flip: the table kernel, then
@@ -1780,7 +1857,12 @@ def main_path_train(dev) -> tuple[int, int, int]:
     _reset()
     imgs = pipe(torch.Generator().manual_seed(0), x)
     torch.cuda.synchronize()
-    counts = _expect("train pipeline", {})
+    counts = _expect("train pipeline", {"crop_tables": 1, "crop_f32": 2})
+    n_f32 = counts["crop_f32"]
+    with _plain_kernels():
+        plain = pipe(torch.Generator().manual_seed(0), x)
+    res = _compare("train pipeline", imgs, plain)
+    del plain
     want = ImageNetTrainPipeline(size=size)(torch.Generator().manual_seed(0), batch)
     err = _max_abs(imgs.cpu(), want)
     # the same boxes and flips on the CPU: float32 products in another order
@@ -1789,8 +1871,9 @@ def main_path_train(dev) -> tuple[int, int, int]:
             or err > 1.0 / (255.0 * 0.224) + 1e-5:
         raise RuntimeError(f"train pipeline: {tuple(imgs.shape)}, max abs err "
                            f"vs the CPU run {err}")
-    _line("main_path", path="train pipeline (dense crop + flip)", batch=list(shape),
-          size=list(size), launches=counts, max_abs_err_vs_cpu=err)
+    _line("main_path", path="train pipeline (float32-intermediate crop + flip)",
+          batch=list(shape), size=list(size), launches=counts, **res,
+          max_abs_err_vs_cpu=err)
 
     labels = torch.from_numpy(erng.integers(0, 10, shape[0])).to(dev)
     prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
@@ -1834,7 +1917,7 @@ def main_path_train(dev) -> tuple[int, int, int]:
         res = _compare(name, y, ref)
         _line("main_path", path=name, shape=list(xin.shape), out=list(y.shape),
               launches=counts, **res)
-    return n_crop, n_tables, TRAIN_STEPS
+    return n_crop, n_tables + 1, TRAIN_STEPS, n_f32
 
 
 def _sharded_pil(x: torch.Tensor, size, mode: str) -> torch.Tensor:
@@ -2557,6 +2640,46 @@ def time_train_kernels(dev, card) -> tuple[dict, dict]:
              "bound_by": tb["bound_by"], "library_ms": None})
 
 
+def time_crop_f32(dev, card) -> dict:
+    """The float32-intermediate crop passes at the train cell's call (b64
+    u8 3x438x906 -> 224^2, RandomResizedCrop boxes, flips at 0.5) beside
+    their plain version, in turns, by device time per launch and against
+    the least time the card could take: the image read and the output
+    written once, and the float32 intermediate written and read again; and
+    the whole call (the table launch and both passes) beside the dense
+    route it replaces on the card."""
+    (shape, size) = TRAIN_B64
+    N, C, H, W = shape
+    x = _rand(shape, U8, dev, 91)
+    b = sample_boxes(torch.Generator().manual_seed(91), N, H, W).to(dev)
+    flip = _f32_flips(N, 91).to(dev)
+    t = cc._f32_tables(x, b, size, "bilinear", flip)
+    ms = _turns(lambda: cc._crop_resample_cuda(x, *t, torch.float32),
+                lambda: cc._crop_resample_plain(x, *t, torch.float32), 10, 2)
+    dt = _kernel_times(lambda: cc._crop_resample_cuda(x, *t, torch.float32), 10,
+                       "resample_axis_kernel")
+    ch, cw = t[0].cnt, t[1].cnt
+    tab = 8 * (ch.numel() + cw.numel()) + 4 * int(
+        ch.clamp(max=t[0].w.shape[-1]).sum() + cw.clamp(max=t[1].w.shape[-1]).sum())
+    bound = bound_of(N * C * (H * W + size[0] * size[1]) + 2 * 4 * N * C * size[0] * W + tab,
+                     C * W * int(ch.sum()) + C * size[0] * int(cw.sum()))
+    call_ms = device_time_per_call(lambda: cc.crop_and_resize_f32(x, b, size, flip=flip),
+                                   iters=10)
+    dense_ms = device_time_per_call(
+        lambda: crop_and_resize(x, b, size, flip=flip, use_windowed=False), iters=5)
+    _line("time_crop_f32", card=card, kernel="crop_f32", shape=list(shape), size=list(size),
+          kernel_ms=ms["kernel"], plain_ms=ms["plain"], kernel_device_ms=2 * dt["device_ms"],
+          kernel_host_us=dt["host_us"], taps=[t[0].w.shape[-1], t[1].w.shape[-1]],
+          flips=int(flip.sum()), **bound, call_device_ms=call_ms,
+          dense_route_device_ms=dense_ms, library_ms=None,
+          library="no PyTorch call crops per-image boxes with antialiasing")
+    return {"ms": 2 * dt["device_ms"], "device_ms": 2 * dt["device_ms"],
+            "call_ms": sum(ms["kernel"]) / 2, "host_us": dt["host_us"],
+            "call_device_ms": call_ms, "dense_route_device_ms": dense_ms,
+            "plain_ms": sum(ms["plain"]) / 2, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": None}
+
+
 def time_sharded_kernels(dev, card) -> tuple[dict, dict]:
     """The two kernels of the sharded path at its shard shapes, beside their
     plain versions: pil_resample_axis on one shard of the 32768^2 uint8
@@ -2918,6 +3041,7 @@ def main() -> None:
             err_2d, err_axis = check_float_kernels(dev)
             adj_2d, adj_axis = check_adjoint_kernels(dev)
             crop_err, tables_err = check_crop_kernel(dev)
+            crop_f32_err = check_crop_f32_kernel(dev)
             pil_axis_err = check_pil_axis_kernel(dev)
             shard_err = check_shard_tables_kernel(dev)
             fused_2d_err, fused_axis_err = check_fused_kernels(dev)
@@ -2942,7 +3066,7 @@ def main() -> None:
         st_2d = main_path_scale_translate(dev)
         gap_launches = main_path_reducing_gap(dev)
         torch.cuda.empty_cache()
-        crop_launches, table_launches, train_2d = main_path_train(dev)
+        crop_launches, table_launches, train_2d, crop_f32_launches = main_path_train(dev)
         torch.cuda.empty_cache()
         check_crop_against_dense(dev)
         torch.cuda.empty_cache()
@@ -2957,6 +3081,8 @@ def main() -> None:
     t_2d_fused, t_axis_fused = time_fused_kernels(dev, card)
     torch.cuda.empty_cache()
     t_crop, t_tables = time_train_kernels(dev, card)
+    torch.cuda.empty_cache()
+    t_crop_f32 = time_crop_f32(dev, card)
     torch.cuda.empty_cache()
     t_pil_axis, t_shard = time_sharded_kernels(dev, card)
     torch.cuda.empty_cache()
@@ -3008,6 +3134,15 @@ def main() -> None:
          "launches": table_launches,
          "max_abs_err": max(tables_err, u8_tables_err, group_tables_err),
          **t_tables},
+        {"name": "crop_f32", "route": "cuda",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cuh",
+         "entry": "interpolate_antialiasing_tpu_torch/csrc/crop_resample.cu",
+         "instantiations": "interpolate_antialiasing_tpu_torch/csrc/crop_resample_f32.cu",
+         "rows": "interpolate_antialiasing_tpu_torch/csrc/crop_row.cuh",
+         "replaces": "interpolate_antialiasing_tpu_torch/ops/crop.py:_axis_matrix and its two "
+                     "float32 matrix products on the card (the JAX package's flipped calls "
+                     "take its dense route)",
+         "launches": crop_f32_launches, "max_abs_err": crop_f32_err, **t_crop_f32},
         {"name": "pil_resample_axis", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cuh",
          "entry": "interpolate_antialiasing_tpu_torch/csrc/pil_resample_axis.cu",

@@ -60,10 +60,37 @@
 // least 3): a chunk's weights take T - 1 slots per output, the tile's
 // totals the last one.
 //
+// The float32-intermediate variant (pb < 0, in_dt or out_dt float32) is
+// the dense route's arithmetic (float32 weights, float32 products and
+// sums, a float32 intermediate, one rounding) over each output row's
+// nonzero taps only:
+//
+//   H pass: inter[n, c, o, w] = sum_{j < T} w_h[n, o, j] * x[n, c, first_h[n, o] + j, w]
+//   W pass: y[n, c, o, u]     = q( sum_{j < T} w_w[n, u, j] * inter[n, c, o, first_w[n, u] + j] )
+//
+// each product and sum rounded to float32 in tap order (ia_dtypes.cuh::mac,
+// bit for bit the plain version's), the intermediate stored unrounded, and
+// q(v) = floor(v + 0.5) clamped to [0, 255] once, at the end
+// (ops/resize.py::_finalize_dtype's rule).  Its tables are crop_tables.cu's
+// float32 tables over one window of the whole axis, so no row is
+// renormalised over a truncated window; a horizontal flip is folded into
+// the W tables (output o of a mirrored image holds row out_size - 1 - o's
+// taps), and rows past T of a mirrored image take the mirrored row's
+// weights (crop_row.cuh's source_row, compiled only into the float32 ->
+// uint8 instantiation).  It replaces, on a uint8 call with flips on the
+// card, the dense route's per-image matrices (ops/crop.py::_axis_matrix,
+// ~100 aten kernels) and its two float32 matrix products, which multiply
+// every weight of a dense [OH, H] and [OW, W] row, nearly all of them
+// zero.  The JAX package has no such kernel: its flipped calls take the
+// dense route everywhere.  Its instantiations (uint8 -> float32 for the H
+// pass, float32 -> uint8 for the W pass, over TableTaps) are compiled in
+// crop_resample_f32.cu.
+//
 // Bounds: at the train shape (u8 [64, 3, 438, 906] -> 224x224) the two
 // passes read the image (76 MB) and write the output (9.6 MB) once, 0.0258
 // ms at 3.35 TB/s; the 39 MB uint8 intermediate written and read again
-// makes the two launches' floor about 0.049 ms.  A few operations per byte:
+// makes the two launches' floor about 0.049 ms, the 156 MB float32 one
+// about 0.12 ms.  A few operations per byte:
 // device memory bounds it, so the design cuts bytes and instructions per
 // output (16-byte staged copies, weights read once per block).
 
@@ -89,30 +116,38 @@ int dispatch_crop(const Args<Taps>& a, int vec) {
 
 extern "C" {
 
-// x[N, R, n_in, inner] -> out[N, R, n_out, inner] (uint8, device pointers)
-// on `stream`; first int32 [N, n_out], w [N, n_out, T]: int32 when pb >= 0,
-// float32 when pb < 0; cnt int32 [N, n_out], each row's true tap count (more
-// than T for a box wider than the image), and what its weights need: the
-// boxes [N, 4] (float32), the axis (0: H, 1: W), the filter code, support
-// and antialias, and the axis's window k, alignment and largest start
-// (crop_tables.cu's arguments).  The plan (tile_j, tile_o, tile_i, win, vec, smem)
-// is crop_cuda._crop_plan's (cuda_resize._plan_axis' tiles with the crop's
+// x[N, R, n_in, inner] -> out[N, R, n_out, inner] (device pointers) on
+// `stream`, elements of in_dt and out_dt (ia_dtypes.cuh: uint8 -> uint8,
+// or the float32-intermediate variant's uint8 -> float32 and float32 ->
+// uint8); first int32 [N, n_out], w [N, n_out, T]: int32 when pb >= 0,
+// float32 when pb < 0 (the float32-intermediate variant's only form); cnt
+// int32 [N, n_out], each row's true tap count (more than T for a box wider
+// than the image), and what its weights need: the boxes [N, 4] (float32),
+// the axis (0: H, 1: W), the filter code, support and antialias, and the
+// axis's window k, alignment and largest start (crop_tables.cu's
+// arguments); flip: [N] bool (device), the images a float32 -> uint8 pass
+// mirrors, or null.  The plan (tile_j, tile_o, tile_i, win, vec, smem) is
+// crop_cuda._crop_plan's (cuda_resize._plan_axis' tiles with the crop's
 // windows); each block finds its tile's first input row from the first
 // taps; tile_o = 0 (smem 0, vec 1) runs the unstaged body.  Returns the
 // cudaError_t of the launch (0 on success).
-int ia_crop_pass(const void* x, void* out, int N, long long R, int n_in,
-                 long long inner, int n_out, const void* first, const void* w,
+int ia_crop_pass(const void* x, void* out, int in_dt, int out_dt, int N, long long R,
+                 int n_in, long long inner, int n_out, const void* first, const void* w,
                  int T, int pb, const void* cnt, const void* boxes, int axis, int filter,
                  float support, int antialias, int k, int align, int hi_start,
-                 int tile_j, int tile_o, int tile_i, int win, int vec, int smem,
-                 void* stream) {
-  if (N < 1 || R < 1 || T < 2 || pb > 30 || pb == 0 || cnt == nullptr || boxes == nullptr ||
-      (axis != 0 && axis != 1) || k < 1 || align < 1 || hi_start < 0)
+                 const void* flip, int tile_j, int tile_o, int tile_i, int win, int vec,
+                 int smem, void* stream) {
+  const bool u8 = in_dt == kU8 && out_dt == kU8;
+  const bool f32 = pb < 0 && ((in_dt == kU8 && out_dt == kF32) || (in_dt == kF32 && out_dt == kU8));
+  if (N < 1 || R < 1 || T < 2 || pb > 30 || pb == 0 || !(u8 || f32) || cnt == nullptr ||
+      boxes == nullptr || (axis != 0 && axis != 1) || k < 1 || align < 1 || hi_start < 0 ||
+      (flip != nullptr && in_dt != kF32) ||
+      (vec == 4 && (in_dt != kU8 || (f32 && ((uintptr_t)out & 15) != 0))))
     return (int)cudaErrorInvalidValue;
   const long long outer = (long long)N * R;
   const crop::Pass cp{crop::Geom{(const float*)boxes, axis, n_in, n_out, k, align, hi_start,
                                  pb > 0 ? pb : -1, filter, antialias, support},
-                      (const int*)cnt};
+                      (const int*)cnt, (const uint8_t*)flip};
   if (pb > 0) {
     Args<PilTaps> a{};
     a.taps = PilTaps{(const int*)first, (const int*)w, T, pb, n_out};
@@ -124,9 +159,15 @@ int ia_crop_pass(const void* x, void* out, int N, long long R, int n_in,
   Args<TableTaps> a{};
   a.taps = TableTaps{(const int*)first, (const float*)w, T, n_out};
   a.crop = cp;
-  const int err = make_args(a, x, out, kU8, outer, n_in, inner, n_out, nullptr, tile_j,
+  const int err = make_args(a, x, out, in_dt, outer, n_in, inner, n_out, nullptr, tile_j,
                             tile_o, tile_i, win, vec, smem, stream, R, true);
-  return err != 0 ? err : dispatch_crop(a, vec);
+  if (err != 0) return err;
+  if (u8) return dispatch_crop(a, vec);
+  switch (tap_bucket(T)) {
+    case 8: return launch_crop_f32_nt<8>(a, in_dt, vec);
+    case 16: return launch_crop_f32_nt<16>(a, in_dt, vec);
+  }
+  return launch_crop_f32_nt<0>(a, in_dt, vec);
 }
 
 }  // extern "C"

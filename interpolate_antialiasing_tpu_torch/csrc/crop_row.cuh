@@ -241,13 +241,29 @@ __device__ __forceinline__ RowSum row_sum(const Geom& g, long long n, int o) {
   return s;
 }
 
-// A pass's row source for the crop passes: its geometry and each row's
-// true tap count (cnt [N, out_size], device), which may pass the tables'
-// bound T.
+// A pass's row source for the crop passes: its geometry, each row's true
+// tap count (cnt [N, out_size], device), which may pass the tables' bound
+// T, and the images it mirrors (flip [N] bool, device; nullptr for none:
+// the integer passes and every H pass).
 struct Pass {
   Geom g;
   const int* cnt;
+  const uint8_t* flip;
 };
+
+// The row whose weights output o of image n takes: its own, or row
+// out_size - 1 - o in an image the pass mirrors (the table kernel wrote
+// that row's tables into o's slot).  M: whether the instantiation may
+// mirror at all (only the float32-intermediate W pass does); without it
+// the row is o, with no branch.
+template <bool M>
+__device__ __forceinline__ int source_row(const Pass& cp, long long n, int o) {
+  if constexpr (M) {
+    return cp.flip != nullptr && cp.flip[n] ? cp.g.out_size - 1 - o : o;
+  } else {
+    return o;
+  }
+}
 
 }  // namespace crop
 }  // namespace ia

@@ -41,6 +41,11 @@
 //            one) and w[i] = value_{j0 + i} for i < min(cnt, T), then 0 up
 //            to T.  A row past kChunks G taps evaluates its weights again.
 //
+// A flip folded into the W tables (the float32-intermediate route's
+// flip_w) moves no weight: row o of a mirrored image is computed as any
+// row o, and written into output out_size - 1 - o's slot (slot()), so a
+// mirrored output holds bit for bit the taps its unmirrored twin has.
+//
 // A row whose total is 0 (a sub-pixel box) takes the one-hot at
 // clamp(rint(center - 0.5), 0, in_size - 1) (half to even, as
 // torch.round).  A row of a box wider than the image can count more than T
@@ -88,7 +93,17 @@ struct Axis {
   int* first;
   int* cnt;
   void* w;  // int32 when g.pb >= 0, else float32
+  const uint8_t* flip;  // [N] bool, the images whose rows land mirrored; or null
 };
+
+// Where row (image n, output o) of an axis is written: its own slot, or
+// output out_size - 1 - o's in an image the axis mirrors (a horizontal
+// flip folded into the W tables).  The row's values are the same either
+// way.
+__device__ __forceinline__ int slot(const Axis& ax, int row) {
+  const int out = ax.g.out_size, n = row / out;
+  return ax.flip != nullptr && ax.flip[n] ? (int)(2LL * n * out + out - 1 - row) : row;
+}
 
 struct Params {
   int N;
@@ -156,7 +171,8 @@ __device__ __forceinline__ void table_row(const Axis& ax, int row, bool live, in
   // lane its own taps, then zeros up to T.  A row of one segment divides
   // the weights its lanes hold; a longer one evaluates each again.
   const int T = ax.T, pb = g.pb;
-  int32_t* w = (int32_t*)ax.w + (long long)row * T;
+  const int dst = live ? slot(ax, row) : row;
+  int32_t* w = (int32_t*)ax.w + (long long)dst * T;
   const bool held = total > 0.0f && L <= kCap, again = total > 0.0f && L > kCap;
   int j0 = -1, j1 = 0;
   int32_t v[kChunks];
@@ -204,8 +220,8 @@ __device__ __forceinline__ void table_row(const Axis& ax, int row, bool live, in
   const int cnt = j0 < 0 ? 0 : j1 - j0;
   for (int i = min(cnt, T) + l; i < T; i += G) w[i] = 0;
   if (l == 0) {
-    ax.first[row] = r.start + (j0 < 0 ? 0 : j0);
-    ax.cnt[row] = cnt;
+    ax.first[dst] = r.start + (j0 < 0 ? 0 : j0);
+    ax.cnt[dst] = cnt;
   }
 }
 
@@ -234,7 +250,8 @@ __device__ __forceinline__ void serial_row(const Axis& ax, int row) {
   const Geom& g = ax.g;
   const RowSum s = row_sum(g, row / g.out_size, row % g.out_size);
   const Row& r = s.r;
-  int32_t* w = (int32_t*)ax.w + (long long)row * ax.T;
+  const int dst = slot(ax, row);
+  int32_t* w = (int32_t*)ax.w + (long long)dst * ax.T;
   const int T = ax.T, pb = g.pb;
   int j0 = -1, j1 = 0;
   if (s.total > 0.0f) {
@@ -257,8 +274,8 @@ __device__ __forceinline__ void serial_row(const Axis& ax, int row) {
   }
   const int cnt = j0 < 0 ? 0 : j1 - j0;
   for (int i = cnt; i < T; ++i) w[i] = 0;
-  ax.first[row] = r.start + (j0 < 0 ? 0 : j0);
-  ax.cnt[row] = cnt;
+  ax.first[dst] = r.start + (j0 < 0 ? 0 : j0);
+  ax.cnt[dst] = cnt;
 }
 
 __global__ void __launch_bounds__(kThreads) crop_tables_kernel_serial(Params p) {
@@ -292,7 +309,7 @@ bool bad_axis(int N, int in_size, int out_size, int k, int align, int hi_start, 
 
 Axis make_axis(const float* boxes, int axis, int in_size, int out_size, int k, int align,
                int hi_start, int T, int pb, int G, void* first, void* cnt, void* w,
-               int filter, int antialias, float support) {
+               int filter, int antialias, float support, const void* flip) {
   Axis x{};
   x.g = Geom{boxes, axis, in_size, out_size, k, align, hi_start, pb, filter, antialias, support};
   x.T = T;
@@ -303,6 +320,7 @@ Axis make_axis(const float* boxes, int axis, int in_size, int out_size, int k, i
   x.first = (int*)first;
   x.cnt = (int*)cnt;
   x.w = w;
+  x.flip = (const uint8_t*)flip;
   return x;
 }
 
@@ -317,14 +335,16 @@ extern "C" {
 // and the axis's blocks (at least N * out_size / (kThreads / G)), then
 // first [N, out] int32, cnt [N, out] int32, w [N, out, T] (int32 when pb
 // >= 0, else float32), device pointers.  filter: 0 triangle, 2 Hamming, 4
-// box (crop_cuda._TABLE_FILTERS); support: its unwidened support.  Returns
-// the cudaError_t of the launch (0 on success).
+// box (crop_cuda._TABLE_FILTERS); support: its unwidened support.
+// flip_w: [N] bool (device), the images whose W rows land mirrored (output
+// o's slot holds row out_w - 1 - o's tables), or null.  Returns the
+// cudaError_t of the launch (0 on success).
 int ia_crop_tables(const void* boxes, int N, int filter, float support, int antialias,
                    int in_h, int out_h, int k_h, int align_h, int hi_start_h, int T_h,
                    int pb_h, int G_h, int blocks_h, void* first_h, void* cnt_h, void* w_h,
                    int in_w, int out_w, int k_w, int align_w, int hi_start_w, int T_w,
                    int pb_w, int G_w, int blocks_w, void* first_w, void* cnt_w, void* w_w,
-                   void* stream) {
+                   const void* flip_w, void* stream) {
   if (N < 1 || (filter != ia::kTriangle && filter != ia::kHamming && filter != kBox) ||
       bad_axis(N, in_h, out_h, k_h, align_h, hi_start_h, T_h, pb_h, G_h, blocks_h) ||
       bad_axis(N, in_w, out_w, k_w, align_w, hi_start_w, T_w, pb_w, G_w, blocks_w) ||
@@ -335,9 +355,9 @@ int ia_crop_tables(const void* boxes, int N, int filter, float support, int anti
   p.N = N;
   p.blocks0 = blocks_h;
   p.ax[0] = make_axis(b, 0, in_h, out_h, k_h, align_h, hi_start_h, T_h, pb_h, G_h, first_h,
-                      cnt_h, w_h, filter, antialias, support);
+                      cnt_h, w_h, filter, antialias, support, nullptr);
   p.ax[1] = make_axis(b, 1, in_w, out_w, k_w, align_w, hi_start_w, T_w, pb_w, G_w, first_w,
-                      cnt_w, w_w, filter, antialias, support);
+                      cnt_w, w_w, filter, antialias, support, flip_w);
   if (blocks_h + blocks_w == 0) return 0;
   if (G_h == 1 && G_w == 1)
     crop_tables_kernel_serial<<<blocks_h + blocks_w, kThreads, 0, (cudaStream_t)stream>>>(p);

@@ -39,7 +39,11 @@
 //     of its outputs (crop_tile_chunked): each wide row's weights once per
 //     block into shared memory, each chunk's window and weights within the
 //     plan's; only a row too wide for a chunk of one output reads device
-//     memory.
+//     memory.  The crop's float32-intermediate passes
+//     (crop_resample_f32.cu) are the same instantiation over TableTaps
+//     with uint8 -> float32 (H) and float32 -> uint8 (W) elements; their
+//     W pass may mirror an image (crop_row.cuh's Pass::flip), whose rows
+//     past the bound then take the mirrored row's weights.
 //
 // Taps past a window carry zero weight, so the clamp never adds signal.
 //
@@ -304,6 +308,12 @@ __device__ __forceinline__ W as_weight(int32_t v) {
   }
 }
 
+// Whether a crop pass over Tin elements may mirror its rows
+// (crop_row.cuh's source_row): only the float32-intermediate W pass reads
+// float32, so the uint8 passes compile without the branch.
+template <typename Tin>
+inline constexpr bool kMirrors = std::is_same_v<Tin, float>;
+
 // Output o of image n over its cnt taps from `first` (xp: its column at
 // input row 0, rows `inner` apart), a row with more taps than the tables
 // hold, for the unstaged body: each weight again from the box, as the
@@ -318,7 +328,7 @@ __device__ __noinline__ typename P::A wide_dot(const crop::Pass cp, long long n,
                                                crop::RowSum& rs, long long& rs_key) {
   const long long key = n * cp.g.out_size + o;
   if (key != rs_key) {
-    rs = crop::row_sum(cp.g, n, o);
+    rs = crop::row_sum(cp.g, n, crop::source_row<kMirrors<Tin>>(cp, n, o));
     rs_key = key;
   }
   const int j0 = first - rs.r.start;
@@ -386,7 +396,9 @@ __device__ __noinline__ void crop_tile_chunked(const Tin* __restrict__ x,
 
   // 1. each wide row's total
   for (int t = tid; t < no; t += kThreads) {
-    if (cs[t] > T) tot[t] = crop::row_sum(cp.g, img, o0 + t).total;
+    if (cs[t] > T) {
+      tot[t] = crop::row_sum(cp.g, img, crop::source_row<kMirrors<Tin>>(cp, img, o0 + t)).total;
+    }
   }
   const crop::Row box = crop::box_row(cp.g, img);
   // row t's weight j (j < its count; 0 past it)
@@ -395,7 +407,7 @@ __device__ __noinline__ void crop_tile_chunked(const Tin* __restrict__ x,
     if (j >= cnt) return W(0);
     if (cnt <= T) return tp.row(o0 + t)(j);
     crop::Row r = box;
-    r.center = box.center_of(o0 + t);
+    r.center = box.center_of(crop::source_row<kMirrors<Tin>>(cp, img, o0 + t));
     return as_weight<W>(crop::stored(__fdiv_rn(r.weight_at(fs[t] + j), tot[t]), cp.g.pb));
   };
   const int sj = p.contig ? L.stride : 0;
@@ -910,6 +922,26 @@ int launch_crop_nt(const Args<Taps>& a, int vec) {
   return vec == 4 ? run<uint8_t, uint8_t, Taps, NT, 4, true>(a)
                   : run<uint8_t, uint8_t, Taps, NT, 1, true>(a);
 }
+
+// The float32-intermediate crop passes' kernel for one tap bucket, over
+// float32 tables: the H pass uint8 -> float32 (four columns per thread
+// where the plan asks), the W pass float32 -> uint8.  crop_resample_f32.cu
+// instantiates it, so nvcc compiles it beside crop_resample.cu.
+template <int NT>
+int launch_crop_f32_nt(const Args<TableTaps>& a, int in_dt, int vec) {
+  if (in_dt == kU8) {
+    return vec == 4 ? run<uint8_t, float, TableTaps, NT, 4, true>(a)
+                    : run<uint8_t, float, TableTaps, NT, 1, true>(a);
+  }
+  return vec == 1 ? run<float, uint8_t, TableTaps, NT, 1, true>(a)
+                  : (int)cudaErrorInvalidValue;
+}
+
+#ifndef IA_RAX_CROP_F32_INSTANTIATE  // instantiated in crop_resample_f32.cu
+extern template int launch_crop_f32_nt<8>(const Args<TableTaps>&, int, int);
+extern template int launch_crop_f32_nt<16>(const Args<TableTaps>&, int, int);
+extern template int launch_crop_f32_nt<0>(const Args<TableTaps>&, int, int);
+#endif
 
 #ifndef IA_RAX_PIL_INSTANTIATE  // instantiated in pil_resample_axis.cu
 extern template int launch_pil_nt<8>(const Args<PilTaps>&, int);

@@ -124,8 +124,10 @@ class ImageNetTrainPipeline(nn.Module):
     horizontal flip (probability ``flip_prob``) folded into the crop's W
     weights, the crop kept in uint8 (the Pillow-backend torchvision
     transform's convention), then ``/255``, ``-mean``, ``/std``.  Because
-    it passes ``flip``, the crop takes the dense route, as in the JAX
-    package.  ``forward(generator, batch_u8)`` draws the boxes and flips
+    it passes ``flip``, the crop takes the float32 windowed route on a CUDA
+    tensor (the dense route's float32 arithmetic over each row's nonzero
+    taps) and the dense route on the CPU, as in the JAX package.
+    ``forward(generator, batch_u8)`` draws the boxes and flips
     from ``generator`` (:meth:`sample`) and applies them (:meth:`apply`).
     """
 

@@ -84,16 +84,17 @@ _SIGNATURES = {
     # stream
     "ia_resample_axis_fused": (
         _I, [_P, _P, _I, _I, _L, _I, _L, _I, _P, _P] + [_I] * 6 + [_P]),
-    # x, out, N, R, n_in, inner, n_out, first, w, T, pb, cnt, boxes, axis,
-    # filter, support, antialias, k, align, hi_start, then the plan (tile_j,
-    # tile_o, tile_i, win, vec, smem), stream
+    # x, out, in_dt, out_dt, N, R, n_in, inner, n_out, first, w, T, pb, cnt,
+    # boxes, axis, filter, support, antialias, k, align, hi_start, flip, then
+    # the plan (tile_j, tile_o, tile_i, win, vec, smem), stream
     "ia_crop_pass": (
-        _I, [_P, _P, _I, _L, _I, _L, _I, _P, _P, _I, _I, _P, _P, _I, _I, ctypes.c_float,
-             _I, _I, _I, _I] + [_I] * 6 + [_P]),
+        _I, [_P, _P, _I, _I, _I, _L, _I, _L, _I, _P, _P, _I, _I, _P, _P, _I, _I,
+             ctypes.c_float, _I, _I, _I, _I, _P] + [_I] * 6 + [_P]),
     # boxes, N, filter, support, antialias, then per axis (H, W) in_size,
-    # out_size, k, align, hi_start, T, pb, lanes, blocks, first, cnt, w; stream
+    # out_size, k, align, hi_start, T, pb, lanes, blocks, first, cnt, w;
+    # flip_w, stream
     "ia_crop_tables": (
-        _I, [_P, _I, _I, ctypes.c_float, _I] + ([_I] * 9 + [_P] * 3) * 2 + [_P]),
+        _I, [_P, _I, _I, ctypes.c_float, _I] + ([_I] * 9 + [_P] * 3) * 2 + [_P, _P]),
     # x, out, outer, n_in, inner, n_out, xmin, wb, ntaps, pb, win0, the plan,
     # stream
     "ia_pil_resample_axis": (

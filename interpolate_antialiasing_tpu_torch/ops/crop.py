@@ -1,21 +1,28 @@
 """Antialiased crop-and-resize with per-image boxes (the port of
 ``interpolate_antialiasing_tpu.ops.crop``).
 
-Two routes, as on the JAX package's accelerator:
+Three routes:
 
   * **windowed** (:mod:`.crop_cuda`, the ``crop_resample`` kernel): uint8,
     non-negative filters, no flip — the default for those calls on every
-    device;
+    device, as on the JAX package's accelerator;
+  * **float32 windowed** (:func:`.crop_cuda.crop_and_resize_f32`): uint8,
+    antialiased, a filter the table kernel evaluates, **with** a flip, on a
+    CUDA tensor — the dense route's arithmetic (float32 weights, products
+    and intermediate, one rounding, no window truncation) over each row's
+    nonzero taps, the flip folded into the W tables;
   * **dense**: per-image weight matrices ``W_h[n] [OH, H]`` and ``W_w[n]
     [OW, W]`` (the PIL algorithm on the box interval, masked and
     renormalised per row: :func:`_axis_matrix`) applied as two batched
     float32 matrix products at full precision (TF32 off), then the
     library's storage-dtype rule.  Differentiable with respect to the image
-    **and the boxes** through plain torch ops.  This is what the JAX
-    package computes off the TPU; its TPU-only variants of this route
-    (split-bf16 weights and int8 digit contractions, ``split`` /
-    ``one_digits``) exist for the TPU's matrix-unit rate, are not Pallas
-    kernels, and are not ported.
+    **and the boxes** through plain torch ops.  Every other call takes it:
+    float input, negative-lobe filters, ``use_windowed=False``, and every
+    flipped call on the CPU, which stays byte-equal to the JAX package's
+    dense route.  This is what the JAX package computes off the TPU; its
+    TPU-only variants of this route (split-bf16 weights and int8 digit
+    contractions, ``split`` / ``one_digits``) exist for the TPU's
+    matrix-unit rate, are not Pallas kernels, and are not ported.
 """
 
 from __future__ import annotations
@@ -118,13 +125,16 @@ def crop_and_resize(
     * ``max_box_frac``: bound on the box span per axis as a fraction of the
       image (scalar or ``(frac_h, frac_w)``); the windowed route sizes its
       windows from it, and a box larger than the bound renormalises over
-      the truncated window there.
+      the truncated window there.  The other routes never truncate.
     * ``use_windowed``: None routes uint8, non-negative-filter calls
-      without ``flip`` to the windowed kernel (:mod:`.crop_cuda`) and the
-      rest to the dense route; True / False force the choice (True falls
-      back to dense where the kernel does not admit the call).
+      without ``flip`` to the windowed kernel (:mod:`.crop_cuda`), uint8
+      antialiased calls with ``flip`` on a CUDA tensor whose filter the
+      table kernel evaluates to the float32 windowed route, and the rest to
+      the dense route; True does the same, and False forces the dense
+      route.
     * ``flip``: optional ``[N]`` bool, a per-image horizontal mirror folded
-      into the W weights; it takes the dense route.
+      into the W weights (the float32 windowed route's tables, or the
+      dense route's matrices).
 
     The dense route is differentiable with respect to ``x`` and ``boxes``.
     """
@@ -136,16 +146,17 @@ def crop_and_resize(
         _warn_classic_border_divergence()
     if flip is not None and tuple(flip.shape) != (x.shape[0],):
         raise ValueError(f"flip must be [N] bools, got {tuple(flip.shape)}")
-    if use_windowed is None:
-        use_windowed = flip is None
-    if use_windowed and flip is None:
-        from .crop_cuda import crop_and_resize_windowed, crop_windowed_supported
+    if use_windowed is not False:
+        from . import crop_cuda as cc
 
-        if crop_windowed_supported(x, out_hw, method, antialias, max_box_frac):
-            return crop_and_resize_windowed(
-                x, boxes.float(), out_hw, method=method, antialias=antialias,
-                max_box_frac=max_box_frac,
-            )
+        if flip is None:
+            if cc.crop_windowed_supported(x, out_hw, method, antialias, max_box_frac):
+                return cc.crop_and_resize_windowed(
+                    x, boxes.float(), out_hw, method=method, antialias=antialias,
+                    max_box_frac=max_box_frac,
+                )
+        elif x.device.type == "cuda" and cc.crop_f32_supported(x, method, antialias):
+            return cc.crop_and_resize_f32(x, boxes.float(), out_hw, method=method, flip=flip)
     from .resize import _finalize_dtype
 
     N, C, H, W = x.shape

@@ -34,6 +34,15 @@ package's ``crop_and_resize_windowed``:
     floor(v + 0.5)`` clamped (row 11); the TPU's split-bf16 matrix products
     are a matrix-unit precision trick and are not reproduced.
 
+A third variant, :func:`crop_and_resize_f32`, is no port of a TPU kernel:
+the dense route's arithmetic (:mod:`.crop`) over each row's nonzero taps,
+which ``crop_and_resize`` takes for flipped uint8 calls on the card.  Its
+tables are ``"split"``'s float32 weights over one window of the whole axis
+(no row renormalises over a truncated window), a per-image flip folded into
+the W tables (:func:`_mirror`), and the intermediate stays float32, so the
+output is rounded once (``launches_crop_f32`` counts its passes'
+launches).
+
 The kernel reads, per output row, its first input index and ``T`` weights
 from that index on (:func:`_compact`: each band column's nonzero range,
 which is contiguous, padded with zero weights to ``T``, a static bound on
@@ -76,7 +85,8 @@ from . import cuda_resize as cr
 from .filters import (CUBIC_NAMES, box_filter, filter_is_nonnegative, get_filter,
                       hamming_filter, triangle_filter)
 
-__all__ = ["crop_windowed_supported", "crop_and_resize_windowed"]
+__all__ = ["crop_windowed_supported", "crop_and_resize_windowed", "crop_f32_supported",
+           "crop_and_resize_f32"]
 
 # Launches of the crop kernel (one per pass): the wrapper adds one per
 # launch and nowhere else.
@@ -84,10 +94,16 @@ launches_crop = 0
 # Launches of the table kernel (one per call on the card, both axes): its
 # wrapper adds one per launch and nowhere else.
 launches_crop_tables = 0
+# Launches of the float32-intermediate passes (one per pass):
+# :func:`_launch` adds one per launch of ``ia_crop_pass`` with a float32
+# side and nowhere else.
+launches_crop_f32 = 0
 
 _LANE = 128  # output rows per window tile, and the W pass's start alignment
 _ALIGN_H = 32  # the H pass's start alignment (the TPU's uint8 sublane tile)
 _PRECISIONS = ("pil_int8", "split")
+# the element dtype codes of ia_crop_pass (ia_dtypes.cuh::DType)
+_DTYPES = {torch.uint8: 0, torch.float32: 1}
 _SUM_WINDOW = 32  # the window of XLA's CPU tree reductions (:func:`_tree_sum`)
 # the table kernel (csrc/crop_tables.cu): its block, its group sizes (lanes
 # per output row), the chunks of a group's lanes a row's taps fill in one
@@ -271,13 +287,15 @@ class _Rows(NamedTuple):
     """What one pass's rows need beside their tables, to compute the
     weights of a row past the tap bound again: the boxes ``[N, 4]``
     (float32, on the tables' device), the axis (0: H from box columns 0 and
-    2, 1: W from 1 and 3), its geometry and the filter."""
+    2, 1: W from 1 and 3), its geometry, the filter, and the images whose
+    rows the pass mirrors (``flip [N]`` bool, or None; :func:`_mirror`)."""
 
     boxes: torch.Tensor
     axis: int
     ax: _Axis
     mode: str
     antialias: bool
+    flip: torch.Tensor | None = None
 
 
 class _Table(NamedTuple):
@@ -291,6 +309,16 @@ class _Table(NamedTuple):
     w: torch.Tensor  # [N, out, T] int32 or float32
     wins: tuple
     rows: _Rows
+
+
+def _mirror(t: torch.Tensor, flip: torch.Tensor | None) -> torch.Tensor:
+    """Per-row tables ``[N, out, ...]`` with the rows of the images ``flip``
+    marks in reverse order: output ``o`` of such an image takes row ``out -
+    1 - o``'s values (a horizontal flip folded into the W tables, as
+    :func:`.crop._axis_matrix` folds it into its matrices)."""
+    if flip is None:
+        return t
+    return torch.where(flip.view(-1, *(1,) * (t.ndim - 1)), t.flip(1), t)
 
 
 def _compact(starts: torch.Tensor, band: torch.Tensor, out_size: int, T: int):
@@ -334,14 +362,16 @@ def _store_u8(acc: torch.Tensor, pb: int | None) -> torch.Tensor:
     return v.clamp_(0, 255).to(torch.uint8)
 
 
-def _crop_pass_plain(x4: torch.Tensor, tab, pb: int | None) -> torch.Tensor:
-    """One pass's plain version: ``x4[N, R, n_in, inner]`` uint8 ->
-    ``[N, R, n_out, inner]`` uint8 with per-image row tables (:class:`_Table`);
-    each row's ``cnt`` taps summed in order from ``j = 0``, each product and
-    sum rounded (float) or exact (int32).  A row with more taps than the
-    tables hold (a box wider than the image) takes all its weights from the
-    band of its box (:func:`_row_weights`), the bits the kernel computes
-    again from the box."""
+def _crop_pass_plain(x4: torch.Tensor, tab, pb: int | None,
+                     out_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+    """One pass's plain version: ``x4[N, R, n_in, inner]`` (uint8, or the
+    float32 intermediate) -> ``[N, R, n_out, inner]`` uint8, or the float32
+    sums unrounded for ``out_dtype`` float32, with per-image row tables
+    (:class:`_Table`); each row's ``cnt`` taps summed in order from ``j =
+    0``, each product and sum rounded (float) or exact (int32).  A row with
+    more taps than the tables hold (a box wider than the image) takes all
+    its weights from the band of its box (:func:`_row_weights`), the bits
+    the kernel computes again from the box."""
     first, cnt, w = tab.first, tab.cnt, tab.w
     N, R, n_in, inner = x4.shape
     n_out = first.shape[1]
@@ -357,7 +387,7 @@ def _crop_pass_plain(x4: torch.Tensor, tab, pb: int | None) -> torch.Tensor:
         idx = (first + j).clamp(max=n_in - 1).long()
         xv = x4.gather(2, idx[:, None, :, None].expand(N, R, n_out, inner))
         acc = acc + w[:, None, :, j, None] * xv.to(adt)
-    return _store_u8(acc, pb)
+    return acc if out_dtype == torch.float32 else _store_u8(acc, pb)
 
 
 def _check_int32(name: str, k: int, pb: int | None) -> None:
@@ -402,52 +432,66 @@ def _crop_windows(n_in: int, n_out: int, T: int, frac: float, support: float,
 @lru_cache(maxsize=256)
 @builds
 def _crop_plan(wins: tuple, n_in: int, n_out: int, T: int, N: int, R: int, inner: int,
-               n_sm: int, vec4: bool) -> cr.PlanAxis | None:
-    """A crop pass's plan over uint8 ``x[N, R, n_in, inner]``: kernel B's
+               n_sm: int, vec4: bool, itemsize: int) -> cr.PlanAxis | None:
+    """A crop pass's plan over ``x[N, R, n_in, inner]`` of ``itemsize``-byte
+    elements (uint8, or the float32 intermediate): kernel B's
     (``cuda_resize._axis_tiles``, its model of a launch) over the windows
     ``wins`` (:func:`_crop_windows`), tiles along ``N * R`` cut at each
     image's ``R`` planes; None (kernel B's unstaged body) for a pass that
     moves at most ``cuda_resize._AXIS_UNSTAGED_BYTES`` or where no tile
     fits, as kernel B's plan decides."""
     outer = N * R
-    if outer * inner * (n_in + n_out) <= cr._AXIS_UNSTAGED_BYTES:
+    if outer * inner * (n_in + n_out) * itemsize <= cr._AXIS_UNSTAGED_BYTES:
         return None
-    best = max(cr._axis_tiles(wins, n_out, T, n_in, outer, inner, 1, n_sm, vec4, per_img=R),
+    best = max(cr._axis_tiles(wins, n_out, T, n_in, outer, inner, itemsize, n_sm, vec4,
+                              per_img=R),
                default=None)
     return None if best is None else best[1]
 
 
 def _launch(lib, x, out, tab: _Table, N, R, n_in, inner, n_out, pb, dev):
-    global launches_crop
+    """One crop pass of ``ia_crop_pass``: uint8 -> uint8 (``launches_crop``),
+    or a float32-intermediate pass, where either side is float32
+    (``launches_crop_f32``)."""
+    global launches_crop, launches_crop_f32
     T = tab.w.shape[-1]
+    f32 = torch.float32 in (x.dtype, out.dtype)
     plan = _crop_plan(tab.wins, n_in, n_out, T, N, R, inner, cr._n_sm(dev),
-                      x.data_ptr() % 4 == 0)
+                      x.data_ptr() % 4 == 0, x.element_size())
     rows, ax = tab.rows, tab.rows.ax
     filt = get_filter(rows.mode)
-    with span("ia.native.crop_resample"):
+    name = "crop_f32" if f32 else "crop_resample"
+    with span("ia.native.crop_f32") if f32 else span("ia.native.crop_resample"):
         err = lib.ia_crop_pass(
-            x.data_ptr(), out.data_ptr(), N, R, n_in, inner, n_out, tab.first.data_ptr(),
-            tab.w.data_ptr(), T, -1 if pb is None else pb, tab.cnt.data_ptr(),
-            rows.boxes.data_ptr(), rows.axis, _TABLE_FILTERS[filt.fn], filt.support,
-            int(rows.antialias), ax.k, ax.align, _hi_start(ax),
+            x.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], _DTYPES[out.dtype], N, R, n_in,
+            inner, n_out, tab.first.data_ptr(), tab.w.data_ptr(), T, -1 if pb is None else pb,
+            tab.cnt.data_ptr(), rows.boxes.data_ptr(), rows.axis, _TABLE_FILTERS[filt.fn],
+            filt.support, int(rows.antialias), ax.k, ax.align, _hi_start(ax),
+            None if rows.flip is None else rows.flip.data_ptr(),
             *((0, 0, 0, 0, 1, 0) if plan is None else plan[:6]),
             torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"crop_resample launch failed: cudaError {err}")
-        launches_crop += 1
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        if f32:
+            launches_crop_f32 += 1
+        else:
+            launches_crop += 1
 
 
-def _crop_resample_plain(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Tensor:
+def _crop_resample_plain(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w,
+                         inter_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
     """The kernel's plain version, on any device: both passes of
-    :func:`_crop_pass_plain`."""
+    :func:`_crop_pass_plain`, the intermediate on the uint8 lattice or in
+    float32 (``inter_dtype``)."""
     N, C, H, W = x.shape
     OH, OW = tab_h.first.shape[1], tab_w.first.shape[1]
-    inter = _crop_pass_plain(x, tab_h, pb_h)
+    inter = _crop_pass_plain(x, tab_h, pb_h, inter_dtype)
     y = _crop_pass_plain(inter.reshape(N, C * OH, W, 1), tab_w, pb_w)
     return y.reshape(N, C, OH, OW)
 
 
-def _crop_resample_cuda(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Tensor:
+def _crop_resample_cuda(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w,
+                        inter_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
     from .. import native
 
     N, C, H, W = x.shape
@@ -457,7 +501,7 @@ def _crop_resample_cuda(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Tens
     lib = native.build()
     dev = x.device
     x = x.contiguous()
-    inter = torch.empty((N, C, OH, W), dtype=torch.uint8, device=dev)
+    inter = torch.empty((N, C, OH, W), dtype=inter_dtype, device=dev)
     out = torch.empty((N, C, OH, OW), dtype=torch.uint8, device=dev)
     if out.numel() == 0:
         return out
@@ -467,15 +511,17 @@ def _crop_resample_cuda(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Tens
     return out
 
 
-def _crop_resample(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w) -> torch.Tensor:
+def _crop_resample(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w,
+                   inter_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
     """Both passes: uint8 ``x[N, C, H, W]`` -> uint8 ``[N, C, OH, OW]`` over
     the compact row tables ``tab_*`` (:class:`_Table`: float32 ``w`` and
-    ``pb None``, or int32 ``w`` and ``pb``): the kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
+    ``pb None``, or int32 ``w`` and ``pb``), through an intermediate on the
+    uint8 lattice or, with float32 tables, in float32 (``inter_dtype``):
+    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cuda":
-        return _crop_resample_cuda(x, tab_h, tab_w, pb_h, pb_w)
+        return _crop_resample_cuda(x, tab_h, tab_w, pb_h, pb_w, inter_dtype)
     if x.device.type == "cpu":
-        return _crop_resample_plain(x, tab_h, tab_w, pb_h, pb_w)
+        return _crop_resample_plain(x, tab_h, tab_w, pb_h, pb_w, inter_dtype)
     raise ValueError(f"crop_resample runs on CUDA (kernel) or CPU (plain "
                      f"version), not on {x.device}")
 
@@ -511,6 +557,37 @@ def crop_windowed_supported(x, out_hw, method: str, antialias: bool,
     if not (0.0 < fh <= 1.0 and 0.0 < fw <= 1.0):
         return False
     return filter_is_nonnegative(_mode(method, antialias))
+
+
+def crop_f32_supported(x, method: str, antialias: bool) -> bool:
+    """Admission for the float32-intermediate route
+    (:func:`crop_and_resize_f32`): uint8 NCHW, antialiased, with a filter
+    the table kernel evaluates (triangle, Hamming, box: the non-negative
+    ones).  The box-span bound plays no part: its windows cover the whole
+    axis."""
+    return (x.ndim == 4 and x.dtype == torch.uint8 and antialias
+            and get_filter(_mode(method, antialias)).fn in _TABLE_FILTERS)
+
+
+@spanned("ia.ops.crop_f32")
+def crop_and_resize_f32(x: torch.Tensor, boxes: torch.Tensor, out_hw: tuple[int, int],
+                        method: str = "bilinear",
+                        flip: torch.Tensor | None = None) -> torch.Tensor:
+    """The dense route's arithmetic over each row's nonzero taps: uint8
+    ``[N, C, H, W]``, boxes ``[N, 4]`` (normalised ``(y0, x0, y1, x1)``)
+    and an optional per-image horizontal flip ``[N]`` bool -> uint8 ``[N,
+    C, OH, OW]``.  Float32 weights (the table kernel's, over one window of
+    the whole axis, so no row is renormalised over a truncated window; the
+    flip folded into the W tables, :func:`_mirror`), float32 products and
+    sums in tap order, a float32 intermediate, and one rounding,
+    ``floor(v + 0.5)`` clamped, always antialiased: on a CUDA tensor the
+    table kernel and two float32-intermediate launches of ``ia_crop_pass``
+    (``launches_crop_f32``), on a CPU tensor their plain versions, bit for
+    bit the same.  Callers route through :func:`crop_f32_supported`."""
+    if debug_enabled():
+        print(f"[ia-tpu] crop_resample f32 ({x.device.type})")
+    return _crop_resample(x, *_f32_tables(x, boxes, out_hw, method, flip),
+                          torch.float32)
 
 
 @spanned("ia.ops.crop_windowed")
@@ -604,9 +681,14 @@ def _table_geometry(H: int, W: int, oh: int, ow: int, mode: str, antialias: bool
                     fracs: tuple[float, float], precision: str):
     """The static host side of a call's tables, from the shapes alone:
     ``((_Axis, windows) for H, (_Axis, windows) for W)``, the windows those
-    :func:`_crop_windows` gives the crop passes."""
+    :func:`_crop_windows` gives the crop passes.  ``precision`` ``"f32"``
+    (the float32-intermediate route) takes float32 weights over one window
+    of the whole padded axis (start 0), so that no box, however wide,
+    renormalises over a truncated window."""
     support = get_filter(mode).support
     align_h, Hp, k_h, W2, k_w = _geom(H, W, oh, ow, support, antialias, fracs)
+    if precision == "f32":
+        k_h, k_w = Hp, W2
     fh, fw = fracs
     pb_h = pb_w = None
     if precision == "pil_int8":
@@ -638,24 +720,44 @@ def _windowed_tables(x, boxes, out_hw, method, antialias, max_box_frac,
     (:func:`_windowed_tables_plain`); both give the same bits."""
     if precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {_PRECISIONS}, got {precision!r}")
+    return _tables(x, boxes, out_hw, method, antialias, _fracs(max_box_frac), precision)
+
+
+@spanned("ia.tables.crop_f32")
+def _f32_tables(x, boxes, out_hw, method, flip):
+    """:func:`_windowed_tables` for the float32-intermediate route,
+    antialiased: float32 weights over windows of the whole axis
+    (``precision`` ``"f32"``), their
+    crop windows at the whole-image bound, the W tables mirrored where
+    ``flip`` (``[N]`` bool, or None) is set."""
+    if flip is not None:
+        if tuple(flip.shape) != (x.shape[0],):
+            raise ValueError(f"flip must be [N] bools, got {tuple(flip.shape)}")
+        flip = flip.to(device=x.device, dtype=torch.bool).contiguous()
+    return _tables(x, boxes, out_hw, method, True, (1.0, 1.0), "f32", flip)
+
+
+def _tables(x, boxes, out_hw, method, antialias, fracs, precision, flip=None):
+    """Both routes' table build, unspanned: the geometry of ``precision``
+    at the box-span bound ``fracs``, the W tables mirrored where ``flip``
+    is set."""
     N, C, H, W = x.shape
     if tuple(boxes.shape) != (N, 4):
         raise ValueError(f"boxes must be [N, 4] = [{N}, 4], got {tuple(boxes.shape)}")
     mode = _mode(method, antialias)
     (ax_h, wins_h), (ax_w, wins_w) = _table_geometry(
-        H, W, int(out_hw[0]), int(out_hw[1]), mode, antialias, _fracs(max_box_frac),
-        precision)
+        H, W, int(out_hw[0]), int(out_hw[1]), mode, antialias, fracs, precision)
     # dense [N, 4]: the table kernel and both crop passes index the boxes so
     b = boxes.to(device=x.device, dtype=torch.float32).contiguous()
     if x.device.type == "cuda":
-        tab_h, tab_w = _windowed_tables_cuda(b, mode, antialias, (ax_h, ax_w))
+        tab_h, tab_w = _windowed_tables_cuda(b, mode, antialias, (ax_h, ax_w), flip)
     elif x.device.type == "cpu":
-        tab_h, tab_w = _windowed_tables_plain(b, mode, antialias, (ax_h, ax_w))
+        tab_h, tab_w = _windowed_tables_plain(b, mode, antialias, (ax_h, ax_w), flip)
     else:
         raise ValueError(f"crop_tables runs on CUDA (kernel) or CPU (plain "
                          f"version), not on {x.device}")
     return (_Table(*tab_h, wins_h, _Rows(b, 0, ax_h, mode, antialias)),
-            _Table(*tab_w, wins_w, _Rows(b, 1, ax_w, mode, antialias)), ax_h.pb, ax_w.pb)
+            _Table(*tab_w, wins_w, _Rows(b, 1, ax_w, mode, antialias, flip)), ax_h.pb, ax_w.pb)
 
 
 def _hi_start(ax: _Axis) -> int:
@@ -677,26 +779,29 @@ def _axis_band(rows: _Rows):
 
 def _row_weights(rows: _Rows, width: int) -> torch.Tensor:
     """Every row's compact weights ``[N, out, width]`` (:func:`_compact` of
-    the band of its box): all taps of a row past the tap bound, for
-    ``width`` at least its count."""
+    the band of its box, mirrored as the pass mirrors it): all taps of a
+    row past the tap bound, for ``width`` at least its count."""
     starts, band = _axis_band(rows)
-    return _compact(starts, band, rows.ax.out_size, width)[2]
+    return _mirror(_compact(starts, band, rows.ax.out_size, width)[2], rows.flip)
 
 
-def _windowed_tables_plain(b: torch.Tensor, mode: str, antialias: bool, axes):
+def _windowed_tables_plain(b: torch.Tensor, mode: str, antialias: bool, axes, flip=None):
     """The table kernel's plain version, on any device: per axis (H from
     box columns 0 and 2, W from 1 and 3) :func:`_windowed_band`,
-    :func:`_digitize_band` where ``pb`` is set, then :func:`_compact`;
-    ``[(first, cnt, w)] * 2``."""
-    return [_compact(*_axis_band(_Rows(b, a, ax, mode, antialias)), ax.out_size, ax.T)
+    :func:`_digitize_band` where ``pb`` is set, then :func:`_compact`, the
+    W tables mirrored where ``flip`` is set (:func:`_mirror`); ``[(first,
+    cnt, w)] * 2``."""
+    return [tuple(_mirror(t, flip if a == 1 else None) for t in
+                  _compact(*_axis_band(_Rows(b, a, ax, mode, antialias)), ax.out_size, ax.T))
             for a, ax in enumerate(axes)]
 
 
-def _windowed_tables_cuda(b: torch.Tensor, mode: str, antialias: bool, axes):
+def _windowed_tables_cuda(b: torch.Tensor, mode: str, antialias: bool, axes, flip=None):
     """Both axes' tables in one launch of ``csrc/crop_tables.cu`` (the plain
     version's arithmetic, each row's compact taps written directly by one
     thread or a group of lanes (:func:`_table_plan`); a row past ``T``
-    keeps its true count and its first ``T`` weights)."""
+    keeps its true count and its first ``T`` weights; the W rows of the
+    images ``flip`` marks written mirrored)."""
     global launches_crop_tables
     from .. import native
 
@@ -722,6 +827,7 @@ def _windowed_tables_cuda(b: torch.Tensor, mode: str, antialias: bool, axes):
     with torch.cuda.device(dev), span("ia.native.crop_tables"):
         err = lib.ia_crop_tables(b.data_ptr(), N, _TABLE_FILTERS[filt.fn], filt.support,
                                  int(antialias), *args,
+                                 None if flip is None else flip.data_ptr(),
                                  torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"crop_tables launch failed: cudaError {err}")

@@ -65,7 +65,7 @@ def launch_counts() -> dict:
 
     return {"pil_resample_2pass": pe.launches, "resample2d": cr.launches_2d,
             "resample_axis": cr.launches_axis, "crop_tables": cc.launches_crop_tables,
-            "crop_resample": cc.launches_crop,
+            "crop_resample": cc.launches_crop, "crop_f32": cc.launches_crop_f32,
             "pil_resample_axis": pe.launches_axis,
             "resample2d_fused": cr.launches_2d_fused,
             "resample_axis_fused": cr.launches_axis_fused}

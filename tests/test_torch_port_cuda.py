@@ -654,28 +654,32 @@ def _forced_crop(monkeypatch, which, plan, real):
     """The crop pass ``which`` ("h": inner > 1, "w": inner == 1) launches
     ``plan``; the other pass keeps the production plan ``real``."""
 
-    def pick(wins, n_in, n_out, T, N, R, inner, n_sm, vec4):
+    def pick(wins, n_in, n_out, T, N, R, inner, n_sm, vec4, itemsize):
         if (inner > 1) == (which == "h"):
             return plan
-        return real(wins, n_in, n_out, T, N, R, inner, n_sm, vec4)
+        return real(wins, n_in, n_out, T, N, R, inner, n_sm, vec4, itemsize)
 
     monkeypatch.setattr(cc, "_crop_plan", pick)
 
 
-def _crop_every_tile(dev, monkeypatch, x, tables, want):
+def _crop_every_tile(dev, monkeypatch, x, tables, want, inter_dtype=torch.uint8):
+    """Every tile the plan considers, forced on each pass in turn, through
+    an intermediate of ``inter_dtype`` (the W pass stages its elements);
+    returns the count of calls."""
     N, C, H, W = x.shape
     tab_h, tab_w = tables[0], tables[1]
     OH, OW = tab_h.first.shape[1], tab_w.first.shape[1]
     real, n = cc._crop_plan, 0
-    for which, tab, n_in, n_out, R, inner in (("h", tab_h, H, OH, C, W),
-                                              ("w", tab_w, W, OW, C * OH, 1)):
+    isz_w = torch.empty((), dtype=inter_dtype).element_size()
+    for which, tab, n_in, n_out, R, inner, isz in (("h", tab_h, H, OH, C, W, 1),
+                                                   ("w", tab_w, W, OW, C * OH, 1, isz_w)):
         T = tab.w.shape[-1]
         plans = [p for _, p in cr._axis_tiles(
-            tab.wins, n_out, T, n_in, N * R, inner, 1, cr._n_sm(dev), x.data_ptr() % 4 == 0,
+            tab.wins, n_out, T, n_in, N * R, inner, isz, cr._n_sm(dev), x.data_ptr() % 4 == 0,
             per_img=R)]
         for plan in list(dict.fromkeys(plans)) + [None]:
             _forced_crop(monkeypatch, which, plan, real)
-            got = cc._crop_resample(x, *tables)
+            got = cc._crop_resample(x, *tables, inter_dtype)
             assert torch.equal(got, want), (which, plan)
             n += 1
     return n
@@ -913,6 +917,139 @@ def test_crop_strided_zoom_out_boxes_match_plain(dev, precision, monkeypatch):
     _assert_equal(got, cc._crop_resample_plain(x, *tables))
 
 
+# ---------------------------------------------------------------------------
+# The float32-intermediate crop route (flips on the card)
+# ---------------------------------------------------------------------------
+
+# (name, x shape, (oh, ow), boxes, filter): the train cell's call, a small
+# one, 4K frames, and boxes wider than the image (rows past T, mirrored);
+# the small and the wide-box calls under each filter the route admits
+F32_METHODS = ["bilinear", "hamming", "box"]
+F32_CASES = [
+    *((f"small {m}", (6, 3, 300, 520), (96, 112), "rrc", m) for m in F32_METHODS),
+    ("train b64", *TRAIN_B64, "rrc", "bilinear"),
+    ("4k rrc", *CROP_4K, "rrc", "bilinear"),
+    *((f"wide boxes {m}", (6, 3, 300, 520), (96, 112), "wide", m) for m in F32_METHODS),
+    ("b64 zoom-out", *TRAIN_B64, "zoom-out", "bilinear"),
+]
+
+
+def _f32_call(dev, shape, boxes, seed):
+    """``(x, boxes, flip)`` on the card: RandomResizedCrop boxes
+    (``sample_boxes``), ZOOM_OUT, or zoom-out boxes per image, and flips at
+    0.5 holding both values."""
+    N, _, H, W = shape
+    x = _input(shape, torch.uint8, dev, seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    if boxes == "rrc":
+        b = sample_boxes(g, N, H, W)
+    elif boxes == "wide":
+        b = torch.tensor(ZOOM_OUT)
+    else:
+        b = torch.as_tensor(_zoom_out_boxes(N), dtype=torch.float32)
+    flip = torch.rand(N, generator=g) < 0.5
+    flip[:2] = torch.tensor([True, False])
+    return x, b.to(dev), flip.to(dev)
+
+
+@pytest.mark.parametrize("name,shape,ohw,boxes,method", F32_CASES,
+                         ids=[c[0] for c in F32_CASES])
+def test_crop_f32_kernels_match_plain(dev, monkeypatch, name, shape, ohw, boxes, method):
+    """The route's table launch and its two passes, bit for bit against
+    their plain versions on the card (tables with the flip folded in, the
+    float32 intermediate, one rounding), and a flipped output is exactly
+    the mirror of the unflipped one."""
+    x, b, flip = _f32_call(dev, shape, boxes, 41)
+    before = (cc.launches_crop_tables, cc.launches_crop_f32, cc.launches_crop)
+    got = cc.crop_and_resize_f32(x, b, ohw, method, flip=flip)
+    torch.cuda.synchronize()
+    assert (cc.launches_crop_tables, cc.launches_crop_f32, cc.launches_crop) == (
+        before[0] + 1, before[1] + 2, before[2])
+    tables = cc._f32_tables(x, b, ohw, method, flip)
+    if boxes != "rrc":
+        assert all(int(t.cnt.max()) > t.w.shape[-1] for t in tables[:2])
+    _plain_tables(monkeypatch)
+    want_tables = cc._f32_tables(x, b, ohw, method, flip)
+    _tables_equal(tables, want_tables)
+    _assert_equal(got, cc._crop_resample_plain(x, *want_tables, torch.float32))
+    unflipped = cc.crop_and_resize_f32(x, b, ohw, method)
+    _assert_equal(got, torch.where(flip[:, None, None, None], unflipped.flip(-1), unflipped))
+
+
+@pytest.mark.parametrize("method", F32_METHODS)
+@pytest.mark.parametrize("boxes", ["rrc", "wide"])
+def test_crop_f32_every_tile(dev, monkeypatch, boxes, method):
+    """Every tile the plan considers on each float32-intermediate pass (the
+    W pass stages float32 rows), mirrored rows past T included, byte for
+    byte against the plain version."""
+    x, b, flip = _f32_call(dev, (6, 3, 300, 520), boxes, 42)
+    tables = cc._f32_tables(x, b, (96, 112), method, flip)
+    want = cc._crop_resample_plain(x, *tables, torch.float32)
+    assert _crop_every_tile(dev, monkeypatch, x, tables, want, torch.float32) > 4
+
+
+def test_crop_routes_on_the_card(dev, monkeypatch):
+    """uint8 with flips takes the float32-intermediate route (one table
+    launch, two ``crop_f32`` passes: uint8 -> float32 -> uint8 over float32
+    tables); float input, a negative-lobe filter, ``antialias=False`` and
+    ``use_windowed=False`` stay dense (no hand-written launch); without
+    flips the windowed route keeps its integer tables (PilTaps), uint8 in
+    and out."""
+    from interpolate_antialiasing_tpu_torch.utils.inspect import launch_counts
+
+    x, b, flip = _f32_call(dev, (4, 3, 300, 520), "rrc", 43)
+    seen = []
+    real = cc._launch
+    monkeypatch.setattr(cc, "_launch", lambda lib, xi, out, tab, *a: seen.append(
+        (xi.dtype, out.dtype, tab.w.dtype)) or real(lib, xi, out, tab, *a))
+    u8, f32, i32 = torch.uint8, torch.float32, torch.int32
+    for inp, kw, launches, passes in [
+        (x, dict(flip=flip), {"crop_tables": 1, "crop_f32": 2}, [(u8, f32, f32), (f32, u8, f32)]),
+        (x, dict(flip=flip, use_windowed=True), {"crop_tables": 1, "crop_f32": 2},
+         [(u8, f32, f32), (f32, u8, f32)]),
+        (x, dict(flip=flip, use_windowed=False), {}, []),
+        (x, dict(flip=flip, method="bicubic"), {}, []),
+        (x, dict(flip=flip, antialias=False), {}, []),
+        (x.float(), dict(flip=flip), {}, []),
+        (x, {}, {"crop_tables": 1, "crop_resample": 2}, [(u8, u8, i32), (u8, u8, i32)]),
+    ]:
+        seen.clear()
+        before = launch_counts()
+        y = iat.crop_and_resize(inp, b, (96, 112), **kw)
+        torch.cuda.synchronize()
+        assert y.shape == (4, 3, 96, 112) and y.dtype == inp.dtype
+        got = {k: v - before[k] for k, v in launch_counts().items() if v > before[k]}
+        assert (got, seen) == (launches, passes), kw
+    dense = iat.crop_and_resize(x, b, (96, 112), flip=flip, use_windowed=False).int()
+    diff = (iat.crop_and_resize(x, b, (96, 112), flip=flip).int() - dense).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("seed", [5100000010, 3200000011, 2**31 + 12345])
+def test_crop_f32_route_against_the_reference(dev, seed):
+    """The train cell's call (b64 u8 3x438x906 -> 224^2, its boxes and
+    flips at 0.5 from the seed) against ``perfbench.reference.crop
+    .crop_dense`` (float64, one rounding) under the cell's limits:
+    ``mismatch_pct`` <= 1.5 (the worst image's share of levels off the
+    reference) and ``level_gap`` <= 1."""
+    from perfbench.harness import traffic as gen
+    from perfbench.reference import crop as ref
+
+    H, W = 438, 906
+    g = gen.generator(seed, dev)
+    x = gen.images(g, 1, 64, (3, H, W), dev)[0]
+    b = gen.resized_crop_boxes(g, 64, H, W, (0.08, 1.0), (0.75, 4 / 3), dev)
+    flip = gen.flips(g, 64, 0.5, dev)
+    before = cc.launches_crop_f32
+    y = iat.crop_and_resize(x, b, (224, 224), flip=flip, max_box_frac=box_fracs(H, W))
+    assert cc.launches_crop_f32 == before + 2
+    sides = (-1, 1) if ref.on_edge(b, H, W) else (0,)
+    refs = torch.stack([ref.crop_dense(x, b, 224, 224, flip, side=s) for s in sides])
+    off = (y.double()[None] - refs).abs().amin(0)
+    mismatch_pct = float((off != 0).flatten(1).double().mean(1).max()) * 100.0
+    assert mismatch_pct <= 1.5 and float(off.max()) <= 1.0, (mismatch_pct, float(off.max()))
+
+
 def test_random_resized_crop_launches_the_table_kernel_once(dev):
     x = _input((4, 3, 300, 520), torch.uint8, dev, seed=34)
     before = cc.launches_crop_tables
@@ -1029,8 +1166,7 @@ def test_a_hand_written_call_makes_its_launches_in_kernel_records(dev):
 def test_native_spans_per_call_equal_the_launch_counters(dev, route):
     """Under the profiler, the ``ia.native.<kernel>`` spans of two pipeline
     calls equal the launch counters' deltas, kernel by kernel, on the eval
-    route, the dense crop (flips: no hand-written launch) and the windowed
-    crop."""
+    route, the float32-intermediate crop (flips) and the windowed crop."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
@@ -1065,5 +1201,6 @@ def test_native_spans_per_call_equal_the_launch_counters(dev, route):
     spans = Counter(e.name.removeprefix("ia.native.") for e in prof.events()
                     if e.name.startswith("ia.native.") and e.device_type == host)
     assert dict(spans) == launched
-    assert launched == {"eval": {"pil_resample_2pass": 2}, "train": {},
+    assert launched == {"eval": {"pil_resample_2pass": 2},
+                        "train": {"crop_tables": 2, "crop_f32": 4},
                         "train_noflip": {"crop_tables": 2, "crop_resample": 4}}[route]

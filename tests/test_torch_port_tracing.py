@@ -156,7 +156,7 @@ CACHED = {
                           lambda: pe._plan_2pass(*_int_table_pair(), 6, 60, 124)),
     "_table_geometry": (cc._table_geometry, _geometry),
     "_crop_plan": (cc._crop_plan, lambda: cc._crop_plan(
-        _geometry()[0][1], 60, 28, _axes()[0].T, 2, 3, 124, 132, True)),
+        _geometry()[0][1], 60, 28, _axes()[0].T, 2, 3, 124, 132, True, 1)),
     "_table_plan": (cc._table_plan, lambda: cc._table_plan(_axes(), 2, 132)),
     "_table_blocks": (cc._table_blocks, lambda: cc._table_blocks(2, _axes(), (1, 1))),
 }

@@ -396,7 +396,7 @@ def test_crop_windows_hold_every_tap(name):
             assert bool((lo >= r0)[staged].all()) and bool((hi < r0 + rows)[staged].all())
             if inb:
                 assert bool(staged.all()), (tile_o, win)
-        plan = cc._crop_plan(tab.wins, n_in, n_out, T, N, R, inner, cr._H100_SMS, True)
+        plan = cc._crop_plan(tab.wins, n_in, n_out, T, N, R, inner, cr._H100_SMS, True, 1)
         if plan is not None:
             assert (plan.tile_o, plan.win) in tab.wins
 
@@ -472,7 +472,7 @@ def test_crop_b64_zoom_out_reads_no_device_memory():
                                                                   1)):
         T = tab.w.shape[-1]
         assert bool((tab.cnt > T).any())
-        plan = cc._crop_plan(tab.wins, n_in, n_out, T, N, R, inner, cr._H100_SMS, True)
+        plan = cc._crop_plan(tab.wins, n_in, n_out, T, N, R, inner, cr._H100_SMS, True, 1)
         tiles, direct = _check_chunks(tab, n_in, plan.tile_o, plan.win)
         assert tiles and direct == 0
         for tile_o, win in tab.wins:
@@ -505,7 +505,7 @@ def test_crop_plan_cuts_tiles_at_image_edges():
     N, C, OH, W, OW, T = 64, 3, 224, 906, 224, 10
     R = C * OH
     wins = cc._crop_windows(W, OW, T, 1.0, 1.0, True)
-    plan = cc._crop_plan(wins, W, OW, T, N, R, 1, cr._H100_SMS, True)
+    plan = cc._crop_plan(wins, W, OW, T, N, R, 1, cr._H100_SMS, True, 1)
     assert plan is not None
     assert plan.blocks == N * -(-R // plan.tile_j) * -(-OW // plan.tile_o)
     assert plan.smem == cr._axis_smem_bytes(plan.tile_j, plan.tile_o, plan.tile_i, plan.win,
@@ -517,7 +517,7 @@ def test_crop_plan_cuts_tiles_at_image_edges():
     assert max(p.tile_j for _, p in cr._axis_tiles(wins_h, 224, 5, 438, N * C, W, 1,
                                                    cr._H100_SMS, True, per_img=C)) <= C
     # a small pass runs the unstaged body, as kernel B's plan decides
-    assert cc._crop_plan(wins, W, OW, T, 1, 3, 1, cr._H100_SMS, True) is None
+    assert cc._crop_plan(wins, W, OW, T, 1, 3, 1, cr._H100_SMS, True, 1) is None
 
 
 def test_crop_plan_is_kernel_b_plan_for_one_image():

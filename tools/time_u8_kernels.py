@@ -236,15 +236,16 @@ def _sweep_crop(name, x, t, cc, cr, flush, card) -> None:
                                               ("w", t[1], W, 224, C * 224, 1)):
         T = tab.w.shape[-1]
         vec4 = x.data_ptr() % 4 == 0
-        plan = real(tab.wins, n_in, n_out, T, N, R, inner, cr._n_sm(x.device), vec4)
+        plan = real(tab.wins, n_in, n_out, T, N, R, inner, cr._n_sm(x.device), vec4, 1)
         cands = [p for _, p in cr._axis_tiles(tab.wins, n_out, T, n_in, N * R, inner, 1,
                                               cr._n_sm(x.device), vec4, per_img=R)]
         times = {}
         for p in list(dict.fromkeys(cands)) + [None]:
-            def pick(wins, n_in, n_out, T, N, R, inner, n_sm, vec4, p=p, which=which):
+            def pick(wins, n_in, n_out, T, N, R, inner, n_sm, vec4, itemsize, p=p,
+                     which=which):
                 if (inner > 1) == (which == "h"):
                     return p
-                return real(wins, n_in, n_out, T, N, R, inner, n_sm, vec4)
+                return real(wins, n_in, n_out, T, N, R, inner, n_sm, vec4, itemsize)
 
             cc._crop_plan = pick
             try:
