@@ -9,7 +9,8 @@ its own load, and the comparison of the same sample of outputs that a run
 compares (the lower readings: sound runs of the port).  On the first
 ``--control-seeds`` seeds, each of the entry's controls (one stage of the
 path one precision lower, in the port's place) is compared on the same
-calls (the upper readings).  One JSON line per seed, then the largest
+calls (the upper readings), each by the traffic's check
+(``perfbench/checks/<kind>.py``).  One JSON line per seed, then the largest
 sound reading and the least control reading of each number.  The
 benchmark's own runs never run this.
 """
@@ -31,14 +32,15 @@ def readings(bench: dict, workload: str, seed: int, seconds: float, controls: bo
              device="cuda:0") -> dict:
     """The sound reading of one seed and, with ``controls``, each control's."""
     cell, config, traffic = run.cell_files(bench, workload)
+    check = run.checker(traffic)
     entry, sync = run.setup(config, traffic, seed, torch.device(device))
     _, sampler = run.run_window(entry, traffic, seed, seconds, sync)
-    out = {"seed": seed, "sound": run._check(entry, sampler.kept)}
+    out = {"seed": seed, "sound": run._check(entry, sampler.kept, check)}
     if controls:
         out["controls"] = {}
         for name, fn in entry.controls().items():
             kept = [(i, fn(i)) for i, _ in sampler.kept]
-            out["controls"][name] = run._check(entry, kept)
+            out["controls"][name] = run._check(entry, kept, check)
     return out
 
 
@@ -53,6 +55,7 @@ def main(argv=None) -> int:
         print("control.py reads the card; there is none", file=sys.stderr)
         return 2
     bench = json.loads((run.ROOT / "BENCHMARK.json").read_text())
+    numbers = run.checker(run.cell_files(bench, args.workload)[2]).NUMBERS
     torch.set_num_threads(1)
     sound, ctrl = [], {}
     for j, seed in enumerate(args.seeds):
@@ -65,8 +68,8 @@ def main(argv=None) -> int:
             ctrl.setdefault(name, []).append(reading)
         torch.cuda.empty_cache()
     summary = {"workload": args.workload, "seeds": len(args.seeds),
-               "lower": compare.worst(sound),
-               "controls": {name: {k: min(x[k] for x in rs) for k in compare.NUMBERS}
+               "lower": compare.worst(sound, numbers),
+               "controls": {name: {k: min(x[k] for x in rs) for k in numbers}
                             for name, rs in ctrl.items()}}
     print(json.dumps(summary), flush=True)
     return 0

@@ -57,7 +57,7 @@ class Entry:
         # torchvision center_crop: int(round(d / 2.0)), half to even
         return H, W, rh, rw, ch, cw, int(round((rh - ch) / 2.0)), int(round((rw - cw) / 2.0))
 
-    def levels(self, i: int) -> torch.Tensor:
+    def reference(self, i: int) -> torch.Tensor:
         """The reference's grey levels of call ``i``'s batch, float64."""
         _, _, rh, rw, ch, cw, top, left = self._geometry()
         y = pillow.resize(self.x[i % self.pool], rh, rw, self.preset["interpolation"])

@@ -7,13 +7,17 @@ The boxes follow the RandomResizedCrop rule of the configuration's
 ``preset`` (:func:`perfbench.harness.traffic.resized_crop_boxes`), the
 flips the traffic's ``hflip_prob``.  Where ``hflip_prob`` is 0 the call
 passes no flip, and the port takes its windowed route (fixed-point
-weights, a uint8 intermediate); with flips it takes the dense route
-(float32 products, TF32 off).  The reference follows the route's
-semantics (:mod:`perfbench.reference.crop`), the windowed one at the
-weight precision the configuration states (``windowed_route``); the controls are that
-reference one precision lower in one stage, put in the port's place: TF32
-products (dense) or 7-bit weights (windowed), or a bfloat16
-normalisation.
+weights, a uint8 intermediate).  With flips it takes, on the card, the
+float32-intermediate passes (float32 weights and products, a float32
+intermediate, one rounding, the flip folded into the W tables), and on
+the CPU the dense route (float32 matrix products, TF32 off): both the
+crop in float32, rounded once.  The reference follows the route's
+semantics (:mod:`perfbench.reference.crop`): the crop in real
+arithmetic rounded once (``crop_dense``), or the windowed one at the
+weight precision the configuration states (``windowed_route``).  The
+controls are that reference one precision lower in one stage, put in
+the port's place: TF32 products (flips) or 7-bit weights (windowed), or
+a bfloat16 normalisation.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ class Entry:
         return crop.crop_windowed(self.x[k], self.boxes[k], size, size, bits, bits, method,
                                   side)
 
-    def levels(self, i: int) -> torch.Tensor:
+    def reference(self, i: int) -> torch.Tensor:
         """The reference's grey levels of call ``i``'s batch, float64; where
         a pixel centre lies on a box edge, two readings stacked (the centre
         in, then out)."""
@@ -78,8 +82,8 @@ class Entry:
 
     def controls(self) -> dict:
         """The reference one precision lower in one stage, put in the port's
-        place: the crop (TF32 products on the dense route, 7-bit weights
-        on the windowed one), or the normalisation (bfloat16)."""
+        place: the crop (TF32 products where the traffic flips, 7-bit
+        weights on the windowed route), or the normalisation (bfloat16)."""
         f32, bf16 = torch.float32, torch.bfloat16
         crop_name = "tf32_products" if self.flips is not None else "weights_7bit"
         return {crop_name: lambda i: normalize(self._levels(i, True), self.mean, self.std, f32),

@@ -8,7 +8,8 @@ The cell, its configuration and its traffic mix are found by name:
 ``BENCHMARK.json`` names the cell's configuration file and traffic mix
 (``perfbench/traffic/<traffic>.json``); the configuration names its entry
 (``perfbench/entries/<entry>.py``), the traffic its loop
-(``perfbench/loops/<loop>.py``), and each metric is read by
+(``perfbench/loops/<loop>.py``) and its check
+(``perfbench/checks/<kind>.py``), and each metric is read by
 ``perfbench/metrics/<metric>.py``.
 
 Set-up makes the inputs on the card from the seed, builds the entry and
@@ -17,11 +18,11 @@ for ``--seconds``.  With ``--trace 1`` a profiled stretch of the traffic's
 ``trace_calls`` calls follows, and the per-layer metrics are read from it;
 with ``--trace 0`` the end-to-end metrics.  After the window a sample of
 its outputs, drawn from the seed, is compared with the plain reference
-(``perfbench/reference``).  The last line of standard output is the
-result, as JSON; the numbers compared, each beside its limit, are the
-last lines of standard error.  Exits non-zero with no result where there
-is no card, fewer cards than the cell asks for, or where JAX or the JAX
-package was loaded.
+(``perfbench/reference``) by the traffic's check.  The last line of
+standard output is the result, as JSON; the numbers compared, each beside
+its limit, are the last lines of standard error.  Exits non-zero with no
+result where there is no card, fewer cards than the cell asks for, or
+where JAX or the JAX package was loaded.
 """
 
 from __future__ import annotations
@@ -108,19 +109,25 @@ def _traced_stretch(entry, first: int, calls: int, sync, device) -> dict:
     return {"device": dev, "host": host, "trace_window": window, "trace_calls": calls}
 
 
-def _check(entry, kept: list) -> dict:
-    """The worst reading of each compared number over the kept outputs,
-    the reference computed once per input of the pool."""
+def checker(traffic: dict):
+    """The traffic's check: ``perfbench/checks/<check.kind>.py``, which
+    names its ``NUMBERS`` and gives ``compare(out, ref, entry)``."""
+    return load("checks", traffic["check"]["kind"])
+
+
+def _check(entry, kept: list, check) -> dict:
+    """The worst reading of each of ``check``'s numbers over the kept
+    outputs, the reference computed once per input of the pool."""
     by_input = defaultdict(list)
     for i, out in kept:
         by_input[i % entry.pool].append(out)
     readings = []
     for k in sorted(by_input):
-        ref = entry.levels(k)
-        readings += [compare.compare(out, ref, entry.mean, entry.std) for out in by_input[k]]
+        ref = entry.reference(k)
+        readings += [check.compare(out, ref, entry) for out in by_input[k]]
     if not readings:
-        return {k: float("inf") for k in compare.NUMBERS}
-    return compare.worst(readings)
+        return {k: float("inf") for k in check.NUMBERS}
+    return compare.worst(readings, check.NUMBERS)
 
 
 def setup(config: dict, traffic: dict, seed: int, device: torch.device):
@@ -151,6 +158,7 @@ def run_cell(bench: dict, workload: str, config: dict, traffic: dict, seed: int,
              seconds: float, traced: bool, device, t_process: float) -> dict:
     """One run of a cell: the result's fields, ``check`` last."""
     device = torch.device(device)
+    check = checker(traffic)
     entry, sync = setup(config, traffic, seed, device)
     if traced:  # the profiler's own first use, outside the stretch
         with _profile(device):
@@ -178,9 +186,9 @@ def run_cell(bench: dict, workload: str, config: dict, traffic: dict, seed: int,
                 "memory_peak_bytes": (torch.cuda.max_memory_allocated(device)
                                       if device.type == "cuda" else 0)}
     entry.release()
-    reading = _check(entry, sampler.kept)
+    reading = _check(entry, sampler.kept, check)
     limits = traffic["check"]["limits"]
-    correct = compare.verdict(reading, limits) and not win["failed_calls"]
+    correct = compare.verdict(reading, limits, check.NUMBERS) and not win["failed_calls"]
 
     metrics = {}
     for m in bench["per_layer" if traced else "end_to_end"]:
@@ -196,7 +204,7 @@ def run_cell(bench: dict, workload: str, config: dict, traffic: dict, seed: int,
         dev_info["busy_s"] = trace.busy_seconds(rec["device"], window)
         dev_info["window_s"] = (window.end - window.start) / 1e6
         result["breakdown"] = trace.breakdown(rec["device"], rec["host"], window)
-    result["check"] = {k: {"value": reading[k], "limit": limits[k]} for k in compare.NUMBERS}
+    result["check"] = {k: {"value": reading[k], "limit": limits[k]} for k in check.NUMBERS}
     return result
 
 

@@ -40,15 +40,16 @@ def _one_thread():
 def test_the_port_passes_and_every_control_fails(workload):
     config, traffic = small_cells.small(workload, batch=4, pool=2)
     limits = traffic["check"]["limits"]
+    check = run.checker(traffic)
     entry = run.load("entries", config["entry"]).make(config, traffic, 12345, "cpu")
     calls = range(4)
-    sound = run._check(entry, [(i, entry.call(i)) for i in calls])
-    assert compare.verdict(sound, limits), sound
+    sound = run._check(entry, [(i, entry.call(i)) for i in calls], check)
+    assert compare.verdict(sound, limits, check.NUMBERS), sound
     controls = entry.controls()
     assert len(controls) == 2
     for name, fn in controls.items():
-        reading = run._check(entry, [(i, fn(i)) for i in calls])
-        assert not compare.verdict(reading, limits), (name, reading)
+        reading = run._check(entry, [(i, fn(i)) for i in calls], check)
+        assert not compare.verdict(reading, limits, check.NUMBERS), (name, reading)
 
 
 def _stale(call):

@@ -7,7 +7,6 @@ import re
 
 import small_cells
 from perfbench import run
-from perfbench.harness import compare
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -45,7 +44,9 @@ def test_every_name_finds_its_files():
         assert config["source"] == conf["source"]
         assert (run.HERE / "entries" / f"{config['entry']}.py").exists()
         assert (run.HERE / "loops" / f"{traffic['loop']}.py").exists()
-        assert set(traffic["check"]["limits"]) == set(compare.NUMBERS)
+        check = traffic["check"]
+        assert (run.HERE / "checks" / f"{check['kind']}.py").exists()
+        assert set(check["limits"]) == set(run.checker(traffic).NUMBERS)
     for m in b["end_to_end"] + b["per_layer"]:
         assert callable(run.load("metrics", m["name"]).value)
     for f in (run.HERE / "traffic").glob("*.json"):

@@ -3,17 +3,21 @@ its arithmetic on known cases."""
 
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import pytest
 import torch
 
 import small_cells  # noqa: F401  (puts the repository on the path)
-from perfbench.harness import compare
+from perfbench import run
 from perfbench.harness import traffic as gen
 from perfbench.reference import crop, pillow
 from perfbench.reference.normalize import levels_of, normalize
 
 MEAN, STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+NORM = types.SimpleNamespace(mean=MEAN, std=STD)  # what the grey-level check reads of an entry
+grey_levels = run.load("checks", "grey_levels")
 
 
 @pytest.fixture(autouse=True)
@@ -149,9 +153,9 @@ def test_a_pixel_centre_on_a_box_edge_counts_in_or_out(route):
             return crop.crop_dense(x, boxes, 56, 56, flip, side=side)
         return crop.crop_windowed(x, boxes, 56, 56, 14, 14, side=side)
 
-    assert compare.compare(out, ref(0), MEAN, STD)["level_gap"] > 1
+    assert grey_levels.compare(out, ref(0), NORM)["level_gap"] > 1
     assert torch.equal(ref(-1), ref(0)) or torch.equal(ref(1), ref(0))
-    assert compare.compare(out, torch.stack([ref(-1), ref(1)]), MEAN, STD)["level_gap"] <= 1
+    assert grey_levels.compare(out, torch.stack([ref(-1), ref(1)]), NORM)["level_gap"] <= 1
 
 
 def test_normalise_and_back():
@@ -163,20 +167,20 @@ def test_normalise_and_back():
 def test_compare_reads_rounding_only_where_exact():
     lv = torch.randint(0, 256, (2, 3, 8, 8), generator=torch.Generator().manual_seed(0))
     lv = lv.to(torch.float64)
-    r = compare.compare(normalize(lv, MEAN, STD, torch.float32), lv, MEAN, STD)
+    r = grey_levels.compare(normalize(lv, MEAN, STD, torch.float32), lv, NORM)
     assert r["mismatch_pct"] == 0.0 and r["level_gap"] == 0.0 and 0 < r["norm_gap"] < 1e-6
     moved = lv.clone()
     moved[1, 0, 0, 0] = (moved[1, 0, 0, 0] + 1) % 256
-    r = compare.compare(normalize(moved, MEAN, STD, torch.float32), lv, MEAN, STD)
+    r = grey_levels.compare(normalize(moved, MEAN, STD, torch.float32), lv, NORM)
     assert r["mismatch_pct"] == pytest.approx(100 / (3 * 64))
     assert r["level_gap"] == (255.0 if lv[1, 0, 0, 0] == 255 else 1.0)
     nan = normalize(lv, MEAN, STD, torch.float32)
     nan[0, 0, 0, 0] = float("nan")
-    assert compare.compare(nan, lv, MEAN, STD)["mismatch_pct"] > 0
-    assert compare.compare(nan, lv, MEAN, STD)["level_gap"] == float("inf")
-    assert compare.compare(nan[:1], lv, MEAN, STD)["mismatch_pct"] == 100.0
+    assert grey_levels.compare(nan, lv, NORM)["mismatch_pct"] > 0
+    assert grey_levels.compare(nan, lv, NORM)["level_gap"] == float("inf")
+    assert grey_levels.compare(nan[:1], lv, NORM)["mismatch_pct"] == 100.0
     two = torch.stack([lv, moved])
-    r = compare.compare(normalize(moved, MEAN, STD, torch.float32), two, MEAN, STD)
+    r = grey_levels.compare(normalize(moved, MEAN, STD, torch.float32), two, NORM)
     assert r["mismatch_pct"] == 0.0 and r["level_gap"] == 0.0
-    assert compare.compare(normalize(lv[0], MEAN, STD, torch.float32), lv, MEAN,
-                           STD)["mismatch_pct"] == 100.0
+    assert grey_levels.compare(normalize(lv[0], MEAN, STD, torch.float32), lv,
+                               NORM)["mismatch_pct"] == 100.0
