@@ -62,7 +62,7 @@ import torch
 
 from .. import native
 from ..config import debug_enabled
-from ..utils.trace import span
+from ..utils.trace import builds, span
 from .filters import (
     hamming_filter,
     keys_cubic_filter,
@@ -119,6 +119,7 @@ Pass = AxisSpec | Tables  # a forward spec, or the tables of any pass
 
 
 @cache
+@builds
 def _tables(t: Pass) -> tuple[np.ndarray, np.ndarray]:
     """``(xmin[out] int32, w[out, ntaps] float32)``: the pass's float64
     tables (:func:`..weights.as_tables`), cast once.  Read-only (cached)."""
@@ -129,6 +130,7 @@ def _tables(t: Pass) -> tuple[np.ndarray, np.ndarray]:
 
 
 @lru_cache(maxsize=256)
+@builds
 def _tables_on(t: Pass, device: torch.device):
     """:func:`_tables` as tensors on ``device``, uploaded once per device."""
     xmin, w = _tables(t)
@@ -278,6 +280,7 @@ def _chunk(tile_r: int, tile_c: int, rows_cap: int, cols_cap: int, ntaps_w: int,
 
 
 @lru_cache(maxsize=1024)
+@builds
 def _plan2d(spec_h: Pass, spec_w: Pass, itemsize: int = 4, planes: int = 1,
             n_sm: int = _H100_SMS) -> Plan2d | None:
     """:func:`_plan_rows` over the passes' tables."""
@@ -807,8 +810,9 @@ def _resample2d_cuda(x3, spec_h, spec_w, out_dtype, plan) -> torch.Tensor:
     if B == 0:
         return out
     dev = x3.device
-    xmin_w, w_w = _tables_on(spec_w, dev)
-    ymin_h, w_h = _tables_on(spec_h, dev)
+    with span("ia.tables.resize2d"):
+        xmin_w, w_w = _tables_on(spec_w, dev)
+        ymin_h, w_h = _tables_on(spec_h, dev)
     quant = int(x3.dtype == torch.uint8 and out_dtype == torch.uint8)
     # every block of a launch is on gridDim.x: split batches whose block
     # count would pass its 2^31 - 1 limit
@@ -991,9 +995,10 @@ def resize2d(x: torch.Tensor, spec_h: Pass, spec_w: Pass,
         raise ValueError(
             f"resize2d: trailing axes {tuple(x.shape[-2:])} != "
             f"({spec_h.in_size}, {spec_w.in_size})")
-    fused_h, fused_w = _fused_gate(fused, spec_h, spec_w)
-    plan = resize2d_plan(spec_h, spec_w, x.element_size(), math.prod(x.shape[:-2]),
-                         _n_sm(x.device), fused_h, fused_w)
+    with span("ia.tables.resize2d"):
+        fused_h, fused_w = _fused_gate(fused, spec_h, spec_w)
+        plan = resize2d_plan(spec_h, spec_w, x.element_size(), math.prod(x.shape[:-2]),
+                             _n_sm(x.device), fused_h, fused_w)
     if plan is None:
         if debug_enabled():
             print("[ia-tpu] resample2d: no tile fits (or one pass fused), "

@@ -232,6 +232,7 @@ def resize_plane_vjp(x: torch.Tensor, spec_h: AxisSpec, spec_w: AxisSpec,
     return apply_plane(x, spec_h, spec_w, h_axis, w_axis, backend)
 
 
+@spanned("ia.ops.resize_plane")
 def resize_plane(
     x: torch.Tensor,
     out_hw: tuple[int, int],

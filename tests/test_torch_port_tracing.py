@@ -18,6 +18,7 @@ from interpolate_antialiasing_tpu_torch.models import (ImageNetEvalPipeline,
 from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
+from interpolate_antialiasing_tpu_torch.ops.weights import make_axis_spec
 from interpolate_antialiasing_tpu_torch.utils import trace
 from interpolate_antialiasing_tpu_torch.utils.inspect import launch_counts
 
@@ -50,8 +51,13 @@ def _train(flip):
     return lambda: pipe.apply(x, BOXES, flip)
 
 
+def _video():
+    model, x = VideoDownscaler((12, 20)), torch.rand(1, 3, 24, 40).to(torch.bfloat16)
+    return lambda: model(x)
+
+
 CALLS = {"eval": _eval, "train": lambda: _train(torch.tensor([True, False])),
-         "train_noflip": lambda: _train(None)}
+         "train_noflip": lambda: _train(None), "video": _video}
 
 # each span of one warm call, with the innermost program span that holds it
 NESTING = {
@@ -66,6 +72,8 @@ NESTING = {
                      ("ia.ops.crop_windowed", "ia.ops.crop_and_resize"),
                      ("ia.tables.crop_windowed", "ia.ops.crop_windowed"),
                      ("ia.models.normalize", "ia.models.train")],
+    "video": [("ia.models.video", None), ("ia.ops.resize_plane", "ia.models.video"),
+              ("ia.tables.resize2d", "ia.ops.resize_plane")],
 }
 
 
@@ -99,9 +107,14 @@ def test_a_pipeline_call_emits_its_spans_inside_its_models_span(call):
 
 
 def test_the_video_downscaler_emits_its_models_span():
-    x = torch.rand(1, 3, 24, 40).to(torch.bfloat16)
-    spans = _spans(lambda: VideoDownscaler((12, 20))(x))
-    assert [n for n, _, _ in spans] == ["ia.models.video"]
+    """A cold call: the plane route's builds (the plan, then both passes'
+    tables) open inside its tables span, inside ``ia.models.video``."""
+    fn = _video()
+    cr._tables.cache_clear()
+    cr._plan2d.cache_clear()
+    assert _with_parents(_spans(fn)) == NESTING["video"] + [
+        ("ia.build._plan2d", "ia.tables.resize2d"), ("ia.build._tables", "ia.build._plan2d"),
+        ("ia.build._tables", "ia.build._plan2d")]
 
 
 def test_without_a_profiler_a_span_is_the_shared_null_context(monkeypatch):
@@ -143,6 +156,10 @@ def _axes():
     return tuple(ax for ax, _ in _geometry())
 
 
+def _plane_specs():
+    return make_axis_spec(60, 28, "bilinear"), make_axis_spec(124, 28, "bilinear")
+
+
 def _int_table_pair():
     return pe._int_tables(124, 60, "bilinear", None, 22), pe._int_tables(60, 30, "bilinear",
                                                                         None, 22)
@@ -159,6 +176,9 @@ CACHED = {
         _geometry()[0][1], 60, 28, _axes()[0].T, 2, 3, 124, 132, True, 1)),
     "_table_plan": (cc._table_plan, lambda: cc._table_plan(_axes(), 2, 132)),
     "_table_blocks": (cc._table_blocks, lambda: cc._table_blocks(2, _axes(), (1, 1))),
+    "_tables": (cr._tables, lambda: cr._tables(_plane_specs()[0])),
+    "_tables_on": (cr._tables_on, lambda: cr._tables_on(_plane_specs()[1], torch.device("cpu"))),
+    "_plan2d": (cr._plan2d, lambda: cr._plan2d(*_plane_specs(), 2, 3)),
 }
 
 
