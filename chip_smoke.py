@@ -8,7 +8,8 @@ checkout (resample2d and resample_axis each with a twin that synthesises its
 weights in the kernel, ``fused=True``), prints the compile seconds of each
 source, what ``ptxas -v`` reported for resample2d's and the per-axis
 kernels' instantiations, resample2d's plan at config 5 and the headline
-(tile, ring chunk, shared bytes, blocks, resident blocks per SM) and the
+(tile, ring chunk, shared bytes, blocks, resident blocks per SM), the
+streaming kernel's plan at config 5 (segment, ring, blocks) and the
 per-axis kernels' plan at every pass it times (``plan_resample_axis``), and
 then:
 
@@ -58,7 +59,8 @@ then:
 2. drives the port's main paths through their public entry points, each
    with every launch count set to 0 just before it and read just after:
    the uint8 ImageNet-eval pipeline (Pillow kernel); BASELINE config 5
-   through ``VideoDownscaler`` (bf16 [64, 3, 2160, 3840] -> 1080x1920);
+   through ``VideoDownscaler`` (bf16 [64, 3, 2160, 3840] -> 1080x1920: one
+   launch of kernel A's streaming twin, ``resample2d_stream``);
    configs 1-2 through ``resize`` (f32 [1, 3, 438, 906] -> 196x320,
    bilinear and bicubic, NCHW and NHWC); the float32-domain eval pipeline
    on ``entry()``'s batch; BASELINE config 4 (``torch.autograd.grad``
@@ -330,6 +332,14 @@ def print_kernel_a_plans(dev) -> None:
                   **plan._asdict(), sms=cr._n_sm(dev),
                   card_resident_per_sm=cr.occupancy_2d(plan, dt, dt, sw.ntaps, sh.ntaps,
                                                         fused))
+    (shape, ohw), dt = CONFIG5, BF16
+    sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
+    plan = cr.resize2d_plan(sh, sw, dt.itemsize, math.prod(shape[:-2]), cr._n_sm(dev))
+    if not isinstance(plan, cr.PlanStream):
+        raise RuntimeError(f"config 5 does not take the streaming plan: {plan}")
+    _line("plan_resample2d_stream", case="config 5", shape=list(shape), size=list(ohw),
+          dtype=str(dt), **plan._asdict(), sms=cr._n_sm(dev),
+          card_resident_per_sm=cr.occupancy_stream(plan, dt, dt))
 
 
 def _axis_timed_passes():
@@ -379,6 +389,7 @@ def print_axis_plans(dev) -> None:
 PTXAS_LOG = Path("smoke_out") / "ptxas.jsonl"
 # kernel -> the names of its two template values after the weight source
 PTXAS_KERNELS = {"resample2d_kernel": ("tile_c", "tap_bucket"),
+                 "resample2d_stream_kernel": ("tap_bucket", "cols_per_lane"),
                  "resample_axis_kernel": ("tap_bucket", "vec")}
 
 
@@ -407,8 +418,12 @@ def print_ptxas() -> None:
             sm = re.search(r"(\d+) bytes smem", line)
             cur["static_smem"] = int(sm.group(1)) if sm else 0
             t = re.search(r"(TableTaps|SynthTaps|PilTaps)ELi(\d+)ELi(\d+)E", cur["name"])
-            cur["group"] = [cur["kernel"], t.group(1), int(t.group(2)), int(t.group(3))] \
-                if t else [cur["kernel"], "?", 0, 0]
+            # the streaming kernel: <Tin, Tout, NT> over TableTaps, V = 4 or 2 by NT
+            st = re.search(r"resample2d_stream_kernelI.*?Li(\d+)E", cur["name"])
+            cur["group"] = ([cur["kernel"], t.group(1), int(t.group(2)), int(t.group(3))] if t
+                            else [cur["kernel"], "TableTaps", int(st.group(1)),
+                                  4 if st.group(1) == "4" else 2] if st
+                            else [cur["kernel"], "?", 0, 0])
             rows.append(cur)
             cur = None
     for kernel in PTXAS_KERNELS:
@@ -1451,6 +1466,7 @@ def check_u8_tiles(dev) -> tuple[float, float, float]:
 
 def _reset() -> None:
     pe.launches = cr.launches_2d = cr.launches_axis = cc.launches_crop = 0
+    cr.launches_2d_stream = 0
     cc.launches_crop_tables = cc.launches_crop_f32 = 0
     pe.launches_axis = cr.launches_2d_fused = cr.launches_axis_fused = 0
 
@@ -1471,8 +1487,10 @@ def _plain_kernels():
     launching (no count moves): the reference run of a main path."""
     saved = (cr._resample2d_cuda, cr._resample_axis_cuda,
              pe._resample_2pass_cuda, cc._crop_resample_cuda, pe._resample_axis_cuda,
-             cr._resample2d_fused_cuda, cr._resample_axis_fused_cuda, cc._windowed_tables_cuda)
+             cr._resample2d_fused_cuda, cr._resample_axis_fused_cuda, cc._windowed_tables_cuda,
+             cr._resample2d_stream_cuda)
     cr._resample2d_cuda = lambda x3, sh, sw, odt, plan: cr._resample2d_plain(x3, sh, sw, odt)
+    cr._resample2d_stream_cuda = cr._resample2d_cuda
     cr._resample_axis_cuda = cr._resample_axis_plain
     pe._resample_2pass_cuda = pe._resample_2pass_plain
     cc._crop_resample_cuda = cc._crop_resample_plain
@@ -1487,7 +1505,7 @@ def _plain_kernels():
         (cr._resample2d_cuda, cr._resample_axis_cuda,
          pe._resample_2pass_cuda, cc._crop_resample_cuda, pe._resample_axis_cuda,
          cr._resample2d_fused_cuda, cr._resample_axis_fused_cuda,
-         cc._windowed_tables_cuda) = saved
+         cc._windowed_tables_cuda, cr._resample2d_stream_cuda) = saved
 
 
 def main_path_u8_pipeline(dev) -> int:
@@ -1521,7 +1539,7 @@ def main_path_u8_pipeline(dev) -> int:
     return counts["pil_resample_2pass"]
 
 
-def main_path_config5(dev) -> int:
+def main_path_config5(dev) -> tuple[int, float]:
     (shape, ohw), calls = CONFIG5, 2
     x = _rand(shape, BF16, dev, 5)
     vd = VideoDownscaler(out_hw=ohw)
@@ -1529,8 +1547,7 @@ def main_path_config5(dev) -> int:
     for _ in range(calls):
         y = vd(x)
     torch.cuda.synchronize()
-    counts = _expect("config 5", {"pil_resample_2pass": 0, "resample2d": calls,
-                                  "resample_axis": 0})
+    counts = _expect("config 5", {"resample2d_stream": calls})
     sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
     with full_f32():
         want = cr._resample2d_plain(_view3(x, -2), sh, sw, BF16).reshape(y.shape)
@@ -1538,7 +1555,7 @@ def main_path_config5(dev) -> int:
     _line("main_path", path="config 5 VideoDownscaler", shape=list(shape),
           out=list(y.shape), dtype=str(y.dtype), launches=counts, calls=calls,
           **res)
-    return counts["resample2d"]
+    return counts["resample2d_stream"], res["max_abs_err"]
 
 
 def main_path_headline(dev) -> tuple[int, int]:
@@ -2284,10 +2301,10 @@ def time_pil_kernel(dev, rng, card) -> dict:
             "library_ms": lib_ms}
 
 
-def time_float_kernels(dev, card) -> tuple[dict, dict]:
+def time_float_kernels(dev, card) -> tuple[dict, dict, dict]:
     F = torch.nn.functional
     with full_f32():
-        # resample2d on config 5 (bf16 4K -> HD, 192 planes)
+        # resample2d_stream on config 5 (bf16 4K -> HD, 192 planes)
         (shape, ohw) = CONFIG5
         x = _rand(shape, BF16, dev, 11)
         x3 = _view3(x, -2)
@@ -2300,15 +2317,31 @@ def time_float_kernels(dev, card) -> tuple[dict, dict]:
                          + _nbytes(*cr._tables(sh), *cr._tables(sw)),
                          P * (shape[-2] * _nz(cr._tables(sw)[1]) + ohw[1] * _nz(cr._tables(sh)[1])))
         lib5, note5 = _library(lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True))
-        d5 = _kernel_times(lambda: cr.resize2d(x3, sh, sw, BF16), 5, "resample2d_kernel")
+        d5 = _kernel_times(lambda: cr.resize2d(x3, sh, sw, BF16), 5,
+                           "resample2d_stream_kernel")
         lib5_dev = device_time_per_call(
             lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True), iters=5)
-        _line("time_config5", card=card, kernel="resample2d", shape=list(shape),
+        _line("time_config5", card=card, kernel="resample2d_stream", shape=list(shape),
               size=list(ohw), kernel_ms=c5["kernel"], plain_ms=c5["plain"],
               kernel_device_ms=d5["device_ms"], kernel_host_us=d5["host_us"],
               kernel_gb_s=bound["bytes"] / (d5["device_ms"] * 1e-3) / 1e9,
               frames_per_s=shape[0] / (d5["device_ms"] * 1e-3), **bound, library_ms=lib5,
               library_device_ms=lib5_dev, library=note5)
+        # the tile kernel at config 5 on its own plan (the shape its entry is
+        # timed at), held to the streaming kernel's bits
+        tile5 = cr._plan2d(sh, sw, BF16.itemsize, P, cr._n_sm(dev))
+
+        def tile_call():
+            return cr._resample2d_cuda(x3, sh, sw, BF16, tile5)
+
+        if not torch.equal(tile_call(), cr.resize2d(x3, sh, sw, BF16)):
+            raise RuntimeError("config 5: resample2d on its tile plan != resample2d_stream")
+        tk5 = [time_cuda(tile_call, iters=5, warmup=1) for _ in range(2)]
+        dt5 = _kernel_times(tile_call, 5, "resample2d_kernel")
+        _line("time_config5", card=card, kernel="resample2d", shape=list(shape),
+              size=list(ohw), plan=list(tile5), kernel_ms=tk5,
+              kernel_device_ms=dt5["device_ms"], kernel_host_us=dt5["host_us"],
+              kernel_gb_s=bound["bytes"] / (dt5["device_ms"] * 1e-3) / 1e9, **bound)
         del x, x3
         torch.cuda.empty_cache()
         # resample2d on the f32 headline, NCHW
@@ -2359,9 +2392,11 @@ def time_float_kernels(dev, card) -> tuple[dict, dict]:
               w_pass_bound_ms=bw["bound_ms"], h_pass_bound_ms=bh["bound_ms"],
               bound_by=[bw["bound_by"], bh["bound_by"]], library_ms=libn,
               library_device_ms=libn_dev, library=noten)
-    r2d = {"ms": d5["device_ms"], "call_ms": k5, "host_us": d5["host_us"],
-           "plain_ms": sum(c5["plain"]) / 2, "bound_ms": bound["bound_ms"],
-           "bound_by": bound["bound_by"], "library_ms": lib5_dev}
+    r2d_stream = {"ms": d5["device_ms"], "call_ms": k5, "host_us": d5["host_us"],
+                  "plain_ms": sum(c5["plain"]) / 2, "bound_ms": bound["bound_ms"],
+                  "bound_by": bound["bound_by"], "library_ms": lib5_dev}
+    r2d = {**r2d_stream, "ms": dt5["device_ms"], "call_ms": sum(tk5) / 2,
+           "host_us": dt5["host_us"]}
     rax = {"ms": dw["device_ms"] + dhp["device_ms"],
            "call_ms": sum(wp["kernel"]) / 2 + sum(hp["kernel"]) / 2,
            "host_us": dw["host_us"] + dhp["host_us"],
@@ -2369,7 +2404,7 @@ def time_float_kernels(dev, card) -> tuple[dict, dict]:
            "bound_ms": bw["bound_ms"] + bh["bound_ms"],
            "bound_by": bw["bound_by"] if bw["bound_by"] == bh["bound_by"] else "bytes",
            "library_ms": libn_dev}
-    return r2d, rax
+    return r2d_stream, r2d, rax
 
 
 def _synth_nz(spec) -> int:
@@ -2404,7 +2439,7 @@ def time_fused_kernels(dev, card) -> tuple[dict, dict]:
         d5 = _kernel_times(lambda: cr.resize2d(x3, sh, sw, BF16, fused=True), 5,
                            "resample2d_kernel")
         t5 = device_time_per_call(lambda: cr.resize2d(x3, sh, sw, BF16), iters=5,
-                                  match="resample2d_kernel")
+                                  match="resample2d_stream_kernel")
         lib5_dev = device_time_per_call(
             lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True), iters=5)
         _line("time_fused_config5", card=card, kernel="resample2d_fused", shape=list(shape),
@@ -2908,7 +2943,9 @@ def cli_phase(dev, card) -> None:
     _reset()
     (row,) = cli.main(["--bench", "--size", *size, "--batch", "64"])
     counts = launch_counts()
-    if row["device"] != card or counts["resample2d"] < 1 or counts["pil_resample_2pass"] < 1:
+    # the float32 batch of 64 runs kernel A's streaming twin (a long launch)
+    kernel_a = counts["resample2d"] + counts["resample2d_stream"]
+    if row["device"] != card or kernel_a < 1 or counts["pil_resample_2pass"] < 1:
         raise RuntimeError(f"cli --bench: row on {row['device']!r} (card {card!r}), "
                            f"launches {counts}")
     _line("cli", step="bench", row=row, launches={k: v for k, v in counts.items() if v},
@@ -3054,7 +3091,7 @@ def main() -> None:
         _line("kernel_vs_plain_cases", written=str(CASES_LOG), cases=len(_cases))
         torch.cuda.empty_cache()
         pil_launches = main_path_u8_pipeline(dev)
-        c5_launches = main_path_config5(dev)
+        c5_launches, c5_err = main_path_config5(dev)
         torch.cuda.empty_cache()
         fused_2d, fused_axis = main_path_fused(dev)
         torch.cuda.empty_cache()
@@ -3076,7 +3113,7 @@ def main() -> None:
         rank_pil, rank_axis = main_path_one_rank_group()
         torch.cuda.empty_cache()
     t_pil = time_pil_kernel(dev, rng, card)
-    t_2d, t_axis = time_float_kernels(dev, card)
+    t_2d_stream, t_2d, t_axis = time_float_kernels(dev, card)
     torch.cuda.empty_cache()
     t_2d_fused, t_axis_fused = time_fused_kernels(dev, card)
     torch.cuda.empty_cache()
@@ -3104,10 +3141,15 @@ def main() -> None:
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cuh",
          "entry": "interpolate_antialiasing_tpu_torch/csrc/resample2d.cu",
          "replaces": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1003",
-         "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1475, "
-                        ":1176 (adjoint)",
-         "launches": c5_launches + hl_2d + f32_launches + c4_2d + train_2d + st_2d,
+         "also_serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1475 on "
+                        "launches too short to stream (a 4K frame), :1176 (adjoint)",
+         "launches": hl_2d + f32_launches + c4_2d + train_2d + st_2d,
          "max_abs_err": max(err_2d, adj_2d), **t_2d},
+        {"name": "resample2d_stream", "route": "cuda",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/resample2d_stream.cu",
+         "serves": "interpolate_antialiasing_tpu/ops/pallas_resize.py:1475 on long "
+                   "launches (config 5)",
+         "launches": c5_launches, "max_abs_err": c5_err, **t_2d_stream},
         {"name": "resample_axis", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cuh",
          "entry": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cu",

@@ -23,6 +23,11 @@
 // rows its output tile needs, so no image is too large for it.  With the
 // synthesised weights it replaces the fused_spec branch of
 // _kernel_last_unrolled / _kernel_mid_unrolled (resize2d_pallas(fused=True)).
+// On long launches over host tables (4K frames by the batch: BASELINE
+// config 5) the host plan (ops/cuda_resize.py::resize2d_plan) takes its
+// streaming twin instead, resample2d_stream.cu: a warp walks down a column
+// strip with its rows in flight behind the math and its H window in
+// registers (see there for why this kernel's tiles set the pace there).
 // The TPU kernels contract tile-compacted weight bands on the matrix unit in
 // split-bf16; here each output is a direct windowed float32 multiply-add
 // (ia_dtypes.cuh::mac, bit for bit the plain version's):

@@ -68,6 +68,11 @@ _SIGNATURES = {
     # chunk, smem, &blocks (one each for the table and the fused kernel)
     "ia_resample2d_occupancy": (_I, [_I] * 10 + [_P]),
     "ia_resample2d_fused_occupancy": (_I, [_I] * 10 + [_P]),
+    # x, out, in_dt, out_dt, B, H, W, OH, OW, xmin_w, w_w, ymin_h, w_h, ntaps,
+    # seg, stages, cols_cap, smem, stream
+    "ia_resample2d_stream": (_I, [_P, _P] + [_I] * 7 + [_P] * 4 + [_I] * 5 + [_P]),
+    # in_dt, out_dt, ntaps, seg, stages, cols_cap, smem, &blocks
+    "ia_resample2d_stream_occupancy": (_I, [_I] * 7 + [_P]),
     # x, out, in_dt, out_dt, outer, n_in, inner, n_out, xmin, w, ntaps, win0,
     # then the plan (tile_j, tile_o, tile_i, win, vec, smem), stream
     "ia_resample_axis": (

@@ -10,7 +10,11 @@ and its launch count:
     the shapes of ``_kernel_2pass_streamed`` (``resize2d_streamed``).
     Wrapper :func:`resize2d`; plain version :func:`_resample2d_plain`; host
     plan :func:`_plan_rows` (tiles sized for the batch and the card's SM
-    count); count ``launches_2d``.
+    count); count ``launches_2d``.  On long launches of the tables route
+    (many waves of tiles: 4K frames by the batch) its streaming twin
+    (``csrc/resample2d_stream.cu``) walks down column strips instead, its
+    input rows through a ring of copies in flight behind the math; host
+    plan :func:`_plan_stream`, count ``launches_2d_stream``.
   * **resample_axis** (``csrc/resample_axis.cuh``, entry
     ``csrc/resample_axis.cu``): one pass over any axis of any rank.
     Replaces ``_kernel_last`` / ``_kernel_mid`` (``resize_axis_pallas``) and
@@ -78,6 +82,7 @@ __all__ = ["resize2d", "resize_axis", "synth_applies"]
 # Launches of each kernel: the wrappers add one per kernel launch and
 # nowhere else, so a run can show that its main path went through them.
 launches_2d = 0
+launches_2d_stream = 0
 launches_axis = 0
 launches_2d_fused = 0
 launches_axis_fused = 0
@@ -108,6 +113,34 @@ TILE_C = (128, 64, 32, 16)
 # blocks per SM beat a two-stage ring at four (PERF.md, section 6).
 _RESIDENT = 3
 _INT_MAX = 2**31 - 1
+# The streaming kernel (csrc/resample2d_stream.cu): warps per block (kWarps,
+# each walks its own strip), its tap buckets (both passes take 4 or 8 taps
+# per output; a stage of a warp's ring holds as many input rows), and the
+# resident blocks its register bound keeps (kMinBlocks).  Its ring has 2 to
+# 4 stages (the kernel waits with cp.async.wait_group, at most 3 groups
+# behind).  A launch takes it where strips of at least _STREAM_MIN_ROWS input
+# rows (the whole plane where it has fewer) give at least _STREAM_WAVES full
+# waves of warps; its plan aims for _STREAM_AHEAD input bytes per SM in
+# flight behind the math.
+_STREAM_WARPS = 4
+_STREAM_TAPS = (4, 8)
+_STREAM_RESIDENT = 5
+_STREAM_STAGES = (2, 3, 4)
+_STREAM_MIN_ROWS = 64
+_STREAM_WAVES = 2
+_STREAM_AHEAD = 64 << 10
+
+
+def _stream_tc(ntaps: int) -> int:
+    """Output columns of a streaming strip (csrc/resample2d_stream.cu::
+    strip_cols): 32 lanes of 4 columns in the 4-tap bucket, of 2 in the
+    8-tap one."""
+    return 32 * (4 if ntaps == 4 else 2)
+
+
+def _stream_min_warps(n_sm: int) -> int:
+    """Warps a streaming launch needs: :data:`_STREAM_WAVES` full waves."""
+    return _STREAM_WAVES * _STREAM_RESIDENT * _STREAM_WARPS * n_sm
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +310,163 @@ def _chunk(tile_r: int, tile_c: int, rows_cap: int, cols_cap: int, ntaps_w: int,
             lo, hi = (mid, hi) if smem(mid) <= budget else (lo, mid - 1)
         return lo
     return None
+
+
+class PlanStream(NamedTuple):
+    """The streaming kernel's launch plan (:func:`_plan_stream`)."""
+
+    seg: int  # output rows per warp: a segment of the plane's height
+    stages: int  # stages of each warp's ring
+    cols_cap: int  # widest input column span of a strip
+    ntaps: int  # taps per output of both passes: the bucket (:func:`_stream_ntaps`)
+    smem: int  # dynamic shared memory per block, bytes
+    blocks: int  # blocks of one launch: a warp per plane x segment x strip
+    resident: int  # blocks per SM that shared memory and registers allow
+
+
+def _effective_taps(w: np.ndarray) -> int:
+    """Taps a pass must sum: one past the last weight column with a nonzero
+    entry anywhere in the table (trailing columns of zeros add nothing to a
+    finite input: ``acc + 0 * x`` is ``acc``)."""
+    nz = np.flatnonzero((w != 0).any(axis=0))
+    return int(nz[-1]) + 1 if nz.size else 1
+
+
+def _stream_ntaps(spec_h: Pass, spec_w: Pass) -> int | None:
+    """The streaming kernel's taps per output for both passes: the least
+    bucket of :data:`_STREAM_TAPS` that holds both passes' effective taps,
+    or None where none does."""
+    n = max(_effective_taps(_tables(spec_h)[1]), _effective_taps(_tables(spec_w)[1]))
+    return next((b for b in _STREAM_TAPS if n <= b), None)
+
+
+@lru_cache(maxsize=256)
+@builds
+def _stream_tables(t: Pass, T: int) -> tuple[np.ndarray, np.ndarray] | None:
+    """The streaming kernel's form of :func:`_tables`: ``(first[out]
+    int32, w[out, T] float32)``, ``T`` taps at least the pass's effective
+    ones (:func:`_effective_taps`), with every window moved inside ``[0,
+    in_size)`` and the taps it gains weighted 0 (an edge window that
+    reached past the axis starts at ``in_size - T``; one before it, at 0).
+    Each output keeps its nonzero weights on the same inputs in the same
+    order, and a zero weight adds nothing to a finite input, so the sums
+    are the tables' bit for bit.  None where a tap outside the axis carries
+    weight (its clamp repeats the edge) or ``T`` exceeds the axis.
+    Read-only."""
+    first, w = _tables(t)
+    n_in = t.in_size
+    if T < _effective_taps(w):
+        raise ValueError(f"{T} taps drop weights of a pass with {_effective_taps(w)}")
+    taps = first[:, None].astype(np.int64) + np.arange(w.shape[1])
+    if T > n_in or np.any((w != 0) & ((taps < 0) | (taps >= n_in))):
+        return None
+    moved = np.clip(first.astype(np.int64), 0, n_in - T)
+    j = np.arange(T) + (moved - first)[:, None]  # new tap k is old tap j
+    inside = (j >= 0) & (j < w.shape[1])
+    w2 = np.where(inside, np.take_along_axis(w, np.clip(j, 0, w.shape[1] - 1), 1), 0)
+    w2 = np.ascontiguousarray(w2, dtype=np.float32)
+    if np.count_nonzero(w2) != np.count_nonzero(w):
+        return None
+    moved = moved.astype(np.int32)
+    moved.setflags(write=False)
+    w2.setflags(write=False)
+    return moved, w2
+
+
+@lru_cache(maxsize=256)
+@builds
+def _stream_tables_on(t: Pass, T: int, device: torch.device):
+    """:func:`_stream_tables` as tensors on ``device``, uploaded once per
+    device."""
+    first, w = _stream_tables(t, T)
+    return (torch.from_numpy(first.copy()).to(device),
+            torch.from_numpy(w.copy()).to(device))
+
+
+def _stream_smem_bytes(stages: int, ntaps: int, cols_cap: int, itemsize: int) -> int:
+    """Dynamic shared memory of one streaming block, as the kernel lays it
+    out (csrc/resample2d_stream.cu::warp_ring_bytes; the C entry point
+    refuses a plan whose bytes differ): a ring per warp of ``stages``
+    stages of ``ntaps`` input rows of the widest span (16-byte head and
+    tail included)."""
+    return _STREAM_WARPS * stages * ntaps * (_align16(cols_cap * itemsize) + 32)
+
+
+def _plan_stream(first_h: np.ndarray, H: int, first_w: np.ndarray, W: int, ntaps: int,
+                 itemsize: int, planes: int, n_sm: int) -> PlanStream | None:
+    """The streaming kernel's plan for ``planes`` planes of ``[H, W]``
+    over the first taps of the passes' in-axis tables of ``ntaps`` taps
+    (:func:`_stream_tables`), or None where the launch is short or its
+    constraints do not hold: first taps that decrease anywhere, fewer than
+    :data:`_STREAM_WAVES` waves of strips, or no ring that fits a block.
+    The plan takes the candidate of :func:`_stream_candidates` with the
+    largest key."""
+    best = max(_stream_candidates(first_h, H, first_w, W, ntaps, itemsize, planes, n_sm),
+               default=None, key=lambda kp: kp[0])
+    return None if best is None else best[1]
+
+
+def _stream_candidates(first_h: np.ndarray, H: int, first_w: np.ndarray, W: int,
+                       ntaps: int, itemsize: int, planes: int, n_sm: int):
+    """``(key, plan)`` for every ring and segment :func:`_plan_stream`
+    considers: segments whose input window has at least
+    :data:`_STREAM_MIN_ROWS` rows (or the whole plane), at least
+    :data:`_STREAM_WAVES` waves of warps.  The key, largest first:
+
+    1. the most resident blocks per SM, up to the register bound;
+    2. the most input bytes in flight per SM (the stages ahead of the one
+       being walked), up to :data:`_STREAM_AHEAD`;
+    3. the least modelled time: waves of blocks times the rows a warp
+       copies and resamples (its segment's input window, plus the ring's
+       fill), so that the last wave is small and halos few;
+    4. then the least shared memory."""
+    if np.any(np.diff(first_h) < 0) or np.any(np.diff(first_w) < 0):
+        return
+    OH, OW = len(first_h), len(first_w)
+    tc = _stream_tc(ntaps)
+    cols_cap = _window(first_w, ntaps, W, tc)
+    stride = _align16(cols_cap * itemsize) + 32
+    n_tx = -(-OW // tc)
+    segs = sorted({-(-OH // n) for n in range(1, min(OH, 64) + 1)}, reverse=True)
+    rows_of = {seg: _window(first_h, ntaps, H, seg) for seg in segs}
+    segs = [seg for seg in segs if seg == OH or rows_of[seg] >= _STREAM_MIN_ROWS]
+    for stages in _STREAM_STAGES:
+        smem = _stream_smem_bytes(stages, ntaps, cols_cap, itemsize)
+        if smem > _SMEM_BUDGET:
+            continue
+        resident = min(_SM_THREADS // (32 * _STREAM_WARPS), _STREAM_RESIDENT,
+                       _SM_SMEM // (smem + _SM_SMEM_PER_BLOCK))
+        ahead = resident * _STREAM_WARPS * (stages - 1) * ntaps * stride
+        for seg in segs:
+            warps = planes * -(-OH // seg) * n_tx
+            if warps < _stream_min_warps(n_sm):
+                continue
+            blocks = -(-warps // _STREAM_WARPS)
+            waves = -(-blocks // (resident * n_sm))
+            cost = waves * (rows_of[seg] + ntaps * (stages - 1))
+            key = (resident, min(ahead, _STREAM_AHEAD), -cost, -smem)
+            yield key, PlanStream(seg, stages, cols_cap, ntaps, smem, blocks, resident)
+
+
+@lru_cache(maxsize=1024)
+@builds
+def _plan2d_stream(spec_h: Pass, spec_w: Pass, itemsize: int, planes: int,
+                   n_sm: int) -> PlanStream | None:
+    """:func:`_plan_stream` over the passes' in-axis tables, or None where
+    either has none or no segmenting reaches :func:`_stream_min_warps`
+    (checked first, over the most segments and the narrower strip, so
+    that a short launch builds no in-axis tables)."""
+    OH, OW = spec_h.out_size, spec_w.out_size
+    if planes * min(OH, 64) * -(-OW // _stream_tc(8)) < _stream_min_warps(n_sm):
+        return None
+    ntaps = _stream_ntaps(spec_h, spec_w)
+    th = tw = None
+    if ntaps is not None:
+        th, tw = _stream_tables(spec_h, ntaps), _stream_tables(spec_w, ntaps)
+    if th is None or tw is None:
+        return None
+    return _plan_stream(th[0], spec_h.in_size, tw[0], spec_w.in_size, ntaps, itemsize,
+                        planes, n_sm)
 
 
 @lru_cache(maxsize=1024)
@@ -833,6 +1023,52 @@ def _resample2d_cuda(x3, spec_h, spec_w, out_dtype, plan) -> torch.Tensor:
     return out
 
 
+def occupancy_stream(plan: PlanStream, in_dtype: torch.dtype,
+                     out_dtype: torch.dtype) -> int:
+    """Resident blocks per SM of the streaming kernel under ``plan`` on the
+    current card (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
+    Launches nothing; needs the card."""
+    lib = native.build()
+    blocks = ctypes.c_int(0)
+    err = lib.ia_resample2d_stream_occupancy(
+        _DTYPES[in_dtype], _DTYPES[out_dtype], plan.ntaps, plan.seg, plan.stages,
+        plan.cols_cap, plan.smem, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"resample2d_stream occupancy query failed: cudaError {err}")
+    return blocks.value
+
+
+def _resample2d_stream_cuda(x3, spec_h, spec_w, out_dtype, plan) -> torch.Tensor:
+    global launches_2d_stream
+    lib = native.build()
+    B, H, W = x3.shape
+    OH, OW = spec_h.out_size, spec_w.out_size
+    out = torch.empty((B, OH, OW), dtype=out_dtype, device=x3.device)
+    if B == 0:
+        return out
+    dev = x3.device
+    with span("ia.tables.resize2d"):
+        xmin_w, w_w = _stream_tables_on(spec_w, plan.ntaps, dev)
+        ymin_h, w_h = _stream_tables_on(spec_h, plan.ntaps, dev)
+    # a warp per segment and strip: split batches whose blocks would pass
+    # gridDim.x's 2^31 - 1
+    per_plane = -(-OH // plan.seg) * -(-OW // _stream_tc(plan.ntaps))
+    with torch.cuda.device(dev):
+        for b0, n in native.plane_chunks(B, _INT_MAX // per_plane):
+            with span("ia.native.resample2d_stream"):
+                err = lib.ia_resample2d_stream(
+                    x3.data_ptr() + b0 * H * W * x3.element_size(),
+                    out.data_ptr() + b0 * OH * OW * out.element_size(),
+                    _DTYPES[x3.dtype], _DTYPES[out_dtype], n, H, W, OH, OW,
+                    xmin_w.data_ptr(), w_w.data_ptr(), ymin_h.data_ptr(), w_h.data_ptr(),
+                    plan.ntaps, plan.seg, plan.stages, plan.cols_cap, plan.smem,
+                    _stream(dev))
+                if err != 0:
+                    raise RuntimeError(f"resample2d_stream launch failed: cudaError {err}")
+                launches_2d_stream += 1
+    return out
+
+
 def _axis_plan(x3: torch.Tensor, spec: Pass, fused: bool) -> PlanAxis | None:
     outer, _, inner = x3.shape
     return _plan_axis_spec(spec, fused, outer, inner, x3.element_size(),
@@ -949,16 +1185,22 @@ def _fused_gate(fused: bool, *specs: Pass) -> list[bool]:
 
 
 def resize2d_plan(spec_h: Pass, spec_w: Pass, itemsize: int, planes: int, n_sm: int,
-                  fused_h: bool = False, fused_w: bool = False) -> Plan2d | None:
+                  fused_h: bool = False,
+                  fused_w: bool = False) -> Plan2d | PlanStream | None:
     """:func:`resize2d`'s launch decision for ``planes`` planes of
     ``itemsize``-byte elements on a card of ``n_sm`` SMs: kernel A's plan
     (over the synthesised first taps where both passes are fused), or None,
     where no tile fits or only one pass is fused: two resample_axis passes
-    (W into :func:`axes_inter_dtype`, then H)."""
+    (W into :func:`axes_inter_dtype`, then H).  Over tables, a long launch
+    takes the streaming kernel's plan where :func:`_plan2d_stream` gives
+    one."""
     if fused_h != fused_w:
         return None
-    return (_plan2d_synth if fused_h else _plan2d)(spec_h, spec_w, itemsize,
-                                                   max(1, planes), n_sm)
+    planes = max(1, planes)
+    if fused_h:
+        return _plan2d_synth(spec_h, spec_w, itemsize, planes, n_sm)
+    return (_plan2d_stream(spec_h, spec_w, itemsize, planes, n_sm)
+            or _plan2d(spec_h, spec_w, itemsize, planes, n_sm))
 
 
 def axes_inter_dtype(in_dtype: torch.dtype, out_dtype: torch.dtype) -> torch.dtype:
@@ -974,7 +1216,13 @@ def resize2d(x: torch.Tensor, spec_h: Pass, spec_w: Pass,
     leading axes) in one resample2d launch — the counterpart of the JAX
     package's ``resize2d_onekernel`` and ``resize2d_streamed``, and, over
     :func:`..weights.adjoint_tables`, of ``resize2d_onekernel_transpose``.
-    The launch's tiles follow the batch and the card (:func:`_plan_rows`).
+    The launch's tiles follow the batch and the card (:func:`_plan_rows`);
+    a long launch over tables walks column strips instead
+    (:func:`resize2d_plan`, :func:`_plan_stream`).  Both give the plain
+    version's bits for finite inputs.  An inf or NaN can spread to other
+    outputs on the streaming kernel, whose in-axis tables drop and add taps
+    of weight 0 (``0 * inf`` is NaN), so which outputs it reaches there
+    depends on the batch through the plan.
 
     ``x`` is uint8, float32 or bfloat16; ``out_dtype`` uint8 (``floor(v +
     0.5)`` clamped), float32 or bfloat16, by default float32 for uint8 input
@@ -1009,10 +1257,12 @@ def resize2d(x: torch.Tensor, spec_h: Pass, spec_w: Pass,
     lead = x.shape[:-2]
     x3 = x.reshape(math.prod(lead), spec_h.in_size, spec_w.in_size).contiguous()
     if debug_enabled():
-        print(f"[ia-tpu] resample2d{' (fused)' if fused_h else ''} "
+        kind = " (fused)" if fused_h else " (stream)" if isinstance(plan, PlanStream) else ""
+        print(f"[ia-tpu] resample2d{kind} "
               f"{x.dtype}->{out_dtype} ({x.device.type})")
     if x.device.type == "cuda":
-        launch = _resample2d_fused_cuda if fused_h else _resample2d_cuda
+        launch = (_resample2d_fused_cuda if fused_h else _resample2d_stream_cuda
+                  if isinstance(plan, PlanStream) else _resample2d_cuda)
         y = launch(x3, spec_h, spec_w, out_dtype, plan)
     elif fused_h:
         y = _resample2d_fused_plain(x3, spec_h, spec_w, out_dtype)

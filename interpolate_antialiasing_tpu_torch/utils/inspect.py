@@ -64,6 +64,7 @@ def launch_counts() -> dict:
     from ..ops import pil_exact as pe
 
     return {"pil_resample_2pass": pe.launches, "resample2d": cr.launches_2d,
+            "resample2d_stream": cr.launches_2d_stream,
             "resample_axis": cr.launches_axis, "crop_tables": cc.launches_crop_tables,
             "crop_resample": cc.launches_crop, "crop_f32": cc.launches_crop_f32,
             "pil_resample_axis": pe.launches_axis,
@@ -160,7 +161,10 @@ def _plan2d_launches(plan, planes: int, oh: int, ow: int) -> int:
     from .. import native
     from ..ops import cuda_resize as cr
 
-    per_plane = -(-oh // plan.tile_r) * -(-ow // plan.tile_c)
+    if isinstance(plan, cr.PlanStream):
+        per_plane = -(-oh // plan.seg) * -(-ow // cr._stream_tc(plan.ntaps))
+    else:
+        per_plane = -(-oh // plan.tile_r) * -(-ow // plan.tile_c)
     return len(native.plane_chunks(max(planes, 1), cr._INT_MAX // per_plane))
 
 
@@ -188,8 +192,9 @@ def kernel_report(
     ``route`` and ``launches`` are what ``resize`` launches on the card for
     exactly these arguments: ``pil_resample_2pass`` (kernel A over Pillow's
     tables), or two ``pil_resample_axis`` passes where no tile of it fits;
-    ``resample2d``, or two ``resample_axis`` passes where no kernel-A tile
-    fits; one ``resample_axis`` pass per axis (channels-last floats); and
+    ``resample2d`` (``resample2d_stream`` on a long launch over tables), or
+    two ``resample_axis`` passes where no kernel-A tile fits; one
+    ``resample_axis`` pass per axis (channels-last floats); and
     for float64 and the ``dense``/``gather``/``banded``/``xla`` backends the
     plain method of each pass (no kernel).  The plans are for ``device``'s
     SM count (None: the card, where there is one); without a card they
@@ -238,11 +243,17 @@ def kernel_report(
 
     def plan2d(kernel, plan, ntaps_w, nz_w, ntaps_h, nz_h):
         launches[kernel] = _plan2d_launches(plan, planes, oh, ow)
-        exec_w = -(-oh // plan.tile_r) * plan.rows_cap
+        if kernel == "resample2d_stream":  # each input row of a segment once
+            rows_cap = cr._window(cr._stream_tables(spec_h, plan.ntaps)[0], plan.ntaps, H,
+                                  plan.seg)
+            exec_w, ntaps_w, ntaps_h = -(-oh // plan.seg) * rows_cap, plan.ntaps, plan.ntaps
+        else:
+            rows_cap = plan.rows_cap
+            exec_w = -(-oh // plan.tile_r) * rows_cap
         axes.append(_axis_entry("W", kernel, W, ow, ntaps_w, nz_w, H, exec_w,
                                 window=plan.cols_cap))
         axes.append(_axis_entry("H", kernel, H, oh, ntaps_h, nz_h, ow, ow,
-                                window=plan.rows_cap))
+                                window=rows_cap))
         return plan._asdict()
 
     if route == "nearest_legacy" or (route.startswith("pil") and mode == "pil_nearest"):
@@ -279,8 +290,9 @@ def kernel_report(
             table_bytes = sum(a.nbytes for t in tables.values() for a in t)
             p2 = cr.resize2d_plan(spec_h, spec_w, csz, planes, n_sm)
             if p2 is not None:
-                tokens = ["resample2d"]
-                plan = plan2d("resample2d", p2, spec_w.ntaps, nz["W"], spec_h.ntaps, nz["H"])
+                kernel = "resample2d_stream" if isinstance(p2, cr.PlanStream) else "resample2d"
+                tokens = [kernel]
+                plan = plan2d(kernel, p2, spec_w.ntaps, nz["W"], spec_h.ntaps, nz["H"])
             else:
                 tokens = ["resample_axis"] * 2
                 launches["resample_axis"] = 2

@@ -303,6 +303,100 @@ def test_resample2d_plan_occupancy(dev):
 
 
 # ---------------------------------------------------------------------------
+# Kernel A's streaming twin (csrc/resample2d_stream.cu): every plan its
+# planner weighs, forced past the gate, bit for bit against the plain version
+# ---------------------------------------------------------------------------
+
+# (name, x shape, output [OH, OW], mode, x off 16 bytes): ragged last strips
+# and segments, rows of 1498 or 1499 elements (no row starts on 16 bytes),
+# both tap buckets (exactly 2x bilinear: 4 taps; 2.5x bilinear and 2x
+# bicubic: 8)
+STREAM_EDGES = [
+    ("x2_ragged", (4, 1002, 1498), (501, 749), "bilinear", False),
+    ("x2_offset", (3, 1002, 1498), (501, 749), "bilinear", True),
+    ("x2.5_odd", (4, 1003, 1499), (401, 653), "bilinear", False),
+    ("x2_ragged_bicubic", (4, 1002, 1498), (501, 749), "bicubic", False),
+    ("x2_offset_bicubic", (3, 1002, 1498), (501, 749), "bicubic", True),
+]
+
+
+def _stream_plans(x3, sh, sw):
+    """Every plan cuda_resize._stream_candidates weighs for ``x3``'s pass,
+    at planes enough to pass its gate."""
+    nt = cr._stream_ntaps(sh, sw)
+    th, tw = cr._stream_tables(sh, nt), cr._stream_tables(sw, nt)
+    return list(dict.fromkeys(p for _, p in cr._stream_candidates(
+        th[0], sh.in_size, tw[0], sw.in_size, nt, x3.element_size(), 4096,
+        cr._n_sm(x3.device))))
+
+
+@pytest.mark.parametrize("idt,odt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32),
+                                     (torch.uint8, torch.float32),
+                                     (torch.uint8, torch.uint8)],
+                         ids=["bf16", "f32", "u8_f32", "u8_u8"])
+@pytest.mark.parametrize("name,shape,ohw,mode,offset", STREAM_EDGES,
+                         ids=[c[0] for c in STREAM_EDGES])
+def test_resample2d_stream_every_strip_matches_plain(dev, monkeypatch, name, shape, ohw, mode,
+                                                     offset, idt, odt):
+    x = _offset_input(shape, idt, dev, 40) if offset else _input(shape, idt, dev, 40)
+    sh, sw = make_axis_spec(shape[1], ohw[0], mode), make_axis_spec(shape[2], ohw[1], mode)
+    want = cr._resample2d_plain(x, sh, sw, odt)
+    plans = _stream_plans(x, sh, sw)
+    assert len(plans) > 4
+    for plan in plans:
+        monkeypatch.setattr(cr, "resize2d_plan", lambda *a, p=plan, **k: p)
+        before = (cr.launches_2d, cr.launches_2d_stream)
+        got = cr.resize2d(x, sh, sw, odt)
+        torch.cuda.synchronize()
+        assert (cr.launches_2d, cr.launches_2d_stream) == (before[0], before[1] + 1)
+        _assert_equal(got, want)
+
+
+def test_resample2d_stream_config5_batch4_matches_plain(dev):
+    """Four frames of BASELINE config 5 through ``resize2d`` on its own plan:
+    one launch of the streaming kernel, the plain version's bits."""
+    x = _input((4, 3, 2160, 3840), torch.bfloat16, dev, 41)
+    sh, sw = make_axis_spec(2160, 1080), make_axis_spec(3840, 1920)
+    assert isinstance(cr.resize2d_plan(sh, sw, 2, 12, cr._n_sm(dev)), cr.PlanStream)
+    before = (cr.launches_2d, cr.launches_2d_stream)
+    got = cr.resize2d(x, sh, sw)
+    torch.cuda.synchronize()
+    assert (cr.launches_2d, cr.launches_2d_stream) == (before[0], before[1] + 1)
+    want = cr._resample2d_plain(x.reshape(12, 2160, 3840), sh, sw, torch.bfloat16)
+    _assert_equal(got, want.reshape(got.shape))
+
+
+def test_resample2d_stream_launches_once_per_video_call_and_never_on_the_pillow_route(dev):
+    from interpolate_antialiasing_tpu_torch.models import ImageNetEvalPipeline, VideoDownscaler
+    from interpolate_antialiasing_tpu_torch.utils.inspect import launch_counts
+
+    def launched(fn, calls):
+        before = launch_counts()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return {k: v - before[k] for k, v in launch_counts().items() if v > before[k]}
+
+    frames = _input((4, 3, 2160, 3840), torch.bfloat16, dev, 42)
+    video = VideoDownscaler((1080, 1920))
+    assert launched(lambda: video(frames), 3) == {"resample2d_stream": 3}
+    batch = _input((8, 3, 438, 906), torch.uint8, dev, 43)
+    pipe = ImageNetEvalPipeline(size=(224, 224), short_side=256).to(dev)
+    assert launched(lambda: pipe(batch), 2) == {"pil_resample_2pass": 2}
+
+
+def test_resample2d_stream_plan_occupancy(dev):
+    """The card holds at least the resident blocks config 5's streaming plan
+    counts on (registers and shared memory both count)."""
+    sh, sw = make_axis_spec(2160, 1080), make_axis_spec(3840, 1920)
+    for dt in (torch.bfloat16, torch.float32):
+        plan = cr.resize2d_plan(sh, sw, dt.itemsize, 192, cr._n_sm(dev))
+        assert isinstance(plan, cr.PlanStream)
+        assert cr.occupancy_stream(plan, dt, dt) >= plan.resident
+
+
+# ---------------------------------------------------------------------------
 # Kernel B and pil_resample_axis since their redesign for Hopper: the axis
 # kinds of the tile plan (the last axis, a narrow and a wide inner), rows
 # and planes that start off 16 bytes, one output, an upsample and the
@@ -1070,6 +1164,7 @@ REPORT_CASES = [
     ("f32_no_tile", (2, 58200, 4), (1, 4), "box", torch.float32, None),
     ("u8_no_tile", (1, 20000, 64), (10, 32), "lanczos3", torch.uint8, None),
     ("f64_plain", (1, 3, 43, 90), (19, 32), "bilinear", torch.float64, None),
+    ("bf16_stream", (4, 3, 2160, 3840), (1080, 1920), "bilinear", torch.bfloat16, None),
 ]
 
 
@@ -1162,21 +1257,29 @@ def test_a_hand_written_call_makes_its_launches_in_kernel_records(dev):
     assert 0 < device_time_per_call(call, iters=4, match="resample_axis_kernel") < 10
 
 
-@pytest.mark.parametrize("route", ["eval", "train", "train_noflip"])
+@pytest.mark.parametrize("route", ["eval", "train", "train_noflip", "video"])
 def test_native_spans_per_call_equal_the_launch_counters(dev, route):
     """Under the profiler, the ``ia.native.<kernel>`` spans of two pipeline
     calls equal the launch counters' deltas, kernel by kernel, on the eval
-    route, the float32-intermediate crop (flips) and the windowed crop."""
+    route, the float32-intermediate crop (flips), the windowed crop and the
+    video downscale (kernel A's streaming twin)."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
 
     from interpolate_antialiasing_tpu_torch.models import (ImageNetEvalPipeline,
-                                                           ImageNetTrainPipeline)
+                                                           ImageNetTrainPipeline,
+                                                           VideoDownscaler)
     from interpolate_antialiasing_tpu_torch.utils.inspect import launch_counts
 
     x = _input((8, 3, 438, 906), torch.uint8, dev, seed=37)
-    if route == "eval":
+    if route == "video":
+        frames = _input((4, 3, 2160, 3840), torch.bfloat16, dev, seed=38)
+        video = VideoDownscaler((1080, 1920))
+
+        def call():
+            return video(frames)
+    elif route == "eval":
         pipe = ImageNetEvalPipeline(size=(224, 224), short_side=256).to(dev)
 
         def call():
@@ -1203,4 +1306,5 @@ def test_native_spans_per_call_equal_the_launch_counters(dev, route):
     assert dict(spans) == launched
     assert launched == {"eval": {"pil_resample_2pass": 2},
                         "train": {"crop_tables": 2, "crop_f32": 4},
-                        "train_noflip": {"crop_tables": 2, "crop_resample": 4}}[route]
+                        "train_noflip": {"crop_tables": 2, "crop_resample": 4},
+                        "video": {"resample2d_stream": 2}}[route]

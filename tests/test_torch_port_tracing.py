@@ -107,12 +107,16 @@ def test_a_pipeline_call_emits_its_spans_inside_its_models_span(call):
 
 
 def test_the_video_downscaler_emits_its_models_span():
-    """A cold call: the plane route's builds (the plan, then both passes'
-    tables) open inside its tables span, inside ``ia.models.video``."""
+    """A cold call: the plane route's builds (the streaming plan, which a
+    short launch refuses before any table, then the tile plan and both
+    passes' tables) open inside its tables span, inside
+    ``ia.models.video``."""
     fn = _video()
     cr._tables.cache_clear()
     cr._plan2d.cache_clear()
+    cr._plan2d_stream.cache_clear()
     assert _with_parents(_spans(fn)) == NESTING["video"] + [
+        ("ia.build._plan2d_stream", "ia.tables.resize2d"),
         ("ia.build._plan2d", "ia.tables.resize2d"), ("ia.build._tables", "ia.build._plan2d"),
         ("ia.build._tables", "ia.build._plan2d")]
 
@@ -179,6 +183,11 @@ CACHED = {
     "_tables": (cr._tables, lambda: cr._tables(_plane_specs()[0])),
     "_tables_on": (cr._tables_on, lambda: cr._tables_on(_plane_specs()[1], torch.device("cpu"))),
     "_plan2d": (cr._plan2d, lambda: cr._plan2d(*_plane_specs(), 2, 3)),
+    "_stream_tables": (cr._stream_tables, lambda: cr._stream_tables(_plane_specs()[0], 8)),
+    "_stream_tables_on": (cr._stream_tables_on, lambda: cr._stream_tables_on(
+        _plane_specs()[0], 8, torch.device("cpu"))),
+    "_plan2d_stream": (cr._plan2d_stream, lambda: cr._plan2d_stream(*_plane_specs(), 2, 4096,
+                                                                    132)),
 }
 
 

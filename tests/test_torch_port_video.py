@@ -84,14 +84,14 @@ def test_the_reference_is_atens_antialiased_bilinear(shape, ohw):
 @pytest.mark.cuda
 def test_the_cells_frames_on_the_card():
     """Four of the cell's frames, 2160 x 3840 -> 1080 x 1920, through kernel
-    A, against the reference computed on the card."""
+    A's streaming twin, against the reference computed on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 
     x = _frames((4, 3, 2160, 3840), 2**31 + 19, "cuda")
-    before = cr.launches_2d
+    before = cr.launches_2d_stream
     y = VideoDownscaler((1080, 1920))(x)
-    assert cr.launches_2d == before + 1
+    assert cr.launches_2d_stream == before + 1
     reading = bf16_ulps.compare(y, video.downscale(x, 1080, 1920))
     assert _within(reading), reading
