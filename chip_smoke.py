@@ -167,6 +167,7 @@ from interpolate_antialiasing_tpu_torch.models import ShapeBucketResizer
 from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
+from interpolate_antialiasing_tpu_torch.ops import plans
 from interpolate_antialiasing_tpu_torch.ops.crop import box_fracs, sample_boxes
 from interpolate_antialiasing_tpu_torch.ops.resize_xla import resize_axis_dense
 from interpolate_antialiasing_tpu_torch.ops.weights import adjoint_tables, make_axis_spec
@@ -308,8 +309,8 @@ def _kernel_times(fn, iters: int, match: str) -> dict:
 
 def _plan_of(x: torch.Tensor, sh, sw, fused: bool = False) -> list | None:
     """Kernel A's plan for ``x`` as :func:`cr.resize2d` takes it."""
-    plan = (cr._plan2d_synth if fused else cr._plan2d)(
-        sh, sw, x.element_size(), max(1, math.prod(x.shape[:-2])), cr._n_sm(x.device))
+    plan = (cr._plan2d_synth if fused else plans.plan2d)(
+        sh, sw, x.element_size(), max(1, math.prod(x.shape[:-2])), plans.n_sm(x.device))
     return None if plan is None else list(plan)
 
 
@@ -324,21 +325,21 @@ def print_kernel_a_plans(dev) -> None:
         sh = make_axis_spec(shape[-2], ohw[0], mode)
         sw = make_axis_spec(shape[-1], ohw[1], mode)
         for fused in (False, True):
-            plan = (cr._plan2d_synth if fused else cr._plan2d)(
+            plan = (cr._plan2d_synth if fused else plans.plan2d)(
                 sh, sw, torch.empty(0, dtype=dt).element_size(), math.prod(shape[:-2]),
-                cr._n_sm(dev))
+                plans.n_sm(dev))
             _line("plan_resample2d", case=name, mode=mode, fused=fused, shape=list(shape),
                   size=list(ohw), dtype=str(dt), taps=[sh.ntaps, sw.ntaps],
-                  **plan._asdict(), sms=cr._n_sm(dev),
+                  **plan._asdict(), sms=plans.n_sm(dev),
                   card_resident_per_sm=cr.occupancy_2d(plan, dt, dt, sw.ntaps, sh.ntaps,
                                                         fused))
     (shape, ohw), dt = CONFIG5, BF16
     sh, sw = make_axis_spec(shape[-2], ohw[0]), make_axis_spec(shape[-1], ohw[1])
-    plan = cr.resize2d_plan(sh, sw, dt.itemsize, math.prod(shape[:-2]), cr._n_sm(dev))
-    if not isinstance(plan, cr.PlanStream):
+    plan = cr.resize2d_plan(sh, sw, dt.itemsize, math.prod(shape[:-2]), plans.n_sm(dev))
+    if not isinstance(plan, plans.PlanStream):
         raise RuntimeError(f"config 5 does not take the streaming plan: {plan}")
     _line("plan_resample2d_stream", case="config 5", shape=list(shape), size=list(ohw),
-          dtype=str(dt), **plan._asdict(), sms=cr._n_sm(dev),
+          dtype=str(dt), **plan._asdict(), sms=plans.n_sm(dev),
           card_resident_per_sm=cr.occupancy_stream(plan, dt, dt))
 
 
@@ -354,7 +355,7 @@ def _axis_timed_passes():
         for p, spec, outer, inner in (("w", sw, N * H, C), ("h", sh, N, ohw[1] * C)):
             for kind in ("table", "fused"):
                 first = (cr._synth_first(spec) if kind == "fused"
-                         else cr._tables(spec)[0].astype(np.int64))
+                         else plans.tables(spec)[0].astype(np.int64))
                 yield (f"{case} {p} pass", kind, first, spec.ntaps, spec.in_size, outer,
                        inner, dt)
     (shape, size, mode), d = SHARD_U8, 1
@@ -375,11 +376,11 @@ def print_axis_plans(dev) -> None:
     """The axis kernels' plan at every timed pass: tile, window, vec, shared
     bytes, blocks, the plan's estimate of resident blocks per SM and the
     card's (occupancy API: registers count too)."""
-    n_sm = cr._n_sm(dev)
+    n_sm = plans.n_sm(dev)
     for case, kind, first, ntaps, n_in, outer, inner, dt in _axis_timed_passes():
         isz = torch.empty(0, dtype=dt).element_size()
-        plan = cr._plan_axis_first(first.tobytes(), ntaps, n_in, outer, inner, isz, n_sm, True,
-                                   kind == "fused")
+        plan = plans.plan_axis_first(first.tobytes(), ntaps, n_in, outer, inner, isz, n_sm, True,
+                                     kind == "fused")
         fields = {"unstaged": True} if plan is None else dict(
             **plan._asdict(), card_resident_per_sm=cr.occupancy_axis(plan, kind, dt, dt, ntaps))
         _line("plan_resample_axis", case=case, kind=kind, dtype=str(dt), taps=ntaps,
@@ -469,11 +470,12 @@ def check_pil_kernel(dev, rng) -> float:
     for name, shape, kw in _pil_cases():
         n += 1
         x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
-        before = pe.launches
+        before = native.launches["pil_resample_2pass"]
         got = pe.resize_pil_exact(x.to(dev), **kw)
         torch.cuda.synchronize()
-        if pe.launches != before + 1:  # every block on gridDim.x: 70,000 planes too
-            raise RuntimeError(f"{name}: {pe.launches - before} launches")
+        launched = native.launches["pil_resample_2pass"] - before
+        if launched != 1:  # every block on gridDim.x: 70,000 planes too
+            raise RuntimeError(f"{name}: {launched} launches")
         want = pe.resize_pil_exact(x, **kw)  # CPU tensor: plain version
         err = _max_abs(got.cpu(), want)
         worst = max(worst, err)
@@ -482,7 +484,7 @@ def check_pil_kernel(dev, rng) -> float:
                                f"(max abs err {err})")
         _case(kernel="pil_resample_2pass", case=name,
               shape=list(shape), out=list(got.shape),
-              launches=pe.launches - before, max_abs_err=err)
+              launches=launched, max_abs_err=err)
     _line("kernel_vs_plain_summary", kernel="pil_resample_2pass", cases=n,
           max_abs_err=worst)
     return worst
@@ -596,26 +598,26 @@ def check_float_kernels(dev) -> tuple[float, float]:
             x = x[1:]
         sh = make_axis_spec(shape[-2], ohw[0], mode, **kw)
         sw = make_axis_spec(shape[-1], ohw[1], mode, **kw)
-        before = cr.launches_2d
+        before = native.launches["resample2d"]
         got = cr.resize2d(x, sh, sw, odt)
         torch.cuda.synchronize()
-        if cr.launches_2d != before + 1:
+        if native.launches["resample2d"] != before + 1:
             raise RuntimeError(f"resample2d {name}: not launched")
         want = cr._resample2d_plain(_view3(x, -2), sh, sw, odt).reshape(got.shape)
         t2d.add(name, _compare(f"resample2d {name}", got, want), shape=list(x.shape),
                 out=list(got.shape), mode=mode, **kw, dtypes=[str(idt), str(odt)],
                 plan=_plan_of(x, sh, sw))
-    if cr._plan2d(make_axis_spec(2160, 8, "lanczos3"), make_axis_spec(96, 48, "lanczos3"),
-                  4, 1, cr._n_sm(dev)).tile_c >= 64:
+    if plans.plan2d(make_axis_spec(2160, 8, "lanczos3"), make_axis_spec(96, 48, "lanczos3"),
+                    4, 1, plans.n_sm(dev)).tile_c >= 64:
         raise RuntimeError("the extreme downscale kept 64-column tiles")
     # NHWC uint8 through the public entry: moves through NCHW around one
     # resample2d launch
     x = _rand((2, 40, 60, 3), U8, dev, 201)
     sh, sw = make_axis_spec(40, 20, "area"), make_axis_spec(60, 30, "area")
-    before = cr.launches_2d
+    before = native.launches["resample2d"]
     got = resize(x, (20, 30), method="area", data_format="NHWC")
     torch.cuda.synchronize()
-    if cr.launches_2d != before + 1:
+    if native.launches["resample2d"] != before + 1:
         raise RuntimeError("u8 NHWC: expected one resample2d launch")
     want = cr._resample2d_plain(_view3(x.movedim(-1, -3), -2), sh, sw, U8)
     want = want.reshape(2, 3, 20, 30).movedim(-3, -1)
@@ -627,10 +629,10 @@ def check_float_kernels(dev) -> tuple[float, float]:
     sh, sw = make_axis_spec(58200, 1, "box"), make_axis_spec(4, 4, "box")
     if _plan_of(x, sh, sw) is not None:
         raise RuntimeError("the fallback case fits a tile")
-    before = cr.launches_axis
+    before = native.launches["resample_axis"]
     got = cr.resize2d(x, sh, sw, F32)
     torch.cuda.synchronize()
-    if cr.launches_axis != before + 2:
+    if native.launches["resample_axis"] != before + 2:
         raise RuntimeError("the fallback did not run two resample_axis passes")
     y = cr._resample_axis_plain(_view3(x, 2), sw, F32).reshape(x.shape)
     want = cr._resample_axis_plain(_view3(y, 1), sh, F32).reshape(got.shape)
@@ -649,10 +651,10 @@ def check_float_kernels(dev) -> tuple[float, float]:
         seed += 1
         x = _axis_input(name, shape, idt, dev, seed)
         spec = make_axis_spec(shape[axis], n_out, mode)
-        before = cr.launches_axis
+        before = native.launches["resample_axis"]
         got = cr.resize_axis(x, spec, axis, odt)
         torch.cuda.synchronize()
-        if cr.launches_axis != before + 1:
+        if native.launches["resample_axis"] != before + 1:
             raise RuntimeError(f"resample_axis {name}: not launched")
         want = cr._resample_axis_plain(_view3(x, axis), spec, odt).reshape(got.shape)
         tax.add(name, _compare(f"resample_axis {name}", got, want),
@@ -661,10 +663,10 @@ def check_float_kernels(dev) -> tuple[float, float]:
     # NHWC float32 through the public entry: two resample_axis passes
     x = _rand((2, 40, 60, 3), F32, dev, 200)
     sh, sw = make_axis_spec(40, 20, "bicubic"), make_axis_spec(60, 30, "bicubic")
-    before = (cr.launches_2d, cr.launches_axis)
+    before = launch_counts()
     got = resize(x, (20, 30), method="bicubic", data_format="NHWC")
     torch.cuda.synchronize()
-    if (cr.launches_2d, cr.launches_axis) != (before[0], before[1] + 2):
+    if launch_counts() != dict(before, resample_axis=before["resample_axis"] + 2):
         raise RuntimeError("f32 NHWC: expected two resample_axis launches")
     y = cr._resample_axis_plain(_view3(x, 2), sw, F32).reshape(2, 40, 30, 3)
     want = cr._resample_axis_plain(_view3(y, 1), sh, F32).reshape(got.shape)
@@ -706,10 +708,10 @@ def check_adjoint_kernels(dev) -> tuple[float, float]:
         for dt in (F32, BF16):
             seed += 1
             g = _rand(gshape, dt, dev, seed)
-            before = cr.launches_2d
+            before = native.launches["resample2d"]
             got = cr.resize2d(g, th, tw, dt)
             torch.cuda.synchronize()
-            if cr.launches_2d != before + 1:
+            if native.launches["resample2d"] != before + 1:
                 raise RuntimeError(f"resample2d adjoint {name}: not launched")
             want = cr._resample2d_plain(_view3(g, -2), th, tw, dt).reshape(got.shape)
             t2d.add(name, _compare(f"resample2d adjoint {name}", got, want),
@@ -720,10 +722,10 @@ def check_adjoint_kernels(dev) -> tuple[float, float]:
         for dt in (F32, BF16):
             seed += 1
             g = _rand(gshape, dt, dev, seed)
-            before = cr.launches_axis
+            before = native.launches["resample_axis"]
             got = cr.resize_axis(g, t, axis, dt)
             torch.cuda.synchronize()
-            if cr.launches_axis != before + 1:
+            if native.launches["resample_axis"] != before + 1:
                 raise RuntimeError(f"resample_axis adjoint {name}: not launched")
             want = cr._resample_axis_plain(_view3(g, axis), t, dt).reshape(got.shape)
             tax.add(name, _compare(f"resample_axis adjoint {name}", got, want),
@@ -835,10 +837,10 @@ def _crop_tables_vs_plain(tally: _Tally, name: str, x, b, ohw, method: str, frac
     the plain build on the card, table by table: ``first`` and ``cnt``
     (each row's true count, past ``T`` for a zoom-out box) equal, ``w``
     equal bit for bit.  Returns the kernel's tables."""
-    before = cc.launches_crop_tables
+    before = native.launches["crop_tables"]
     got = cc._windowed_tables(x, b, ohw, method, True, frac, precision)
     torch.cuda.synchronize()
-    if cc.launches_crop_tables != before + 1:
+    if native.launches["crop_tables"] != before + 1:
         raise RuntimeError(f"crop_tables {name}: not launched once")
     with _forced(cc, "_windowed_tables_cuda", cc._windowed_tables_plain):
         want = cc._windowed_tables(x, b, ohw, method, True, frac, precision)
@@ -866,11 +868,11 @@ def _tables_at_lanes(tally: _Tally, name: str, shape, b, ohw, method: str, frac,
     mode = cc._mode(method, True)
     axes = [a for a, _ in cc._table_geometry(H, W, *ohw, mode, True, cc._fracs(frac),
                                              precision)]
-    before = cc.launches_crop_tables
+    before = native.launches["crop_tables"]
     with _forced(cc, "_table_plan", lambda *_: (lanes, lanes)):
         got = cc._windowed_tables_cuda(b, mode, True, axes)
     torch.cuda.synchronize()
-    if cc.launches_crop_tables != before + 1:
+    if native.launches["crop_tables"] != before + 1:
         raise RuntimeError(f"crop_tables {name}: not launched once")
     want = cc._windowed_tables_plain(b, mode, True, axes)
     err = 0.0
@@ -932,10 +934,10 @@ def check_crop_kernel(dev) -> tuple[float, float]:
                 raise RuntimeError(f"crop_resample {name}: the boxes are not strided")
         for precision in ("pil_int8", "split"):
             tables = _crop_tables_vs_plain(tt, name, x, b, ohw, method, frac, precision)
-            before = cc.launches_crop
+            before = native.launches["crop_resample"]
             got = cc._crop_resample(x, *tables)
             torch.cuda.synchronize()
-            if cc.launches_crop != before + 2:
+            if native.launches["crop_resample"] != before + 2:
                 raise RuntimeError(f"crop_resample {name}: not launched twice")
             want = cc._crop_resample_plain(x, *tables)
             tally.add(f"{name} {precision}",
@@ -989,11 +991,11 @@ def check_crop_f32_kernel(dev) -> float:
         x = _rand(shape, U8, dev, seed)
         b = torch.as_tensor(np.asarray(boxes, np.float32)).to(dev)
         flip = _f32_flips(shape[0], seed).to(dev)
-        before = (cc.launches_crop_tables, cc.launches_crop_f32, cc.launches_crop)
+        before = launch_counts()
         got = cc.crop_and_resize_f32(x, b, ohw, method, flip=flip)
         torch.cuda.synchronize()
-        if (cc.launches_crop_tables, cc.launches_crop_f32, cc.launches_crop) != (
-                before[0] + 1, before[1] + 2, before[2]):
+        if launch_counts() != dict(before, crop_tables=before["crop_tables"] + 1,
+                                   crop_f32=before["crop_f32"] + 2):
             raise RuntimeError(f"crop_f32 {name}: not one table and two f32 launches")
         tables = cc._f32_tables(x, b, ohw, method, flip)
         with _forced(cc, "_windowed_tables_cuda", cc._windowed_tables_plain):
@@ -1057,10 +1059,10 @@ def check_pil_axis_kernel(dev) -> float:
         x = _rand(shape, U8, dev, seed)
         if name.startswith("offset"):
             x = _rand((math.prod(shape) + 1,), U8, dev, seed)[1:].reshape(shape)
-        before = pe.launches_axis
+        before = native.launches["pil_resample_axis"]
         got = pe._resample_axis(x, tables, axis)
         torch.cuda.synchronize()
-        if pe.launches_axis != before + 1:
+        if native.launches["pil_resample_axis"] != before + 1:
             raise RuntimeError(f"pil_resample_axis {name}: not launched")
         want = pe._resample_axis_plain(_view3(x, axis), tables).reshape(got.shape)
         tally.add(name, _compare(f"pil_resample_axis {name}", got, want),
@@ -1084,10 +1086,10 @@ def check_shard_tables_kernel(dev) -> float:
                         for dt in (F32, BF16):
                             seed += 1
                             x = _rand((2, t.in_size, 37), dt, dev, seed)
-                            before = cr.launches_axis
+                            before = native.launches["resample_axis"]
                             got = cr.resize_axis(x, t, 1, dt)
                             torch.cuda.synchronize()
-                            if cr.launches_axis != before + 1:
+                            if native.launches["resample_axis"] != before + 1:
                                 raise RuntimeError("resample_axis shard tables: not launched")
                             want = cr._resample_axis_plain(x, t, dt)
                             name = f"n={n} {mode} {ih}->{oh} shard {d} {which} {dt}"
@@ -1191,9 +1193,9 @@ def check_fused_kernels(dev) -> tuple[float, float]:
 @contextlib.contextmanager
 def _forced(module, name, fn):
     """``module.name`` is ``fn`` inside the block (a wrapper's plan forced
-    past the host's: the axis kernels' ``cuda_resize._plan_axis_first``, a
+    past the host's: the axis kernels' ``plans.plan_axis_first``, a
     ``PlanAxis`` tile of the staged body or None, the unstaged body; the
-    Pillow kernel's ``pil_exact._plan_2pass``; the crop's
+    Pillow kernel's ``plans.plan_pil_2pass``; the crop's
     ``crop_cuda._crop_plan``)."""
     real = getattr(module, name)
     setattr(module, name, fn)
@@ -1204,14 +1206,14 @@ def _forced(module, name, fn):
 
 
 def _every_tile(first, ntaps: int, x3: torch.Tensor) -> list:
-    """Every tile ``cuda_resize._axis_candidates`` lists for a pass over
+    """Every tile ``plans._axis_candidates`` lists for a pass over
     ``x3`` (the tiles the plan picks from; partial last tiles along each
     axis included), then None: the unstaged body."""
     outer, n_in, inner = x3.shape
-    plans = [p for _, p in cr._axis_candidates(
+    cands = [p for _, p in plans._axis_candidates(
         np.asarray(first, np.int64), ntaps, n_in, outer, inner, x3.element_size(),
-        cr._H100_SMS, x3.data_ptr() % 4 == 0)]
-    return list(dict.fromkeys(plans)) + [None]
+        plans.H100_SMS, x3.data_ptr() % 4 == 0)]
+    return list(dict.fromkeys(cands)) + [None]
 
 
 def _tile_cases():
@@ -1269,7 +1271,7 @@ def check_axis_tiles(dev) -> tuple[float, float, float]:
 
     def launch(kind, x, spec, axis, odt, plan):
         before = launch_counts()
-        with _forced(cr, "_plan_axis_first", lambda *args, p=plan: p):
+        with _forced(plans, "plan_axis_first", lambda *args, p=plan: p):
             if kind == "pil":
                 got = pe._resample_axis(x, spec, axis)
             else:
@@ -1281,9 +1283,9 @@ def check_axis_tiles(dev) -> tuple[float, float, float]:
         return got
 
     def every_tile(kind, name, x, spec, axis, odt, first, ntaps, want, **fields):
-        plans = _every_tile(first, ntaps, _view3(x, axis))
+        cands = _every_tile(first, ntaps, _view3(x, axis))
         staged = 0
-        for plan in plans:
+        for plan in cands:
             got = launch(kind, x, spec, axis, odt, plan)
             res = _compare(f"{counters[kind]} {name} {plan}", got, want.reshape(got.shape))
             staged += plan is not None
@@ -1294,7 +1296,7 @@ def check_axis_tiles(dev) -> tuple[float, float, float]:
         seed += 1
         x = _axis_input(name, shape, idt, dev, seed)
         spec = make_axis_spec(shape[axis], n_out, mode)
-        first, w = cr._tables(spec)
+        first, w = plans.tables(spec)
         want = cr._resample_axis_plain(_view3(x, axis), spec, odt)
         every_tile("table", name, x, spec, axis, odt, first, w.shape[1], want)
         want = cr._resample_axis_fused_plain(_view3(x, axis), spec, odt)
@@ -1316,13 +1318,13 @@ def check_axis_tiles(dev) -> tuple[float, float, float]:
         else:
             spec = make_axis_spec(shape[axis], n_out, mode)
             fused = kind == "fused"
-            first = cr._synth_first(spec) if fused else cr._tables(spec)[0]
-            ntaps = spec.ntaps if fused else cr._tables(spec)[1].shape[1]
+            first = cr._synth_first(spec) if fused else plans.tables(spec)[0]
+            ntaps = spec.ntaps if fused else plans.tables(spec)[1].shape[1]
             want = (cr._resample_axis_fused_plain if fused else cr._resample_axis_plain)(
                 x3, spec, dt)
-        plan = cr._plan_axis_first(np.asarray(first, np.int64).tobytes(), ntaps,
-                                   x3.shape[1], x3.shape[0], x3.shape[2], x.element_size(),
-                                   cr._n_sm(dev), x3.data_ptr() % 4 == 0, kind == "fused")
+        plan = plans.plan_axis_first(np.asarray(first, np.int64).tobytes(), ntaps,
+                                     x3.shape[1], x3.shape[0], x3.shape[2], x.element_size(),
+                                   plans.n_sm(dev), x3.data_ptr() % 4 == 0, kind == "fused")
         if plan is None:
             raise RuntimeError(f"{name}: the plan ran the unstaged body above the cut")
         before = launch_counts()
@@ -1405,17 +1407,17 @@ def check_u8_tiles(dev) -> tuple[float, float, float]:
         tw = pe._int_tables(shape[2], ohw[1], mode, pb=pb)
         th = pe._int_tables(shape[1], ohw[0], mode, pb=pb)
         want = pe._resample_2pass_plain(x3, tw, th, pb)
-        plan = pe._plan_2pass(tw, th, shape[0], shape[1], shape[2], cr._n_sm(dev))
+        plan = plans.plan_pil_2pass(tw, th, shape[0], shape[1], shape[2], plans.n_sm(dev))
         before = launch_counts()
         res = _compare(f"pil_resample_2pass {name}", pe._resample_2pass(x3, tw, th, pb), want)
         c = ("pil_resample_2pass", 1) if plan is not None else ("pil_resample_axis", 2)
         if launch_counts() != dict(before, **{c[0]: before[c[0]] + c[1]}):
             raise RuntimeError(f"pil_resample_2pass {name}: not {c[1]} {c[0]} launch(es)")
-        tiles = [p for _, p in cr._rows_candidates(
+        tiles = [p for _, p in plans._rows_candidates(
             th[0], th[1].shape[1], shape[1], tw[0], tw[1].shape[1], shape[2], 1, shape[0],
-            cr._n_sm(dev), inter_size=1)]
+            plans.n_sm(dev), inter_size=1)]
         for p in tiles:
-            with _forced(pe, "_plan_2pass", lambda *a, p=p: p):
+            with _forced(plans, "plan_pil_2pass", lambda *a, p=p: p):
                 _compare(f"pil_resample_2pass {name} {p}", pe._resample_2pass(x3, tw, th, pb),
                          want)
         tp.add(name, res, shape=list(shape), out=list(ohw), mode=mode, pb=pb,
@@ -1431,14 +1433,14 @@ def check_u8_tiles(dev) -> tuple[float, float, float]:
             want = cc._crop_resample_plain(x, *tables)
             res = _compare(f"crop_resample {name} {precision}", cc._crop_resample(x, *tables),
                            want)
-            n, plans = 0, []
+            n, picked = 0, []
             for which, tab, n_in, n_out, R, inner in (
                     ("h", tables[0], H, ohw[0], C, W), ("w", tables[1], W, ohw[1], C * ohw[0], 1)):
                 T = tab.w.shape[-1]
-                plans.append(cc._crop_plan(tab.wins, n_in, n_out, T, N, R, inner,
-                                           cr._n_sm(dev), x.data_ptr() % 4 == 0, 1))
-                cands = [p for _, p in cr._axis_tiles(
-                    tab.wins, n_out, T, n_in, N * R, inner, 1, cr._n_sm(dev),
+                picked.append(cc._crop_plan(tab.wins, n_in, n_out, T, N, R, inner,
+                                            plans.n_sm(dev), x.data_ptr() % 4 == 0, 1))
+                cands = [p for _, p in plans.axis_tiles(
+                    tab.wins, n_out, T, n_in, N * R, inner, 1, plans.n_sm(dev),
                     x.data_ptr() % 4 == 0, per_img=R)]
                 for p in list(dict.fromkeys(cands)) + [None]:
                     def pick(wins, n_in, n_out, T, N, R, inner, n_sm, vec4, itemsize, p=p,
@@ -1452,7 +1454,7 @@ def check_u8_tiles(dev) -> tuple[float, float, float]:
                     n += 1
             tc.add(f"{name} {precision}", res, shape=list(shape), out=list(ohw),
                    max_box_frac=frac, taps=[tables[0].w.shape[-1], tables[1].w.shape[-1]],
-                   plans=[None if p is None else p._asdict() for p in plans], tiles=n)
+                   plans=[None if p is None else p._asdict() for p in picked], tiles=n)
             del tables, want
         del x
         torch.cuda.empty_cache()
@@ -1465,10 +1467,7 @@ def check_u8_tiles(dev) -> tuple[float, float, float]:
 
 
 def _reset() -> None:
-    pe.launches = cr.launches_2d = cr.launches_axis = cc.launches_crop = 0
-    cr.launches_2d_stream = 0
-    cc.launches_crop_tables = cc.launches_crop_f32 = 0
-    pe.launches_axis = cr.launches_2d_fused = cr.launches_axis_fused = 0
+    native.launches.update(dict.fromkeys(native.launches, 0))
 
 
 def _expect(phase: str, want: dict) -> dict:
@@ -2314,8 +2313,9 @@ def time_float_kernels(dev, card) -> tuple[dict, dict, dict]:
         k5 = sum(c5["kernel"]) / 2
         P = x3.shape[0]
         bound = bound_of(2 * P * (shape[-2] * shape[-1] + ohw[0] * ohw[1])
-                         + _nbytes(*cr._tables(sh), *cr._tables(sw)),
-                         P * (shape[-2] * _nz(cr._tables(sw)[1]) + ohw[1] * _nz(cr._tables(sh)[1])))
+                         + _nbytes(*plans.tables(sh), *plans.tables(sw)),
+                         P * (shape[-2] * _nz(plans.tables(sw)[1])
+                              + ohw[1] * _nz(plans.tables(sh)[1])))
         lib5, note5 = _library(lambda: F.interpolate(x, ohw, mode="bilinear", antialias=True))
         d5 = _kernel_times(lambda: cr.resize2d(x3, sh, sw, BF16), 5,
                            "resample2d_stream_kernel")
@@ -2329,7 +2329,7 @@ def time_float_kernels(dev, card) -> tuple[dict, dict, dict]:
               library_device_ms=lib5_dev, library=note5)
         # the tile kernel at config 5 on its own plan (the shape its entry is
         # timed at), held to the streaming kernel's bits
-        tile5 = cr._plan2d(sh, sw, BF16.itemsize, P, cr._n_sm(dev))
+        tile5 = plans.plan2d(sh, sw, BF16.itemsize, P, plans.n_sm(dev))
 
         def tile_call():
             return cr._resample2d_cuda(x3, sh, sw, BF16, tile5)
@@ -2352,8 +2352,8 @@ def time_float_kernels(dev, card) -> tuple[dict, dict, dict]:
                     lambda: cr._resample2d_plain(x3, sh, sw, F32), 50, 3)
         P, H, W = x3.shape
         hb = bound_of(4 * P * (H * W + ohw[0] * ohw[1])
-                      + _nbytes(*cr._tables(sh), *cr._tables(sw)),
-                      P * (H * _nz(cr._tables(sw)[1]) + ohw[1] * _nz(cr._tables(sh)[1])))
+                      + _nbytes(*plans.tables(sh), *plans.tables(sw)),
+                      P * (H * _nz(plans.tables(sw)[1]) + ohw[1] * _nz(plans.tables(sh)[1])))
         x4 = x3.reshape(shape)
         libh, noteh = _library(lambda: F.interpolate(x4, ohw, mode="bilinear", antialias=True))
         dh = _kernel_times(lambda: cr.resize2d(x3, sh, sw, F32), 50, "resample2d_kernel")
@@ -2372,10 +2372,10 @@ def time_float_kernels(dev, card) -> tuple[dict, dict, dict]:
         hp = _turns(lambda: cr.resize_axis(t, sh, 1),
                     lambda: cr._resample_axis_plain(_view3(t, 1), sh, F32), 50, 3)
         H, W, C = shape[-2], shape[-1], shape[1]
-        bw = bound_of(4 * C * H * (W + ohw[1]) + _nbytes(*cr._tables(sw)),
-                      C * H * _nz(cr._tables(sw)[1]))
-        bh = bound_of(4 * C * ohw[1] * (H + ohw[0]) + _nbytes(*cr._tables(sh)),
-                      C * ohw[1] * _nz(cr._tables(sh)[1]))
+        bw = bound_of(4 * C * H * (W + ohw[1]) + _nbytes(*plans.tables(sw)),
+                      C * H * _nz(plans.tables(sw)[1]))
+        bh = bound_of(4 * C * ohw[1] * (H + ohw[0]) + _nbytes(*plans.tables(sh)),
+                      C * ohw[1] * _nz(plans.tables(sh)[1]))
         libn, noten = _library(lambda: F.interpolate(xn.permute(0, 3, 1, 2), ohw,
                                                      mode="bilinear", antialias=True))
         dw = _kernel_times(lambda: cr.resize_axis(xn, sw, 2), 50, "resample_axis")
@@ -2622,7 +2622,7 @@ def time_train_kernels(dev, card) -> tuple[dict, dict]:
             from interpolate_antialiasing_tpu_torch.utils.timing import launch_floor_ms
 
             axes = tuple(tab.rows.ax for tab in t[:2])
-            plan = cc._table_plan(axes, shape[0], cr._n_sm(dev))
+            plan = cc._table_plan(axes, shape[0], plans.n_sm(dev))
             grid = sum(cc._table_blocks(shape[0], axes, plan))
             tdt["launch_floor_ms"] = launch_floor_ms(grid, cc._TABLE_THREADS, iters=20)
             tables[name] = (tms, tdt, tb)
@@ -2843,10 +2843,10 @@ def time_nhwc_config5(dev, card) -> None:
             lambda: F.interpolate(xc, ohw, mode="bilinear", antialias=True), iters=3)
         del x, t, xc
         torch.cuda.empty_cache()
-    bw = bound_of(2 * N * H * C * (W + ohw[1]) + _nbytes(*cr._tables(sw)),
-                  N * H * C * _nz(cr._tables(sw)[1]))
-    bh = bound_of(2 * N * ohw[1] * C * (H + ohw[0]) + _nbytes(*cr._tables(sh)),
-                  N * ohw[1] * C * _nz(cr._tables(sh)[1]))
+    bw = bound_of(2 * N * H * C * (W + ohw[1]) + _nbytes(*plans.tables(sw)),
+                  N * H * C * _nz(plans.tables(sw)[1]))
+    bh = bound_of(2 * N * ohw[1] * C * (H + ohw[0]) + _nbytes(*plans.tables(sh)),
+                  N * ohw[1] * C * _nz(plans.tables(sh)[1]))
     fields = {}
     for k, v in times.items():
         b = bw if k.endswith("_w") else bh
@@ -2894,7 +2894,7 @@ def _report_matches_run(name: str, rep, x: torch.Tensor, size, mode: str,
     resize(x, size, method=mode, data_format=data_format)
     torch.cuda.synchronize()
     got = {k: v for k, v in launch_counts().items() if v}
-    if got != rep.launches or rep.n_sm_assumed or rep.n_sm != cr._n_sm(x.device):
+    if got != rep.launches or rep.n_sm_assumed or rep.n_sm != plans.n_sm(x.device):
         raise RuntimeError(f"kernel_report {name}: route {rep.route!r} launches "
                            f"{rep.launches} on {rep.n_sm} SMs (assumed "
                            f"{rep.n_sm_assumed}); the call launched {got}")

@@ -10,6 +10,12 @@ kernel (registers, shared memory, spills) is kept beside the library in
 ``nvcc.log`` (:func:`ptxas_log`).  Nothing is fetched: the sources are the
 package's own and the compiler is the local CUDA toolkit's.
 
+Every launch of a hand-written kernel goes through :func:`launch` (or
+:func:`launch_planes`, which splits a batch past the grid's limit): its
+``ia.native.<name>`` span, the call, the check of the CUDA error it
+returns and its count in :data:`launches`, by the kernel's name.  The C
+ABI's dtype codes are :data:`DTYPES`.
+
 :func:`compute_tables_native` is the JAX package's ``native`` module: the
 float64 weight tables of ``ops.weights.compute_tables`` built by
 ``csrc/aa_tables.cpp`` (the port's copy) with the host C++ compiler, at
@@ -33,8 +39,12 @@ import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
-__all__ = ["build", "plane_chunks", "ptxas_log", "NVCC_FLAGS", "FILTER_IDS",
+from .utils.trace import span
+
+__all__ = ["build", "launch", "launch_planes", "occupancy", "launches", "KERNELS", "DTYPES",
+           "GRID_LIMIT", "plane_chunks", "ptxas_log", "NVCC_FLAGS", "FILTER_IDS",
            "native_available", "compute_tables_native"]
 
 _PKG = Path(__file__).resolve().parent
@@ -111,6 +121,21 @@ _SIGNATURES = {
 }
 
 
+# dtype codes of the C entry points (csrc/ia_dtypes.cuh::DType)
+DTYPES = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
+# Every block of a launch is on gridDim.x, whose limit this is.
+GRID_LIMIT = 2**31 - 1
+# The hand-written kernels the routes launch, by the names of their
+# ia.native spans and of their launch counts.
+KERNELS = ("pil_resample_2pass", "resample2d", "resample2d_stream", "resample_axis",
+           "crop_tables", "crop_resample", "crop_f32", "pil_resample_axis",
+           "resample2d_fused", "resample_axis_fused")
+# Launches of each kernel in this process: :func:`launch` adds one per
+# launch and nowhere else, so a run can show that its main path went
+# through the kernels (utils.inspect.launch_counts reads a copy).
+launches = dict.fromkeys(KERNELS, 0)
+
+
 def plane_chunks(n: int, max_per_launch: int) -> list[tuple[int, int]]:
     """``(start, count)`` launches that cover ``n`` planes with at most
     ``max_per_launch`` planes each: the wrappers split a batch whose grid
@@ -118,6 +143,56 @@ def plane_chunks(n: int, max_per_launch: int) -> list[tuple[int, int]]:
     if max_per_launch < 1:
         raise ValueError(f"max_per_launch must be >= 1, got {max_per_launch}")
     return [(s, min(max_per_launch, n - s)) for s in range(0, n, max_per_launch)]
+
+
+def stream(dev: torch.device) -> int:
+    """The handle of ``dev``'s current CUDA stream, as the C entry points
+    take it."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def launch(name: str, dev: torch.device, *args, entry: str | None = None) -> None:
+    """One launch of the kernel ``name`` on ``dev``'s current stream: the
+    C entry point ``entry`` (by default ``ia_<name>``) with ``args`` and
+    the stream, inside ``span("ia.native.<name>")``.  Raises RuntimeError
+    where it returns a CUDA error, and counts nothing then; else adds one
+    to ``launches[name]`` where ``name`` is one of :data:`KERNELS` (the
+    empty kernel that ``utils.timing.launch_floor_ms`` times is none)."""
+    with torch.cuda.device(dev), span(f"ia.native.{name}"):
+        err = getattr(build(), entry or f"ia_{name}")(*args, stream(dev))
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        if name in launches:
+            launches[name] += 1
+
+
+def launch_planes(name: str, x: torch.Tensor, plane: tuple, dtype: torch.dtype,
+                  blocks_per_plane: int, head: tuple, tail: tuple) -> torch.Tensor:
+    """The kernel ``name`` over the planes of the contiguous ``x[B, ...]``
+    into a new ``out[B, *plane]`` of ``dtype``, returned: a kernel whose
+    grid has ``blocks_per_plane`` blocks per plane, in as few
+    :func:`launch` calls as keep each grid within :data:`GRID_LIMIT`
+    (:func:`plane_chunks`; none for an empty batch), each over planes
+    ``[b0, b0 + n)`` as ``entry(x + b0 planes, out + b0 planes, *head, n,
+    *tail, stream)``."""
+    out = torch.empty((x.shape[0], *plane), dtype=dtype, device=x.device)
+    sx, so = x.stride(0) * x.element_size(), out.stride(0) * out.element_size()
+    for b0, n in plane_chunks(x.shape[0], GRID_LIMIT // blocks_per_plane):
+        launch(name, x.device, x.data_ptr() + b0 * sx, out.data_ptr() + b0 * so, *head, n,
+               *tail)
+    return out
+
+
+def occupancy(entry: str, *args) -> int:
+    """Resident blocks per SM of a kernel on the current card, as its C
+    occupancy query ``entry`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
+    gives it for ``args``.  Launches nothing and counts nothing; raises
+    RuntimeError where the query returns a CUDA error."""
+    blocks = ctypes.c_int(0)
+    err = getattr(build(), entry)(*args, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"{entry} query failed: cudaError {err}")
+    return blocks.value
 
 
 def _cuda_tool(name: str) -> str | None:

@@ -12,7 +12,7 @@ over the window, with the one-hot nearest fallback of a sub-pixel box and
 zero rows past the output), as the JAX package builds it inside its traced
 call, where XLA fuses the chain into the programs that feed its two
 kernels.  On a CUDA tensor one launch of the table kernel
-(:func:`_windowed_tables_cuda`, ``launches_crop_tables``) computes each
+(:func:`_windowed_tables_cuda`, counted ``crop_tables``) computes each
 output row's weights in the same float32 steps and writes its compact
 taps (:func:`_compact`) directly; a CPU tensor runs the plain build
 (:func:`_windowed_tables_plain`), and the two agree bit for bit.  Then two
@@ -40,8 +40,7 @@ which ``crop_and_resize`` takes for flipped uint8 calls on the card.  Its
 tables are ``"split"``'s float32 weights over one window of the whole axis
 (no row renormalises over a truncated window), a per-image flip folded into
 the W tables (:func:`_mirror`), and the intermediate stays float32, so the
-output is rounded once (``launches_crop_f32`` counts its passes'
-launches).
+output is rounded once (its passes' launches count as ``crop_f32``).
 
 The kernel reads, per output row, its first input index and ``T`` weights
 from that index on (:func:`_compact`: each band column's nonzero range,
@@ -64,8 +63,8 @@ computes each such row's weights once into shared memory and halves a
 chunk until its window fits ``win`` rows and its weights the tile's slots;
 only a row whose own taps pass them reads device memory.  The plan, its
 shared bytes and the launches are the same either way.  A CUDA tensor
-launches the kernel (both passes; ``launches_crop`` counts each pass's
-launch); a CPU tensor runs the plain version (:func:`_crop_pass_plain`),
+launches the kernel (both passes; each pass's launch counts as
+``crop_resample``); a CPU tensor runs the plain version (:func:`_crop_pass_plain`),
 which sums the same taps in the same order, so the two agree bit for bit.
 Any other device raises.
 """
@@ -79,31 +78,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import native
 from ..config import debug_enabled
-from ..utils.trace import builds, span, spanned
-from . import cuda_resize as cr
+from ..utils.trace import builds, spanned
+from . import plans
 from .filters import (CUBIC_NAMES, box_filter, filter_is_nonnegative, get_filter,
                       hamming_filter, triangle_filter)
 
 __all__ = ["crop_windowed_supported", "crop_and_resize_windowed", "crop_f32_supported",
            "crop_and_resize_f32"]
 
-# Launches of the crop kernel (one per pass): the wrapper adds one per
-# launch and nowhere else.
-launches_crop = 0
-# Launches of the table kernel (one per call on the card, both axes): its
-# wrapper adds one per launch and nowhere else.
-launches_crop_tables = 0
-# Launches of the float32-intermediate passes (one per pass):
-# :func:`_launch` adds one per launch of ``ia_crop_pass`` with a float32
-# side and nowhere else.
-launches_crop_f32 = 0
-
 _LANE = 128  # output rows per window tile, and the W pass's start alignment
 _ALIGN_H = 32  # the H pass's start alignment (the TPU's uint8 sublane tile)
 _PRECISIONS = ("pil_int8", "split")
-# the element dtype codes of ia_crop_pass (ia_dtypes.cuh::DType)
-_DTYPES = {torch.uint8: 0, torch.float32: 1}
 _SUM_WINDOW = 32  # the window of XLA's CPU tree reductions (:func:`_tree_sum`)
 # the table kernel (csrc/crop_tables.cu): its block, its group sizes (lanes
 # per output row), the chunks of a group's lanes a row's taps fill in one
@@ -420,11 +407,11 @@ def _crop_windows(n_in: int, n_out: int, T: int, frac: float, support: float,
     taps a row: the block then stages the tile in chunks of its outputs,
     each chunk's window within ``win`` rows and its weights within the
     tile's ``tile_o * (T - 1)`` slots (``resample_axis.cuh::
-    crop_tile_chunked``).  Tiles of every ``cuda_resize._AXIS_TILE_O``
+    crop_tile_chunked``).  Tiles of every ``plans.AXIS_TILE_O``
     size, and one of every output."""
     scale = frac * n_in / n_out
     sup = support * (max(scale, 1.0) if antialias else 1.0)
-    tiles = [t for t in cr._AXIS_TILE_O if t < n_out] + [n_out]
+    tiles = [t for t in plans.AXIS_TILE_O if t < n_out] + [n_out]
     return tuple((t, min(n_in, math.ceil((t - 1) * scale + 2.0 * sup) + T + 2))
                  for t in tiles)
 
@@ -432,50 +419,41 @@ def _crop_windows(n_in: int, n_out: int, T: int, frac: float, support: float,
 @lru_cache(maxsize=256)
 @builds
 def _crop_plan(wins: tuple, n_in: int, n_out: int, T: int, N: int, R: int, inner: int,
-               n_sm: int, vec4: bool, itemsize: int) -> cr.PlanAxis | None:
+               n_sm: int, vec4: bool, itemsize: int) -> plans.PlanAxis | None:
     """A crop pass's plan over ``x[N, R, n_in, inner]`` of ``itemsize``-byte
     elements (uint8, or the float32 intermediate): kernel B's
-    (``cuda_resize._axis_tiles``, its model of a launch) over the windows
+    (``plans.axis_tiles``, its model of a launch) over the windows
     ``wins`` (:func:`_crop_windows`), tiles along ``N * R`` cut at each
     image's ``R`` planes; None (kernel B's unstaged body) for a pass that
-    moves at most ``cuda_resize._AXIS_UNSTAGED_BYTES`` or where no tile
+    moves at most ``plans.AXIS_UNSTAGED_BYTES`` or where no tile
     fits, as kernel B's plan decides."""
     outer = N * R
-    if outer * inner * (n_in + n_out) * itemsize <= cr._AXIS_UNSTAGED_BYTES:
+    if outer * inner * (n_in + n_out) * itemsize <= plans.AXIS_UNSTAGED_BYTES:
         return None
-    best = max(cr._axis_tiles(wins, n_out, T, n_in, outer, inner, itemsize, n_sm, vec4,
-                              per_img=R),
+    best = max(plans.axis_tiles(wins, n_out, T, n_in, outer, inner, itemsize, n_sm, vec4,
+                                per_img=R),
                default=None)
     return None if best is None else best[1]
 
 
-def _launch(lib, x, out, tab: _Table, N, R, n_in, inner, n_out, pb, dev):
-    """One crop pass of ``ia_crop_pass``: uint8 -> uint8 (``launches_crop``),
+def _launch(x, out, tab: _Table, N, R, n_in, inner, n_out, pb):
+    """One crop pass of ``ia_crop_pass``: uint8 -> uint8 (``crop_resample``),
     or a float32-intermediate pass, where either side is float32
-    (``launches_crop_f32``)."""
-    global launches_crop, launches_crop_f32
+    (``crop_f32``)."""
     T = tab.w.shape[-1]
     f32 = torch.float32 in (x.dtype, out.dtype)
-    plan = _crop_plan(tab.wins, n_in, n_out, T, N, R, inner, cr._n_sm(dev),
+    plan = _crop_plan(tab.wins, n_in, n_out, T, N, R, inner, plans.n_sm(x.device),
                       x.data_ptr() % 4 == 0, x.element_size())
     rows, ax = tab.rows, tab.rows.ax
     filt = get_filter(rows.mode)
-    name = "crop_f32" if f32 else "crop_resample"
-    with span("ia.native.crop_f32") if f32 else span("ia.native.crop_resample"):
-        err = lib.ia_crop_pass(
-            x.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], _DTYPES[out.dtype], N, R, n_in,
-            inner, n_out, tab.first.data_ptr(), tab.w.data_ptr(), T, -1 if pb is None else pb,
-            tab.cnt.data_ptr(), rows.boxes.data_ptr(), rows.axis, _TABLE_FILTERS[filt.fn],
-            filt.support, int(rows.antialias), ax.k, ax.align, _hi_start(ax),
-            None if rows.flip is None else rows.flip.data_ptr(),
-            *((0, 0, 0, 0, 1, 0) if plan is None else plan[:6]),
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{name} launch failed: cudaError {err}")
-        if f32:
-            launches_crop_f32 += 1
-        else:
-            launches_crop += 1
+    native.launch(
+        "crop_f32" if f32 else "crop_resample", x.device,
+        x.data_ptr(), out.data_ptr(), native.DTYPES[x.dtype], native.DTYPES[out.dtype], N, R,
+        n_in, inner, n_out, tab.first.data_ptr(), tab.w.data_ptr(), T,
+        -1 if pb is None else pb, tab.cnt.data_ptr(), rows.boxes.data_ptr(), rows.axis,
+        _TABLE_FILTERS[filt.fn], filt.support, int(rows.antialias), ax.k, ax.align,
+        _hi_start(ax), None if rows.flip is None else rows.flip.data_ptr(),
+        *((0, 0, 0, 0, 1, 0) if plan is None else plan[:6]), entry="ia_crop_pass")
 
 
 def _crop_resample_plain(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w,
@@ -492,22 +470,18 @@ def _crop_resample_plain(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w,
 
 def _crop_resample_cuda(x: torch.Tensor, tab_h, tab_w, pb_h, pb_w,
                         inter_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
-    from .. import native
-
     N, C, H, W = x.shape
     OH, OW = tab_h.first.shape[1], tab_w.first.shape[1]
     _check_int32("H", tab_h.rows.ax.k, pb_h)
     _check_int32("W", tab_w.rows.ax.k, pb_w)
-    lib = native.build()
     dev = x.device
     x = x.contiguous()
     inter = torch.empty((N, C, OH, W), dtype=inter_dtype, device=dev)
     out = torch.empty((N, C, OH, OW), dtype=torch.uint8, device=dev)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(dev):
-        _launch(lib, x, inter, tab_h, N, C, H, W, OH, pb_h, dev)
-        _launch(lib, inter, out, tab_w, N, C * OH, W, 1, OW, pb_w, dev)
+    _launch(x, inter, tab_h, N, C, H, W, OH, pb_h)
+    _launch(inter, out, tab_w, N, C * OH, W, 1, OW, pb_w)
     return out
 
 
@@ -582,7 +556,7 @@ def crop_and_resize_f32(x: torch.Tensor, boxes: torch.Tensor, out_hw: tuple[int,
     sums in tap order, a float32 intermediate, and one rounding,
     ``floor(v + 0.5)`` clamped, always antialiased: on a CUDA tensor the
     table kernel and two float32-intermediate launches of ``ia_crop_pass``
-    (``launches_crop_f32``), on a CPU tensor their plain versions, bit for
+    (counted ``crop_f32``), on a CPU tensor their plain versions, bit for
     bit the same.  Callers route through :func:`crop_f32_supported`."""
     if debug_enabled():
         print(f"[ia-tpu] crop_resample f32 ({x.device.type})")
@@ -802,17 +776,13 @@ def _windowed_tables_cuda(b: torch.Tensor, mode: str, antialias: bool, axes, fli
     thread or a group of lanes (:func:`_table_plan`); a row past ``T``
     keeps its true count and its first ``T`` weights; the W rows of the
     images ``flip`` marks written mirrored)."""
-    global launches_crop_tables
-    from .. import native
-
     filt = get_filter(mode)
     if filt.fn not in _TABLE_FILTERS:
         raise ValueError(f"crop_tables: no device filter for {mode!r}")
-    lib = native.build()
     N, dev = b.shape[0], b.device
     tabs, args = [], []
     axes = tuple(axes)
-    plan = _table_plan(axes, N, cr._n_sm(dev))
+    plan = _table_plan(axes, N, plans.n_sm(dev))
     for ax, G, blocks in zip(axes, plan, _table_blocks(N, axes, plan)):
         first = torch.empty((N, ax.out_size), dtype=torch.int32, device=dev)
         cnt = torch.empty((N, ax.out_size), dtype=torch.int32, device=dev)
@@ -824,12 +794,6 @@ def _windowed_tables_cuda(b: torch.Tensor, mode: str, antialias: bool, axes, fli
                  cnt.data_ptr(), w.data_ptr()]
     if N * max(ax.out_size for ax in axes) == 0:
         return tabs
-    with torch.cuda.device(dev), span("ia.native.crop_tables"):
-        err = lib.ia_crop_tables(b.data_ptr(), N, _TABLE_FILTERS[filt.fn], filt.support,
-                                 int(antialias), *args,
-                                 None if flip is None else flip.data_ptr(),
-                                 torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"crop_tables launch failed: cudaError {err}")
-        launches_crop_tables += 1
+    native.launch("crop_tables", dev, b.data_ptr(), N, _TABLE_FILTERS[filt.fn], filt.support,
+                  int(antialias), *args, None if flip is None else flip.data_ptr())
     return tabs

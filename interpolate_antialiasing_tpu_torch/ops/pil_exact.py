@@ -15,8 +15,8 @@ Both passes run in one hand-written CUDA kernel, the Pillow two-pass kernel
 (kernel A, ``csrc/resample2d.cuh``, over Pillow's int32 tables; entry
 ``csrc/pil_resample.cu``, the counterpart of the JAX package's
 ``_kernel_2pass_pil``) through the wrapper :func:`_resample_2pass`, with
-kernel A's tile plan (``cuda_resize._plan_rows``, one-byte elements and
-intermediate; :func:`_plan_2pass`).  Where no tile fits a block's shared
+kernel A's tile plan (``plans.plan_rows``, one-byte elements and
+intermediate; ``plans.plan_pil_2pass``).  Where no tile fits a block's shared
 memory, the wrapper runs two ``pil_resample_axis`` passes instead
 (:func:`_resample_2pass_axes`).  Its plain PyTorch version,
 :func:`_resample_2pass_plain`, computes the same bytes with tensor ops; the
@@ -25,8 +25,9 @@ wrapper takes it for tensors on the CPU.  One pass over one axis runs the
 int32 tables, entry ``csrc/pil_resample_axis.cu``; the counterpart of
 ``digit_pass_mid_dynamic``) through :func:`_resample_axis`, plain version
 :func:`_resample_axis_plain`, with the tile plan of the float axis kernel
-(``cuda_resize._plan_axis``): the sharded byte-exact route's shard-local
-passes.
+(``plans.plan_pil_axis``): the sharded byte-exact route's shard-local
+passes.  Each launch goes through ``native.launch``, which counts it
+(``pil_resample_2pass``, ``pil_resample_axis``).
 
 The host tables (``_int_tables``, ``_int_matrix``, ``_nearest_indices``,
 ``_needs_clip``) are copied expression for expression from the JAX package,
@@ -42,21 +43,15 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import native
 from ..config import debug_enabled
 from ..utils.trace import builds, span, spanned
-from . import cuda_resize as cr
+from . import plans
 from .weights import make_axis_spec, pil_box_f32
 
 __all__ = ["resize_pil_exact", "reduce_pil_exact", "PRECISION_BITS"]
 
 PRECISION_BITS = 32 - 8 - 2  # Pillow Resample.c
-
-# Launches of the pil_resample_2pass and pil_resample_axis CUDA kernels:
-# :func:`_resample_2pass` and :func:`_resample_axis` each add one per kernel
-# launch and nowhere else, so a run can show that its main path went through
-# the kernel.
-launches = 0
-launches_axis = 0
 
 _PIL_AUTO_METHODS = ("bilinear", "bicubic", "box", "nearest", "lanczos3",
                      "hamming")
@@ -171,7 +166,7 @@ def _on(a: np.ndarray, device: torch.device) -> torch.Tensor:
         c = np.ascontiguousarray(a, dtype=np.int32)
         return _table_tensor(c.tobytes(), c.shape, device)
 
-    return cr._memo(a, device, upload)
+    return plans.memo(a, device, upload)
 
 
 def _pass_last_int_banded(
@@ -217,34 +212,13 @@ def _check_tables(name: str, tables, in_size: int, pb: int) -> None:
         raise ValueError(f"{name} axis is empty: in={in_size}, Wb={Wb.shape}")
     # Pillow's accumulator is int32 and so is the kernel's: the largest
     # |acc| any uint8 row can reach must stay below 2^31.
-    worst = 255 * cr._memo(
+    worst = 255 * plans.memo(
         Wb, "row sum", lambda: int(np.abs(Wb.astype(np.int64)).sum(axis=1).max()))
     if worst + (1 << (pb - 1)) >= 1 << 31:
         raise ValueError(
             f"{name} coefficients can overflow the int32 accumulator "
             f"(255 * max row sum|Wb| + 2^{pb - 1} = "
             f"{worst + (1 << (pb - 1))} >= 2^31)")
-
-
-@lru_cache(maxsize=1024)
-@builds
-def _plan_2pass_keyed(first_h: bytes, ntaps_h: int, H: int, first_w: bytes, ntaps_w: int,
-                      W: int, planes: int, n_sm: int) -> cr.Plan2d | None:
-    return cr._plan_rows(np.frombuffer(first_h, np.int64), ntaps_h, H,
-                         np.frombuffer(first_w, np.int64), ntaps_w, W, 1, planes, n_sm,
-                         inter_size=1)
-
-
-def _plan_2pass(tw, th, planes: int, H: int, W: int,
-                n_sm: int = cr._H100_SMS) -> cr.Plan2d | None:
-    """The Pillow two-pass kernel's plan (kernel A's, ``cuda_resize.
-    _plan_rows``, for one-byte elements and a one-byte intermediate) over
-    the ``(xmin, Wb)`` tables of the W and H passes, for ``planes`` planes
-    of ``[H, W]`` on a card of ``n_sm`` SMs; None where no tile fits a
-    block's shared memory (the wrapper then runs two pil_resample_axis
-    passes).  Cached per table, shape and card."""
-    return _plan_2pass_keyed(cr._first_taps_key(th[0]), th[1].shape[1], H,
-                             cr._first_taps_key(tw[0]), tw[1].shape[1], W, planes, n_sm)
 
 
 def _resample_2pass_axes(x3: torch.Tensor, tw, th, pb: int) -> torch.Tensor:
@@ -255,18 +229,14 @@ def _resample_2pass_axes(x3: torch.Tensor, tw, th, pb: int) -> torch.Tensor:
 
 
 def _resample_2pass_cuda(x3: torch.Tensor, tw, th, pb: int) -> torch.Tensor:
-    global launches
-    from .. import native
-
     B, H, W = x3.shape
     OW, ntaps_w = tw[1].shape
     OH, ntaps_h = th[1].shape
     dev = x3.device
-    out = torch.empty((B, OH, OW), dtype=torch.uint8, device=dev)
     if B == 0:
-        return out
+        return torch.empty((B, OH, OW), dtype=torch.uint8, device=dev)
     with span("ia.tables.pil"):
-        plan = _plan_2pass(tw, th, B, H, W, cr._n_sm(dev))
+        plan = plans.plan_pil_2pass(tw, th, B, H, W, plans.n_sm(dev))
         if plan is not None:
             xmin_w, wb_w = _on(tw[0], dev), _on(tw[1], dev)
             ymin_h, wb_h = _on(th[0], dev), _on(th[1], dev)
@@ -275,25 +245,10 @@ def _resample_2pass_cuda(x3: torch.Tensor, tw, th, pb: int) -> torch.Tensor:
             print("[ia-tpu] pil_resample_2pass: no tile fits, two "
                   "pil_resample_axis passes")
         return _resample_2pass_axes(x3, tw, th, pb)
-    lib = native.build()
-    # every block is on gridDim.x: a batch whose block count would pass
-    # its 2^31 - 1 limit takes several launches
-    per_plane = -(-OH // plan.tile_r) * -(-OW // plan.tile_c)
-    with torch.cuda.device(dev):
-        for b0, n in native.plane_chunks(B, cr._INT_MAX // per_plane):
-            with span("ia.native.pil_resample_2pass"):
-                err = lib.ia_pil_resample_2pass(
-                    x3.data_ptr() + b0 * H * W, out.data_ptr() + b0 * OH * OW,
-                    n, H, W, OH, OW,
-                    xmin_w.data_ptr(), wb_w.data_ptr(), ntaps_w,
-                    ymin_h.data_ptr(), wb_h.data_ptr(), ntaps_h,
-                    pb, *plan[:6], torch.cuda.current_stream(dev).cuda_stream,
-                )
-                if err != 0:
-                    raise RuntimeError(
-                        f"pil_resample_2pass launch failed: cudaError {err}")
-                launches += 1
-    return out
+    return native.launch_planes(
+        "pil_resample_2pass", x3, (OH, OW), torch.uint8, plans.blocks_per_plane(plan, OH, OW),
+        (), (H, W, OH, OW, xmin_w.data_ptr(), wb_w.data_ptr(), ntaps_w, ymin_h.data_ptr(),
+             wb_h.data_ptr(), ntaps_h, pb, *plan[:6]))
 
 
 def _resample_2pass(x3: torch.Tensor, tw, th,
@@ -303,7 +258,7 @@ def _resample_2pass(x3: torch.Tensor, tw, th,
     ``tw``/``th`` are the ``(xmin, Wb)`` int32 host tables of the W and H
     axes (:func:`_int_tables`).  A CUDA tensor goes through the
     ``pil_resample_2pass`` kernel (two ``pil_resample_axis`` launches where
-    no tile of it fits: :func:`_plan_2pass`); a CPU tensor through the
+    no tile of it fits: ``plans.plan_pil_2pass``); a CPU tensor through the
     plain version; any other device raises.
     """
     if not isinstance(x3, torch.Tensor) or x3.dtype != torch.uint8 or x3.ndim != 3:
@@ -344,22 +299,7 @@ def _resample_axis_plain(x3: torch.Tensor, tables,
     return (acc >> pb).clamp_(0, 255).to(torch.uint8)
 
 
-def _plan_axis(tables, outer: int, n_in: int, inner: int, n_sm: int,
-               vec4: bool) -> cr.PlanAxis | None:
-    """The pil_resample_axis launch plan of a pass over ``x3[outer, n_in,
-    inner]`` with the ``(xmin, Wb)`` tables: the float axis kernel's plan
-    (``cuda_resize._plan_axis_first``) for one-byte elements on a card of
-    ``n_sm`` SMs (``vec4``: the input's address is a multiple of 4); None:
-    the unstaged body."""
-    return cr._plan_axis_first(cr._first_taps_key(tables[0]), tables[1].shape[1], n_in,
-                               outer, inner, 1, n_sm, vec4)
-
-
 def _resample_axis_cuda(x3: torch.Tensor, tables, pb: int) -> torch.Tensor:
-    global launches_axis
-    from .. import native
-
-    lib = native.build()
     outer, n_in, inner = x3.shape
     n_out, ntaps = tables[1].shape
     out = torch.empty((outer, n_out, inner), dtype=torch.uint8, device=x3.device)
@@ -367,17 +307,11 @@ def _resample_axis_cuda(x3: torch.Tensor, tables, pb: int) -> torch.Tensor:
         return out
     dev = x3.device
     xmin, wb = _on(tables[0], dev), _on(tables[1], dev)
-    key = cr._first_taps_key(tables[0])
-    plan = _plan_axis(tables, outer, n_in, inner, cr._n_sm(dev), x3.data_ptr() % 4 == 0)
-    with torch.cuda.device(dev), span("ia.native.pil_resample_axis"):
-        err = lib.ia_pil_resample_axis(
-            x3.data_ptr(), out.data_ptr(), outer, n_in, inner, n_out,
-            xmin.data_ptr(), wb.data_ptr(), ntaps, pb,
-            *cr.axis_launch_args(plan, key, n_in, dev),
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"pil_resample_axis launch failed: cudaError {err}")
-        launches_axis += 1
+    plan = plans.plan_pil_axis(tables, outer, n_in, inner, plans.n_sm(dev),
+                               x3.data_ptr() % 4 == 0)
+    native.launch("pil_resample_axis", dev, x3.data_ptr(), out.data_ptr(), outer, n_in, inner,
+                  n_out, xmin.data_ptr(), wb.data_ptr(), ntaps, pb,
+                  *plans.axis_launch_args(plan, plans.first_taps_key(tables[0]), n_in, dev))
     return out
 
 

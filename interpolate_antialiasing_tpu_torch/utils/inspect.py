@@ -7,8 +7,9 @@
     card could take for it (:func:`bound_of`), without running the call.  The
     route comes from the same functions ``resize`` and the kernel wrappers
     decide with (``ops.resize._resize_route`` / ``_plane_kernel`` /
-    ``_axis_method``, ``ops.cuda_resize.resize2d_plan``,
-    ``ops.pil_exact._plan_2pass`` / ``_plan_axis``), so it cannot drift.
+    ``_axis_method``, ``ops.cuda_resize.resize2d_plan`` /
+    ``plan_axis_spec``, ``ops.plans.plan_pil_2pass`` / ``plan_pil_axis``),
+    so it cannot drift.
   * :func:`sharded_report` — the halo plan and wire bytes that size a mesh.
   * :func:`lower_text` — the aten operators a call dispatches, with the
     hand-written kernels' launches among them: what the call "lowers" to
@@ -57,19 +58,11 @@ def bound_of(nbytes: int, macs: int) -> dict:
 
 def launch_counts() -> dict:
     """Every hand-written kernel's launch count so far in this process, by
-    kernel name (each wrapper adds one where it launches its kernel and
-    nowhere else)."""
-    from ..ops import crop_cuda as cc
-    from ..ops import cuda_resize as cr
-    from ..ops import pil_exact as pe
+    kernel name: a copy of ``native.launches``, to which ``native.launch``
+    adds one per launch and nowhere else."""
+    from .. import native
 
-    return {"pil_resample_2pass": pe.launches, "resample2d": cr.launches_2d,
-            "resample2d_stream": cr.launches_2d_stream,
-            "resample_axis": cr.launches_axis, "crop_tables": cc.launches_crop_tables,
-            "crop_resample": cc.launches_crop, "crop_f32": cc.launches_crop_f32,
-            "pil_resample_axis": pe.launches_axis,
-            "resample2d_fused": cr.launches_2d_fused,
-            "resample_axis_fused": cr.launches_axis_fused}
+    return dict(native.launches)
 
 
 @dataclasses.dataclass
@@ -128,16 +121,16 @@ class KernelReport:
 def _sms(device) -> tuple[int, bool]:
     """The SM count the plans take for ``device`` (None: the card where there
     is one), and whether it was assumed: the H100's where there is no card."""
-    from ..ops import cuda_resize as cr
+    from ..ops import plans
 
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     dev = torch.device(device)
     if dev.type != "cuda":
-        return cr._H100_SMS, True
+        return plans.H100_SMS, True
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return cr._n_sm(dev), False
+    return plans.n_sm(dev), False
 
 
 def _axis_entry(name: str, token: str, spec_in: int, spec_out: int, ntaps: int, nz: int,
@@ -157,15 +150,13 @@ def _axis_entry(name: str, token: str, spec_in: int, spec_out: int, ntaps: int, 
 
 def _plan2d_launches(plan, planes: int, oh: int, ow: int) -> int:
     """Launches of kernel A (or the Pillow kernel) over ``planes`` planes:
-    the wrappers split a batch whose blocks pass gridDim.x's limit."""
+    ``native.launch_planes`` splits a batch whose blocks pass gridDim.x's
+    limit."""
     from .. import native
-    from ..ops import cuda_resize as cr
+    from ..ops import plans
 
-    if isinstance(plan, cr.PlanStream):
-        per_plane = -(-oh // plan.seg) * -(-ow // cr._stream_tc(plan.ntaps))
-    else:
-        per_plane = -(-oh // plan.tile_r) * -(-ow // plan.tile_c)
-    return len(native.plane_chunks(max(planes, 1), cr._INT_MAX // per_plane))
+    per_plane = plans.blocks_per_plane(plan, oh, ow)
+    return len(native.plane_chunks(max(planes, 1), native.GRID_LIMIT // per_plane))
 
 
 def _view3(shape: tuple, axis: int) -> tuple[int, int, int]:
@@ -214,6 +205,7 @@ def kernel_report(
     from ..config import default_backend, default_pil_digits
     from ..ops import cuda_resize as cr
     from ..ops import pil_exact as pe
+    from ..ops import plans
     from ..ops.resize import (
         _BACKENDS,
         _axes_for,
@@ -244,8 +236,8 @@ def kernel_report(
     def plan2d(kernel, plan, ntaps_w, nz_w, ntaps_h, nz_h):
         launches[kernel] = _plan2d_launches(plan, planes, oh, ow)
         if kernel == "resample2d_stream":  # each input row of a segment once
-            rows_cap = cr._window(cr._stream_tables(spec_h, plan.ntaps)[0], plan.ntaps, H,
-                                  plan.seg)
+            rows_cap = plans.window(plans.stream_tables(spec_h, plan.ntaps)[0], plan.ntaps, H,
+                                    plan.seg)
             exec_w, ntaps_w, ntaps_h = -(-oh // plan.seg) * rows_cap, plan.ntaps, plan.ntaps
         else:
             rows_cap = plan.rows_cap
@@ -264,7 +256,7 @@ def kernel_report(
         tw, th = pe._int_tables(W, ow, m, None, pb), pe._int_tables(H, oh, m, None, pb)
         table_bytes = sum(a.nbytes for a in (*tw, *th))
         nz_w, nz_h = (int(np.count_nonzero(t[1])) for t in (tw, th))
-        p2 = pe._plan_2pass(tw, th, planes, H, W, n_sm)
+        p2 = plans.plan_pil_2pass(tw, th, planes, H, W, n_sm)
         if p2 is not None:
             tokens = ["pil_resample_2pass"]
             plan = plan2d("pil_resample_2pass", p2, tw[1].shape[1], nz_w, th[1].shape[1], nz_h)
@@ -274,7 +266,7 @@ def kernel_report(
             for name, t, n_in, n_out, nz, rows, view in (
                     ("W", tw, W, ow, nz_w, H, (planes * H, W, 1)),
                     ("H", th, H, oh, nz_h, ow, (planes, H, ow))):
-                p = pe._plan_axis(t, view[0], n_in, view[2], n_sm, True)
+                p = plans.plan_pil_axis(t, view[0], n_in, view[2], n_sm, True)
                 axes.append(_axis_entry(name, "pil_resample_axis", n_in, n_out, t[1].shape[1],
                                         nz, rows, rows, window=p and p.win, plan=p))
     else:
@@ -283,14 +275,14 @@ def kernel_report(
         spec_h = make_axis_spec(H, oh, mode, antialias, align_corners, sfh)
         cdtype = dtype if route == "u8_kernel" else _compute_dtype(dtype)
         kdtype = out_dtype if route == "u8_kernel" else cdtype
-        tables = {"W": cr._tables(spec_w), "H": cr._tables(spec_h)}
+        tables = {"W": plans.tables(spec_w), "H": plans.tables(spec_h)}
         nz = {k: int(np.count_nonzero(t[1])) for k, t in tables.items()}
         csz = torch.empty(0, dtype=cdtype).element_size()
         if route == "u8_kernel" or _plane_kernel(cdtype, ndim, h_axis, w_axis, backend):
             table_bytes = sum(a.nbytes for t in tables.values() for a in t)
             p2 = cr.resize2d_plan(spec_h, spec_w, csz, planes, n_sm)
             if p2 is not None:
-                kernel = "resample2d_stream" if isinstance(p2, cr.PlanStream) else "resample2d"
+                kernel = "resample2d_stream" if isinstance(p2, plans.PlanStream) else "resample2d"
                 tokens = [kernel]
                 plan = plan2d(kernel, p2, spec_w.ntaps, nz["W"], spec_h.ntaps, nz["H"])
             else:
@@ -301,7 +293,7 @@ def kernel_report(
                         ("W", spec_w, H, (planes * H, W, 1), csz),
                         ("H", spec_h, ow, (planes, H, ow),
                          torch.empty(0, dtype=inter).element_size())):
-                    p = cr._plan_axis_spec(spec, False, view[0], view[2], sz, n_sm, True)
+                    p = cr.plan_axis_spec(spec, False, view[0], view[2], sz, n_sm, True)
                     axes.append(_axis_entry(name, "resample_axis", spec.in_size, spec.out_size,
                                             tables[name][1].shape[1], nz[name], rows, rows,
                                             window=p and p.win, plan=p))
@@ -317,7 +309,7 @@ def kernel_report(
                     method = "resample_axis"
                     launches["resample_axis"] = launches.get("resample_axis", 0) + 1
                     table_bytes += sum(a.nbytes for a in tables[name])
-                    p = cr._plan_axis_spec(spec, False, outer, inner, csz, n_sm, True)
+                    p = cr.plan_axis_spec(spec, False, outer, inner, csz, n_sm, True)
                 elif method == "dense":
                     exec_macs = rows * spec.in_size * spec.out_size
                 elif method == "banded":

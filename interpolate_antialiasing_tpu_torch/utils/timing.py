@@ -236,11 +236,6 @@ def launch_floor_ms(blocks: int, threads: int, iters: int = 50) -> float:
     _need_cuda("launch_floor_ms")
     from .. import native
 
-    lib = native.build()
-
-    def launch():
-        err = lib.ia_launch_floor(blocks, threads, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"launch_floor launch failed: cudaError {err}")
-
-    return device_time_per_call(launch, iters=iters, match="empty_kernel")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return device_time_per_call(native.launch, "launch_floor", dev, blocks, threads,
+                                iters=iters, match="empty_kernel")

@@ -12,6 +12,7 @@ tolerances of test_torch_parity.py.  Also the host helpers: the banded
 tiles, element for element, and the launch-splitting plan.
 """
 
+import contextlib
 import dataclasses
 
 import jax.numpy as jnp
@@ -344,6 +345,61 @@ def test_plane_chunks_cover_the_batch_within_the_limit():
         assert sum(c for _, c in chunks) == n
     with pytest.raises(ValueError):
         native.plane_chunks(4, 0)
+
+
+class _FakeLib:
+    """A built library whose every entry point records its arguments and
+    returns ``err``."""
+
+    def __init__(self, err: int):
+        self.err, self.calls = err, []
+
+    def __getattr__(self, entry):
+        return lambda *args: self.calls.append((entry, args)) or self.err
+
+
+@pytest.fixture()
+def fake_lib(monkeypatch):
+    """``native.build`` gives a fake library, the launch's device context
+    does nothing and its stream handle is 7, so launches run without a
+    card; the launch counts start from 0 and are restored after."""
+    def make(err):
+        lib = _FakeLib(err)
+        monkeypatch.setattr(native, "build", lambda: lib)
+        monkeypatch.setattr(native, "stream", lambda dev: 7)
+        monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+        monkeypatch.setattr(native, "launches", dict.fromkeys(native.KERNELS, 0))
+        return lib
+    return make
+
+
+def test_a_failed_launch_raises_with_the_kernels_name_and_counts_nothing(fake_lib):
+    lib = fake_lib(700)
+    with pytest.raises(RuntimeError, match="^resample2d launch failed: cudaError 700$"):
+        native.launch("resample2d", "cpu", 1, 2)
+    assert lib.calls == [("ia_resample2d", (1, 2, 7))]
+    assert native.launches == dict.fromkeys(native.KERNELS, 0)
+
+
+def test_a_launch_counts_once_under_its_name(fake_lib):
+    lib = fake_lib(0)
+    native.launch("crop_f32", "cpu", 3, entry="ia_crop_pass")
+    assert lib.calls == [("ia_crop_pass", (3, 7))]
+    assert native.launches == dict(dict.fromkeys(native.KERNELS, 0), crop_f32=1)
+
+
+def test_launch_planes_splits_a_batch_at_the_grid_limit(fake_lib, monkeypatch):
+    """Five planes of 4 blocks under a limit of 8 blocks: three launches of
+    2, 2 and 1 planes, each at its planes' byte offsets."""
+    lib = fake_lib(0)
+    monkeypatch.setattr(native, "GRID_LIMIT", 8)
+    x = torch.zeros((5, 2, 3), dtype=torch.uint8)
+    out = native.launch_planes("resample2d", x, (1, 2), torch.float32, 4, ("h",), ("t",))
+    assert out.shape == (5, 1, 2) and out.dtype == torch.float32
+    xp, op = x.data_ptr(), out.data_ptr()
+    assert lib.calls == [("ia_resample2d", (xp + b0 * 6, op + b0 * 8, "h", n, "t", 7))
+                         for b0, n in [(0, 2), (2, 2), (4, 1)]]
+    assert native.launches["resample2d"] == 3
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -25,6 +25,7 @@ from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
 from interpolate_antialiasing_tpu_torch import native
+from interpolate_antialiasing_tpu_torch.ops import plans
 from interpolate_antialiasing_tpu_torch.ops.crop import box_fracs, sample_boxes
 from interpolate_antialiasing_tpu_torch.ops.resize_xla import resize_axis_dense
 from interpolate_antialiasing_tpu_torch.ops.weights import adjoint_tables, make_axis_spec
@@ -39,6 +40,11 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda", 0)
+
+
+def _counts(*names):
+    """The launch counts of the kernels ``names``, in that order."""
+    return tuple(native.launches[n] for n in names)
 
 
 def _input(shape, dtype, dev, seed=0):
@@ -59,10 +65,10 @@ def _assert_equal(got, want):
 def test_resample2d_kernel_matches_plain(dev, mode, idt, odt):
     x = _input((3, 97, 131), idt, dev)
     sh, sw = make_axis_spec(97, 40, mode), make_axis_spec(131, 260, mode)
-    before = cr.launches_2d
+    before = native.launches["resample2d"]
     got = cr.resize2d(x, sh, sw, odt)
     torch.cuda.synchronize()
-    assert cr.launches_2d == before + 1
+    assert native.launches["resample2d"] == before + 1
     _assert_equal(got, cr._resample2d_plain(x, sh, sw, odt))
 
 
@@ -72,10 +78,10 @@ def test_resample2d_kernel_matches_plain(dev, mode, idt, odt):
 def test_resample_axis_kernel_matches_plain(dev, axis, idt, odt):
     x = _input((2, 57, 83, 3), idt, dev, seed=1)
     spec = make_axis_spec(x.shape[axis], 31, "bicubic")
-    before = cr.launches_axis
+    before = native.launches["resample_axis"]
     got = cr.resize_axis(x, spec, axis, odt)
     torch.cuda.synchronize()
-    assert cr.launches_axis == before + 1
+    assert native.launches["resample_axis"] == before + 1
     ax = axis % x.ndim
     x3 = x.reshape(math.prod(x.shape[:ax]), x.shape[ax], math.prod(x.shape[ax + 1:]))
     want = cr._resample_axis_plain(x3, spec, odt).reshape(got.shape)
@@ -90,10 +96,10 @@ def test_adjoint_resample2d_matches_plain(dev, mode, dt):
     th = adjoint_tables(make_axis_spec(97, 40, mode))
     tw = adjoint_tables(make_axis_spec(131, 260, mode))
     g = _input((3, 40, 260), dt, dev, seed=3)
-    before = cr.launches_2d
+    before = native.launches["resample2d"]
     got = cr.resize2d(g, th, tw, dt)
     torch.cuda.synchronize()
-    assert cr.launches_2d == before + 1 and got.shape == (3, 97, 131)
+    assert native.launches["resample2d"] == before + 1 and got.shape == (3, 97, 131)
     _assert_equal(got, cr._resample2d_plain(g, th, tw, dt))
 
 
@@ -102,10 +108,10 @@ def test_adjoint_resample2d_matches_plain(dev, mode, dt):
 def test_adjoint_resample_axis_matches_plain(dev, axis, dt):
     g = _input((2, 31, 83, 3) if axis == 1 else (2, 57, 31), dt, dev, seed=4)
     t = adjoint_tables(make_axis_spec(64, 31, "bicubic"))
-    before = cr.launches_axis
+    before = native.launches["resample_axis"]
     got = cr.resize_axis(g, t, axis, dt)
     torch.cuda.synchronize()
-    assert cr.launches_axis == before + 1 and got.shape[axis] == 64
+    assert native.launches["resample_axis"] == before + 1 and got.shape[axis] == 64
     ax = axis % g.ndim
     g3 = g.reshape(math.prod(g.shape[:ax]), g.shape[ax], math.prod(g.shape[ax + 1:]))
     _assert_equal(got, cr._resample_axis_plain(g3, t, dt).reshape(got.shape))
@@ -113,11 +119,11 @@ def test_adjoint_resample_axis_matches_plain(dev, axis, dt):
 
 def test_resize_plane_gradient_runs_the_adjoint_kernel(dev):
     x = _input((2, 3, 97, 131), torch.float32, dev, seed=5).requires_grad_()
-    before = cr.launches_2d
+    before = native.launches["resample2d"]
     y = iat.resize_plane(x, (40, 260), 2, 3, mode="bicubic")
     g, = torch.autograd.grad(y, x, grad_outputs=y)
     torch.cuda.synchronize()
-    assert cr.launches_2d == before + 2
+    assert native.launches["resample2d"] == before + 2
     xc = x.detach().cpu().requires_grad_()
     yc = iat.resize_plane(xc, (40, 260), 2, 3, mode="bicubic")
     gc, = torch.autograd.grad(yc, xc, grad_outputs=yc)
@@ -131,10 +137,10 @@ def test_crop_kernel_matches_plain(dev, precision, frac):
     gen = torch.Generator().manual_seed(0)
     boxes = sample_boxes(gen, 4, 300, 520, (0.05, 0.2)).to(dev)
     tables = cc._windowed_tables(x, boxes, (96, 112), "bilinear", True, frac, precision)
-    before = cc.launches_crop
+    before = native.launches["crop_resample"]
     got = cc._crop_resample(x, *tables)
     torch.cuda.synchronize()
-    assert cc.launches_crop == before + 2
+    assert native.launches["crop_resample"] == before + 2
     _assert_equal(got, cc._crop_resample_plain(x, *tables))
 
 
@@ -173,10 +179,10 @@ def test_pil_resample_axis_kernel_matches_plain(dev, mode, layout):
                    "nhwc": ((2, plan.ext, 70, 3), 1)}[layout]
     x = _input(shape, torch.uint8, dev, seed=7)
     for d in range(4):
-        before = pe.launches_axis
+        before = native.launches["pil_resample_axis"]
         got = pe._resample_axis(x, (starts[d], wsh[d]), axis)
         torch.cuda.synchronize()
-        assert pe.launches_axis == before + 1
+        assert native.launches["pil_resample_axis"] == before + 1
         assert torch.equal(got.cpu(), pe._resample_axis(x.cpu(), (starts[d], wsh[d]), axis))
 
 
@@ -191,10 +197,10 @@ def test_resample_axis_over_shard_tables_matches_plain(dev, mode, dt):
     for d in range(4):
         for t, n_in in zip(halo._shard_tables(plan, d), (plan.ext_pad, plan.ol)):
             x = _input((2, n_in, 37), dt, dev, seed=8 + d)
-            before = cr.launches_axis
+            before = native.launches["resample_axis"]
             got = cr.resize_axis(x, t, 1, dt)
             torch.cuda.synchronize()
-            assert cr.launches_axis == before + 1
+            assert native.launches["resample_axis"] == before + 1
             _assert_equal(got, cr._resample_axis_plain(x, t, dt))
 
 
@@ -212,10 +218,10 @@ CONTINUOUS = ["bilinear", "bicubic", "hamming", "lanczos3", "lanczos5"]
 def test_resample2d_fused_kernel_matches_plain(dev, mode, idt, odt):
     x = _input((3, 97, 131), idt, dev, seed=9)
     sh, sw = make_axis_spec(97, 40, mode), make_axis_spec(131, 260, mode)
-    before = (cr.launches_2d_fused, cr.launches_2d)
+    before = _counts("resample2d_fused", "resample2d")
     got = cr.resize2d(x, sh, sw, odt, fused=True)
     torch.cuda.synchronize()
-    assert (cr.launches_2d_fused, cr.launches_2d) == (before[0] + 1, before[1])
+    assert _counts("resample2d_fused", "resample2d") == (before[0] + 1, before[1])
     _assert_equal(got, cr._resample2d_fused_plain(x, sh, sw, odt))
 
 
@@ -226,10 +232,10 @@ def test_resample2d_fused_kernel_matches_plain(dev, mode, idt, odt):
 def test_resample_axis_fused_kernel_matches_plain(dev, mode, axis, idt, odt):
     x = _input((2, 57, 83, 3), idt, dev, seed=10)
     spec = make_axis_spec(x.shape[axis], 130 if axis == 1 else 31, mode)
-    before = (cr.launches_axis_fused, cr.launches_axis)
+    before = _counts("resample_axis_fused", "resample_axis")
     got = cr.resize_axis(x, spec, axis, odt, fused=True)
     torch.cuda.synchronize()
-    assert (cr.launches_axis_fused, cr.launches_axis) == (before[0] + 1, before[1])
+    assert _counts("resample_axis_fused", "resample_axis") == (before[0] + 1, before[1])
     ax = axis % x.ndim
     x3 = x.reshape(math.prod(x.shape[:ax]), x.shape[ax], math.prod(x.shape[ax + 1:]))
     _assert_equal(got, cr._resample_axis_fused_plain(x3, spec, odt).reshape(got.shape))
@@ -268,10 +274,10 @@ KERNEL_A_EDGES = [
 def test_resample2d_edges_match_plain(dev, name, shape, ohw, mode, fused):
     x = _input(shape, torch.float32, dev, seed=12)
     sh, sw = make_axis_spec(shape[-2], ohw[0], mode), make_axis_spec(shape[-1], ohw[1], mode)
-    before = (cr.launches_2d, cr.launches_2d_fused)
+    before = _counts("resample2d", "resample2d_fused")
     got = cr.resize2d(x, sh, sw, fused=fused)
     torch.cuda.synchronize()
-    assert (cr.launches_2d, cr.launches_2d_fused) == \
+    assert _counts("resample2d", "resample2d_fused") == \
         (before[0] + (not fused), before[1] + fused)
     plain = cr._resample2d_fused_plain if fused else cr._resample2d_plain
     _assert_equal(got, plain(x, sh, sw, torch.float32))
@@ -294,9 +300,9 @@ def test_resample2d_plan_occupancy(dev):
     """The headline plan launches at least two waves of blocks on this card,
     and the card holds at least two of them per SM."""
     sh, sw = make_axis_spec(438, 196), make_axis_spec(906, 320)
-    n_sm = cr._n_sm(dev)
+    n_sm = plans.n_sm(dev)
     for fused in (False, True):
-        plan = (cr._plan2d_synth if fused else cr._plan2d)(sh, sw, 4, 3, n_sm)
+        plan = (cr._plan2d_synth if fused else plans.plan2d)(sh, sw, 4, 3, n_sm)
         assert plan.blocks >= 2 * n_sm
         assert cr.occupancy_2d(plan, torch.float32, torch.float32, sw.ntaps, sh.ntaps,
                                fused) >= 2
@@ -321,13 +327,13 @@ STREAM_EDGES = [
 
 
 def _stream_plans(x3, sh, sw):
-    """Every plan cuda_resize._stream_candidates weighs for ``x3``'s pass,
+    """Every plan plans._stream_candidates weighs for ``x3``'s pass,
     at planes enough to pass its gate."""
-    nt = cr._stream_ntaps(sh, sw)
-    th, tw = cr._stream_tables(sh, nt), cr._stream_tables(sw, nt)
-    return list(dict.fromkeys(p for _, p in cr._stream_candidates(
+    nt = plans._stream_ntaps(sh, sw)
+    th, tw = plans.stream_tables(sh, nt), plans.stream_tables(sw, nt)
+    return list(dict.fromkeys(p for _, p in plans._stream_candidates(
         th[0], sh.in_size, tw[0], sw.in_size, nt, x3.element_size(), 4096,
-        cr._n_sm(x3.device))))
+        plans.n_sm(x3.device))))
 
 
 @pytest.mark.parametrize("idt,odt", [(torch.bfloat16, torch.bfloat16),
@@ -342,14 +348,14 @@ def test_resample2d_stream_every_strip_matches_plain(dev, monkeypatch, name, sha
     x = _offset_input(shape, idt, dev, 40) if offset else _input(shape, idt, dev, 40)
     sh, sw = make_axis_spec(shape[1], ohw[0], mode), make_axis_spec(shape[2], ohw[1], mode)
     want = cr._resample2d_plain(x, sh, sw, odt)
-    plans = _stream_plans(x, sh, sw)
-    assert len(plans) > 4
-    for plan in plans:
+    cands = _stream_plans(x, sh, sw)
+    assert len(cands) > 4
+    for plan in cands:
         monkeypatch.setattr(cr, "resize2d_plan", lambda *a, p=plan, **k: p)
-        before = (cr.launches_2d, cr.launches_2d_stream)
+        before = _counts("resample2d", "resample2d_stream")
         got = cr.resize2d(x, sh, sw, odt)
         torch.cuda.synchronize()
-        assert (cr.launches_2d, cr.launches_2d_stream) == (before[0], before[1] + 1)
+        assert _counts("resample2d", "resample2d_stream") == (before[0], before[1] + 1)
         _assert_equal(got, want)
 
 
@@ -358,11 +364,11 @@ def test_resample2d_stream_config5_batch4_matches_plain(dev):
     one launch of the streaming kernel, the plain version's bits."""
     x = _input((4, 3, 2160, 3840), torch.bfloat16, dev, 41)
     sh, sw = make_axis_spec(2160, 1080), make_axis_spec(3840, 1920)
-    assert isinstance(cr.resize2d_plan(sh, sw, 2, 12, cr._n_sm(dev)), cr.PlanStream)
-    before = (cr.launches_2d, cr.launches_2d_stream)
+    assert isinstance(cr.resize2d_plan(sh, sw, 2, 12, plans.n_sm(dev)), plans.PlanStream)
+    before = _counts("resample2d", "resample2d_stream")
     got = cr.resize2d(x, sh, sw)
     torch.cuda.synchronize()
-    assert (cr.launches_2d, cr.launches_2d_stream) == (before[0], before[1] + 1)
+    assert _counts("resample2d", "resample2d_stream") == (before[0], before[1] + 1)
     want = cr._resample2d_plain(x.reshape(12, 2160, 3840), sh, sw, torch.bfloat16)
     _assert_equal(got, want.reshape(got.shape))
 
@@ -391,8 +397,8 @@ def test_resample2d_stream_plan_occupancy(dev):
     counts on (registers and shared memory both count)."""
     sh, sw = make_axis_spec(2160, 1080), make_axis_spec(3840, 1920)
     for dt in (torch.bfloat16, torch.float32):
-        plan = cr.resize2d_plan(sh, sw, dt.itemsize, 192, cr._n_sm(dev))
-        assert isinstance(plan, cr.PlanStream)
+        plan = cr.resize2d_plan(sh, sw, dt.itemsize, 192, plans.n_sm(dev))
+        assert isinstance(plan, plans.PlanStream)
         assert cr.occupancy_stream(plan, dt, dt) >= plan.resident
 
 
@@ -431,10 +437,10 @@ def test_resample_axis_edges_match_plain(dev, name, shape, axis, n_out, mode, fu
     if offset:  # a plane offset of one plane: rows start off 16 bytes
         x = _input((shape[0] + 1, *shape[1:]), dt, dev, seed=14)[1:]
     spec = make_axis_spec(x.shape[axis], n_out, mode)
-    before = (cr.launches_axis, cr.launches_axis_fused)
+    before = _counts("resample_axis", "resample_axis_fused")
     got = cr.resize_axis(x, spec, axis, dt, fused=fused)
     torch.cuda.synchronize()
-    assert (cr.launches_axis, cr.launches_axis_fused) == \
+    assert _counts("resample_axis", "resample_axis_fused") == \
         (before[0] + (not fused), before[1] + fused)
     plain = cr._resample_axis_fused_plain if fused else cr._resample_axis_plain
     _assert_equal(got, plain(_view3(x, axis), spec, dt).reshape(got.shape))
@@ -447,7 +453,7 @@ def test_resample_axis_unstaged_body_matches_plain(dev, fused):
     mode = "bilinear" if fused else "box"
     x = _input((2, 2000, 64), torch.float32, dev, seed=15)
     spec = make_axis_spec(2000, 1, mode)
-    assert cr._plan_axis_spec(spec, fused, 2, 64, 4, cr._n_sm(dev), True) is None
+    assert cr.plan_axis_spec(spec, fused, 2, 64, 4, plans.n_sm(dev), True) is None
     got = cr.resize_axis(x, spec, 1, fused=fused)
     plain = cr._resample_axis_fused_plain if fused else cr._resample_axis_plain
     _assert_equal(got, plain(x, spec, torch.float32))
@@ -477,18 +483,18 @@ def test_pil_resample_axis_edges_match_plain(dev, name, shape, axis, n_out, mode
         x = _input((math.prod(shape) + 1,), torch.uint8, dev, seed=16)[1:].reshape(shape)
         assert x.data_ptr() % 4 != 0
     tables = pe._int_tables(shape[axis], n_out, mode)
-    before = pe.launches_axis
+    before = native.launches["pil_resample_axis"]
     got = pe._resample_axis(x, tables, axis)
     torch.cuda.synchronize()
-    assert pe.launches_axis == before + 1
+    assert native.launches["pil_resample_axis"] == before + 1
     assert torch.equal(got, pe._resample_axis_plain(_view3(x, axis), tables).reshape(got.shape))
 
 
 def test_pil_resample_axis_unstaged_body_matches_plain(dev):
     x = _input((2, 5000, 64), torch.uint8, dev, seed=17)
     tables = pe._int_tables(5000, 1, "box")
-    assert cr._plan_axis(tables[0].astype("int64"), tables[1].shape[1], 5000, 2, 64, 1,
-                         cr._n_sm(dev), True) is None
+    assert plans._plan_axis(tables[0].astype("int64"), tables[1].shape[1], 5000, 2, 64, 1,
+                            plans.n_sm(dev), True) is None
     got = pe._resample_axis(x, tables, 1)
     assert torch.equal(got, pe._resample_axis_plain(x, tables))
 
@@ -498,19 +504,19 @@ def test_resample_axis_plan_occupancy(dev):
     the NHWC headline's at 64 frames launch at least a block per SM of this
     card, and the card holds at least two of them per SM; so does the
     sharded uint8 W pass.  The one-frame headline runs the unstaged body."""
-    n_sm = cr._n_sm(dev)
+    n_sm = plans.n_sm(dev)
     for n_in, n_out, outer, inner, itemsize, fused in (
             (906, 320, 438 * 64, 3, 4, True), (438, 196, 64, 960, 4, False),
             (3840, 1920, 64 * 2160, 3, 2, False), (2160, 1080, 64, 5760, 2, True)):
         spec = make_axis_spec(n_in, n_out)
-        plan = cr._plan_axis_spec(spec, fused, outer, inner, itemsize, n_sm, True)
+        plan = cr.plan_axis_spec(spec, fused, outer, inner, itemsize, n_sm, True)
         assert plan.blocks >= n_sm
         dt = torch.float32 if itemsize == 4 else torch.bfloat16
         assert cr.occupancy_axis(plan, "fused" if fused else "table", dt, dt,
                                  spec.ntaps) >= 2
-    assert cr._plan_axis_spec(make_axis_spec(906, 320), False, 438, 3, 4, n_sm, True) is None
+    assert cr.plan_axis_spec(make_axis_spec(906, 320), False, 438, 3, 4, n_sm, True) is None
     tw = pe._int_tables(32768, 8192, "bilinear")
-    plan = cr._plan_axis(tw[0].astype("int64"), tw[1].shape[1], 32768, 96, 1, 1, n_sm, True)
+    plan = plans._plan_axis(tw[0].astype("int64"), tw[1].shape[1], 32768, 96, 1, 1, n_sm, True)
     assert plan.blocks >= n_sm
     assert cr.occupancy_axis(plan, "pil", torch.uint8, torch.uint8, tw[1].shape[1]) >= 2
 
@@ -528,13 +534,13 @@ TAPS_GT16 = [
 
 
 def _every_tile(first, ntaps, x3):
-    """Every tile cuda_resize._axis_candidates lists for a pass over ``x3``,
+    """Every tile plans._axis_candidates lists for a pass over ``x3``,
     then None (the unstaged body)."""
     outer, n_in, inner = x3.shape
-    plans = [p for _, p in cr._axis_candidates(
+    cands = [p for _, p in plans._axis_candidates(
         np.asarray(first, np.int64), ntaps, n_in, outer, inner, x3.element_size(),
-        cr._n_sm(x3.device), x3.data_ptr() % 4 == 0)]
-    return list(dict.fromkeys(plans)) + [None]
+        plans.n_sm(x3.device), x3.data_ptr() % 4 == 0)]
+    return list(dict.fromkeys(cands)) + [None]
 
 
 def _offset_input(shape, dtype, dev, seed):
@@ -544,13 +550,13 @@ def _offset_input(shape, dtype, dev, seed):
 
 def _axis_every_tile(monkeypatch, x, spec, axis, odt, fused):
     x3 = _view3(x, axis)
-    first, w = cr._tables(spec)
+    first, w = plans.tables(spec)
     first, ntaps = (cr._synth_first(spec), spec.ntaps) if fused else (first, w.shape[1])
     want = (cr._resample_axis_fused_plain if fused else cr._resample_axis_plain)(x3, spec, odt)
-    plans = _every_tile(first, ntaps, x3)
-    assert len(plans) > 1
-    for plan in plans:
-        monkeypatch.setattr(cr, "_plan_axis_first", lambda *a, p=plan: p)
+    cands = _every_tile(first, ntaps, x3)
+    assert len(cands) > 1
+    for plan in cands:
+        monkeypatch.setattr(plans, "plan_axis_first", lambda *a, p=plan: p)
         got = cr.resize_axis(x, spec, axis, odt, fused=fused)
         _assert_equal(got, want.reshape(got.shape))
 
@@ -594,10 +600,10 @@ def test_pil_resample_axis_edges_every_tile(dev, monkeypatch, name, shape, axis,
     tables = pe._int_tables(shape[axis], n_out, mode)
     x3 = _view3(x, axis)
     want = pe._resample_axis_plain(x3, tables)
-    plans = _every_tile(tables[0], tables[1].shape[1], x3)
-    assert len(plans) > 1
-    for plan in plans:
-        monkeypatch.setattr(cr, "_plan_axis_first", lambda *a, p=plan: p)
+    cands = _every_tile(tables[0], tables[1].shape[1], x3)
+    assert len(cands) > 1
+    for plan in cands:
+        monkeypatch.setattr(plans, "plan_axis_first", lambda *a, p=plan: p)
         got = pe._resample_axis(x, tables, axis)
         assert torch.equal(got, want.reshape(got.shape)), plan
 
@@ -613,9 +619,9 @@ def test_axis_staged_offset_matches_plain(dev, kind):
     x3 = _view3(x, axis)
     if kind == "pil":
         tables = pe._int_tables(shape[axis], n_out, mode)
-        plan = cr._plan_axis_first(np.asarray(tables[0], np.int64).tobytes(),
-                                   tables[1].shape[1], shape[axis], x3.shape[0], x3.shape[2],
-                                   1, cr._n_sm(dev), False)
+        plan = plans.plan_axis_first(np.asarray(tables[0], np.int64).tobytes(),
+                                     tables[1].shape[1], shape[axis], x3.shape[0], x3.shape[2],
+                                   1, plans.n_sm(dev), False)
         assert plan is not None
         got = pe._resample_axis(x, tables, axis)
         assert torch.equal(got, pe._resample_axis_plain(x3, tables).reshape(got.shape))
@@ -667,14 +673,14 @@ def _pil_case(dev, shape, ohw, mode, pb, offset, box=None):
                          ids=[c[0] for c in PIL_2PASS_EDGES])
 def test_pil_2pass_edges_match_plain(dev, name, shape, ohw, mode, pb, offset):
     x3, tw, th, want = _pil_case(dev, shape, ohw, mode, pb, offset)
-    before, before_axis = pe.launches, pe.launches_axis
+    before, before_axis = _counts("pil_resample_2pass", "pil_resample_axis")
     got = pe._resample_2pass(x3, tw, th, pb)
     torch.cuda.synchronize()
     if name == "no_tile_fits":
-        assert pe._plan_2pass(tw, th, shape[0], shape[1], shape[2]) is None
-        assert (pe.launches, pe.launches_axis) == (before, before_axis + 2)
+        assert plans.plan_pil_2pass(tw, th, shape[0], shape[1], shape[2]) is None
+        assert _counts("pil_resample_2pass", "pil_resample_axis") == (before, before_axis + 2)
     else:
-        assert (pe.launches, pe.launches_axis) == (before + 1, before_axis)
+        assert _counts("pil_resample_2pass", "pil_resample_axis") == (before + 1, before_axis)
     assert torch.equal(got, want)
 
 
@@ -683,12 +689,12 @@ def test_pil_2pass_edges_match_plain(dev, name, shape, ohw, mode, pb, offset):
                          ids=[c[0] for c in PIL_2PASS_EDGES if c[0] != "no_tile_fits"])
 def test_pil_2pass_edges_every_tile(dev, monkeypatch, name, shape, ohw, mode, pb, offset):
     x3, tw, th, want = _pil_case(dev, shape, ohw, mode, pb, offset)
-    plans = [p for _, p in cr._rows_candidates(
+    cands = [p for _, p in plans._rows_candidates(
         th[0], th[1].shape[1], shape[1], tw[0], tw[1].shape[1], shape[2], 1, shape[0],
-        cr._n_sm(dev), inter_size=1)]
-    assert plans
-    for plan in plans:
-        monkeypatch.setattr(pe, "_plan_2pass", lambda *a, p=plan: p)
+        plans.n_sm(dev), inter_size=1)]
+    assert cands
+    for plan in cands:
+        monkeypatch.setattr(plans, "plan_pil_2pass", lambda *a, p=plan: p)
         got = pe._resample_2pass(x3, tw, th, pb)
         assert torch.equal(got, want), plan
 
@@ -698,9 +704,9 @@ def test_pil_2pass_box_route_every_tile(dev, monkeypatch):
     x3, tw, th, want = _pil_case(dev, (3, 50, 70), (20, 31), "lanczos3", 22, False, box)
     assert torch.equal(pe._resample_2pass(x3, tw, th), want)
     assert torch.equal(pe.resize_pil_exact(x3, (20, 31), method="lanczos3", box=box), want)
-    for _, plan in cr._rows_candidates(th[0], th[1].shape[1], 50, tw[0], tw[1].shape[1], 70,
-                                       1, 3, cr._n_sm(dev), inter_size=1):
-        monkeypatch.setattr(pe, "_plan_2pass", lambda *a, p=plan: p)
+    for _, plan in plans._rows_candidates(th[0], th[1].shape[1], 50, tw[0], tw[1].shape[1], 70,
+                                          1, 3, plans.n_sm(dev), inter_size=1):
+        monkeypatch.setattr(plans, "plan_pil_2pass", lambda *a, p=plan: p)
         assert torch.equal(pe._resample_2pass(x3, tw, th), want), plan
 
 
@@ -712,8 +718,8 @@ def test_pil_2pass_plan_occupancy(dev):
     lib = native.build()
     for planes, H, W, OH, OW in ((192, 438, 906, 196, 320), (3, 2160, 3840, 1080, 1920)):
         tw, th = pe._int_tables(W, OW, "bilinear"), pe._int_tables(H, OH, "bilinear")
-        plan = pe._plan_2pass(tw, th, planes, H, W, cr._n_sm(dev))
-        assert plan.blocks >= cr._n_sm(dev)
+        plan = plans.plan_pil_2pass(tw, th, planes, H, W, plans.n_sm(dev))
+        assert plan.blocks >= plans.n_sm(dev)
         blocks = ctypes.c_int(0)
         assert lib.ia_pil_resample_2pass_occupancy(tw[1].shape[1], th[1].shape[1],
                                                    *plan[:6], ctypes.byref(blocks)) == 0
@@ -768,10 +774,10 @@ def _crop_every_tile(dev, monkeypatch, x, tables, want, inter_dtype=torch.uint8)
     for which, tab, n_in, n_out, R, inner, isz in (("h", tab_h, H, OH, C, W, 1),
                                                    ("w", tab_w, W, OW, C * OH, 1, isz_w)):
         T = tab.w.shape[-1]
-        plans = [p for _, p in cr._axis_tiles(
-            tab.wins, n_out, T, n_in, N * R, inner, isz, cr._n_sm(dev), x.data_ptr() % 4 == 0,
+        cands = [p for _, p in plans.axis_tiles(
+            tab.wins, n_out, T, n_in, N * R, inner, isz, plans.n_sm(dev), x.data_ptr() % 4 == 0,
             per_img=R)]
-        for plan in list(dict.fromkeys(plans)) + [None]:
+        for plan in list(dict.fromkeys(cands)) + [None]:
             _forced_crop(monkeypatch, which, plan, real)
             got = cc._crop_resample(x, *tables, inter_dtype)
             assert torch.equal(got, want), (which, plan)
@@ -786,9 +792,9 @@ def test_crop_edges_every_tile(dev, monkeypatch, name, shape, ohw, boxes, frac, 
     tables = cc._windowed_tables(x, _crop_boxes(boxes).to(dev), ohw, "bilinear", True, frac,
                                  precision)
     want = cc._crop_resample_plain(x, *tables)
-    before = cc.launches_crop
+    before = native.launches["crop_resample"]
     assert torch.equal(cc._crop_resample(x, *tables), want)
-    assert cc.launches_crop == before + 2
+    assert native.launches["crop_resample"] == before + 2
     assert _crop_every_tile(dev, monkeypatch, x, tables, want) > 4
 
 
@@ -884,13 +890,13 @@ def test_crop_tables_kernel_matches_plain(dev, monkeypatch, name, shape, ohw, bo
                                           precision):
     x = torch.empty(shape, dtype=torch.uint8, device=dev)
     args = (x, _crop_boxes(boxes).to(dev), ohw, mode, True, frac, precision)
-    before = cc.launches_crop_tables
+    before = native.launches["crop_tables"]
     got = cc._windowed_tables(*args)
     torch.cuda.synchronize()
-    assert cc.launches_crop_tables == before + 1
+    assert native.launches["crop_tables"] == before + 1
     _plain_tables(monkeypatch)
     _tables_equal(got, cc._windowed_tables(*args))
-    assert cc.launches_crop_tables == before + 1
+    assert native.launches["crop_tables"] == before + 1
 
 
 @pytest.mark.parametrize("precision", ["pil_int8", "split"])
@@ -941,10 +947,10 @@ def test_crop_tables_kernel_at_every_group_size(dev, monkeypatch, name, precisio
                                              cc._fracs(frac), precision)]
     monkeypatch.setattr(cc, "_table_plan", lambda axes, N, n_sm: (lanes, lanes))
     b = torch.tensor(boxes, dtype=torch.float32, device=dev)
-    before = cc.launches_crop_tables
+    before = native.launches["crop_tables"]
     got = cc._windowed_tables_cuda(b, "bilinear", True, axes)
     torch.cuda.synchronize()
-    assert cc.launches_crop_tables == before + 1
+    assert native.launches["crop_tables"] == before + 1
     want = cc._windowed_tables_plain(b, "bilinear", True, axes)
     for g, w in zip(got, want):
         for x, y in zip(g, w):
@@ -967,13 +973,13 @@ def test_crop_and_resize_equals_the_plain_table_build(dev, monkeypatch, precisio
     else:
         def call():
             return cc.crop_and_resize_windowed(x, boxes, (224, 224), precision=precision)
-    before = (cc.launches_crop_tables, cc.launches_crop)
+    before = _counts("crop_tables", "crop_resample")
     got = call()
     torch.cuda.synchronize()
-    assert (cc.launches_crop_tables, cc.launches_crop) == (before[0] + 1, before[1] + 2)
+    assert _counts("crop_tables", "crop_resample") == (before[0] + 1, before[1] + 2)
     _plain_tables(monkeypatch)
     want = call()
-    assert (cc.launches_crop_tables, cc.launches_crop) == (before[0] + 1, before[1] + 4)
+    assert _counts("crop_tables", "crop_resample") == (before[0] + 1, before[1] + 4)
     _assert_equal(got, want)
 
 
@@ -1054,10 +1060,10 @@ def test_crop_f32_kernels_match_plain(dev, monkeypatch, name, shape, ohw, boxes,
     float32 intermediate, one rounding), and a flipped output is exactly
     the mirror of the unflipped one."""
     x, b, flip = _f32_call(dev, shape, boxes, 41)
-    before = (cc.launches_crop_tables, cc.launches_crop_f32, cc.launches_crop)
+    before = _counts("crop_tables", "crop_f32", "crop_resample")
     got = cc.crop_and_resize_f32(x, b, ohw, method, flip=flip)
     torch.cuda.synchronize()
-    assert (cc.launches_crop_tables, cc.launches_crop_f32, cc.launches_crop) == (
+    assert _counts("crop_tables", "crop_f32", "crop_resample") == (
         before[0] + 1, before[1] + 2, before[2])
     tables = cc._f32_tables(x, b, ohw, method, flip)
     if boxes != "rrc":
@@ -1094,8 +1100,8 @@ def test_crop_routes_on_the_card(dev, monkeypatch):
     x, b, flip = _f32_call(dev, (4, 3, 300, 520), "rrc", 43)
     seen = []
     real = cc._launch
-    monkeypatch.setattr(cc, "_launch", lambda lib, xi, out, tab, *a: seen.append(
-        (xi.dtype, out.dtype, tab.w.dtype)) or real(lib, xi, out, tab, *a))
+    monkeypatch.setattr(cc, "_launch", lambda xi, out, tab, *a: seen.append(
+        (xi.dtype, out.dtype, tab.w.dtype)) or real(xi, out, tab, *a))
     u8, f32, i32 = torch.uint8, torch.float32, torch.int32
     for inp, kw, launches, passes in [
         (x, dict(flip=flip), {"crop_tables": 1, "crop_f32": 2}, [(u8, f32, f32), (f32, u8, f32)]),
@@ -1134,9 +1140,9 @@ def test_crop_f32_route_against_the_reference(dev, seed):
     x = gen.images(g, 1, 64, (3, H, W), dev)[0]
     b = gen.resized_crop_boxes(g, 64, H, W, (0.08, 1.0), (0.75, 4 / 3), dev)
     flip = gen.flips(g, 64, 0.5, dev)
-    before = cc.launches_crop_f32
+    before = native.launches["crop_f32"]
     y = iat.crop_and_resize(x, b, (224, 224), flip=flip, max_box_frac=box_fracs(H, W))
-    assert cc.launches_crop_f32 == before + 2
+    assert native.launches["crop_f32"] == before + 2
     sides = (-1, 1) if ref.on_edge(b, H, W) else (0,)
     refs = torch.stack([ref.crop_dense(x, b, 224, 224, flip, side=s) for s in sides])
     off = (y.double()[None] - refs).abs().amin(0)
@@ -1146,10 +1152,10 @@ def test_crop_f32_route_against_the_reference(dev, seed):
 
 def test_random_resized_crop_launches_the_table_kernel_once(dev):
     x = _input((4, 3, 300, 520), torch.uint8, dev, seed=34)
-    before = cc.launches_crop_tables
+    before = native.launches["crop_tables"]
     for i in range(3):
         iat.random_resized_crop(torch.Generator().manual_seed(i), x, (96, 112))
-        assert cc.launches_crop_tables == before + i + 1
+        assert native.launches["crop_tables"] == before + i + 1
 
 
 # ---------------------------------------------------------------------------
@@ -1175,7 +1181,7 @@ def test_kernel_report_route_matches_the_launch_counters(dev, name, shape, ohw, 
     from interpolate_antialiasing_tpu_torch.utils.inspect import kernel_report, launch_counts
 
     rep = kernel_report(shape, ohw, mode=mode, dtype=dtype, data_format=fmt)
-    assert not rep.n_sm_assumed and rep.n_sm == cr._n_sm(dev)
+    assert not rep.n_sm_assumed and rep.n_sm == plans.n_sm(dev)
     x = _input(shape, dtype, dev)
     before = launch_counts()
     iat.resize(x, ohw, method=mode, data_format=fmt)

@@ -36,8 +36,10 @@ from interpolate_antialiasing_tpu.ops import pil_exact as jpe
 from interpolate_antialiasing_tpu.ops import resize as jresize
 from interpolate_antialiasing_tpu.ops.resize_xla import resize_axis_dense
 from interpolate_antialiasing_tpu.ops.weights import make_axis_spec as jspec
+from interpolate_antialiasing_tpu_torch import native
 from interpolate_antialiasing_tpu_torch.config import default_precision
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
+from interpolate_antialiasing_tpu_torch.ops import plans
 from interpolate_antialiasing_tpu_torch.ops import resize as tresize
 from interpolate_antialiasing_tpu_torch.ops.weights import make_axis_spec as tspec
 
@@ -339,18 +341,18 @@ def _assert_plan_covers(plan, spec_h, spec_w, itemsize):
     kernel's layout and fit the per-block budget."""
     for spec, tile, cap in ((spec_h, plan.tile_r, plan.rows_cap),
                             (spec_w, plan.tile_c, plan.cols_cap)):
-        first, w = cr._tables(spec)
+        first, w = plans.tables(spec)
         taps = np.clip(first[:, None].astype(np.int64) + np.arange(w.shape[1]),
                        0, spec.in_size - 1)
         for t in range(-(-spec.out_size // tile)):
             r = taps[t * tile:(t + 1) * tile]
             assert r.max() - r.min() + 1 <= cap
-    assert plan.tile_c in cr.TILE_C and plan.tile_r in cr._TILE_R
+    assert plan.tile_c in plans.TILE_C and plan.tile_r in plans._TILE_R
     assert 1 <= plan.chunk <= plan.rows_cap
     assert -(-plan.rows_cap // plan.chunk) * plan.chunk >= plan.rows_cap
-    ntw, nth = cr._tables(spec_w)[1].shape[1], cr._tables(spec_h)[1].shape[1]
-    assert plan.smem == cr._smem_bytes(plan.tile_r, plan.tile_c, plan.rows_cap,
-                                       plan.cols_cap, plan.chunk, ntw, nth, itemsize)
+    ntw, nth = plans.tables(spec_w)[1].shape[1], plans.tables(spec_h)[1].shape[1]
+    assert plan.smem == plans._smem_bytes(plan.tile_r, plan.tile_c, plan.rows_cap,
+                                          plan.cols_cap, plan.chunk, ntw, nth, itemsize)
     # the ring's stages (one where a chunk is the whole window, else two)
     # hold chunk rows of the widest span, 16-byte head and tail included,
     # inside the block's bytes
@@ -358,17 +360,17 @@ def _assert_plan_covers(plan, spec_h, spec_w, itemsize):
     stages = 1 if plan.chunk == plan.rows_cap else 2
     assert stride >= plan.cols_cap * itemsize + 30
     assert stages * plan.chunk * stride + 4 * plan.rows_cap * plan.tile_c <= plan.smem
-    assert plan.smem <= cr._SMEM_BUDGET < cr._SMEM_LIMIT
+    assert plan.smem <= plans._SMEM_BUDGET < plans._SMEM_LIMIT
 
 
 def test_plan_narrows_columns_for_an_extreme_downscale():
     # 2160 -> 8 lanczos3 reads ~1,600 input rows per output row
     spec, spec_w = tspec(2160, 8, "lanczos3"), tspec(96, 48, "lanczos3")
-    plan = cr._plan2d(spec, spec_w)
+    plan = plans.plan2d(spec, spec_w)
     assert plan.tile_c < 64
     _assert_plan_covers(plan, spec, spec_w, 4)
     # and along W: the span of 2160 columns is staged through the ring
-    plan = cr._plan2d(spec_w, spec)
+    plan = plans.plan2d(spec_w, spec)
     assert plan.cols_cap == 2160
     _assert_plan_covers(plan, spec_w, spec, 4)
     for sh, sw in [(tspec(2160, 1080, "bilinear"), tspec(3840, 1920, "bilinear")),
@@ -376,16 +378,16 @@ def test_plan_narrows_columns_for_an_extreme_downscale():
                    (tspec(33, 65, "bicubic"), tspec(17, 5, "area")),
                    (tspec(40, 7, "area"), tspec(23, 1, "bilinear"))]:
         for itemsize in (1, 2, 4):
-            _assert_plan_covers(cr._plan2d(sh, sw, itemsize), sh, sw, itemsize)
+            _assert_plan_covers(plans.plan2d(sh, sw, itemsize), sh, sw, itemsize)
 
 
 def _smallest_block(spec_h, spec_w, itemsize):
     """The least shared memory any tile of the plan could take: one output
     row, the narrowest column tile, a ring of one row."""
-    (fh, wh), (fw, ww) = cr._tables(spec_h), cr._tables(spec_w)
-    return min(cr._smem_bytes(1, c, cr._window(fh, wh.shape[1], spec_h.in_size, 1),
-                              cr._window(fw, ww.shape[1], spec_w.in_size, c), 1,
-                              ww.shape[1], wh.shape[1], itemsize) for c in cr.TILE_C)
+    (fh, wh), (fw, ww) = plans.tables(spec_h), plans.tables(spec_w)
+    return min(plans._smem_bytes(1, c, plans.window(fh, wh.shape[1], spec_h.in_size, 1),
+                                 plans.window(fw, ww.shape[1], spec_w.in_size, c), 1,
+                                 ww.shape[1], wh.shape[1], itemsize) for c in plans.TILE_C)
 
 
 def test_plan_gives_up_only_when_no_tile_fits(monkeypatch):
@@ -395,12 +397,12 @@ def test_plan_gives_up_only_when_no_tile_fits(monkeypatch):
     sw = tspec(4, 4, "box")
     for n_in, fits in [(3000, True), (4000, False), (50000, False), (70000, False)]:
         sh = tspec(n_in, 1, "box")
-        assert (cr._plan2d(sh, sw) is not None) == fits
-        assert fits == (_smallest_block(sh, sw, 4) <= cr._SMEM_BUDGET)
+        assert (plans.plan2d(sh, sw) is not None) == fits
+        assert fits == (_smallest_block(sh, sw, 4) <= plans._SMEM_BUDGET)
     # where the plan gives up, resize2d runs two resample_axis passes
     calls = []
     real = cr.resize_axis
-    monkeypatch.setattr(cr, "_plan2d", lambda *a: None)
+    monkeypatch.setattr(plans, "plan2d", lambda *a: None)
     monkeypatch.setattr(cr, "resize_axis",
                         lambda *a, **k: calls.append(a[2:]) or real(*a, **k))
     for idt, odt, inter in [("uint8", "uint8", torch.uint8),
@@ -423,30 +425,30 @@ def test_plan_tile_c_is_a_kernel_template_value():
     src = (csrc / "resample2d.cuh").read_text()
     for prefix in ("resample2d_tc", "resample2d_fused_tc"):  # tables, synthesis
         assert sorted(int(p.stem[len(prefix):])
-                      for p in csrc.glob(f"{prefix}*.cu")) == sorted(cr.TILE_C)
+                      for p in csrc.glob(f"{prefix}*.cu")) == sorted(plans.TILE_C)
     assert sorted(int(v) for v in re.findall(r"case (\d+): return launch_tc", src)) == \
-        sorted(cr.TILE_C)
+        sorted(plans.TILE_C)
     for sh, sw in [(tspec(438, 196), tspec(906, 320)), (tspec(97, 40, "lanczos3"),
                                                           tspec(131, 260, "lanczos3")),
                    (tspec(1, 30), tspec(200, 1, "box"))]:
         for itemsize in (1, 2, 4):
             for planes in (1, 64):
-                assert cr._plan2d(sh, sw, itemsize, planes).tile_c in cr.TILE_C
+                assert plans.plan2d(sh, sw, itemsize, planes).tile_c in plans.TILE_C
 
 
 @pytest.mark.parametrize("n_sm", [132, 114, 66])
 def test_plan_fills_the_card(n_sm):
     # the batch-1 headline (3 planes): at least two waves of blocks
     sh, sw = tspec(438, 196, "bilinear"), tspec(906, 320, "bilinear")
-    plan = cr._plan2d(sh, sw, 4, 3, n_sm)
+    plan = plans.plan2d(sh, sw, 4, 3, n_sm)
     assert plan.blocks >= 2 * n_sm and plan.resident >= 2
     _assert_plan_covers(plan, sh, sw, 4)
     # config 5's 192 planes give tens of thousands of blocks with any tile:
     # the plan keeps a wide one
-    big = cr._plan2d(tspec(2160, 1080), tspec(3840, 1920), 2, 192, n_sm)
+    big = plans.plan2d(tspec(2160, 1080), tspec(3840, 1920), 2, 192, n_sm)
     assert big.tile_c >= 64 and big.blocks >= 10000 and big.resident >= 2
     # fewer outputs than SMs: the most blocks any tile gives, one per row
-    tiny = cr._plan2d(tspec(17, 8), tspec(23, 11), 4, 1, n_sm)
+    tiny = plans.plan2d(tspec(17, 8), tspec(23, 11), 4, 1, n_sm)
     assert (tiny.tile_r, tiny.blocks) == (1, 8)
 
 
@@ -454,18 +456,18 @@ def test_plan_follows_the_batch():
     """More planes need fewer blocks per plane: the tiles grow with the
     batch, and the cache keeps one plan per argument tuple."""
     sh, sw = tspec(438, 196, "bicubic"), tspec(906, 320, "bicubic")
-    small, large = cr._plan2d(sh, sw, 4, 1), cr._plan2d(sh, sw, 4, 192)
+    small, large = plans.plan2d(sh, sw, 4, 1), plans.plan2d(sh, sw, 4, 192)
     assert small.tile_r * small.tile_c <= large.tile_r * large.tile_c
-    assert small.blocks >= 2 * cr._H100_SMS
-    assert cr._plan2d(sh, sw, 4, 192) is large
+    assert small.blocks >= 2 * plans.H100_SMS
+    assert plans.plan2d(sh, sw, 4, 192) is large
 
 
 def test_cpu_tensors_run_the_plain_versions(monkeypatch, capsys):
-    before = (cr.launches_2d, cr.launches_axis)
+    before = (native.launches["resample2d"], native.launches["resample_axis"])
     x = torch.rand((2, 3, 30, 40))
     iat.resize(x, (15, 20))
     iat.resize(x.permute(0, 2, 3, 1), (15, 20), data_format="NHWC")
-    assert (cr.launches_2d, cr.launches_axis) == before == (0, 0)
+    assert (native.launches["resample2d"], native.launches["resample_axis"]) == before == (0, 0)
     monkeypatch.setenv("IA_TPU_DEBUG", "1")
     iat.resize(x, (15, 20))
     assert "resample2d torch.float32->torch.float32 (cpu)" in capsys.readouterr().out

@@ -37,6 +37,7 @@ from interpolate_antialiasing_tpu.ops import pallas_resize as jpr
 from interpolate_antialiasing_tpu.ops.weights import banded_tiles as jbanded
 from interpolate_antialiasing_tpu.ops.weights import make_axis_spec as jspec
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
+from interpolate_antialiasing_tpu_torch.ops import plans
 from interpolate_antialiasing_tpu_torch.ops.weights import adjoint_tables
 from interpolate_antialiasing_tpu_torch.ops.weights import make_axis_spec as tspec
 
@@ -306,8 +307,8 @@ def test_synth_first_plans_the_kernels_window():
             hi = np.clip(first + sp.ntaps - 1, 0, sp.in_size - 1) + 1
             for o0 in range(0, sp.out_size, tile):
                 assert hi[o0:o0 + tile].max() - lo[o0:o0 + tile].min() <= cap
-        assert plan.tile_c in cr.TILE_C and 1 <= plan.chunk <= plan.rows_cap
-        assert plan.smem == cr._smem_bytes(plan.tile_r, plan.tile_c, plan.rows_cap,
-                                           plan.cols_cap, plan.chunk, spec_w.ntaps,
-                                           spec.ntaps, 4)
-        assert plan.smem <= cr._SMEM_BUDGET
+        assert plan.tile_c in plans.TILE_C and 1 <= plan.chunk <= plan.rows_cap
+        assert plan.smem == plans._smem_bytes(plan.tile_r, plan.tile_c, plan.rows_cap,
+                                              plan.cols_cap, plan.chunk, spec_w.ntaps,
+                                              spec.ntaps, 4)
+        assert plan.smem <= plans._SMEM_BUDGET

@@ -25,6 +25,7 @@ import interpolate_antialiasing_tpu_torch as iat
 from interpolate_antialiasing_tpu.ops import pallas_resize as jpr
 from interpolate_antialiasing_tpu.ops import weights as jw
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
+from interpolate_antialiasing_tpu_torch.ops import plans
 from interpolate_antialiasing_tpu_torch.ops import resize as tresize
 from interpolate_antialiasing_tpu_torch.ops import weights as tw
 from interpolate_antialiasing_tpu_torch.ops.autograd import apply_axis, apply_plane
@@ -92,8 +93,8 @@ def test_upsampling_adjoint_has_more_taps():
     assert spec.ntaps == 5 and tw.adjoint_tables(spec).ntaps == 13
     # and the resample2d plan sees the transposed H table
     t = tw.adjoint_tables(spec)
-    plan = cr._plan2d(t, t)
-    assert plan is not None and plan != cr._plan2d(spec, spec)
+    plan = plans.plan2d(t, t)
+    assert plan is not None and plan != plans.plan2d(spec, spec)
 
 
 @pytest.mark.parametrize("n_in,n_out,mode,kw", SPECS, ids=_ids(SPECS))

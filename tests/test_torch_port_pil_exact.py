@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from interpolate_antialiasing_tpu.ops import pil_exact as jpe
-from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
+from interpolate_antialiasing_tpu_torch import native
 from interpolate_antialiasing_tpu_torch.ops import pil_exact as tpe
+from interpolate_antialiasing_tpu_torch.ops import plans
 
 PIL = pytest.importorskip("PIL.Image")
 
@@ -110,12 +111,12 @@ def test_matches_pillow(mode, pil_mode, hwos):
 
 
 def test_cpu_tensor_leaves_launch_counter():
-    before = tpe.launches
+    before = native.launches["pil_resample_2pass"]
     tpe.resize_pil_exact(torch.from_numpy(_img((2, 3, 40, 60))), (20, 30))
     tpe._resample_2pass(torch.from_numpy(_img((2, 40, 60))),
                         tpe._int_tables(60, 30, "bilinear"),
                         tpe._int_tables(40, 20, "bilinear"))
-    assert tpe.launches == before == 0
+    assert native.launches["pil_resample_2pass"] == before == 0
 
 
 def test_overflow_check():
@@ -159,11 +160,11 @@ def test_row_plan_fits_shared_memory():
     for n_in, n_out, mode in [(438, 196, "bilinear"), (2160, 1080, "bilinear"),
                               (3840, 24, "lanczos3"), (33, 65, "bicubic")]:
         tab = tpe._int_tables(n_in, n_out, mode)
-        plan = tpe._plan_2pass(tab, tab, 3, n_in, n_in)
-        assert plan is not None and plan.smem <= cr._SMEM_BUDGET
-        assert plan.smem == cr._smem_bytes(plan.tile_r, plan.tile_c, plan.rows_cap,
-                                           plan.cols_cap, plan.chunk, tab[1].shape[1],
-                                           tab[1].shape[1], 1, 1)
+        plan = plans.plan_pil_2pass(tab, tab, 3, n_in, n_in)
+        assert plan is not None and plan.smem <= plans._SMEM_BUDGET
+        assert plan.smem == plans._smem_bytes(plan.tile_r, plan.tile_c, plan.rows_cap,
+                                              plan.cols_cap, plan.chunk, tab[1].shape[1],
+                                              tab[1].shape[1], 1, 1)
         lo = np.clip(tab[0].astype(np.int64)[:, None] + np.arange(tab[1].shape[1]),
                      0, n_in - 1)
         for tile, cap in ((plan.tile_r, plan.rows_cap), (plan.tile_c, plan.cols_cap)):
@@ -173,7 +174,7 @@ def test_row_plan_fits_shared_memory():
                 assert rows_t.max() - rows_t.min() + 1 <= cap
     tab = tpe._int_tables(20000, 10, "lanczos3")
     small = tpe._int_tables(64, 32, "bilinear")
-    assert tpe._plan_2pass(small, tab, 1, 20000, 64) is None
+    assert plans.plan_pil_2pass(small, tab, 1, 20000, 64) is None
     x3 = torch.from_numpy(_img((1, 20000, 64)))
     np.testing.assert_array_equal(tpe._resample_2pass_axes(x3, small, tab, 22).numpy(),
                                   tpe._resample_2pass_plain(x3, small, tab).numpy())

@@ -13,11 +13,12 @@ import torch
 
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
+from interpolate_antialiasing_tpu_torch.ops import plans
 from interpolate_antialiasing_tpu_torch.ops.resize_xla import gather_reduce_weights
 from interpolate_antialiasing_tpu_torch.ops.weights import Tables, adjoint_tables, make_axis_spec
 from interpolate_antialiasing_tpu_torch.utils.inspect import kernel_report
 
-N_SM = cr._H100_SMS
+N_SM = plans.H100_SMS
 CONFIG5 = ((2160, 3840), (1080, 1920))  # BASELINE config 5: 4K -> 1080p frames
 
 
@@ -27,22 +28,22 @@ def _specs(hw, ohw, mode="bilinear"):
 
 def _candidates(sh, sw, itemsize, planes):
     """The bucket, both in-axis tables and every plan _plan_stream weighs."""
-    nt = cr._stream_ntaps(sh, sw)
-    th, tw = cr._stream_tables(sh, nt), cr._stream_tables(sw, nt)
-    plans = list(dict.fromkeys(p for _, p in cr._stream_candidates(
+    nt = plans._stream_ntaps(sh, sw)
+    th, tw = plans.stream_tables(sh, nt), plans.stream_tables(sw, nt)
+    cands = list(dict.fromkeys(p for _, p in plans._stream_candidates(
         th[0], sh.in_size, tw[0], sw.in_size, nt, itemsize, planes, N_SM)))
-    return nt, th, tw, plans
+    return nt, th, tw, cands
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_config5_takes_the_streaming_plan(dtype):
     sh, sw = _specs(*CONFIG5)
     plan = cr.resize2d_plan(sh, sw, dtype.itemsize, 192, N_SM)
-    assert isinstance(plan, cr.PlanStream) and plan.ntaps == 4
-    warps = 192 * -(-1080 // plan.seg) * -(-1920 // cr._stream_tc(plan.ntaps))
-    assert plan.blocks == -(-warps // cr._STREAM_WARPS)
-    assert warps >= cr._stream_min_warps(N_SM) == \
-        cr._STREAM_WAVES * cr._STREAM_RESIDENT * cr._STREAM_WARPS * N_SM
+    assert isinstance(plan, plans.PlanStream) and plan.ntaps == 4
+    warps = 192 * -(-1080 // plan.seg) * -(-1920 // plans._stream_tc(plan.ntaps))
+    assert plan.blocks == -(-warps // plans._STREAM_WARPS)
+    assert warps >= plans._stream_min_warps(N_SM) == \
+        plans._STREAM_WAVES * plans._STREAM_RESIDENT * plans._STREAM_WARPS * N_SM
     rep = kernel_report((64, 3, *CONFIG5[0]), CONFIG5[1], dtype=dtype)
     assert rep.route == "resample2d_stream" and rep.launches == {"resample2d_stream": 1}
     assert rep.plan == plan._asdict()
@@ -69,8 +70,8 @@ def test_short_launches_keep_the_tile_plan(name, hw, ohw, mode, itemsize, planes
     else:
         sh, sw = _specs(hw, ohw, mode)
     plan = cr.resize2d_plan(sh, sw, itemsize, planes, N_SM)
-    assert isinstance(plan, cr.Plan2d)
-    assert plan == cr._plan2d(sh, sw, itemsize, planes, N_SM)
+    assert isinstance(plan, plans.Plan2d)
+    assert plan == plans.plan2d(sh, sw, itemsize, planes, N_SM)
 
 
 # (name, [H, W], [OH, OW], mode, itemsize, planes): long launches past
@@ -88,8 +89,8 @@ LONG = [
 def test_long_launches_take_the_streaming_plan(name, hw, ohw, mode, itemsize, planes):
     sh, sw = _specs(hw, ohw, mode)
     plan = cr.resize2d_plan(sh, sw, itemsize, planes, N_SM)
-    assert isinstance(plan, cr.PlanStream)
-    assert plan == cr._plan2d_stream(sh, sw, itemsize, planes, N_SM)
+    assert isinstance(plan, plans.PlanStream)
+    assert plan == plans.plan2d_stream(sh, sw, itemsize, planes, N_SM)
 
 
 @pytest.mark.parametrize("name,hw,ohw,mode,itemsize,planes,adjoint",
@@ -106,12 +107,12 @@ def test_the_early_warp_bound_refuses_no_launch_the_candidates_take(name, hw, oh
     if adjoint:
         sh = adjoint_tables(make_axis_spec(ohw[0], hw[0], mode))
         sw = adjoint_tables(make_axis_spec(ohw[1], hw[1], mode))
-    nt = cr._stream_ntaps(sh, sw)
+    nt = plans._stream_ntaps(sh, sw)
     want = None
     if nt is not None:
-        th, tw = cr._stream_tables(sh, nt), cr._stream_tables(sw, nt)
-        want = cr._plan_stream(th[0], hw[0], tw[0], hw[1], nt, itemsize, planes, N_SM)
-    assert cr._plan2d_stream(sh, sw, itemsize, planes, N_SM) == want
+        th, tw = plans.stream_tables(sh, nt), plans.stream_tables(sw, nt)
+        want = plans._plan_stream(th[0], hw[0], tw[0], hw[1], nt, itemsize, planes, N_SM)
+    assert plans.plan2d_stream(sh, sw, itemsize, planes, N_SM) == want
 
 
 # The Pillow kernel's plans at the eval cell's resize, the bench batch and a
@@ -127,8 +128,8 @@ PIL_PLANS = [
 @pytest.mark.parametrize("hw,ohw,planes,want", PIL_PLANS, ids=["eval", "bench", "uhd"])
 def test_the_pillow_plan_is_unchanged(hw, ohw, planes, want):
     tw, th = pe._int_tables(hw[1], ohw[1], "bilinear"), pe._int_tables(hw[0], ohw[0], "bilinear")
-    plan = pe._plan_2pass(tw, th, planes, *hw, N_SM)
-    assert isinstance(plan, cr.Plan2d) and tuple(plan) == want
+    plan = plans.plan_pil_2pass(tw, th, planes, *hw, N_SM)
+    assert isinstance(plan, plans.Plan2d) and tuple(plan) == want
 
 
 # (name, [H, W], [OH, OW], mode, itemsize, planes): config 5 and its bicubic
@@ -148,10 +149,10 @@ STRIP_CASES = [
 def test_every_tap_lies_in_the_strips_staged_rows_and_span(name, hw, ohw, mode, itemsize,
                                                             planes):
     sh, sw = _specs(hw, ohw, mode)
-    nt, (fh, _), (fw, _), plans = _candidates(sh, sw, itemsize, planes)
-    assert plans and nt in cr._STREAM_TAPS
-    tc = cr._stream_tc(nt)
-    for plan in plans:
+    nt, (fh, _), (fw, _), cands = _candidates(sh, sw, itemsize, planes)
+    assert cands and nt in plans._STREAM_TAPS
+    tc = plans._stream_tc(nt)
+    for plan in cands:
         assert plan.ntaps == nt
         # a warp's input rows, as the kernel computes them from its segment
         for oy0 in range(0, ohw[0], plan.seg):
@@ -172,29 +173,29 @@ def test_every_tap_lies_in_the_strips_staged_rows_and_span(name, hw, ohw, mode, 
                          ids=[c[0] for c in STRIP_CASES])
 def test_the_rings_bytes_are_the_kernels_layout(name, hw, ohw, mode, itemsize, planes):
     src = (Path(cr.__file__).parent.parent / "csrc" / "resample2d_stream.cu").read_text()
-    assert int(re.search(r"constexpr int kWarps = (\d+);", src).group(1)) == cr._STREAM_WARPS
+    assert int(re.search(r"constexpr int kWarps = (\d+);", src).group(1)) == plans._STREAM_WARPS
     assert int(re.search(r"constexpr int kMinBlocks = (\d+);", src).group(1)) == \
-        cr._STREAM_RESIDENT
+        plans._STREAM_RESIDENT
     sh, sw = _specs(hw, ohw, mode)
-    nt, _, _, plans = _candidates(sh, sw, itemsize, planes)
-    for plan in plans:
+    nt, _, _, cands = _candidates(sh, sw, itemsize, planes)
+    for plan in cands:
         # a staged row: its span, up to 15 bytes of head and of tail
         stride = -(-plan.cols_cap * itemsize // 16) * 16 + 32
         assert stride >= plan.cols_cap * itemsize + 30
-        assert plan.smem == cr._STREAM_WARPS * plan.stages * nt * stride
-        assert 2 <= plan.stages <= 4 and plan.smem <= cr._SMEM_BUDGET < cr._SMEM_LIMIT
-        assert plan.resident == min(cr._SM_THREADS // (32 * cr._STREAM_WARPS),
-                                    cr._STREAM_RESIDENT,
-                                    cr._SM_SMEM // (plan.smem + cr._SM_SMEM_PER_BLOCK))
+        assert plan.smem == plans._STREAM_WARPS * plan.stages * nt * stride
+        assert 2 <= plan.stages <= 4 and plan.smem <= plans._SMEM_BUDGET < plans._SMEM_LIMIT
+        assert plan.resident == min(plans._SM_THREADS // (32 * plans._STREAM_WARPS),
+                                    plans._STREAM_RESIDENT,
+                                    plans._SM_SMEM // (plan.smem + plans._SM_SMEM_PER_BLOCK))
 
 
 @pytest.mark.parametrize("mode", ["bilinear", "bicubic"])
 @pytest.mark.parametrize("n_in,n_out", [(2160, 1080), (1500, 500), (1000, 400)],
                          ids=["2x", "3x", "2.5x"])
 def test_effective_taps_end_at_the_last_nonzero_weight_column(mode, n_in, n_out):
-    _, w = cr._tables(make_axis_spec(n_in, n_out, mode))
+    _, w = plans.tables(make_axis_spec(n_in, n_out, mode))
     last = max(k for k in range(w.shape[1]) if np.any(w[:, k] != 0))
-    assert cr._effective_taps(w) == last + 1 <= w.shape[1]
+    assert plans._effective_taps(w) == last + 1 <= w.shape[1]
     assert not np.any(w[:, last + 1:])
     if n_in == 2 * n_out:  # 2x: 4 of 5 taps bilinear, 8 of 9 bicubic
         assert (w.shape[1], last + 1) == ((5, 4) if mode == "bilinear" else (9, 8))
@@ -223,9 +224,10 @@ def _plain_over(x3, tables_h, tables_w, out_dtype):
                          ids=["2x", "bicubic_ragged", "2.5x", "3x"])
 def test_in_axis_tables_give_the_plain_versions_bits(hw, ohw, mode, idt, odt):
     sh, sw = _specs(hw, ohw, mode)
-    nt = cr._stream_ntaps(sh, sw)
-    th, tw = cr._stream_tables(sh, nt), cr._stream_tables(sw, nt)
-    for (first, w), (f0, w0), n_in in ((th, cr._tables(sh), hw[0]), (tw, cr._tables(sw), hw[1])):
+    nt = plans._stream_ntaps(sh, sw)
+    th, tw = plans.stream_tables(sh, nt), plans.stream_tables(sw, nt)
+    for (first, w), (f0, w0), n_in in ((th, plans.tables(sh), hw[0]),
+                                       (tw, plans.tables(sw), hw[1])):
         assert w.shape[1] == nt and first.min() >= 0 and first.max() + nt <= n_in
         # every output keeps its nonzero weights on the same inputs, in order
         for o in range(len(first)):
@@ -240,11 +242,11 @@ def test_in_axis_tables_give_the_plain_versions_bits(hw, ohw, mode, idt, odt):
 def test_in_axis_tables_refuse_a_weighted_tap_outside_the_axis():
     w = np.full((3, 2), 0.5)
     edge = Tables(in_size=10, out_size=3, xmin=np.array([-1, 3, 9], np.int32), w=w)
-    assert cr._stream_tables(edge, 4) is None  # taps -1 and 10 carry weight
+    assert plans.stream_tables(edge, 4) is None  # taps -1 and 10 carry weight
     w = np.array([[0.0, 1.0], [0.5, 0.5], [1.0, 0.0]])
     inside = Tables(in_size=10, out_size=3, xmin=np.array([-1, 3, 9], np.int32), w=w)
-    first, w4 = cr._stream_tables(inside, 4)
+    first, w4 = plans.stream_tables(inside, 4)
     assert first.tolist() == [0, 3, 6] and w4.tolist() == [[1, 0, 0, 0], [0.5, 0.5, 0, 0],
                                                             [0, 0, 0, 1]]
     with pytest.raises(ValueError):
-        cr._stream_tables(make_axis_spec(2160, 1080, "bicubic"), 4)  # 8 taps carry weight
+        plans.stream_tables(make_axis_spec(2160, 1080, "bicubic"), 4)  # 8 taps carry weight

@@ -463,12 +463,23 @@ def test_device_time_per_call_holds_one_call_to_its_launches(fake_profiles, monk
     move by 2) but whose one-call profile holds one record has lost one:
     profiled again, although 5 calls' records are 5 times that one."""
     def call():
-        cc.launches_crop += 2
+        native.launches["crop_resample"] += 2
 
-    monkeypatch.setattr(cc, "launches_crop", 0)
+    monkeypatch.setattr(native, "launches", dict.fromkeys(native.KERNELS, 0))
     fake_profiles["counts"] = [1, 5, 2, 10]
     assert timing.device_time_per_call(call, iters=5) == pytest.approx(10 * 2.0 / 1e3 / 5)
     assert fake_profiles["taken"] == [1, 5, 2, 10]
+
+
+def test_launch_counts_name_the_ten_kernels_from_the_start():
+    """``launch_counts()`` keys every hand-written kernel of the routes from
+    the process's start, and is a copy: changing it changes no count."""
+    counts = tinspect.launch_counts()
+    assert list(counts) == ["pil_resample_2pass", "resample2d", "resample2d_stream",
+                            "resample_axis", "crop_tables", "crop_resample", "crop_f32",
+                            "pil_resample_axis", "resample2d_fused", "resample_axis_fused"]
+    counts["resample2d"] += 1
+    assert tinspect.launch_counts()["resample2d"] == counts["resample2d"] - 1
 
 
 def test_device_seconds_from_trace_requires_what_it_expects(fake_profiles):

@@ -5,6 +5,7 @@ on a miss.  The CPU routes pass through the same models / ops / tables
 code as the card's; the card's ``ia.native.*`` spans are checked against
 the launch counters in ``tests/test_torch_port_cuda.py``."""
 
+import ast
 import re
 from pathlib import Path
 
@@ -13,11 +14,12 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from interpolate_antialiasing_tpu_torch import native
 from interpolate_antialiasing_tpu_torch.models import (ImageNetEvalPipeline,
                                                        ImageNetTrainPipeline, VideoDownscaler)
 from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
-from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
+from interpolate_antialiasing_tpu_torch.ops import plans
 from interpolate_antialiasing_tpu_torch.ops.weights import make_axis_spec
 from interpolate_antialiasing_tpu_torch.utils import trace
 from interpolate_antialiasing_tpu_torch.utils.inspect import launch_counts
@@ -112,13 +114,13 @@ def test_the_video_downscaler_emits_its_models_span():
     passes' tables) open inside its tables span, inside
     ``ia.models.video``."""
     fn = _video()
-    cr._tables.cache_clear()
-    cr._plan2d.cache_clear()
-    cr._plan2d_stream.cache_clear()
+    plans.tables.cache_clear()
+    plans.plan2d.cache_clear()
+    plans.plan2d_stream.cache_clear()
     assert _with_parents(_spans(fn)) == NESTING["video"] + [
-        ("ia.build._plan2d_stream", "ia.tables.resize2d"),
-        ("ia.build._plan2d", "ia.tables.resize2d"), ("ia.build._tables", "ia.build._plan2d"),
-        ("ia.build._tables", "ia.build._plan2d")]
+        ("ia.build.plan2d_stream", "ia.tables.resize2d"),
+        ("ia.build.plan2d", "ia.tables.resize2d"), ("ia.build.tables", "ia.build.plan2d"),
+        ("ia.build.tables", "ia.build.plan2d")]
 
 
 def test_without_a_profiler_a_span_is_the_shared_null_context(monkeypatch):
@@ -173,21 +175,21 @@ CACHED = {
     "_int_tables": (pe._int_tables, lambda: pe._int_tables(90, 26, "bilinear", None, 22)),
     "_table_tensor": (pe._table_tensor, lambda: pe._table_tensor(
         np.arange(6, dtype=np.int32).tobytes(), (2, 3), torch.device("cpu"))),
-    "_plan_2pass_keyed": (pe._plan_2pass_keyed,
-                          lambda: pe._plan_2pass(*_int_table_pair(), 6, 60, 124)),
+    "_plan_2pass_keyed": (plans._plan_2pass_keyed,
+                          lambda: plans.plan_pil_2pass(*_int_table_pair(), 6, 60, 124)),
     "_table_geometry": (cc._table_geometry, _geometry),
     "_crop_plan": (cc._crop_plan, lambda: cc._crop_plan(
         _geometry()[0][1], 60, 28, _axes()[0].T, 2, 3, 124, 132, True, 1)),
     "_table_plan": (cc._table_plan, lambda: cc._table_plan(_axes(), 2, 132)),
     "_table_blocks": (cc._table_blocks, lambda: cc._table_blocks(2, _axes(), (1, 1))),
-    "_tables": (cr._tables, lambda: cr._tables(_plane_specs()[0])),
-    "_tables_on": (cr._tables_on, lambda: cr._tables_on(_plane_specs()[1], torch.device("cpu"))),
-    "_plan2d": (cr._plan2d, lambda: cr._plan2d(*_plane_specs(), 2, 3)),
-    "_stream_tables": (cr._stream_tables, lambda: cr._stream_tables(_plane_specs()[0], 8)),
-    "_stream_tables_on": (cr._stream_tables_on, lambda: cr._stream_tables_on(
+    "tables": (plans.tables, lambda: plans.tables(_plane_specs()[0])),
+    "tables_on": (plans.tables_on, lambda: plans.tables_on(_plane_specs()[1], torch.device("cpu"))),
+    "plan2d": (plans.plan2d, lambda: plans.plan2d(*_plane_specs(), 2, 3)),
+    "stream_tables": (plans.stream_tables, lambda: plans.stream_tables(_plane_specs()[0], 8)),
+    "stream_tables_on": (plans.stream_tables_on, lambda: plans.stream_tables_on(
         _plane_specs()[0], 8, torch.device("cpu"))),
-    "_plan2d_stream": (cr._plan2d_stream, lambda: cr._plan2d_stream(*_plane_specs(), 2, 4096,
-                                                                    132)),
+    "plan2d_stream": (plans.plan2d_stream,
+                      lambda: plans.plan2d_stream(*_plane_specs(), 2, 4096, 132)),
 }
 
 
@@ -203,15 +205,73 @@ def test_the_memo_of_a_host_table_emits_its_build_span_only_on_a_miss():
     a = np.arange(5, dtype=np.int32)
     a.setflags(write=False)
     made = []
-    builds = [[n for n, _, _ in _spans(lambda: cr._memo(a, "test", lambda: made.append(1)))]
+    builds = [[n for n, _, _ in _spans(lambda: plans.memo(a, "test", lambda: made.append(1)))]
               for _ in range(2)]
-    assert builds == [["ia.build._memo"], []] and made == [1]
+    assert builds == [["ia.build.memo"], []] and made == [1]
+
+
+def _native_launches(tree) -> set:
+    """The kernel names a module passes to ``native.launch`` and
+    ``native.launch_planes``: every string in their first argument."""
+    names = set()
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr in ("launch", "launch_planes")
+                and isinstance(node.func.value, ast.Name) and node.func.value.id == "native"):
+            names |= {c.value for c in ast.walk(node.args[0]) if isinstance(c, ast.Constant)}
+    return names
 
 
 def test_span_names_name_a_layer_and_the_launch_counters_kernels():
-    names = set()
+    """Every span names one of the five layers; the ``ia.native`` span of a
+    launch is named by the kernel ``native.launch`` is given, and the
+    kernels the routes launch are the launch counters' keys."""
+    names, launched = set(), set()
     for path in PACKAGE.rglob("*.py"):
-        names |= set(re.findall(r'span(?:ned)?\("(ia\.[^"]+)"\)', path.read_text()))
+        text = path.read_text()
+        names |= set(re.findall(r'span(?:ned)?\(f?"(ia\.[^"{<]+)', text))
+        launched |= _native_launches(ast.parse(text))
     assert {n.split(".")[1] for n in names} == {"models", "ops", "tables", "build", "native"}
-    assert {n.split(".", 2)[2] for n in names if n.startswith("ia.native.")} == set(
-        launch_counts())
+    assert {n for n in names if n.startswith("ia.native")} == {"ia.native."}
+    assert launched == set(launch_counts())
+
+
+ROUTE_MODULES = ("cuda_resize", "pil_exact", "crop_cuda")
+
+
+def _route_reads(path: Path, route: str) -> list[str]:
+    """The underscore names that the module at ``path`` reads of the route
+    module ``route``: ``from .route import _name`` and ``alias._name`` where
+    ``alias`` is bound to it by an import."""
+    tree = ast.parse(path.read_text())
+    aliases, reads = set(), []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            if (node.module or "").split(".")[-1] == route:
+                reads += [a.name for a in node.names if a.name.startswith("_")]
+            aliases |= {a.asname or a.name for a in node.names if a.name == route}
+        elif isinstance(node, ast.Import):
+            aliases |= {a.asname for a in node.names if a.name.split(".")[-1] == route}
+    reads += [node.attr for node in ast.walk(tree)
+              if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name)
+              and node.value.id in aliases and node.attr.startswith("_")]
+    return reads
+
+
+@pytest.mark.parametrize("module", ["ops/pil_exact.py", "ops/crop_cuda.py", "utils/inspect.py"])
+def test_a_route_reads_no_private_name_of_the_float_route(module):
+    """The Pillow and crop routes and the report read the plans, tables and
+    launches they share from ``ops/plans.py`` and ``native.py``, none of
+    them from ``ops/cuda_resize.py``."""
+    assert _route_reads(PACKAGE / module, "cuda_resize") == []
+
+
+def test_the_plan_layer_imports_no_route_module():
+    tree = ast.parse((PACKAGE / "ops" / "plans.py").read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            imported |= {(node.module or "").split(".")[-1]} | {a.name for a in node.names}
+        elif isinstance(node, ast.Import):
+            imported |= {a.name.split(".")[-1] for a in node.names}
+    assert not imported & {*ROUTE_MODULES, "resize", "crop"}

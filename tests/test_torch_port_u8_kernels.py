@@ -16,8 +16,8 @@ import pytest
 import torch
 
 from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
-from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
+from interpolate_antialiasing_tpu_torch.ops import plans
 from interpolate_antialiasing_tpu_torch.ops.crop import box_fracs, sample_boxes
 from interpolate_antialiasing_tpu_torch.ops.filters import get_filter
 
@@ -61,12 +61,12 @@ def test_pil_plan_candidates_are_the_kernel_layout_and_hold_every_tap(planes, H,
     span (the kernel traps otherwise); the plan is one of them."""
     tw, th = pe._int_tables(W, OW, mode), pe._int_tables(H, OH, mode)
     nw, nh = tw[1].shape[1], th[1].shape[1]
-    cands = list(cr._rows_candidates(th[0], nh, H, tw[0], nw, W, 1, planes, cr._H100_SMS,
-                                     inter_size=1))
+    cands = list(plans._rows_candidates(th[0], nh, H, tw[0], nw, W, 1, planes, plans.H100_SMS,
+                                        inter_size=1))
     assert cands
     for _, p in cands:
-        assert p.smem == cr._smem_bytes(p.tile_r, p.tile_c, p.rows_cap, p.cols_cap, p.chunk,
-                                        nw, nh, 1, 1) <= cr._SMEM_BUDGET
+        assert p.smem == plans._smem_bytes(p.tile_r, p.tile_c, p.rows_cap, p.cols_cap, p.chunk,
+                                           nw, nh, 1, 1) <= plans._SMEM_BUDGET
         assert p.blocks == planes * -(-OH // p.tile_r) * -(-OW // p.tile_c)
         for (xmin, wb), n_in, tile, cap in ((th, H, p.tile_r, p.rows_cap),
                                             (tw, W, p.tile_c, p.cols_cap)):
@@ -74,7 +74,7 @@ def test_pil_plan_candidates_are_the_kernel_layout_and_hold_every_tap(planes, H,
             for t in range(-(-len(xmin) // tile)):
                 rows = taps[t * tile:(t + 1) * tile]
                 assert rows.max() - rows.min() + 1 <= cap
-    plan = pe._plan_2pass(tw, th, planes, H, W)
+    plan = plans.plan_pil_2pass(tw, th, planes, H, W)
     assert plan in [p for _, p in cands]
 
 
@@ -85,22 +85,22 @@ def test_pil_plan_keeps_the_float_plan_for_four_byte_elements():
 
     sh, sw = make_axis_spec(438, 196), make_axis_spec(906, 320)
     th, tw = pe._int_tables(438, 196, "bilinear"), pe._int_tables(906, 320, "bilinear")
-    want = cr._plan2d(sh, sw, 4, 3, cr._H100_SMS)
-    got = cr._plan_rows(th[0], th[1].shape[1], 438, tw[0], tw[1].shape[1], 906, 4, 3,
-                        cr._H100_SMS)
+    want = plans.plan2d(sh, sw, 4, 3, plans.H100_SMS)
+    got = plans.plan_rows(th[0], th[1].shape[1], 438, tw[0], tw[1].shape[1], 906, 4, 3,
+                          plans.H100_SMS)
     assert got == want
 
 
 def test_pil_plan_takes_70000_planes_in_one_launch():
     """Kernel A puts every block on gridDim.x: the 65,535-plane chunks of
     the first version are gone; one launch holds 70,000 planes."""
-    tw, th = pe._int_tables(8, 5, "bilinear"), pe._int_tables(8, 4, "bilinear")
-    plan = pe._plan_2pass(tw, th, 70000, 8, 8)
-    per_plane = -(-4 // plan.tile_r) * -(-5 // plan.tile_c)
-    assert plan.blocks == 70000 * per_plane <= cr._INT_MAX
     from interpolate_antialiasing_tpu_torch import native
 
-    assert native.plane_chunks(70000, cr._INT_MAX // per_plane) == [(0, 70000)]
+    tw, th = pe._int_tables(8, 5, "bilinear"), pe._int_tables(8, 4, "bilinear")
+    plan = plans.plan_pil_2pass(tw, th, 70000, 8, 8)
+    per_plane = -(-4 // plan.tile_r) * -(-5 // plan.tile_c)
+    assert plan.blocks == 70000 * per_plane <= native.GRID_LIMIT
+    assert native.plane_chunks(70000, native.GRID_LIMIT // per_plane) == [(0, 70000)]
 
 
 def test_pil_plan_is_none_only_where_no_tile_fits():
@@ -108,11 +108,12 @@ def test_pil_plan_is_none_only_where_no_tile_fits():
     small = pe._int_tables(64, 32, "bilinear")
     for n_in, ok in ((2000, True), (20000, False)):
         th = pe._int_tables(n_in, 10, "lanczos3")
-        plan = pe._plan_2pass(small, th, 1, n_in, 64)
-        rows = cr._window(th[0], th[1].shape[1], n_in, 1)
-        smallest = cr._smem_bytes(1, 16, rows, cr._window(small[0], small[1].shape[1], 64, 16),
-                                  1, small[1].shape[1], th[1].shape[1], 1, 1)
-        assert (plan is not None) == ok == (smallest <= cr._SMEM_BUDGET)
+        plan = plans.plan_pil_2pass(small, th, 1, n_in, 64)
+        rows = plans.window(th[0], th[1].shape[1], n_in, 1)
+        smallest = plans._smem_bytes(1, 16, rows,
+                                     plans.window(small[0], small[1].shape[1], 64, 16), 1,
+                                     small[1].shape[1], th[1].shape[1], 1, 1)
+        assert (plan is not None) == ok == (smallest <= plans._SMEM_BUDGET)
 
 
 @pytest.mark.parametrize("mode", ["bilinear", "bicubic", "lanczos3", "box", "hamming"])
@@ -128,9 +129,10 @@ def test_pil_two_axis_passes_equal_the_two_pass_plain(mode, pb):
 
 def test_pil_plan_is_cached_per_table():
     tw, th = pe._int_tables(906, 320, "bilinear"), pe._int_tables(438, 196, "bilinear")
-    before = pe._plan_2pass_keyed.cache_info().hits
-    assert pe._plan_2pass(tw, th, 192, 438, 906) is pe._plan_2pass(tw, th, 192, 438, 906)
-    assert pe._plan_2pass_keyed.cache_info().hits > before
+    before = plans._plan_2pass_keyed.cache_info().hits
+    plan = plans.plan_pil_2pass(tw, th, 192, 438, 906)
+    assert plans.plan_pil_2pass(tw, th, 192, 438, 906) is plan
+    assert plans._plan_2pass_keyed.cache_info().hits > before
 
 
 # ---------------------------------------------------------------------------
@@ -396,7 +398,7 @@ def test_crop_windows_hold_every_tap(name):
             assert bool((lo >= r0)[staged].all()) and bool((hi < r0 + rows)[staged].all())
             if inb:
                 assert bool(staged.all()), (tile_o, win)
-        plan = cc._crop_plan(tab.wins, n_in, n_out, T, N, R, inner, cr._H100_SMS, True, 1)
+        plan = cc._crop_plan(tab.wins, n_in, n_out, T, N, R, inner, plans.H100_SMS, True, 1)
         if plan is not None:
             assert (plan.tile_o, plan.win) in tab.wins
 
@@ -472,7 +474,7 @@ def test_crop_b64_zoom_out_reads_no_device_memory():
                                                                   1)):
         T = tab.w.shape[-1]
         assert bool((tab.cnt > T).any())
-        plan = cc._crop_plan(tab.wins, n_in, n_out, T, N, R, inner, cr._H100_SMS, True, 1)
+        plan = cc._crop_plan(tab.wins, n_in, n_out, T, N, R, inner, plans.H100_SMS, True, 1)
         tiles, direct = _check_chunks(tab, n_in, plan.tile_o, plan.win)
         assert tiles and direct == 0
         for tile_o, win in tab.wins:
@@ -505,26 +507,26 @@ def test_crop_plan_cuts_tiles_at_image_edges():
     N, C, OH, W, OW, T = 64, 3, 224, 906, 224, 10
     R = C * OH
     wins = cc._crop_windows(W, OW, T, 1.0, 1.0, True)
-    plan = cc._crop_plan(wins, W, OW, T, N, R, 1, cr._H100_SMS, True, 1)
+    plan = cc._crop_plan(wins, W, OW, T, N, R, 1, plans.H100_SMS, True, 1)
     assert plan is not None
     assert plan.blocks == N * -(-R // plan.tile_j) * -(-OW // plan.tile_o)
-    assert plan.smem == cr._axis_smem_bytes(plan.tile_j, plan.tile_o, plan.tile_i, plan.win,
-                                            T, 1, W, 1)
-    for _, p in cr._axis_tiles(wins, OW, T, W, N * R, 1, 1, cr._H100_SMS, True, per_img=R):
+    assert plan.smem == plans._axis_smem_bytes(plan.tile_j, plan.tile_o, plan.tile_i, plan.win,
+                                               T, 1, W, 1)
+    for _, p in plans.axis_tiles(wins, OW, T, W, N * R, 1, 1, plans.H100_SMS, True, per_img=R):
         assert p.blocks == N * -(-R // p.tile_j) * -(-OW // p.tile_o) * -(-1 // p.tile_i)
     # no tile takes more planes than an image's C: the H pass's tiles
     wins_h = cc._crop_windows(438, 224, 5, 1.0, 1.0, True)
-    assert max(p.tile_j for _, p in cr._axis_tiles(wins_h, 224, 5, 438, N * C, W, 1,
-                                                   cr._H100_SMS, True, per_img=C)) <= C
+    assert max(p.tile_j for _, p in plans.axis_tiles(wins_h, 224, 5, 438, N * C, W, 1,
+                                                     plans.H100_SMS, True, per_img=C)) <= C
     # a small pass runs the unstaged body, as kernel B's plan decides
-    assert cc._crop_plan(wins, W, OW, T, 1, 3, 1, cr._H100_SMS, True, 1) is None
+    assert cc._crop_plan(wins, W, OW, T, 1, 3, 1, plans.H100_SMS, True, 1) is None
 
 
 def test_crop_plan_is_kernel_b_plan_for_one_image():
     """With one image and the windows of first taps, the crop's tiles are
     kernel B's own: the same model over the same (tile_o, win) pairs."""
     first = np.sort(np.random.default_rng(2).integers(0, 800, 224)).astype(np.int64)
-    wins = tuple((t, cr._window(first, 9, 906, t)) for t in cr._AXIS_TILE_O)
-    a = list(cr._axis_tiles(wins, 224, 9, 906, 672, 1, 1, cr._H100_SMS, True, per_img=672))
-    b = list(cr._axis_candidates(first, 9, 906, 672, 1, 1, cr._H100_SMS, True))
+    wins = tuple((t, plans.window(first, 9, 906, t)) for t in plans.AXIS_TILE_O)
+    a = list(plans.axis_tiles(wins, 224, 9, 906, 672, 1, 1, plans.H100_SMS, True, per_img=672))
+    b = list(plans._axis_candidates(first, 9, 906, 672, 1, 1, plans.H100_SMS, True))
     assert a == b

@@ -13,6 +13,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from interpolate_antialiasing_tpu_torch import native
 from interpolate_antialiasing_tpu_torch.models import VideoDownscaler
 from perfbench.checks import bf16_ulps
 from perfbench.entries import video_downscale
@@ -87,11 +88,10 @@ def test_the_cells_frames_on_the_card():
     A's streaming twin, against the reference computed on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 
     x = _frames((4, 3, 2160, 3840), 2**31 + 19, "cuda")
-    before = cr.launches_2d_stream
+    before = native.launches["resample2d_stream"]
     y = VideoDownscaler((1080, 1920))(x)
-    assert cr.launches_2d_stream == before + 1
+    assert native.launches["resample2d_stream"] == before + 1
     reading = bf16_ulps.compare(y, video.downscale(x, 1080, 1920))
     assert _within(reading), reading

@@ -2,14 +2,14 @@
 at the passes PERF.md times: which tile is fastest, and where the plan's
 own choice ranks; and, with ``--cut``, the staged body against the
 unstaged one at passes of 2 to 110 MB, which sets the plan's
-``cuda_resize._AXIS_UNSTAGED_BYTES`` and ``_AXIS_UNSTAGED_BYTES_FUSED``.
+``plans.AXIS_UNSTAGED_BYTES`` and ``_AXIS_UNSTAGED_BYTES_FUSED``.
 
     python3 tools/sweep_axis_plans.py [--top N] [--cases NAME ...] [--cut]
 
 For each pass (the NHWC headline's and NHWC config 5's W and H passes,
 with host tables and, for config 5, synthesised weights; row 3's sharded
 uint8 W and H pass; row 9's sharded float H pass and its adjoint), each
-candidate of ``cuda_resize._axis_candidates`` is forced through the
+candidate of ``plans._axis_candidates`` is forced through the
 wrapper and timed: device time per launch (torch.profiler's kernel
 records, CUDA events above 0.2 ms), with the card's 50 MB L2 cache
 overwritten before every launch
@@ -82,14 +82,14 @@ def _device_ms(fn, iters: int, flush) -> float:
 
 
 @contextlib.contextmanager
-def _forced(cr, plan):
+def _forced(plans, plan):
     """The axis kernels' wrappers launch ``plan`` (None: the unstaged body)."""
-    real = cr._plan_axis_first
-    cr._plan_axis_first = lambda *a: plan
+    real = plans.plan_axis_first
+    plans.plan_axis_first = lambda *a: plan
     try:
         yield
     finally:
-        cr._plan_axis_first = real
+        plans.plan_axis_first = real
 
 
 def main() -> None:
@@ -107,6 +107,7 @@ def main() -> None:
         raise SystemExit("sweep_axis_plans: needs a CUDA card")
     from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
     from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
+    from interpolate_antialiasing_tpu_torch.ops import plans
     from interpolate_antialiasing_tpu_torch.ops.weights import adjoint_tables, make_axis_spec
     from interpolate_antialiasing_tpu_torch.parallel import halo
 
@@ -115,7 +116,7 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()
     gen = torch.Generator(device=dev).manual_seed(0)
-    n_sm = cr._n_sm(dev)
+    n_sm = plans.n_sm(dev)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
 
     def rand(shape, dtype):
@@ -171,7 +172,7 @@ def main() -> None:
             return np.asarray(t[0], np.int64), t[1].shape[1]
         if fused:
             return cr._synth_first(t), t.ntaps
-        first, w = cr._tables(t)
+        first, w = plans.tables(t)
         return first.astype(np.int64), w.shape[1]
 
     def runner(x3, t, fused):
@@ -192,15 +193,15 @@ def main() -> None:
         run, plain = runner(x3, t, fused)
         nbytes = x3.numel() * isz * (1 + len(first) / n_in)
         bound = nbytes / HBM_BYTES_PER_MS
-        ranked = sorted(cr._axis_candidates(first, ntaps, n_in, outer, inner, isz, n_sm, vec4),
+        ranked = sorted(plans._axis_candidates(first, ntaps, n_in, outer, inner, isz, n_sm, vec4),
                         key=lambda kp: kp[0], reverse=True)
         chosen = (ranked[0][1] if args.cut else
-                  cr._plan_axis_first(first.tobytes(), ntaps, n_in, outer, inner, isz, n_sm,
-                                      vec4, fused))
+                  plans.plan_axis_first(first.tobytes(), ntaps, n_in, outer, inner, isz, n_sm,
+                                        vec4, fused))
         cands = [p for _, p in (ranked[:3] if args.cut else ranked)] + [None]
         times, ref = [], None
         for p in cands:
-            with _forced(cr, p):
+            with _forced(plans, p):
                 y = run()
                 if ref is None:
                     if not torch.equal(y, plain()):

@@ -44,7 +44,7 @@ def main() -> None:
     import chip_smoke as smoke
     import interpolate_antialiasing_tpu_torch as iat
     from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
-    from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
+    from interpolate_antialiasing_tpu_torch.ops import plans
     from interpolate_antialiasing_tpu_torch.ops.crop import box_fracs, sample_boxes
     from interpolate_antialiasing_tpu_torch.utils.timing import (device_time_per_call,
                                                                 launch_floor_ms)
@@ -67,7 +67,7 @@ def main() -> None:
              ("4k rrc", k4, size4k, rrc(k4[0]), box_fracs(*k4[2:])),
              ("4k b64 rrc", k64, size4k, rrc(k64[0]), box_fracs(*k4[2:]))]
     out = {"card": card.strip(), "threads": cc._TABLE_THREADS,
-           "n_sm": cr._n_sm(dev)}
+           "n_sm": plans.n_sm(dev)}
     real = cc._table_plan
     for name, shape, ohw, boxes, frac in cases:
         N = shape[0]
@@ -76,7 +76,7 @@ def main() -> None:
                                                       True, cc._fracs(frac), "pil_int8"))
         want = cc._windowed_tables_plain(b, "bilinear", True, axes)
         x = (torch.rand(shape, device=dev, generator=g) * 255).to(torch.uint8)
-        own = real(axes, N, cr._n_sm(dev))
+        own = real(axes, N, plans.n_sm(dev))
         rows = {}
         for lanes in (None, 1, *cc._TABLE_LANES):
             plan = own if lanes is None else (lanes, lanes)

@@ -62,7 +62,6 @@ def main() -> None:
     import torch
 
     import interpolate_antialiasing_tpu_torch as iat
-    from interpolate_antialiasing_tpu_torch import native
     from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
     from interpolate_antialiasing_tpu_torch.ops.crop import box_fracs, sample_boxes
 
@@ -116,14 +115,12 @@ def main() -> None:
         tab_h, tab_w, pb_h, pb_w = cc._windowed_tables(x, b, size, "bilinear", True, frac,
                                                        "pil_int8")
         N, C, H, W = shape
-        lib = native.build()
         inter = torch.empty((N, C, size[0], W), dtype=torch.uint8, device=dev)
         y = torch.empty((N, C, *size), dtype=torch.uint8, device=dev)
         for key, run in (
-                ("h_pass_ms", lambda: cc._launch(lib, x, inter, tab_h, N, C, H, W, size[0],
-                                                 pb_h, dev)),
-                ("w_pass_ms", lambda: cc._launch(lib, inter, y, tab_w, N, C * size[0], W, 1,
-                                                 size[1], pb_w, dev))):
+                ("h_pass_ms", lambda: cc._launch(x, inter, tab_h, N, C, H, W, size[0], pb_h)),
+                ("w_pass_ms", lambda: cc._launch(inter, y, tab_w, N, C * size[0], W, 1,
+                                                 size[1], pb_w))):
             out[name][key] = timer.device_time_per_call(run, iters=args.iters,
                                                         match="resample_axis_kernel")
         del x

@@ -188,15 +188,16 @@ def _gate(emit, dev, rand) -> None:
 
     from interpolate_antialiasing_tpu_torch.config import full_f32
     from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
+    from interpolate_antialiasing_tpu_torch.ops import plans
     from interpolate_antialiasing_tpu_torch.ops.weights import make_axis_spec
 
-    n_sm = cr._n_sm(dev)
+    n_sm = plans.n_sm(dev)
     for name, planes, (H, W), (OH, OW), mode, dt in GATE_CASES:
         dtype = getattr(torch, dt)
         sh, sw = make_axis_spec(H, OH, mode), make_axis_spec(W, OW, mode)
         isz = torch.empty(0, dtype=dtype).element_size()
-        tile = cr._plan2d(sh, sw, isz, planes, n_sm)
-        stream = cr._plan2d_stream(sh, sw, isz, planes, n_sm) or cr._plan2d_stream(
+        tile = plans.plan2d(sh, sw, isz, planes, n_sm)
+        stream = plans.plan2d_stream(sh, sw, isz, planes, n_sm) or plans.plan2d_stream(
             sh, sw, isz, 4096, n_sm)  # under the gate: the plan at more planes
         picked = type(cr.resize2d_plan(sh, sw, isz, planes, n_sm)).__name__
         x3 = rand((planes, H, W), dtype, 31)
@@ -240,6 +241,7 @@ def main() -> None:
     from interpolate_antialiasing_tpu_torch import native
     from interpolate_antialiasing_tpu_torch.config import full_f32
     from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
+    from interpolate_antialiasing_tpu_torch.ops import plans
     from interpolate_antialiasing_tpu_torch.ops.weights import make_axis_spec
 
     if not torch.cuda.is_available():
@@ -271,14 +273,14 @@ def main() -> None:
                 fn.restype, fn.argtypes = restype, argtypes
     stream_lib = libs["stream"]
     _sass(built["libs"]["stream"], out_path.parent, emit)
-    n_sm = cr._n_sm(dev)
-    dt_code = cr._DTYPES
+    n_sm = plans.n_sm(dev)
+    dt_code = native.DTYPES
 
     def stream_call(x3, sh, sw, odt, plan, lib=None):
         B, H, W = x3.shape
         out = torch.empty((B, sh.out_size, sw.out_size), dtype=odt, device=dev)
-        (xw, ww) = cr._stream_tables_on(sw, plan.ntaps, dev)
-        (xh, wh) = cr._stream_tables_on(sh, plan.ntaps, dev)
+        (xw, ww) = plans.stream_tables_on(sw, plan.ntaps, dev)
+        (xh, wh) = plans.stream_tables_on(sh, plan.ntaps, dev)
         err = (lib or stream_lib).ia_resample2d_stream(
             x3.data_ptr(), out.data_ptr(), dt_code[x3.dtype], dt_code[odt], B, H, W,
             sh.out_size, sw.out_size, xw.data_ptr(), ww.data_ptr(), xh.data_ptr(),
@@ -289,9 +291,9 @@ def main() -> None:
         return out
 
     def candidates(x3, sh, sw, planes=None):
-        nt = cr._stream_ntaps(sh, sw)
-        th, tw = cr._stream_tables(sh, nt), cr._stream_tables(sw, nt)
-        return list(dict.fromkeys(p for _, p in cr._stream_candidates(
+        nt = plans._stream_ntaps(sh, sw)
+        th, tw = plans.stream_tables(sh, nt), plans.stream_tables(sw, nt)
+        return list(dict.fromkeys(p for _, p in plans._stream_candidates(
             th[0], sh.in_size, tw[0], sw.in_size, nt, x3.element_size(),
             planes or x3.shape[0], n_sm)))
 
@@ -320,14 +322,14 @@ def main() -> None:
             x3 = rand(shape, idt, 7, off)
             sh, sw = make_axis_spec(shape[1], ohw[0], mode), make_axis_spec(shape[2], ohw[1], mode)
             want = cr._resample2d_plain(x3, sh, sw, odt)
-            plans = candidates(x3, sh, sw) or candidates(x3, sh, sw, 4096)  # below the gate
+            cands = candidates(x3, sh, sw) or candidates(x3, sh, sw, 4096)  # below the gate
             bad = []
-            for plan in plans:
+            for plan in cands:
                 got = stream_call(x3, sh, sw, odt, plan)
                 torch.cuda.synchronize()
                 if not torch.equal(got, want):
                     bad.append({"plan": plan._asdict(), "differing": int((got != want).sum())})
-            emit(phase="check", case=name, plans=len(plans), equal=not bad, bad=bad[:3])
+            emit(phase="check", case=name, plans=len(cands), equal=not bad, bad=bad[:3])
             if bad:
                 raise SystemExit(f"{name}: streaming kernel != plain version")
             del x3, want
@@ -336,8 +338,8 @@ def main() -> None:
     shape, ohw = (192, 2160, 3840), (1080, 1920)
     sh, sw = make_axis_spec(shape[1], ohw[0]), make_axis_spec(shape[2], ohw[1])
     xs = [rand(shape, torch.bfloat16, 11 + i) for i in range(2)]
-    plan = cr._plan2d_stream(sh, sw, 2, shape[0], n_sm)
-    tile = cr._plan2d(sh, sw, 2, shape[0], n_sm)
+    plan = plans.plan2d_stream(sh, sw, 2, shape[0], n_sm)
+    tile = plans.plan2d(sh, sw, 2, shape[0], n_sm)
     with full_f32():
         want = cr._resample2d_plain(xs[0], sh, sw, torch.bfloat16)
     got = stream_call(xs[0], sh, sw, torch.bfloat16, plan)
@@ -351,7 +353,7 @@ def main() -> None:
     nbytes = 2 * shape[0] * (shape[1] * shape[2] + ohw[0] * ohw[1])
     bound = nbytes / HBM_BYTES_PER_MS
     out = torch.empty((shape[0], *ohw), dtype=torch.bfloat16, device=dev)
-    (xw, ww), (xh, whh) = cr._tables_on(sw, dev), cr._tables_on(sh, dev)
+    (xw, ww), (xh, whh) = plans.tables_on(sw, dev), plans.tables_on(sh, dev)
 
     def tile_fn(kind):
         fn = getattr(libs[f"tile_{kind}"], "tile_launch")
@@ -393,7 +395,7 @@ def main() -> None:
     # bicubic (the 8-tap bucket) at its plan
     sb, swb = make_axis_spec(shape[1], ohw[0], "bicubic"), make_axis_spec(shape[2], ohw[1],
                                                                           "bicubic")
-    pb = cr._plan2d_stream(sb, swb, 2, shape[0], n_sm)
+    pb = plans.plan2d_stream(sb, swb, 2, shape[0], n_sm)
     emit(phase="time", kernel="stream_bicubic", turn=0, plan=pb._asdict(),
          **timed(lambda x3: stream_call(x3, sb, swb, torch.bfloat16, pb)))
     if args.gate:
@@ -408,7 +410,7 @@ def main() -> None:
         del xs
         torch.cuda.empty_cache()
         xs = [rand(shape, torch.float32, 21 + i) for i in range(2)]
-        p32 = cr._plan2d_stream(sh, sw, 4, shape[0], n_sm)
+        p32 = plans.plan2d_stream(sh, sw, 4, shape[0], n_sm)
         bound = 2 * nbytes / HBM_BYTES_PER_MS
         for p in candidates(xs[0], sh, sw):
             emit(phase="sweep_f32", kernel="stream", plan=p._asdict(), chosen=p == p32,

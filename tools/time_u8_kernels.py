@@ -101,6 +101,7 @@ def main() -> None:
     from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
     from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
     from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
+    from interpolate_antialiasing_tpu_torch.ops import plans
     from interpolate_antialiasing_tpu_torch.ops.crop import box_fracs, sample_boxes
     from interpolate_antialiasing_tpu_torch.ops.weights import make_axis_spec
 
@@ -139,7 +140,7 @@ def main() -> None:
         reading(name, lambda: pe._resample_2pass(x3, tw, th),
                 pe._resample_2pass_plain(x3, tw, th), nbytes, iters, pil_names)
         if args.tiles:
-            _sweep_pil(name, x3, tw, th, pe, cr, flush, card)
+            _sweep_pil(name, x3, tw, th, pe, plans, flush, card)
         del x3
     # rows 10 and 11: the crop at the train shape, and the 4K RandomResizedCrop
     rng = np.random.default_rng(0)
@@ -158,7 +159,7 @@ def main() -> None:
             reading(f"{row} {name} {precision}", lambda: cc._crop_resample_cuda(x, *t),
                     cc._crop_resample_plain(x, *t), nbytes, iters, crop_names)
             if args.tiles and name == "crop b64" and precision == "pil_int8":
-                _sweep_crop(name, x, t, cc, cr, flush, card)
+                _sweep_crop(name, x, t, cc, plans, flush, card)
             del t
         del x
         torch.cuda.empty_cache()
@@ -198,19 +199,19 @@ def _rank(times: dict, plan_key) -> dict:
             "tiles": len(times)}
 
 
-def _sweep_pil(name, x3, tw, th, pe, cr, flush, card) -> None:
+def _sweep_pil(name, x3, tw, th, pe, plans, flush, card) -> None:
     """Every tile of the Pillow kernel's plan, forced; device ms each."""
     import torch
 
     B, H, W = x3.shape
     want = pe._resample_2pass_plain(x3, tw, th)
-    real = pe._plan_2pass
-    plan = real(tw, th, B, H, W, cr._n_sm(x3.device))
+    real = plans.plan_pil_2pass
+    plan = real(tw, th, B, H, W, plans.n_sm(x3.device))
     times = {}
     try:
-        for _, p in cr._rows_candidates(th[0], th[1].shape[1], H, tw[0], tw[1].shape[1], W, 1, B,
-                                        cr._n_sm(x3.device), inter_size=1):
-            pe._plan_2pass = lambda *a, p=p: p
+        for _, p in plans._rows_candidates(th[0], th[1].shape[1], H, tw[0], tw[1].shape[1], W, 1,
+                                           B, plans.n_sm(x3.device), inter_size=1):
+            plans.plan_pil_2pass = lambda *a, p=p: p
             got = pe._resample_2pass(x3, tw, th)
             if not torch.equal(got, want):
                 raise SystemExit(f"{name} {p}: kernel != plain version")
@@ -218,12 +219,12 @@ def _sweep_pil(name, x3, tw, th, pe, cr, flush, card) -> None:
                 lambda: pe._resample_2pass(x3, tw, th), 10, ("resample2d_kernel",),
                 flush)["kernel_ms"]
     finally:
-        pe._plan_2pass = real
+        plans.plan_pil_2pass = real
     print(json.dumps({"sweep": name, "card": card,
                       **_rank(times, str((plan.tile_r, plan.tile_c, plan.chunk)))}), flush=True)
 
 
-def _sweep_crop(name, x, t, cc, cr, flush, card) -> None:
+def _sweep_crop(name, x, t, cc, plans, flush, card) -> None:
     """Every tile of each crop pass's plan (and the unstaged body), forced
     for that pass with the other on its plan; device ms of the forced
     pass's launch."""
@@ -236,9 +237,9 @@ def _sweep_crop(name, x, t, cc, cr, flush, card) -> None:
                                               ("w", t[1], W, 224, C * 224, 1)):
         T = tab.w.shape[-1]
         vec4 = x.data_ptr() % 4 == 0
-        plan = real(tab.wins, n_in, n_out, T, N, R, inner, cr._n_sm(x.device), vec4, 1)
-        cands = [p for _, p in cr._axis_tiles(tab.wins, n_out, T, n_in, N * R, inner, 1,
-                                              cr._n_sm(x.device), vec4, per_img=R)]
+        plan = real(tab.wins, n_in, n_out, T, N, R, inner, plans.n_sm(x.device), vec4, 1)
+        cands = [p for _, p in plans.axis_tiles(tab.wins, n_out, T, n_in, N * R, inner, 1,
+                                                plans.n_sm(x.device), vec4, per_img=R)]
         times = {}
         for p in list(dict.fromkeys(cands)) + [None]:
             def pick(wins, n_in, n_out, T, N, R, inner, n_sm, vec4, itemsize, p=p,
