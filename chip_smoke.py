@@ -55,10 +55,14 @@ then:
    zoom-out boxes, tiles mixing rows past and within the tap bound, a row
    past every chunk (it reads device memory), the 4K RandomResizedCrop,
    both precisions), each through the plan and
-   with every tile the plan considers forced, byte for byte;
+   with every tile the plan considers forced, byte for byte; and the
+   pipelines' normalisation kernel (``normalize``) on ``NORMALIZE_CASES``
+   (``tests/port_cases.py``): the train crop and the eval centre-crop view
+   at b64, tails, channel counts, float32 in, bfloat16 out, an empty batch,
+   misaligned views, and the route's casts around the kernel;
 2. drives the port's main paths through their public entry points, each
    with every launch count set to 0 just before it and read just after:
-   the uint8 ImageNet-eval pipeline (Pillow kernel); BASELINE config 5
+   the uint8 ImageNet-eval pipeline (Pillow kernel, then ``normalize``); BASELINE config 5
    through ``VideoDownscaler`` (bf16 [64, 3, 2160, 3840] -> 1080x1920: one
    launch of kernel A's streaming twin, ``resample2d_stream``);
    configs 1-2 through ``resize`` (f32 [1, 3, 438, 906] -> 196x320,
@@ -110,7 +114,9 @@ then:
    kernels the same way; and kernel B at config 5's frames in NHWC (bf16
    [64, 2160, 3840, 3] -> 1080x1920 through ``resize``, tables and fused,
    beside ``F.interpolate`` on the same channels-last tensor,
-   ``time_nhwc_config5``);
+   ``time_nhwc_config5``); and the normalisation kernel at the train crop
+   and the eval view beside the four aten kernels of the plain expression
+   and its bytes bound (``time_normalize``);
 4. drives the command line in-process (``cli.main``, the ``cli`` phase):
    ``--inspect`` at the bench batch and ``kernel_report`` at configs 1-2
    (NCHW and NHWC), config 5 and two calls where no kernel-A tile fits,
@@ -144,6 +150,7 @@ import math
 import os
 import re
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -165,6 +172,7 @@ from interpolate_antialiasing_tpu_torch import (
 from interpolate_antialiasing_tpu_torch.config import full_f32
 from interpolate_antialiasing_tpu_torch.models import ShapeBucketResizer
 from interpolate_antialiasing_tpu_torch.ops import crop_cuda as cc
+from interpolate_antialiasing_tpu_torch.ops import normalize as nz
 from interpolate_antialiasing_tpu_torch.ops import cuda_resize as cr
 from interpolate_antialiasing_tpu_torch.ops import pil_exact as pe
 from interpolate_antialiasing_tpu_torch.ops import plans
@@ -174,6 +182,10 @@ from interpolate_antialiasing_tpu_torch.ops.weights import adjoint_tables, make_
 from interpolate_antialiasing_tpu_torch.parallel import halo
 from interpolate_antialiasing_tpu_torch.utils.inspect import bound_of, launch_counts
 from interpolate_antialiasing_tpu_torch.utils.timing import device_time_per_call, host_us, time_cuda
+
+# the normalisation kernel's cases, shared with the card tests
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from port_cases import NORMALIZE_CASES, normalize_input  # noqa: E402
 
 MODES = ("bilinear", "bicubic", "lanczos3", "box", "hamming")
 # the four shapes of the JAX package's digit-kernel test
@@ -1017,6 +1029,31 @@ def check_crop_f32_kernel(dev) -> float:
     return tally.summary()
 
 
+def check_normalize_kernel(dev) -> float:
+    """The normalisation kernel (``csrc/normalize.cu``, through the route
+    ``nz.normalize``) against the plain expression on the card, bit for bit,
+    in every case of :data:`NORMALIZE_CASES`: one launch each, none for an
+    empty batch.  The launches go to the phase's summary line."""
+    tally, launched = _Tally("normalize"), 0
+    for seed, case in enumerate(NORMALIZE_CASES, 700):
+        name, _, _, odt, _ = case
+        y, mean, std = normalize_input(case, dev, seed)
+        before = native.launches["normalize"]
+        got = nz.normalize(y, mean, std, odt)
+        torch.cuda.synchronize()
+        n = native.launches["normalize"] - before
+        if n != (1 if y.numel() else 0) or not got.is_contiguous():
+            raise RuntimeError(f"normalize {name}: {n} launches, contiguous "
+                               f"{got.is_contiguous()}")
+        launched += n
+        want = nz._normalize_plain(y, mean, std, odt)
+        res = _compare(f"normalize {name}", got, want) if y.numel() else {"max_abs_err": 0.0}
+        tally.add(name, res, shape=list(y.shape), stride=list(y.stride()),
+                  offset_bytes=y.data_ptr() % 16, dtypes=[str(y.dtype), str(odt)])
+        del y, got, want
+    return tally.summary(launches=launched)
+
+
 def _pil_axis_cases():
     """(name, x shape, axis, (xmin, Wb)): every shard's tables of n in {2,
     4, 8} shards, each filter, divisible and ceil-padded sizes, on the
@@ -1487,7 +1524,7 @@ def _plain_kernels():
     saved = (cr._resample2d_cuda, cr._resample_axis_cuda,
              pe._resample_2pass_cuda, cc._crop_resample_cuda, pe._resample_axis_cuda,
              cr._resample2d_fused_cuda, cr._resample_axis_fused_cuda, cc._windowed_tables_cuda,
-             cr._resample2d_stream_cuda)
+             cr._resample2d_stream_cuda, nz._normalize_cuda)
     cr._resample2d_cuda = lambda x3, sh, sw, odt, plan: cr._resample2d_plain(x3, sh, sw, odt)
     cr._resample2d_stream_cuda = cr._resample2d_cuda
     cr._resample_axis_cuda = cr._resample_axis_plain
@@ -1498,16 +1535,17 @@ def _plain_kernels():
         lambda x3, sh, sw, odt, plan: cr._resample2d_fused_plain(x3, sh, sw, odt))
     cr._resample_axis_fused_cuda = cr._resample_axis_fused_plain
     cc._windowed_tables_cuda = cc._windowed_tables_plain
+    nz._normalize_cuda = nz._normalize_plain
     try:
         yield
     finally:
         (cr._resample2d_cuda, cr._resample_axis_cuda,
          pe._resample_2pass_cuda, cc._crop_resample_cuda, pe._resample_axis_cuda,
          cr._resample2d_fused_cuda, cr._resample_axis_fused_cuda,
-         cc._windowed_tables_cuda, cr._resample2d_stream_cuda) = saved
+         cc._windowed_tables_cuda, cr._resample2d_stream_cuda, nz._normalize_cuda) = saved
 
 
-def main_path_u8_pipeline(dev) -> int:
+def main_path_u8_pipeline(dev) -> tuple[int, int]:
     erng = np.random.default_rng(0)
     batch = (erng.random(ENTRY[0]) * 255).astype(np.uint8)
     pipe = ImageNetEvalPipeline(size=ENTRY[1]).to(dev)
@@ -1517,8 +1555,11 @@ def main_path_u8_pipeline(dev) -> int:
     for _ in range(calls):
         y = pipe(x)
     torch.cuda.synchronize()
-    counts = _expect("u8 eval pipeline", {"pil_resample_2pass": calls,
+    counts = _expect("u8 eval pipeline", {"pil_resample_2pass": calls, "normalize": calls,
                                           "resample2d": 0, "resample_axis": 0})
+    with _plain_kernels():
+        plain = pipe(x)
+    res = _compare("u8 eval pipeline", y, plain)
     y_cpu = ImageNetEvalPipeline(size=ENTRY[1])(torch.from_numpy(batch))
     u8_gpu = resize(x, ENTRY[1]).cpu()
     u8_cpu = resize(torch.from_numpy(batch), ENTRY[1])
@@ -1533,9 +1574,9 @@ def main_path_u8_pipeline(dev) -> int:
         raise RuntimeError(f"main path: output differs from the CPU run by "
                            f"{out_err} > 1e-6")
     _line("main_path", path="u8 eval pipeline", batch=list(ENTRY[0]),
-          size=list(ENTRY[1]), launches=counts, calls=calls, u8_equal=True,
+          size=list(ENTRY[1]), launches=counts, calls=calls, u8_equal=True, **res,
           max_abs_err_vs_cpu=out_err)
-    return counts["pil_resample_2pass"]
+    return counts["pil_resample_2pass"], counts["normalize"]
 
 
 def main_path_config5(dev) -> tuple[int, float]:
@@ -1588,7 +1629,7 @@ def main_path_headline(dev) -> tuple[int, int]:
     return n2d, naxis
 
 
-def main_path_f32_pipeline(dev) -> int:
+def main_path_f32_pipeline(dev) -> tuple[int, int]:
     erng = np.random.default_rng(0)
     batch = (erng.random(ENTRY[0]) * 255).astype(np.uint8)
     pipe = ImageNetEvalPipeline(size=ENTRY[1], resize_domain="float32").to(dev)
@@ -1598,19 +1639,19 @@ def main_path_f32_pipeline(dev) -> int:
     for _ in range(calls):
         y = pipe(x)
     torch.cuda.synchronize()
-    counts = _expect("f32 eval pipeline", {"pil_resample_2pass": 0,
+    counts = _expect("f32 eval pipeline", {"pil_resample_2pass": 0, "normalize": calls,
                                            "resample2d": calls, "resample_axis": 0})
     sh = make_axis_spec(ENTRY[0][-2], ENTRY[1][0])
     sw = make_axis_spec(ENTRY[0][-1], ENTRY[1][1])
     # the kernel reads the uint8 batch and writes float32; then the
-    # pipeline's own normalisation, op for op
+    # pipeline's normalisation, op for op (the normalize kernel's bits)
     r = cr._resample2d_plain(_view3(x, -2), sh, sw, F32)
     r = r.reshape(ENTRY[0][0], 3, *ENTRY[1]) * torch.tensor(1.0 / 255.0)
     want = (r - pipe.mean) / pipe.std
     res = _compare("f32 eval pipeline", y, want)
     _line("main_path", path="f32 eval pipeline", batch=list(ENTRY[0]),
           size=list(ENTRY[1]), launches=counts, calls=calls, **res)
-    return counts["resample2d"]
+    return counts["resample2d"], counts["normalize"]
 
 
 def main_path_config4(dev) -> tuple[int, int]:
@@ -1855,7 +1896,7 @@ def main_path_reducing_gap(dev) -> int:
     return total
 
 
-def main_path_train(dev) -> tuple[int, int, int, int]:
+def main_path_train(dev) -> tuple[int, int, int, int, int]:
     """The train path on one uint8 batch: ``ImageNetTrainPipeline`` (flip
     folded into the W tables: the float32-intermediate route, one
     ``crop_tables`` and two ``crop_f32`` launches; bit for bit its plain
@@ -1873,8 +1914,8 @@ def main_path_train(dev) -> tuple[int, int, int, int]:
     _reset()
     imgs = pipe(torch.Generator().manual_seed(0), x)
     torch.cuda.synchronize()
-    counts = _expect("train pipeline", {"crop_tables": 1, "crop_f32": 2})
-    n_f32 = counts["crop_f32"]
+    counts = _expect("train pipeline", {"crop_tables": 1, "crop_f32": 2, "normalize": 1})
+    n_f32, n_norm = counts["crop_f32"], counts["normalize"]
     with _plain_kernels():
         plain = pipe(torch.Generator().manual_seed(0), x)
     res = _compare("train pipeline", imgs, plain)
@@ -1933,7 +1974,7 @@ def main_path_train(dev) -> tuple[int, int, int, int]:
         res = _compare(name, y, ref)
         _line("main_path", path=name, shape=list(xin.shape), out=list(y.shape),
               launches=counts, **res)
-    return n_crop, n_tables + 1, TRAIN_STEPS, n_f32
+    return n_crop, n_tables + 1, TRAIN_STEPS, n_f32, n_norm
 
 
 def _sharded_pil(x: torch.Tensor, size, mode: str) -> torch.Tensor:
@@ -2715,6 +2756,44 @@ def time_crop_f32(dev, card) -> dict:
             "bound_by": bound["bound_by"], "library_ms": None}
 
 
+def time_normalize(dev, card) -> dict:
+    """The normalisation kernel alone against the four aten kernels of the
+    plain expression (the cast, * 1/255, - mean, / std) on the same tensor,
+    at the train cell's crop and the eval cell's centre-crop view (b64
+    224x224, uint8 -> float32): CUDA events in turns (plain, kernel, kernel,
+    plain; back to back, so the 9.6 MB input may stay in the 50 MB L2, as
+    it does after the resize that writes it in the pipeline) and device
+    records per call, against the bytes bound: the input read once and the
+    output written once (48.2 MB, 0.0144 ms at 3.35 TB/s)."""
+    out = {}
+    for seed, case in enumerate((c for c in NORMALIZE_CASES
+                                 if c[0] in ("train crop b64", "eval view b64")), 900):
+        name, shape, idt, odt, _ = case
+        y, mean, std = normalize_input(case, dev, seed)
+        ms = _turns(lambda: nz._normalize_cuda(y, mean, std, odt),
+                    lambda: nz._normalize_plain(y, mean, std, odt), 50, 5)
+        kt = _kernel_times(lambda: nz.normalize(y, mean, std, odt), 50, "normalize_kernel")
+        plain_dev = device_time_per_call(lambda: nz._normalize_plain(y, mean, std, odt),
+                                         iters=50)
+        n = math.prod(shape)
+        bound = bound_of(n * (torch.empty(0, dtype=idt).element_size()
+                              + torch.empty(0, dtype=odt).element_size()), 0)
+        _line("time_normalize", card=card, case=name, shape=list(shape),
+              stride=list(y.stride()), kernel_ms=ms["kernel"], plain_ms=ms["plain"],
+              kernel_device_ms=kt["device_ms"], kernel_host_us=kt["host_us"],
+              plain_device_ms=plain_dev, share_of_bound=bound["bound_ms"] / kt["device_ms"],
+              **bound, library_ms=None,
+              library="no single PyTorch call normalises; plain_device_ms is the four "
+                      "aten kernels of the plain expression")
+        out[name] = dict(kt, plain_device_ms=plain_dev, **bound)
+        del y
+    main = out["eval view b64"]
+    return {"ms": main["device_ms"], "device_ms": main["device_ms"],
+            "host_us": main["host_us"], "plain_ms": main["plain_device_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "train_crop_device_ms": out["train crop b64"]["device_ms"], "library_ms": None}
+
+
 def time_sharded_kernels(dev, card) -> tuple[dict, dict]:
     """The two kernels of the sharded path at its shard shapes, beside their
     plain versions: pil_resample_axis on one shard of the 32768^2 uint8
@@ -3079,6 +3158,7 @@ def main() -> None:
             adj_2d, adj_axis = check_adjoint_kernels(dev)
             crop_err, tables_err = check_crop_kernel(dev)
             crop_f32_err = check_crop_f32_kernel(dev)
+            norm_err = check_normalize_kernel(dev)
             pil_axis_err = check_pil_axis_kernel(dev)
             shard_err = check_shard_tables_kernel(dev)
             fused_2d_err, fused_axis_err = check_fused_kernels(dev)
@@ -3090,20 +3170,21 @@ def main() -> None:
             CASES_LOG.write_text("".join(c + "\n" for c in _cases))
         _line("kernel_vs_plain_cases", written=str(CASES_LOG), cases=len(_cases))
         torch.cuda.empty_cache()
-        pil_launches = main_path_u8_pipeline(dev)
+        pil_launches, norm_u8 = main_path_u8_pipeline(dev)
         c5_launches, c5_err = main_path_config5(dev)
         torch.cuda.empty_cache()
         fused_2d, fused_axis = main_path_fused(dev)
         torch.cuda.empty_cache()
         hl_2d, hl_axis = main_path_headline(dev)
-        f32_launches = main_path_f32_pipeline(dev)
+        f32_launches, norm_f32 = main_path_f32_pipeline(dev)
         c4_2d, c4_axis = main_path_config4(dev)
         torch.cuda.empty_cache()
         c3_launches = main_path_config3(dev)
         st_2d = main_path_scale_translate(dev)
         gap_launches = main_path_reducing_gap(dev)
         torch.cuda.empty_cache()
-        crop_launches, table_launches, train_2d, crop_f32_launches = main_path_train(dev)
+        (crop_launches, table_launches, train_2d, crop_f32_launches,
+         norm_train) = main_path_train(dev)
         torch.cuda.empty_cache()
         check_crop_against_dense(dev)
         torch.cuda.empty_cache()
@@ -3120,6 +3201,8 @@ def main() -> None:
     t_crop, t_tables = time_train_kernels(dev, card)
     torch.cuda.empty_cache()
     t_crop_f32 = time_crop_f32(dev, card)
+    torch.cuda.empty_cache()
+    t_norm = time_normalize(dev, card)
     torch.cuda.empty_cache()
     t_pil_axis, t_shard = time_sharded_kernels(dev, card)
     torch.cuda.empty_cache()
@@ -3185,6 +3268,13 @@ def main() -> None:
                      "float32 matrix products on the card (the JAX package's flipped calls "
                      "take its dense route)",
          "launches": crop_f32_launches, "max_abs_err": crop_f32_err, **t_crop_f32},
+        {"name": "normalize", "route": "cuda",
+         "source": "interpolate_antialiasing_tpu_torch/csrc/normalize.cu",
+         "replaces": "interpolate_antialiasing_tpu_torch/models/preprocess.py's four aten "
+                     "elementwise kernels on the card (the JAX package leaves the "
+                     "normalisation to XLA)",
+         "launches": norm_u8 + norm_f32 + norm_train, "max_abs_err": norm_err,
+         **t_norm},
         {"name": "pil_resample_axis", "route": "cuda",
          "source": "interpolate_antialiasing_tpu_torch/csrc/resample_axis.cuh",
          "entry": "interpolate_antialiasing_tpu_torch/csrc/pil_resample_axis.cu",

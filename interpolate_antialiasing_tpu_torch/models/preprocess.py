@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..ops.crop import box_fracs, crop_and_resize, sample_boxes
+from ..ops.normalize import normalize
 from ..ops.resize import resize, resize_plane
 from ..utils.trace import span, spanned
 
@@ -40,7 +41,10 @@ class ImageNetEvalPipeline(nn.Module):
     directly to ``size``.
 
     ``mean`` and ``std`` are float32 buffers of shape ``[1, C, 1, 1]``; the
-    pipeline runs on the device of its input.
+    pipeline runs on the device of its input.  Both pipelines normalise
+    through :func:`..ops.normalize.normalize`: on a CUDA tensor one
+    hand-written kernel reads the (centre-cropped) resize once and writes
+    the output once, equal bit for bit to the plain expression.
     """
 
     def __init__(
@@ -105,11 +109,7 @@ class ImageNetEvalPipeline(nn.Module):
         else:
             y = self._resize(batch_u8, self.size)
         with span("ia.models.normalize"):
-            # multiply by the float32 reciprocal, as the JAX pipeline does
-            y = y.to(torch.float32) * torch.tensor(1.0 / 255.0, dtype=torch.float32)
-            mean = self.mean.to(y.device)
-            std = self.std.to(y.device)
-            return ((y - mean) / std).to(self.dtype)
+            return normalize(y, self.mean, self.std, self.dtype)
 
 
 def imagenet_eval_preprocess(batch_u8: torch.Tensor, size=(224, 224)) -> torch.Tensor:
@@ -175,9 +175,7 @@ class ImageNetTrainPipeline(nn.Module):
             max_box_frac=box_fracs(H, W, self.scale, self.ratio),
         )
         with span("ia.models.normalize"):
-            # multiply by the float32 reciprocal, as the JAX pipeline does
-            y = y.to(torch.float32) * torch.tensor(1.0 / 255.0, dtype=torch.float32)
-            return ((y - self.mean.to(y.device)) / self.std.to(y.device)).to(self.dtype)
+            return normalize(y, self.mean, self.std, self.dtype)
 
     def forward(self, generator: torch.Generator | None,
                 batch_u8: torch.Tensor) -> torch.Tensor:

@@ -116,6 +116,9 @@ _SIGNATURES = {
         _I, [_P, _P, _L, _I, _L, _I, _P, _P, _I, _I, _P] + [_I] * 6 + [_P]),
     # ntaps, vec, smem, &blocks
     "ia_pil_resample_axis_occupancy": (_I, [_I] * 3 + [_P]),
+    # x, out, in_dt, out_dt, N, C, H, W, the input's strides sn, sc, sh,
+    # mean, std, scale, blocks, stream
+    "ia_normalize": (_I, [_P, _P] + [_I] * 6 + [_L] * 3 + [_P, _P, ctypes.c_float, _I, _P]),
     # blocks, threads, stream (an empty kernel: utils/timing.launch_floor_ms)
     "ia_launch_floor": (_I, [_I, _I, _P]),
 }
@@ -129,7 +132,7 @@ GRID_LIMIT = 2**31 - 1
 # ia.native spans and of their launch counts.
 KERNELS = ("pil_resample_2pass", "resample2d", "resample2d_stream", "resample_axis",
            "crop_tables", "crop_resample", "crop_f32", "pil_resample_axis",
-           "resample2d_fused", "resample_axis_fused")
+           "resample2d_fused", "resample_axis_fused", "normalize")
 # Launches of each kernel in this process: :func:`launch` adds one per
 # launch and nowhere else, so a run can show that its main path went
 # through the kernels (utils.inspect.launch_counts reads a copy).

@@ -29,6 +29,7 @@ from interpolate_antialiasing_tpu_torch.ops import plans
 from interpolate_antialiasing_tpu_torch.ops.crop import box_fracs, sample_boxes
 from interpolate_antialiasing_tpu_torch.ops.resize_xla import resize_axis_dense
 from interpolate_antialiasing_tpu_torch.ops.weights import adjoint_tables, make_axis_spec
+from port_cases import NORMALIZE_CASES, normalize_input
 
 pytestmark = pytest.mark.cuda
 
@@ -389,7 +390,7 @@ def test_resample2d_stream_launches_once_per_video_call_and_never_on_the_pillow_
     assert launched(lambda: video(frames), 3) == {"resample2d_stream": 3}
     batch = _input((8, 3, 438, 906), torch.uint8, dev, 43)
     pipe = ImageNetEvalPipeline(size=(224, 224), short_side=256).to(dev)
-    assert launched(lambda: pipe(batch), 2) == {"pil_resample_2pass": 2}
+    assert launched(lambda: pipe(batch), 2) == {"pil_resample_2pass": 2, "normalize": 2}
 
 
 def test_resample2d_stream_plan_occupancy(dev):
@@ -1310,7 +1311,71 @@ def test_native_spans_per_call_equal_the_launch_counters(dev, route):
     spans = Counter(e.name.removeprefix("ia.native.") for e in prof.events()
                     if e.name.startswith("ia.native.") and e.device_type == host)
     assert dict(spans) == launched
-    assert launched == {"eval": {"pil_resample_2pass": 2},
-                        "train": {"crop_tables": 2, "crop_f32": 4},
-                        "train_noflip": {"crop_tables": 2, "crop_resample": 4},
+    assert launched == {"eval": {"pil_resample_2pass": 2, "normalize": 2},
+                        "train": {"crop_tables": 2, "crop_f32": 4, "normalize": 2},
+                        "train_noflip": {"crop_tables": 2, "crop_resample": 4, "normalize": 2},
                         "video": {"resample2d_stream": 2}}[route]
+
+
+@pytest.mark.parametrize("case", NORMALIZE_CASES, ids=lambda c: c[0])
+def test_normalize_kernel_matches_plain(dev, case):
+    """The kernel (one launch; none for an empty batch) against the plain
+    expression on the card, bit for bit: the pipelines' calls at b64, tails,
+    channel counts, float32 in, bfloat16 out, misaligned views, and the
+    route's casts around the kernel (float64 in, float16 and float64 out,
+    channels last)."""
+    from interpolate_antialiasing_tpu_torch.ops import normalize as nz
+
+    y, mean, std = normalize_input(case, dev, 70)
+    dtype = case[3]
+    before = native.launches["normalize"]
+    got = nz.normalize(y, mean, std, dtype)
+    torch.cuda.synchronize()
+    assert native.launches["normalize"] == before + (1 if y.numel() else 0)
+    assert got.is_contiguous()
+    want = nz._normalize_plain(y, mean, std, dtype)
+    if y.numel():
+        _assert_equal(got, want)
+    else:
+        assert got.shape == want.shape and got.dtype == want.dtype
+
+
+@pytest.mark.parametrize("pipeline", ["eval", "eval bf16", "eval f32 domain", "train"])
+def test_the_pipelines_on_the_card_equal_their_plain_run(dev, pipeline):
+    """Each pipeline's call against the same call with every kernel's plain
+    version (``chip_smoke._plain_kernels``), byte for byte, and its launches:
+    the resize or crop, then one ``normalize``."""
+    from chip_smoke import _plain_kernels
+    from interpolate_antialiasing_tpu_torch.models import (ImageNetEvalPipeline,
+                                                           ImageNetTrainPipeline)
+    from interpolate_antialiasing_tpu_torch.utils.inspect import launch_counts
+
+    x = _input((8, 3, 438, 906), torch.uint8, dev, seed=88)
+    if pipeline == "train":
+        pipe = ImageNetTrainPipeline(size=(224, 224)).to(dev)
+        boxes, _ = pipe.sample(torch.Generator(device=dev).manual_seed(5), x)
+        flip = torch.tensor([True, False] * 4, device=dev)
+
+        def call():
+            return pipe.apply(x, boxes, flip)
+        want = {"crop_tables": 1, "crop_f32": 2, "normalize": 1}
+    else:
+        pipe = ImageNetEvalPipeline(
+            size=(224, 224), short_side=256,
+            dtype=torch.bfloat16 if pipeline == "eval bf16" else torch.float32,
+            resize_domain="float32" if pipeline == "eval f32 domain" else "uint8").to(dev)
+
+        def call():
+            return pipe(x)
+        want = ({"resample2d": 1, "normalize": 1} if pipeline == "eval f32 domain"
+                else {"pil_resample_2pass": 1, "normalize": 1})
+    before = launch_counts()
+    got = call()
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in launch_counts().items() if v > before[k]} == want
+    with _plain_kernels():
+        before = launch_counts()
+        plain = call()
+        torch.cuda.synchronize()
+        assert launch_counts() == before
+    _assert_equal(got, plain)

@@ -312,7 +312,7 @@ def test_build_is_keyed_by_sources():
     assert path.name == native._LIB_NAME
     assert [p.name for p in native._sources()] == [
         "crop_resample.cu", "crop_resample_f32.cu", "crop_tables.cu", "launch_floor.cu",
-        "pil_resample.cu",
+        "normalize.cu", "pil_resample.cu",
         "pil_resample_axis.cu",
         "pil_resample_tc128.cu", "pil_resample_tc16.cu", "pil_resample_tc32.cu",
         "pil_resample_tc64.cu", "resample2d.cu",

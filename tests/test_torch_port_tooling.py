@@ -477,7 +477,8 @@ def test_launch_counts_name_the_ten_kernels_from_the_start():
     counts = tinspect.launch_counts()
     assert list(counts) == ["pil_resample_2pass", "resample2d", "resample2d_stream",
                             "resample_axis", "crop_tables", "crop_resample", "crop_f32",
-                            "pil_resample_axis", "resample2d_fused", "resample_axis_fused"]
+                            "pil_resample_axis", "resample2d_fused", "resample_axis_fused",
+                            "normalize"]
     counts["resample2d"] += 1
     assert tinspect.launch_counts()["resample2d"] == counts["resample2d"] - 1
 
